@@ -1,0 +1,189 @@
+"""PGM index and the bi-criteria PGM_M (counterpart of ``repro.core.pgm``).
+
+Build: streaming anchored-cone greedy ε-PLA (each segment anchors at its
+first (key, rank) point and keeps the feasible slope cone; a new segment
+starts when the cone empties), recursing over segment first-keys until
+one segment remains.  ``build_pgm_bicriteria`` bisects ε for the
+smallest model that fits a byte budget.  Host numpy, operation for
+operation as the reference; the device scan fits wait for a later slice.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+_CHUNK = 4096
+
+
+def pla_segments(keys_f64: np.ndarray, eps: int):
+    """Anchored-cone greedy ε-PLA over (key, rank) pairs.
+
+    Returns (starts, slopes): segment start indices (int64) and slopes
+    (f64, >= 0) such that for every i in segment s,
+    |rank_start[s] + slope[s] * (x_i - x_start[s]) - i| <= eps.
+    """
+    n = len(keys_f64)
+    starts: List[int] = []
+    slopes: List[float] = []
+    s = 0
+    while s < n:
+        starts.append(s)
+        x0 = keys_f64[s]
+        lo, hi = 0.0, np.inf
+        e = s + 1
+        # grow in chunks, tracking the running cone
+        while e < n:
+            e2 = min(e + _CHUNK, n)
+            dx = keys_f64[e:e2] - x0  # > 0: keys dedup'd
+            dy = np.arange(e, e2, dtype=np.float64) - s
+            hi_run = np.minimum.accumulate((dy + eps) / dx)
+            lo_run = np.maximum.accumulate((dy - eps) / dx)
+            hi_run = np.minimum(hi_run, hi)
+            lo_run = np.maximum(lo_run, lo)
+            bad = lo_run > hi_run
+            if bad.any():
+                k = int(np.argmax(bad))
+                if k > 0:
+                    lo = float(lo_run[k - 1])
+                    hi = float(hi_run[k - 1])
+                e = e + k
+                break
+            lo = float(lo_run[-1])
+            hi = float(hi_run[-1])
+            e = e2
+        if e == s + 1:  # single-point segment
+            slopes.append(max(lo, 0.0) if np.isfinite(lo) else 0.0)
+            s = e
+            continue
+        hi_f = hi if np.isfinite(hi) else max(lo, 0.0) + 1.0
+        slopes.append(max(0.5 * (max(lo, 0.0) + max(hi_f, 0.0)), 0.0))
+        s = e
+    return np.asarray(starts, dtype=np.int64), np.asarray(slopes, dtype=np.float64)
+
+
+def segment_slopes(keys_f64: np.ndarray, starts: np.ndarray, eps) -> np.ndarray:
+    """Slopes for given segment ``starts`` — bit-identical to the ones
+    :func:`pla_segments` pairs with them (min/max reductions are exact)."""
+    keys_f64 = np.asarray(keys_f64, dtype=np.float64)
+    starts = np.asarray(starts, dtype=np.int64)
+    n = len(keys_f64)
+    eps = np.float64(eps)
+    lens = np.diff(np.append(starts, n))
+    seg_of = np.repeat(np.arange(len(starts)), lens)
+    dx = keys_f64 - keys_f64[starts[seg_of]]
+    dy = np.arange(n, dtype=np.float64) - starts[seg_of].astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        lo_b = (dy - eps) / dx
+        hi_b = (dy + eps) / dx
+    lo = np.maximum.reduceat(lo_b, starts)
+    hi = np.minimum.reduceat(hi_b, starts)
+    hi_f = np.where(np.isfinite(hi), hi, np.maximum(lo, 0.0) + 1.0)
+    slopes = np.maximum(0.5 * (np.maximum(lo, 0.0) + np.maximum(hi_f, 0.0)), 0.0)
+    return np.where(lens == 1, 0.0, slopes)
+
+
+@dataclass
+class PGMModel:
+    eps: int
+    # levels stored root-first
+    level_keys: list  # uint64 arrays, root..leaf level
+    level_slope: list  # f64 arrays
+    level_rank0: list  # int64 arrays (start rank of each segment + sentinel)
+    level_sizes: list  # ints: #segments per level
+    n: int
+    n_segments_l0: int
+    build_time: float = 0.0
+    name: str = "PGM"
+
+    def space_bytes(self) -> int:
+        # key (8) + slope (8) + rank0 (8) per segment, all levels
+        return sum(self.level_sizes) * 24 + 16
+
+
+def build_pgm(table_np: np.ndarray, eps: int = 64) -> PGMModel:
+    """Recursive PGM build: each level is the ε-PLA of the level below's
+    segment first-keys, until one segment remains."""
+    t0 = time.perf_counter()
+    n = len(table_np)
+    eps = max(int(eps), 1)
+
+    level_keys, level_slope, level_rank0, level_sizes = [], [], [], []
+    cur_keys_u64 = table_np
+    cur_keys = table_np.astype(np.float64)
+    while True:
+        starts, slopes = pla_segments(cur_keys, eps)
+        # rank0 with sentinel: segment s covers [rank0[s], rank0[s+1])
+        rank0 = np.concatenate([starts, [len(cur_keys)]]).astype(np.int64)
+        level_keys.append(cur_keys_u64[starts])
+        level_slope.append(slopes)
+        level_rank0.append(rank0)
+        level_sizes.append(len(starts))
+        if len(starts) <= 1:
+            break
+        cur_keys_u64 = cur_keys_u64[starts]
+        cur_keys = cur_keys[starts]
+
+    # root-first ordering
+    level_keys.reverse()
+    level_slope.reverse()
+    level_rank0.reverse()
+    level_sizes.reverse()
+    return PGMModel(
+        eps=eps,
+        level_keys=level_keys,
+        level_slope=level_slope,
+        level_rank0=level_rank0,
+        level_sizes=level_sizes,
+        n=n,
+        n_segments_l0=level_sizes[-1],
+        build_time=time.perf_counter() - t0,
+        name=f"PGM[eps={eps}]",
+    )
+
+
+# The reference sizes the bi-criteria lower bound by the TPU gather
+# granularity (one 64-key x 8 B row = 512 B) in place of the paper's
+# 64 B cache line; parity with the reference keeps that value.
+TPU_CLS_BYTES = 512
+KEY_BYTES = 8
+
+#: bisection depth of the bi-criteria search
+BICRITERIA_MAX_ITERS = 16
+
+
+def bicriteria_eps_bounds(n: int, a: float = 1.0, cls_bytes: int = TPU_CLS_BYTES) -> tuple:
+    """The bi-criteria search range [ε_m, ε_M] for a table of ``n`` keys
+    (paper: ε_m = a · 2 · cls/size)."""
+    eps_m = max(1, int(a * 2 * (cls_bytes / KEY_BYTES)))
+    return eps_m, max(eps_m + 1, n // 2)
+
+
+def build_pgm_bicriteria(
+    table_np: np.ndarray,
+    space_budget_bytes: int,
+    a: float = 1.0,
+    cls_bytes: int = TPU_CLS_BYTES,
+    max_iters: int = BICRITERIA_MAX_ITERS,
+) -> PGMModel:
+    """Bi-criteria PGM_M_a: smallest ε whose model fits the budget."""
+    eps_m, eps_M = bicriteria_eps_bounds(len(table_np), a, cls_bytes)
+    best = None
+    lo, hi = eps_m, eps_M
+    for _ in range(max_iters):
+        mid = (lo + hi) // 2
+        m = build_pgm(table_np, eps=mid)
+        if m.space_bytes() <= space_budget_bytes:
+            best = m if best is None or m.eps < best.eps else best
+            hi = mid - 1  # try a smaller eps (bigger model)
+        else:
+            lo = mid + 1
+        if lo > hi:
+            break
+    if best is None:
+        best = build_pgm(table_np, eps=eps_M)
+    best.name = f"PGM_M_{a}[eps={best.eps}]"
+    return best

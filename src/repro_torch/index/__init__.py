@@ -1,0 +1,42 @@
+"""repro_torch.index — build learned static indexes and answer predecessor
+queries (counterpart of ``repro.index``).
+
+    from repro_torch import index as ix
+    idx = ix.build(ix.PGMSpec(eps=64), table)          # leaves on the card
+    ranks = idx.lookup(table, queries, backend="kernel")
+
+``device=None`` means the card and raises without one; tests pass
+``device="cpu"``, where the kernels' plain twins answer.
+"""
+
+from . import impls  # noqa: F401  — registers the kinds
+from .index import BACKENDS, KEY_LEAVES, PORTED_BACKENDS, Index, build, resolve_device
+from .registry import entry, kinds, spec_for
+from .specs import (
+    AtomicSpec,
+    IndexSpec,
+    KOSpec,
+    PGMBicriteriaSpec,
+    PGMSpec,
+    RMISpec,
+    SYRMISpec,
+)
+
+__all__ = [
+    "BACKENDS",
+    "KEY_LEAVES",
+    "PORTED_BACKENDS",
+    "Index",
+    "build",
+    "resolve_device",
+    "entry",
+    "kinds",
+    "spec_for",
+    "AtomicSpec",
+    "IndexSpec",
+    "KOSpec",
+    "PGMBicriteriaSpec",
+    "PGMSpec",
+    "RMISpec",
+    "SYRMISpec",
+]

@@ -1,0 +1,338 @@
+"""Per-kind builds and kernel dispatch behind the :class:`Index` API
+(counterpart of ``repro.index.impls``, for L, Q, C, KO, RMI, SY-RMI, PGM
+and PGM_M).
+
+Each kind contributes a host build that runs the fit in
+:mod:`repro_torch.core` and flattens the model into the reference's
+leaves and statics (numpy; :meth:`Index.from_numpy` moves them to the
+device), and a :class:`QueryImpl` with ``space_bytes`` and the kernel
+dispatch, the counterpart of the reference's ``pallas``.
+
+The reference's two cache normalisations are kept so leaves and statics
+match it exactly: variable-length PGM leaves are padded to the next
+power of two with inert sentinels, and every trip count is rounded up to
+a multiple of 4 (:func:`_bucket_steps`) — extra trips of a Khuong–Morin
+loop are no-ops once the window is one key wide.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.atomic import build_atomic
+from repro_torch.core.cdf import ceil_log2
+from repro_torch.core.kbfs import build_ko
+from repro_torch.core.keys import unit_f32
+from repro_torch.core.pgm import build_pgm, build_pgm_bicriteria
+from repro_torch.core.rmi import build_rmi
+from repro_torch.core.sy_rmi import build_sy_rmi
+from repro_torch.kernels.kary_search import kary_search, kary_search_plain
+from repro_torch.kernels.ops import pgm_kernel_arrays, rmi_kernel_arrays
+from repro_torch.kernels.pgm_search import pgm_search, pgm_search_plain
+from repro_torch.kernels.rmi_search import rmi_search, rmi_search_plain
+
+from .index import Index
+from .registry import register
+from .specs import AtomicSpec, KOSpec, PGMBicriteriaSpec, PGMSpec, RMISpec, SYRMISpec
+
+_MAXKEY = np.uint64(np.iinfo(np.uint64).max)
+
+
+def _bucket_steps(window: int) -> int:
+    """ceil_log2 rounded up to a multiple of 4."""
+    s = ceil_log2(max(int(window), 2))
+    return max(4, 4 * math.ceil(s / 4))
+
+
+def _pow2ceil(x: int) -> int:
+    x = max(int(x), 1)
+    return 1 << (x - 1).bit_length()
+
+
+def _pad_pow2(arr: np.ndarray, fill) -> np.ndarray:
+    arr = np.asarray(arr)
+    m = _pow2ceil(arr.shape[0])
+    if m == arr.shape[0]:
+        return arr
+    return np.concatenate([arr, np.full(m - arr.shape[0], fill, dtype=arr.dtype)])
+
+
+def _scalar(x, dtype) -> np.ndarray:
+    return np.asarray(x, dtype=dtype).reshape(())
+
+
+@dataclass(frozen=True)
+class QueryImpl:
+    """How a kind answers ``backend="kernel"``: ``operands(index, table,
+    queries) -> (args, kwargs)`` gives the kernel wrapper ``search`` its
+    inputs; ``plain`` is the wrapper's twin on the same inputs (any
+    device), for holding the kernel against it."""
+
+    space_bytes: Callable  # (index) -> int
+    operands: Callable
+    search: Callable
+    plain: Callable
+
+    def kernel(self, idx: Index, table, queries):
+        """int64 predecessor ranks through the kind's kernel."""
+        args, kwargs = self.operands(idx, table, queries)
+        return self.search(*args, **kwargs).long()
+
+
+def _kary_operands(idx: Index, table, q):
+    """Model-free search: the kernel backend of kinds without a fused kernel."""
+    return (table, q), {}
+
+
+def _kary_impl(space_bytes: Callable) -> QueryImpl:
+    return QueryImpl(space_bytes, _kary_operands, kary_search, kary_search_plain)
+
+
+# -- atomic (L / Q / C) ------------------------------------------------------
+
+
+def _atomic_space(idx: Index) -> int:
+    # coef valid prefix (degree+1 of the padded 4) + kmin/inv_span + eps
+    a = idx.arrays
+    return 8 * (idx.s("degree") + 1) + a["kmin"].nbytes + a["inv_span"].nbytes + a["eps"].nbytes
+
+
+ATOMIC_IMPL = _kary_impl(_atomic_space)
+
+
+def _build_atomic_index(spec: AtomicSpec, table_np: np.ndarray):
+    m = build_atomic(table_np, degree=spec.degree)
+    arrays = {
+        "coef": np.asarray(m.coef, np.float64),
+        "kmin": _scalar(m.kmin, np.float64),
+        "inv_span": _scalar(m.inv_span, np.float64),
+        "eps": _scalar(m.eps, np.int64),
+    }
+    static = (("degree", spec.degree), ("epi", _bucket_steps(min(2 * m.eps + 3, m.n))))
+    info = {"name": m.name, "build_time": m.build_time, "eps": m.eps, "n": m.n}
+    return static, arrays, info
+
+
+# -- KO ----------------------------------------------------------------------
+
+
+def _ko_space(idx: Index) -> int:
+    a = idx.arrays
+    return sum(
+        a[k].nbytes for k in ("fences", "coef", "kmin_seg", "inv_span_seg", "eps", "seg_start")
+    )
+
+
+KO_IMPL = _kary_impl(_ko_space)
+
+
+def _build_ko_index(spec: KOSpec, table_np: np.ndarray):
+    m = build_ko(table_np, k=spec.k)
+    arrays = {
+        "fences": np.asarray(m.fences, np.uint64),
+        "coef": m.coef,
+        "kmin_seg": m.kmin_seg,
+        "inv_span_seg": m.inv_span_seg,
+        "eps": m.eps,
+        "seg_start": m.seg_start,
+    }
+    static = (("epi", _bucket_steps(m.max_window)),)
+    info = {"name": m.name, "build_time": m.build_time, "k": m.k, "max_eps": m.max_eps, "n": m.n}
+    return static, arrays, info
+
+
+# -- RMI / SY-RMI ------------------------------------------------------------
+
+
+def _rmi_space(idx: Index) -> int:
+    # the k_* leaves are the kernel's f32 re-encoding of the same model — a
+    # query-time cache, not model space, so they don't count
+    a = idx.arrays
+    return sum(
+        a[k].nbytes
+        for k in ("root_coef", "leaf_slope", "leaf_icept", "leaf_eps", "leaf_r", "kmin", "inv_span")
+    )
+
+
+def _rmi_operands(idx: Index, table, q):
+    """Fused RMI kernel on the ``k_*`` leaves; ``u`` in f64 outside it."""
+    a = idx.arrays
+    u = unit_f32(q, a["kmin"], a["inv_span"])
+    args = (u, q, table, a["k_root"], a["k_slope"], a["k_icept"], a["k_eps"], a["k_rlo"], a["k_rhi"])
+    return args, {"steps": idx.s("ksteps")}
+
+
+RMI_IMPL = QueryImpl(_rmi_space, _rmi_operands, rmi_search, rmi_search_plain)
+
+
+def _rmi_to_index(m, table_np: np.ndarray, extra_info=None):
+    karr, ksteps = rmi_kernel_arrays(m, table_np)
+    arrays = {
+        "root_coef": np.asarray(m.root_coef, np.float64),
+        "leaf_slope": m.leaf_slope,
+        "leaf_icept": m.leaf_icept,
+        "leaf_eps": m.leaf_eps,
+        "leaf_r": m.leaf_r,
+        "kmin": _scalar(m.kmin, np.float64),
+        "inv_span": _scalar(m.inv_span, np.float64),
+        "k_root": karr["root"],
+        "k_slope": karr["slope"],
+        "k_icept": karr["icept"],
+        "k_eps": karr["eps"],
+        "k_rlo": karr["rlo"],
+        "k_rhi": karr["rhi"],
+    }
+    static = (("epi", _bucket_steps(m.max_window)), ("ksteps", _bucket_steps(1 << ksteps)))
+    info = {
+        "name": m.name,
+        "build_time": m.build_time,
+        "b": m.b,
+        "max_eps": m.max_eps,
+        "root_type": m.root_type,
+        "n": m.n,
+    }
+    info.update(extra_info or {})
+    return static, arrays, info
+
+
+def _build_rmi_index(spec: RMISpec, table_np: np.ndarray):
+    return _rmi_to_index(build_rmi(table_np, b=spec.b, root_type=spec.root_type), table_np)
+
+
+def _build_sy_rmi_index(spec: SYRMISpec, table_np: np.ndarray):
+    m = build_sy_rmi(table_np, space_pct=spec.space_pct, ub=spec.ub, winner_root=spec.winner_root)
+    return _rmi_to_index(m, table_np, {"space_pct": spec.space_pct})
+
+
+# -- PGM / PGM_M -------------------------------------------------------------
+
+
+def _pgm_space(idx: Index) -> int:
+    # valid prefixes of the level-concatenated leaves (the pow2 sentinel pad
+    # is cache bucketing, not model space) + level directories
+    a = idx.arrays
+    sizes = a["sizes"].cpu().numpy()
+    kv, rv = int(sizes.sum()), int((sizes + 1).sum())
+    per_seg = kv * (a["keys"].dtype.itemsize + a["slope"].dtype.itemsize)
+    ranks = rv * a["rank0"].dtype.itemsize
+    meta = a["off"].nbytes + a["off_r"].nbytes + a["sizes"].nbytes + a["eps"].nbytes
+    return per_seg + ranks + meta
+
+
+def _pgm_operands(idx: Index, table, q):
+    """Fused PGM descent on the ``pk_*`` leaves; ``u`` in f64 outside it."""
+    a = idx.arrays
+    u = unit_f32(q, a["pk_kmin"], a["pk_inv_span"])
+    i32 = [a[k].to(torch.int32) for k in ("rank0", "off", "off_r", "sizes")]
+    args = (u, q, table, a["keys"], a["pk_u0"], a["pk_slope"], *i32, a["pk_eps"].reshape(1))
+    return args, {"levels": idx.s("levels"), "steps": idx.s("pksteps")}
+
+
+PGM_IMPL = QueryImpl(_pgm_space, _pgm_operands, pgm_search, pgm_search_plain)
+
+
+def _pgm_to_index(m, table_np: np.ndarray, extra_info=None):
+    karr, pksteps = pgm_kernel_arrays(m, table_np)
+    sizes = np.asarray(m.level_sizes, dtype=np.int64)
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    off_r = np.concatenate([[0], np.cumsum(sizes + 1)]).astype(np.int64)
+    keys = np.concatenate(m.level_keys)
+    slope = np.concatenate(m.level_slope)
+    rank0 = np.concatenate(m.level_rank0)
+    arrays = {
+        "keys": _pad_pow2(keys, _MAXKEY),
+        "slope": _pad_pow2(slope, 0.0),
+        "rank0": _pad_pow2(rank0, rank0[-1]),
+        "off": off,
+        "off_r": off_r,
+        "sizes": sizes,
+        "eps": _scalar(m.eps, np.int64),
+        # kernel re-encoding (query-time cache, not model space)
+        "pk_u0": _pad_pow2(karr["u0"], np.float32(1.0)),
+        "pk_slope": _pad_pow2(karr["slope"], np.float32(0.0)),
+        "pk_eps": _scalar(karr["eps"], np.int32),
+        "pk_kmin": _scalar(karr["kmin"], np.float64),
+        "pk_inv_span": _scalar(karr["inv_span"], np.float64),
+    }
+    static = (
+        ("levels", len(m.level_keys)),
+        ("epi", _bucket_steps(min(2 * (m.eps + 2) + 3, m.n))),
+        ("pksteps", _bucket_steps(1 << pksteps)),
+    )
+    info = {
+        "name": m.name,
+        "build_time": m.build_time,
+        "eps": m.eps,
+        "n_segments_l0": m.n_segments_l0,
+        "n": m.n,
+    }
+    info.update(extra_info or {})
+    return static, arrays, info
+
+
+def _build_pgm_index(spec: PGMSpec, table_np: np.ndarray):
+    return _pgm_to_index(build_pgm(table_np, eps=spec.eps), table_np)
+
+
+def _build_pgm_m_index(spec: PGMBicriteriaSpec, table_np: np.ndarray):
+    m = build_pgm_bicriteria(table_np, space_budget_bytes=spec.budget_for(len(table_np)), a=spec.a)
+    return _pgm_to_index(m, table_np, {"a": spec.a})
+
+
+# ---------------------------------------------------------------------------
+# Registry wiring — registration order IS the paper's hierarchy order.
+# ---------------------------------------------------------------------------
+
+QUERY_IMPLS = {"atomic": ATOMIC_IMPL, "ko": KO_IMPL, "rmi": RMI_IMPL, "pgm": PGM_IMPL}
+
+_KIND_TO_IMPL = {}
+
+
+def query_impl(kind: str) -> QueryImpl:
+    return QUERY_IMPLS[_KIND_TO_IMPL[kind.upper()]]
+
+
+def _reg(kind, spec_cls, query_key, build_fn, spec_from_params):
+    _KIND_TO_IMPL[kind] = query_key
+    register(kind, spec_cls, query_key=query_key, spec_from_params=spec_from_params)(build_fn)
+
+
+_reg("L", AtomicSpec, "atomic", _build_atomic_index, lambda **p: AtomicSpec(degree=1))
+_reg("Q", AtomicSpec, "atomic", _build_atomic_index, lambda **p: AtomicSpec(degree=2))
+_reg("C", AtomicSpec, "atomic", _build_atomic_index, lambda **p: AtomicSpec(degree=3))
+_reg("KO", KOSpec, "ko", _build_ko_index, lambda **p: KOSpec(k=p.get("k", 15)))
+_reg(
+    "RMI",
+    RMISpec,
+    "rmi",
+    _build_rmi_index,
+    lambda **p: RMISpec(b=p.get("b", 1024), root_type=p.get("root_type", "linear")),
+)
+_reg(
+    "SY-RMI",
+    SYRMISpec,
+    "rmi",
+    _build_sy_rmi_index,
+    lambda **p: SYRMISpec(
+        space_pct=p.get("space_pct", 2.0),
+        ub=p.get("ub", 0.05),
+        winner_root=p.get("winner_root", "linear"),
+    ),
+)
+_reg("PGM", PGMSpec, "pgm", _build_pgm_index, lambda **p: PGMSpec(eps=p.get("eps", 64)))
+_reg(
+    "PGM_M",
+    PGMBicriteriaSpec,
+    "pgm",
+    _build_pgm_m_index,
+    lambda **p: PGMBicriteriaSpec(
+        space_budget_bytes=p.get("space_budget_bytes", 0),
+        space_pct=p.get("space_pct", 2.0),
+        a=p.get("a", 1.0),
+    ),
+)

@@ -1,0 +1,191 @@
+"""The :class:`Index` of torch tensors and its query path (counterpart of
+``repro.index.index``).
+
+A learned index is data: a few flat arrays driven by one lookup
+procedure per kind.  ``Index.arrays`` holds them as tensors on one
+device, with the reference's names, dtypes and shapes; the key leaves
+(``fences``, ``keys``) hold sign-flipped int64 (:mod:`repro_torch.core.keys`)
+where the reference holds uint64.  ``save``/``load`` use the reference's
+npz layout, so either package reads the other's files.
+
+Backends (``lookup(..., backend=...)``):
+
+* ``"kernel"`` — the hand-written CUDA kernels (the reference's
+  ``"pallas"``): the fused RMI and PGM kernels for RMI/SY-RMI and
+  PGM/PGM_M, the model-free search for L/Q/C/KO.  On CPU tensors the
+  kernels' plain twins run instead;
+* ``"ref"`` — ``torch.searchsorted`` oracle;
+* ``"xla"``, ``"bbs"`` — the reference's interval + bounded-search
+  paths, not ported yet: they raise ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.core import keys as keymod
+from repro_torch.kernels.ref import predecessor_ref
+
+BACKENDS = ("xla", "bbs", "kernel", "ref")
+PORTED_BACKENDS = ("kernel", "ref")
+
+#: leaves that hold table keys: uint64 in the reference, encoded int64 here
+KEY_LEAVES = frozenset({"fences", "keys"})
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card: it raises when CUDA is absent, so the CPU
+    runs only when a caller asks for it with ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class Index:
+    """A learned static index as a dict of flat tensors.
+
+    kind:   registry kind tag (``"RMI"``, ``"PGM"``, ...).
+    static: tuple of ``(name, int)`` pairs (bucketed trip counts, level
+            counts, degrees).
+    arrays: dict name -> tensor, all on one device.
+    info:   host-side build metadata (name, build_time, eps, ...).
+    """
+
+    __slots__ = ("kind", "static", "arrays", "info")
+
+    def __init__(self, kind: str, static: tuple, arrays: dict, info: dict | None = None):
+        object.__setattr__(self, "kind", kind)
+        object.__setattr__(self, "static", tuple((str(k), int(v)) for k, v in static))
+        object.__setattr__(self, "arrays", dict(arrays))
+        object.__setattr__(self, "info", dict(info or {}))
+
+    def s(self, name: str) -> int:
+        for k, v in self.static:
+            if k == name:
+                return v
+        raise KeyError(name)
+
+    @property
+    def name(self) -> str:
+        return self.info.get("name", self.kind)
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.arrays.values())).device
+
+    def __getattr__(self, item):
+        # convenience passthrough: idx.eps, idx.b, idx.n, ...
+        info = object.__getattribute__(self, "info")
+        if item in info:
+            return info[item]
+        raise AttributeError(item)
+
+    def __repr__(self):
+        shapes = {k: tuple(v.shape) for k, v in self.arrays.items()}
+        return f"Index(kind={self.kind!r}, static={dict(self.static)}, arrays={shapes})"
+
+    # -- host <-> device -----------------------------------------------------
+    @classmethod
+    def from_numpy(cls, kind: str, static, arrays: dict, info=None, *, device=None) -> "Index":
+        """An Index on ``device`` from numpy leaves in the reference's layout
+        (uint64 key leaves are encoded; every other leaf keeps its dtype)."""
+        from . import registry
+
+        kind = registry.entry(kind).kind
+        dev = resolve_device(device)
+        leaves = {}
+        for name, v in arrays.items():
+            v = np.asarray(v)
+            if v.dtype == np.uint64:
+                if name not in KEY_LEAVES:
+                    raise ValueError(f"leaf {name!r} is uint64 but not a key leaf {sorted(KEY_LEAVES)}")
+                leaves[name] = keymod.encode(v, dev)
+            else:
+                leaves[name] = torch.from_numpy(np.array(v, order="C")).to(dev)
+        return cls(kind, static, leaves, info)
+
+    def to_numpy(self) -> dict:
+        """The leaves as numpy arrays in the reference's layout (key leaves
+        decoded back to uint64)."""
+        return {
+            k: keymod.decode(v) if k in KEY_LEAVES else v.detach().cpu().numpy()
+            for k, v in self.arrays.items()
+        }
+
+    # -- queries -------------------------------------------------------------
+    def lookup(self, table, queries, *, backend: str = "kernel") -> torch.Tensor:
+        """Predecessor ranks (int64, on the index's device) of ``queries``
+        over the sorted ``table``.  Both are encoded int64 tensors or uint64
+        numpy arrays, which are encoded and moved to the index's device."""
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+        if backend not in PORTED_BACKENDS:
+            raise ValueError(
+                f"backend {backend!r} is not ported yet; choose from {PORTED_BACKENDS}"
+            )
+        dev = self.device
+        table = keymod.as_keys(table, dev)
+        queries = keymod.as_keys(queries, dev)
+        if backend == "ref":
+            return predecessor_ref(table, queries)
+        from . import impls
+
+        return impls.query_impl(self.kind).kernel(self, table, queries)
+
+    # -- accounting / serialization -----------------------------------------
+    def space_bytes(self) -> int:
+        """Model space in the paper's sense: the bytes of the leaves that
+        constitute the model (kernel re-encodings and padding excluded)."""
+        from . import impls
+
+        return impls.query_impl(self.kind).space_bytes(self)
+
+    def nbytes(self) -> int:
+        """Total bytes of every leaf as stored (padding and kernel
+        re-encodings included)."""
+        return sum(int(v.nbytes) for v in self.arrays.values())
+
+    def save(self, path) -> None:
+        """npz in the reference's layout: ``arr_<leaf>`` plus JSON ``__meta__``."""
+        payload = {f"arr_{k}": v for k, v in self.to_numpy().items()}
+        meta = {
+            "kind": self.kind,
+            "static": list(map(list, self.static)),
+            "info": {k: v for k, v in self.info.items() if isinstance(v, (str, int, float, bool))},
+        }
+        payload["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        np.savez(path, **payload)
+
+    @classmethod
+    def load(cls, path, *, device=None) -> "Index":
+        """Read an npz written by either package's ``save``."""
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            arrays = {k[len("arr_"):]: z[k] for k in z.files if k.startswith("arr_")}
+        static = tuple((k, int(v)) for k, v in meta["static"])
+        return cls.from_numpy(meta["kind"], static, arrays, meta.get("info"), device=device)
+
+
+def build(kind_or_spec, table, *, device=None, **params) -> Index:
+    """Build an :class:`Index` over a sorted uint64 ``table`` (numpy, or an
+    encoded tensor) from a spec or a kind string plus parameters.  The fit
+    runs on the host; the leaves go to ``device`` (default: the card)."""
+    from . import registry
+    from .specs import IndexSpec
+
+    dev = resolve_device(device)
+    if isinstance(kind_or_spec, IndexSpec):
+        spec = kind_or_spec
+    else:
+        spec = registry.spec_for(str(kind_or_spec), **params)
+    if torch.is_tensor(table):
+        table_np = keymod.decode(table)
+    else:
+        table_np = np.asarray(table, dtype=np.uint64)
+    static, arrays, info = registry.entry(spec.kind).build(spec, table_np)
+    return Index.from_numpy(spec.kind, static, arrays, info, device=dev)

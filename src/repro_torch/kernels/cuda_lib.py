@@ -1,0 +1,146 @@
+"""Build and load the CUDA search kernels (``csrc/*.cu``) at first use.
+
+Each source compiles with its own ``nvcc`` process, all started
+together, into an object file; one more ``nvcc`` links them into
+``build/repro_torch/libkernels.so`` at the repository root, which is
+loaded with :mod:`ctypes`.  The sources expose a plain C interface
+(pointers and the stream as ``void*``, sizes as ``int``/``long long``),
+so no PyTorch header is compiled and a build takes seconds.
+
+Every flag below matters for parity: ``-fmad=false`` keeps ``a*b+c`` as
+two rounded operations, which is the arithmetic the re-encoded ε was
+measured with (see :mod:`repro_torch.kernels.ops`).  A source change
+invalidates the library through a digest stamp beside it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("kary_search.cu", "rmi_search.cu", "pgm_search.cu")
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-O3",
+    "-fmad=false",
+    "-std=c++17",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+#: C entry points and their argument types (see each source's launcher)
+SIGNATURES = {
+    # table, n, queries, nq, steps, out, stream
+    "kary_search_launch": (_P, _I, _P, _L, _I, _P, _P),
+    # u, queries, nq, table, n, root, slope, icept, eps, rlo, rhi, b,
+    # b_over_n, steps, out, stream
+    "rmi_search_launch": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, ctypes.c_double, _I, _P, _P),
+    # u, queries, nq, table, n, keys, u0, slope, rank0, off, off_r, sizes,
+    # eps, levels, steps, out, stream
+    "pgm_search_launch": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+}
+
+_lib = None
+_ptxas = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA search kernels cannot be built")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile every source (in parallel) and link ``libkernels.so``.
+    Records ``-Xptxas -v`` output per source (see :func:`ptxas_report`)."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in SOURCES:
+        obj = BUILD_DIR / (Path(name).stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append((name, obj, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)))
+    objs, failed = [], []
+    for name, obj, p in procs:
+        err = p.communicate()[1]
+        _ptxas[name] = err
+        if p.returncode != 0:
+            failed.append(f"{name}:\n{err}")
+        objs.append(str(obj))
+    if failed:
+        raise RuntimeError("nvcc failed on\n" + "\n".join(failed))
+    lib = BUILD_DIR / "libkernels.so"
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(lib)], stderr=subprocess.PIPE, text=True
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"linking {lib} failed:\n{link.stderr}")
+    (BUILD_DIR / "libkernels.stamp").write_text(_digest())
+    return lib
+
+
+def ptxas_report() -> dict:
+    """Source name -> the ``ptxas info`` lines of the last build in this
+    process (registers, shared memory, spills per kernel)."""
+    return {
+        name: [ln.strip() for ln in err.splitlines() if "ptxas" in ln or "spill" in ln]
+        for name, err in _ptxas.items()
+    }
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    global _lib
+    if _lib is None:
+        lib = BUILD_DIR / "libkernels.so"
+        stamp = BUILD_DIR / "libkernels.stamp"
+        if not (lib.exists() and stamp.exists() and stamp.read_text() == _digest()):
+            lib = build()
+        handle = ctypes.CDLL(str(lib))
+        for fn, argtypes in SIGNATURES.items():
+            getattr(handle, fn).argtypes = list(argtypes)
+            getattr(handle, fn).restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise when a launcher reported a CUDA error (``cudaGetLastError``)."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
+
+
+def require(t, name: str, dtype, device, numel=None) -> None:
+    """Validate one kernel operand: a contiguous 1-D tensor of ``dtype``
+    on ``device`` (and of ``numel`` elements when given)."""
+    if not torch.is_tensor(t):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D tensor, got shape {tuple(t.shape)}")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name} must hold {numel} elements, got {t.numel()}")

@@ -1,0 +1,116 @@
+"""Host re-encoders of fitted models into the search kernels' f32/i32
+arithmetic (counterpart of ``repro.kernels.ops``), with ε re-measured.
+
+The kernels predict in f32 on the pre-normalised coordinate ``u``; these
+functions re-measure every leaf's (or level's) error with exactly that
+arithmetic and widen ε so the window stays a guarantee.  The +2 margin
+budgets one fused multiply-add, so the CUDA kernels compile with
+``-fmad=false`` and the twins run unfused eager ops.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from repro_torch.core.cdf import ceil_log2
+
+
+def rmi_kernel_arrays(model, table_np: np.ndarray):
+    """Re-encode an :class:`~repro_torch.core.rmi.RMIModel` in kernel
+    precision.  Returns ``(arrays, steps)``: f32/i32 leaf parameters
+    (``root``, ``slope``, ``icept``, ``eps``, ``rlo``, ``rhi``) and the
+    unbucketed trip count of the window search."""
+    n = model.n
+    b = model.b
+    kmin = np.float64(model.kmin)
+    inv_span = np.float64(model.inv_span)
+
+    u64 = (table_np.astype(np.float64) - kmin) * inv_span
+    u32 = np.clip(u64, 0.0, 1.0).astype(np.float32)
+
+    root = np.asarray(model.root_coef, dtype=np.float32)
+    slopes = np.asarray(model.leaf_slope, dtype=np.float32)
+    icepts = np.asarray(model.leaf_icept, dtype=np.float32)
+
+    # leaf assignment with kernel arithmetic (f32)
+    p_root = ((root[3] * u32 + root[2]) * u32 + root[1]) * u32 + root[0]
+    leaf = np.clip(np.floor(p_root.astype(np.float64) * (b / n)), 0, b - 1).astype(np.int64)
+    leaf = np.maximum.accumulate(leaf)
+    r32 = np.searchsorted(leaf, np.arange(b + 1), side="left").astype(np.int64)
+
+    # f32 leaf prediction error at every key (exactly the kernel math)
+    pred = slopes[leaf] * u32 + icepts[leaf]
+    ranks = np.arange(n, dtype=np.float64)
+    err = np.abs(pred.astype(np.float64) - ranks)
+    eps = np.zeros(b)
+    np.maximum.at(eps, leaf, err)
+    # extended boundary keys per leaf (the guarantee argument)
+    lo_idx = np.clip(r32[:-1] - 1, 0, n - 1)
+    hi_idx = np.clip(r32[1:], 0, n - 1)
+    err_lo = np.abs(slopes * u32[lo_idx] + icepts - ranks[lo_idx])
+    err_hi = np.abs(slopes * u32[hi_idx] + icepts - ranks[hi_idx])
+    eps = np.maximum(eps, np.maximum(err_lo, err_hi))
+    eps_i = np.minimum(np.ceil(eps) + 2, float(n)).astype(np.int32)
+
+    rlo = np.maximum(r32[:-1] - 1, 0).astype(np.int32)
+    # high fence r32[l+1] (not -1): absorbs a 1-ulp leaf flip between this
+    # re-encoding and the kernel's f32 root evaluation
+    rhi = np.clip(r32[1:], 0, n - 1).astype(np.int32)
+    widths = np.minimum(2 * eps_i.astype(np.int64) + 3, (rhi - rlo + 1).astype(np.int64))
+    max_window = max(1, int(widths.max()))
+    steps = max(1, int(math.ceil(math.log2(max(max_window, 2)))))
+
+    arrays = {"root": root, "slope": slopes, "icept": icepts, "eps": eps_i, "rlo": rlo, "rhi": rhi}
+    return arrays, steps
+
+
+def pgm_kernel_arrays(model, table_np: np.ndarray):
+    """Re-encode a :class:`~repro_torch.core.pgm.PGMModel` for the PGM
+    descent kernel.  Each segment predicts ``r0 + slope_u * max(u - u0, 0)``
+    in f32 with ``slope_u = slope * span``; the error of that arithmetic is
+    re-measured at every child entry of every level.
+
+    Returns ``(arrays, steps)``: level-concatenated f32 ``u0``/``slope``,
+    the widened scalar ``eps`` and the f64 ``kmin``/``inv_span`` of ``u``;
+    ``steps`` is the unbucketed trip count of every in-kernel search."""
+    n = model.n
+    kmin = np.float64(table_np[0])
+    span = np.float64(table_np[-1]) - kmin
+    inv_span = np.float64(1.0) / span if span > 0 else np.float64(1.0)
+
+    def u_of(keys_u64):
+        u = (keys_u64.astype(np.float64) - kmin) * inv_span
+        return np.clip(u, 0.0, 1.0).astype(np.float32)
+
+    levels = len(model.level_keys)
+    u0_parts, slope_parts = [], []
+    max_err = 0.0
+    for lvl in range(levels):
+        keys_l = np.asarray(model.level_keys[lvl])
+        u0_l = u_of(keys_l)
+        slope_u = (np.asarray(model.level_slope[lvl]) * span).astype(np.float32)
+        u0_parts.append(u0_l)
+        slope_parts.append(slope_u)
+        child = np.asarray(model.level_keys[lvl + 1]) if lvl + 1 < levels else table_np
+        # exact segment assignment — the kernel routes with exact key compares
+        s = np.clip(np.searchsorted(keys_l, child, side="right") - 1, 0, len(keys_l) - 1)
+        r0 = np.asarray(model.level_rank0[lvl])[s].astype(np.float32)
+        du = np.maximum(u_of(child) - u0_l[s], np.float32(0.0))
+        pred = r0 + slope_u[s] * du  # the kernel's f32 arithmetic, verbatim
+        err = np.abs(pred.astype(np.float64) - np.arange(len(child), dtype=np.float64))
+        if len(err):
+            max_err = max(max_err, float(err.max()))
+    # +2: one for between-keys interpolation drift beyond the widened ±1
+    # the query path already adds, one for a fused multiply-add
+    eps = int(min(np.ceil(max_err) + 2, n))
+    steps = ceil_log2(min(2 * (eps + 1) + 3, max(n, 2)))
+    arrays = {
+        "u0": np.concatenate(u0_parts),
+        "slope": np.concatenate(slope_parts),
+        "eps": eps,
+        "kmin": kmin,
+        "inv_span": inv_span,
+    }
+    return arrays, steps

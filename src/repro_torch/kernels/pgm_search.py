@@ -1,0 +1,132 @@
+"""Fused PGM descent — the kernel backend of the PGM and PGM_M kinds
+(CUDA source: ``csrc/pgm_search.cu``).
+
+Replaces ``repro/kernels/pgm_search.py:fused_pgm_search_pallas``.  Per
+query, top-down over ``levels``: gather the current segment's f32 anchor
+``u0``, slope and rank fences ``r0``/``r1``, predict
+``r0 + slope * max(u - u0, 0)`` in f32, clamp the centre into
+``[r0 - 1, r1 - 1]``, widen by ``ε + 1``, and run an upper-bound search
+of ``steps`` trips over the next level's segment keys — or over the
+table at the last level, which gives the predecessor rank.  The
+arithmetic is the reference's on the ``pk_*`` re-encoded leaves: no
+fused multiply-add, every float clamped to ±1e9 before its int32 cast.
+Keys are sign-flipped int64, compared with one signed 64-bit compare;
+``levels`` and the trip count are run-time values.
+
+Bound on the H100: bytes — the segment leaves are small and shared by
+all queries, but the last level's search is dependent gathers into a
+table that, at 2^24 keys, lives in HBM.  This first design does nothing
+about that (one thread per query, all operands in global memory).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+#: kernel launches (CUDA path only); reset by callers that count them
+LAUNCHES = 0
+
+
+def _bounded_ub(keys, q, base, length, *, steps: int, probes=None):
+    """First index in [base, base+length) with key > q (``base + length``
+    if none): a fixed-trip Khuong–Morin loop."""
+    for _ in range(steps):
+        half = length >> 1
+        mid = base + half
+        go_right = (keys[mid] <= q) & (length > 1)
+        base = torch.where(go_right, mid, base)
+        length = length - torch.where(length > 1, half, 0)
+        if probes is not None:
+            probes.append(mid)
+    if probes is not None:
+        probes.append(base)
+    return base + (keys[base] <= q).to(torch.int32)
+
+
+def _pgm_body(u, q, t, keys, u0_a, slope_a, r0_a, off, off_r, sizes, eps, *, levels: int, n: int,
+              steps: int, probes=None):
+    """The kernel's arithmetic on tensors (int32 predecessor ranks).
+    ``probes``, when a list, receives every *table* index gathered."""
+    seg = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
+    widen = eps[0] + 1
+    for lvl in range(levels):
+        base_k = off[lvl]
+        base_r = off_r[lvl]
+        u0 = u0_a[base_k + seg]
+        slope = slope_a[base_k + seg]
+        r0 = r0_a[base_r + seg]
+        r1 = r0_a[base_r + seg + 1]
+        pred = r0.to(torch.float32) + slope * torch.clamp(u - u0, min=0.0)
+        pred = torch.clamp(pred, -1.0e9, 1.0e9)  # gap blow-ups: clamp before the cast
+        b_lo = torch.clamp(r0 - 1, min=0)
+        b_hi = r1 - 1
+        # clamp the predicted centre into the fence range before widening
+        p_lo = torch.minimum(torch.maximum(torch.floor(pred).to(torch.int32), b_lo), b_hi)
+        p_hi = torch.minimum(torch.maximum(torch.ceil(pred).to(torch.int32), b_lo), b_hi)
+        lo = torch.minimum(torch.maximum(p_lo - widen, b_lo), b_hi)
+        hi = torch.minimum(torch.maximum(p_hi + widen, b_lo), b_hi)
+        if lvl + 1 < levels:
+            base_n = off[lvl + 1]
+            ub = _bounded_ub(keys, q, base_n + lo, hi - lo + 1, steps=steps)
+            seg = torch.minimum(torch.clamp(ub - base_n - 1, min=0), sizes[lvl + 1] - 1)
+        else:
+            # leaf level: the window indexes the table
+            lo = torch.clamp(lo, 0, n - 1)
+            hi = torch.clamp(hi, 0, n - 1)
+            return _bounded_ub(t, q, lo, hi - lo + 1, steps=steps, probes=probes) - 1
+    raise ValueError("levels must be >= 1")
+
+
+def pgm_search_plain(u, queries, table, keys, u0, slope, rank0, off, off_r, sizes, eps, *,
+                     levels: int, steps: int, probes=None):
+    """The twin on the wrapper's operands, on any device."""
+    return _pgm_body(u, queries, table, keys, u0, slope, rank0, off, off_r, sizes, eps,
+                     levels=levels, n=table.numel(), steps=steps, probes=probes)
+
+
+def pgm_search(u, queries, table, keys, u0, slope, rank0, off, off_r, sizes, eps, *,
+               levels: int, steps: int):
+    """Predecessor rank (int32) of each encoded query through the fused PGM
+    descent.  ``u`` is the f32 CDF coordinate of each query; ``keys`` the
+    encoded level-concatenated segment keys; ``u0``/``slope`` the index's
+    ``pk_*`` leaves; ``rank0``/``off``/``off_r``/``sizes`` its level
+    directories as int32; ``eps`` a one-element int32 tensor.  CPU tensors
+    take the plain twin; CUDA tensors launch the kernel."""
+    dev = queries.device
+    nq, n, kn = queries.numel(), table.numel(), keys.numel()
+    cuda_lib.require(u, "u", torch.float32, dev, nq)
+    cuda_lib.require(queries, "queries", torch.int64, dev)
+    cuda_lib.require(table, "table", torch.int64, dev)
+    cuda_lib.require(keys, "keys", torch.int64, dev)
+    cuda_lib.require(u0, "u0", torch.float32, dev, kn)
+    cuda_lib.require(slope, "slope", torch.float32, dev, kn)
+    cuda_lib.require(rank0, "rank0", torch.int32, dev)
+    cuda_lib.require(off, "off", torch.int32, dev, levels + 1)
+    cuda_lib.require(off_r, "off_r", torch.int32, dev, levels + 1)
+    cuda_lib.require(sizes, "sizes", torch.int32, dev, levels)
+    cuda_lib.require(eps, "eps", torch.int32, dev, 1)
+    if n == 0 or n >= 2**31 or levels < 1:
+        raise ValueError(f"need 1 .. 2**31-1 table keys and >= 1 level, got n={n}, levels={levels}")
+    if dev.type == "cpu":
+        return pgm_search_plain(u, queries, table, keys, u0, slope, rank0, off, off_r, sizes,
+                                eps, levels=levels, steps=steps)
+    if dev.type != "cuda":
+        raise ValueError(f"pgm_search runs on cuda or cpu tensors, not {dev}")
+    out = torch.empty(queries.shape, dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out
+    lib = cuda_lib.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pgm_search_launch(
+            u.data_ptr(), queries.data_ptr(), nq, table.data_ptr(), n,
+            keys.data_ptr(), u0.data_ptr(), slope.data_ptr(), rank0.data_ptr(),
+            off.data_ptr(), off_r.data_ptr(), sizes.data_ptr(), eps.data_ptr(),
+            levels, steps, out.data_ptr(), stream,
+        )
+    cuda_lib.check(rc, "pgm_search_kernel")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

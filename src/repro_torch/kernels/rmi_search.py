@@ -1,0 +1,128 @@
+"""Fused RMI predict + ε-bounded search — the kernel backend of the RMI and
+SY-RMI kinds (CUDA source: ``csrc/rmi_search.cu``).
+
+Replaces ``repro/kernels/rmi_search.py:fused_rmi_search_pallas``.  Per
+query: the f32 cubic root in Horner form on the pre-normalised ``u``
+picks a leaf, the leaf's f32 line predicts the rank, the centre is
+clamped into the leaf's rank fences and widened by the leaf's ε, and a
+fixed-trip Khuong–Morin search over that window returns the predecessor
+rank.  The arithmetic is the reference's, operation for operation, on
+the ``k_*`` re-encoded leaves — no fused multiply-add (the re-encoded ε
+budgets one, see :mod:`repro_torch.kernels.ops`), every float clamped to
+±1e9 before its int32 cast — with one exception, the leaf product
+(:func:`_rmi_leaf`).  Keys are sign-flipped int64, compared with one
+signed 64-bit compare.
+
+Bound on the H100: bytes — the leaf gathers hit a few KB of parameters,
+but each search trip is a dependent gather into a table that, at 2^24
+keys, lives in HBM.  This first design does nothing about that (one
+thread per query, table and leaves in global memory).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+#: kernel launches (CUDA path only); reset by callers that count them
+LAUNCHES = 0
+
+
+def _rmi_leaf(p_root, *, b: int, n: int):
+    """Leaf of a clamped f32 root prediction: ``floor(f64(p_root) * (b/n))``
+    in [0, b-1], the product in f64 exactly as the re-encoder assigns
+    leaves (:func:`repro_torch.kernels.ops.rmi_kernel_arrays`).
+
+    The reference kernel multiplies in f32 by ``f32(b/n)``; near a leaf
+    boundary that can round one leaf past the re-encoder's f64 product,
+    and that leaf's fences exclude the true rank.  The card has f64, so
+    the kernel and this twin take the re-encoder's product."""
+    leaf = torch.floor(p_root.to(torch.float64) * (b / n))
+    return torch.clamp(leaf, 0, b - 1).to(torch.int32)
+
+
+def _rmi_body(u, q, t, c, slope_a, icept_a, eps_a, rlo_a, rhi_a, *, b: int, n: int, steps: int,
+              probes=None):
+    """The kernel's arithmetic on tensors (int32 predecessor ranks).
+    ``probes``, when a list, receives every table index gathered."""
+    # --- root -> leaf (clamp before the int32 cast) ---
+    p_root = ((c[3] * u + c[2]) * u + c[1]) * u + c[0]
+    p_root = torch.clamp(p_root, -1.0e9, 1.0e9)
+    leaf = _rmi_leaf(p_root, b=b, n=n)
+
+    # --- leaf linear predict + guaranteed window ---
+    slope = slope_a[leaf]
+    icept = icept_a[leaf]
+    eps = eps_a[leaf]
+    rlo = rlo_a[leaf]
+    rhi = rhi_a[leaf]
+    p = torch.clamp(slope * u + icept, -1.0e9, 1.0e9)
+    # clamp the predicted centre into the leaf fences before widening
+    p_lo = torch.minimum(torch.maximum(torch.floor(p).to(torch.int32), rlo), rhi)
+    p_hi = torch.minimum(torch.maximum(torch.ceil(p).to(torch.int32), rlo), rhi)
+    lo = torch.minimum(torch.maximum(p_lo - eps, rlo), rhi)
+    hi = torch.minimum(torch.maximum(p_hi + eps, rlo), rhi)
+
+    # --- fixed-trip branch-free bounded search ---
+    base = lo
+    length = hi - lo + 1
+    for _ in range(steps):
+        half = length >> 1
+        mid = base + half
+        go_right = (t[mid] <= q) & (length > 1)
+        base = torch.where(go_right, mid, base)
+        length = length - torch.where(length > 1, half, 0)
+        if probes is not None:
+            probes.append(mid)
+    if probes is not None:
+        probes.append(base)
+    le = (t[base] <= q).to(torch.int32)
+    return base + le - 1
+
+
+def rmi_search_plain(u, queries, table, root, slope, icept, eps, rlo, rhi, *, steps: int,
+                     probes=None):
+    """The twin on the wrapper's operands, on any device."""
+    return _rmi_body(u, queries, table, root, slope, icept, eps, rlo, rhi,
+                     b=slope.numel(), n=table.numel(), steps=steps, probes=probes)
+
+
+def rmi_search(u, queries, table, root, slope, icept, eps, rlo, rhi, *, steps: int):
+    """Predecessor rank (int32) of each encoded query through the fused
+    RMI kernel.  ``u`` is the f32 CDF coordinate of each query
+    (:func:`repro_torch.core.keys.unit_f32`); the leaf operands are the
+    index's ``k_*`` leaves.  CPU tensors take the plain twin; CUDA
+    tensors launch the kernel."""
+    dev = queries.device
+    nq, n, b = queries.numel(), table.numel(), slope.numel()
+    cuda_lib.require(u, "u", torch.float32, dev, nq)
+    cuda_lib.require(queries, "queries", torch.int64, dev)
+    cuda_lib.require(table, "table", torch.int64, dev)
+    cuda_lib.require(root, "root", torch.float32, dev, 4)
+    cuda_lib.require(slope, "slope", torch.float32, dev)
+    cuda_lib.require(icept, "icept", torch.float32, dev, b)
+    for name, arr in (("eps", eps), ("rlo", rlo), ("rhi", rhi)):
+        cuda_lib.require(arr, name, torch.int32, dev, b)
+    if n == 0 or n >= 2**31 or b == 0:
+        raise ValueError(f"need 1 .. 2**31-1 table keys and >= 1 leaf, got n={n}, b={b}")
+    if dev.type == "cpu":
+        return rmi_search_plain(u, queries, table, root, slope, icept, eps, rlo, rhi, steps=steps)
+    if dev.type != "cuda":
+        raise ValueError(f"rmi_search runs on cuda or cpu tensors, not {dev}")
+    out = torch.empty(queries.shape, dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out
+    lib = cuda_lib.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.rmi_search_launch(
+            u.data_ptr(), queries.data_ptr(), nq, table.data_ptr(), n,
+            root.data_ptr(), slope.data_ptr(), icept.data_ptr(), eps.data_ptr(),
+            rlo.data_ptr(), rhi.data_ptr(), b, b / n, steps,
+            out.data_ptr(), stream,
+        )
+    cuda_lib.check(rc, "rmi_search_kernel")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
