@@ -16,10 +16,14 @@ has a counterpart there:
   with a wrapper that launches it on CUDA tensors and a plain PyTorch
   twin that does the same arithmetic on CPU tensors.
 * ``data`` — the seeded synthetic datasets and query sampling.
+* ``dist`` and ``tune`` — leaf-wise stacking of same-spec indexes and
+  ``tune.build_many``, whose :class:`~repro_torch.tune.BatchedIndexes`
+  answers a query batch against many tables with one batched kernel
+  launch.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
-from . import core, data, index, kernels
+from . import core, data, dist, index, kernels, tune
 
-__all__ = ["core", "data", "index", "kernels"]
+__all__ = ["core", "data", "dist", "index", "kernels", "tune"]

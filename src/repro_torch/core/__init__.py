@@ -4,16 +4,18 @@ The fits are host numpy, copied operation for operation from the
 reference, so a model built here has the same leaves bit for bit.
 """
 
-from . import atomic, cdf, kbfs, keys, pgm, rmi, search, sy_rmi
+from . import atomic, btree, cdf, kbfs, keys, pgm, radix_spline, rmi, search, sy_rmi
 from .cdf import as_table, ceil_log2, true_ranks
 from .search import NO_PRED
 
 __all__ = [
     "atomic",
+    "btree",
     "cdf",
     "kbfs",
     "keys",
     "pgm",
+    "radix_spline",
     "rmi",
     "search",
     "sy_rmi",

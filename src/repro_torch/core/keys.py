@@ -19,12 +19,12 @@ _SIGN_NP = np.int64(SIGN)
 
 def encode_np(keys_u64) -> np.ndarray:
     """uint64 keys -> sign-flipped int64 (host)."""
-    return np.asarray(keys_u64, dtype=np.uint64).view(np.int64) ^ _SIGN_NP
+    return np.asarray(np.asarray(keys_u64, dtype=np.uint64).view(np.int64) ^ _SIGN_NP)
 
 
 def decode_np(keys_i64) -> np.ndarray:
     """Sign-flipped int64 -> uint64 keys (host)."""
-    return (np.asarray(keys_i64, dtype=np.int64) ^ _SIGN_NP).view(np.uint64)
+    return np.asarray(np.asarray(keys_i64, dtype=np.int64) ^ _SIGN_NP).view(np.uint64)
 
 
 def encode(keys_u64, device) -> torch.Tensor:

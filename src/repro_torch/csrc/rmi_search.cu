@@ -1,8 +1,8 @@
 // Fused RMI predict + eps-bounded search: the kernel backend of the RMI and
-// SY-RMI kinds.
+// SY-RMI kinds, single-table and batched.
 //
-// Replaces repro/kernels/rmi_search.py:fused_rmi_search_pallas (_rmi_body).
-// One thread per query:
+// Replaces repro/kernels/rmi_search.py:fused_rmi_search_pallas and
+// batched_rmi_search_pallas (_rmi_body).  One thread per query:
 //   1. f32 cubic root in Horner form on the pre-normalised u, clamped to
 //      +-1e9, times b/n in f64, floored -> leaf in [0, b-1];
 //   2. the leaf's f32 line slope*u + icept, clamped to +-1e9; its floor and
@@ -16,33 +16,25 @@
 // floor(f64(p) * (b/n)), and the reference's f32 product can land one leaf
 // past that near a leaf boundary, whose fences then exclude the true rank.
 // With the same f64 product the kernel's leaf is the re-encoder's leaf, and
-// the window is a guarantee again.  Keys are uint64 stored as int64 with
-// the sign bit flipped, compared with one signed 64-bit compare.
+// the window is a guarantee again.  The batched kernel takes its table
+// from blockIdx.y and runs the same per-query function on that table's
+// rows of the stacked leaves; `steps` is the max over the tables.
 //
 // Bound on the H100: bytes.  The leaf gathers read a few KB shared by all
 // queries; each search trip is a dependent gather into the table, which at
 // 2^24 keys lives in HBM.  This first design does nothing about that.  The
-// plain PyTorch twin is _rmi_body in kernels/rmi_search.py.
+// plain PyTorch twins are _rmi_body and _batched_rmi_body in
+// kernels/rmi_search.py.
 
-#include <cuda_runtime.h>
+#include "search_common.cuh"
 
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
-
-extern "C" __global__ void rmi_search_kernel(
-    const float* __restrict__ u, const long long* __restrict__ queries, long long nq,
-    const long long* __restrict__ table, int n, const float* __restrict__ root,
-    const float* __restrict__ slope, const float* __restrict__ icept,
-    const int* __restrict__ eps, const int* __restrict__ rlo, const int* __restrict__ rhi, int b,
-    double b_over_n, int steps, int* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;  // ragged tail: masked, not padded
-  const float x = u[i];
-  const long long q = queries[i];
-
+__device__ __forceinline__ int rmi_query(float x, long long q, const long long* __restrict__ table,
+                                         int n, const float* __restrict__ root,
+                                         const float* __restrict__ slope,
+                                         const float* __restrict__ icept,
+                                         const int* __restrict__ eps, const int* __restrict__ rlo,
+                                         const int* __restrict__ rhi, int b, double b_over_n,
+                                         int steps) {
   // root -> leaf
   float p = __fadd_rn(__fmul_rn(root[3], x), root[2]);
   p = __fadd_rn(__fmul_rn(p, x), root[1]);
@@ -54,23 +46,44 @@ extern "C" __global__ void rmi_search_kernel(
   const int f_lo = rlo[leaf];
   const int f_hi = rhi[leaf];
   const int e = eps[leaf];
-  const float pr = clampf(__fadd_rn(__fmul_rn(slope[leaf], x), icept[leaf]), -1.0e9f, 1.0e9f);
-  const int p_lo = clampi((int)floorf(pr), f_lo, f_hi);
-  const int p_hi = clampi((int)ceilf(pr), f_lo, f_hi);
+  const float pr = __fadd_rn(__fmul_rn(slope[leaf], x), icept[leaf]);
+  const int p_lo = clampi(floor_to_int(pr), f_lo, f_hi);
+  const int p_hi = clampi(ceil_to_int(pr), f_lo, f_hi);
   const int lo = clampi(p_lo - e, f_lo, f_hi);
   const int hi = clampi(p_hi + e, f_lo, f_hi);
 
   // fixed-trip branch-free bounded search
-  int base = lo;
-  int len = hi - lo + 1;
-  for (int s = 0; s < steps; ++s) {
-    const int half = len >> 1;
-    const int mid = base + half;
-    const bool go_right = (__ldg(table + mid) <= q) && (len > 1);
-    base = go_right ? mid : base;
-    len -= (len > 1) ? half : 0;
-  }
-  out[i] = base + (__ldg(table + base) <= q ? 1 : 0) - 1;
+  return bounded_ub(table, q, lo, hi - lo + 1, steps) - 1;
+}
+
+extern "C" __global__ void rmi_search_kernel(
+    const float* __restrict__ u, const long long* __restrict__ queries, long long nq,
+    const long long* __restrict__ table, int n, const float* __restrict__ root,
+    const float* __restrict__ slope, const float* __restrict__ icept,
+    const int* __restrict__ eps, const int* __restrict__ rlo, const int* __restrict__ rhi, int b,
+    double b_over_n, int steps, int* __restrict__ out) {
+  const long long i = query_slot(nq);
+  if (i < 0) return;
+  out[i] = rmi_query(u[i], queries[i], table, n, root, slope, icept, eps, rlo, rhi, b, b_over_n,
+                     steps);
+}
+
+// Table t: row t of the (n_tables, n) tables, the (n_tables, 4) roots and
+// the (n_tables, b) leaves; row t of the (n_tables, nq) u and out; queries
+// row t at stride q_stride (0 when one batch is broadcast).
+extern "C" __global__ void batched_rmi_search_kernel(
+    const float* __restrict__ u, const long long* __restrict__ queries, long long q_stride,
+    long long nq, const long long* __restrict__ tables, int n, const float* __restrict__ root,
+    const float* __restrict__ slope, const float* __restrict__ icept,
+    const int* __restrict__ eps, const int* __restrict__ rlo, const int* __restrict__ rhi, int b,
+    double b_over_n, int steps, int* __restrict__ out) {
+  const long long i = query_slot(nq);
+  if (i < 0) return;
+  const long long t = blockIdx.y;
+  const long long lb = t * b;
+  out[t * nq + i] = rmi_query(u[t * nq + i], queries[t * q_stride + i], tables + t * n, n,
+                              root + t * 4, slope + lb, icept + lb, eps + lb, rlo + lb, rhi + lb,
+                              b, b_over_n, steps);
 }
 
 extern "C" int rmi_search_launch(const void* u, const void* queries, long long nq,
@@ -78,10 +91,20 @@ extern "C" int rmi_search_launch(const void* u, const void* queries, long long n
                                  const void* icept, const void* eps, const void* rlo,
                                  const void* rhi, int b, double b_over_n, int steps, void* out,
                                  void* stream) {
-  const int threads = 256;
-  const long long blocks = (nq + threads - 1) / threads;
-  rmi_search_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  rmi_search_kernel<<<search_grid(nq, 1), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)u, (const long long*)queries, nq, (const long long*)table, n,
+      (const float*)root, (const float*)slope, (const float*)icept, (const int*)eps,
+      (const int*)rlo, (const int*)rhi, b, b_over_n, steps, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int batched_rmi_search_launch(const void* u, const void* queries, long long q_stride,
+                                         long long nq, int n_tables, const void* tables, int n,
+                                         const void* root, const void* slope, const void* icept,
+                                         const void* eps, const void* rlo, const void* rhi, int b,
+                                         double b_over_n, int steps, void* out, void* stream) {
+  batched_rmi_search_kernel<<<search_grid(nq, n_tables), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)u, (const long long*)queries, q_stride, nq, (const long long*)tables, n,
       (const float*)root, (const float*)slope, (const float*)icept, (const int*)eps,
       (const int*)rlo, (const int*)rhi, b, b_over_n, steps, (int*)out);
   return (int)cudaGetLastError();

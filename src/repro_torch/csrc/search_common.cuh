@@ -1,0 +1,56 @@
+// Pieces every search kernel of this library shares.
+//
+// Keys are uint64 stored as int64 with the sign bit flipped, so one signed
+// 64-bit compare orders them.  Each kernel answers one query per thread;
+// the batched kernels take the table index from blockIdx.y and step their
+// pointers by the row strides they are given.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+// The thread's query slot, or -1 past the last query: the ragged tail is
+// masked, not padded.
+__device__ __forceinline__ long long query_slot(long long nq) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  return i < nq ? i : -1;
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
+
+// floor / ceil of a prediction as int32.  The clamp to +-1e9 comes before
+// the cast: an out-of-range float-to-int conversion is garbage that later
+// integer clamps cannot repair.
+__device__ __forceinline__ int floor_to_int(float x) {
+  return (int)floorf(clampf(x, -1.0e9f, 1.0e9f));
+}
+__device__ __forceinline__ int ceil_to_int(float x) {
+  return (int)ceilf(clampf(x, -1.0e9f, 1.0e9f));
+}
+
+// First index in [base, base + len) whose key is > q (base + len if none):
+// a Khuong-Morin loop of a fixed `steps` trips.  Extra trips are no-ops
+// once the window is one key wide, so `steps` may exceed ceil(log2 len).
+__device__ __forceinline__ int bounded_ub(const long long* __restrict__ keys, long long q,
+                                          int base, int len, int steps) {
+  for (int s = 0; s < steps; ++s) {
+    const int half = len >> 1;
+    const int mid = base + half;
+    const bool go_right = (__ldg(keys + mid) <= q) && (len > 1);
+    base = go_right ? mid : base;
+    len -= (len > 1) ? half : 0;
+  }
+  return base + (__ldg(keys + base) <= q ? 1 : 0);
+}
+
+// Launch shape shared by every launcher: 256 threads a block, blocks over
+// the queries in x and over the tables in y.
+constexpr int kThreads = 256;
+
+inline dim3 search_grid(long long nq, int n_tables) {
+  return dim3((unsigned)((nq + kThreads - 1) / kThreads), (unsigned)n_tables);
+}

@@ -14,11 +14,13 @@ from .index import BACKENDS, KEY_LEAVES, PORTED_BACKENDS, Index, build, resolve_
 from .registry import entry, kinds, spec_for
 from .specs import (
     AtomicSpec,
+    BTreeSpec,
     IndexSpec,
     KOSpec,
     PGMBicriteriaSpec,
     PGMSpec,
     RMISpec,
+    RSSpec,
     SYRMISpec,
 )
 
@@ -33,10 +35,12 @@ __all__ = [
     "kinds",
     "spec_for",
     "AtomicSpec",
+    "BTreeSpec",
     "IndexSpec",
     "KOSpec",
     "PGMBicriteriaSpec",
     "PGMSpec",
     "RMISpec",
+    "RSSpec",
     "SYRMISpec",
 ]

@@ -1,12 +1,15 @@
 """Per-kind builds and kernel dispatch behind the :class:`Index` API
-(counterpart of ``repro.index.impls``, for L, Q, C, KO, RMI, SY-RMI, PGM
-and PGM_M).
+(counterpart of ``repro.index.impls``, for the ten static kinds L, Q, C,
+KO, RMI, SY-RMI, PGM, PGM_M, RS and BTREE).
 
 Each kind contributes a host build that runs the fit in
 :mod:`repro_torch.core` and flattens the model into the reference's
 leaves and statics (numpy; :meth:`Index.from_numpy` moves them to the
 device), and a :class:`QueryImpl` with ``space_bytes`` and the kernel
-dispatch, the counterpart of the reference's ``pallas``.
+dispatch, the counterpart of the reference's ``pallas``, plus its batched
+arm, the counterpart of ``pallas_batched``: the RMI family, the PGM
+family and RS have fused batched kernels, every other kind answers a
+stack of tables with the batched model-free search.
 
 The reference's two cache normalisations are kept so leaves and statics
 match it exactly: variable-length PGM leaves are padded to the next
@@ -25,20 +28,53 @@ import numpy as np
 import torch
 
 from repro_torch.core.atomic import build_atomic
+from repro_torch.core.btree import build_btree
 from repro_torch.core.cdf import ceil_log2
 from repro_torch.core.kbfs import build_ko
 from repro_torch.core.keys import unit_f32
 from repro_torch.core.pgm import build_pgm, build_pgm_bicriteria
+from repro_torch.core.radix_spline import build_rs
 from repro_torch.core.rmi import build_rmi
 from repro_torch.core.sy_rmi import build_sy_rmi
-from repro_torch.kernels.kary_search import kary_search, kary_search_plain
-from repro_torch.kernels.ops import pgm_kernel_arrays, rmi_kernel_arrays
-from repro_torch.kernels.pgm_search import pgm_search, pgm_search_plain
-from repro_torch.kernels.rmi_search import rmi_search, rmi_search_plain
+from repro_torch.kernels.kary_search import (
+    batched_kary_search,
+    batched_kary_search_plain,
+    kary_search,
+    kary_search_plain,
+)
+from repro_torch.kernels.ops import pgm_kernel_arrays, rmi_kernel_arrays, rs_kernel_arrays
+from repro_torch.kernels.pgm_search import (
+    batched_pgm_search,
+    batched_pgm_search_plain,
+    pgm_search,
+    pgm_search_plain,
+)
+from repro_torch.kernels.rmi_search import (
+    batched_rmi_search,
+    batched_rmi_search_plain,
+    rmi_search,
+    rmi_search_plain,
+)
+from repro_torch.kernels.rs_search import (
+    batched_rs_search,
+    batched_rs_search_plain,
+    radix_prefix,
+    rs_search,
+    rs_search_plain,
+)
 
 from .index import Index
 from .registry import register
-from .specs import AtomicSpec, KOSpec, PGMBicriteriaSpec, PGMSpec, RMISpec, SYRMISpec
+from .specs import (
+    AtomicSpec,
+    BTreeSpec,
+    KOSpec,
+    PGMBicriteriaSpec,
+    PGMSpec,
+    RMISpec,
+    RSSpec,
+    SYRMISpec,
+)
 
 _MAXKEY = np.uint64(np.iinfo(np.uint64).max)
 
@@ -66,27 +102,41 @@ def _scalar(x, dtype) -> np.ndarray:
     return np.asarray(x, dtype=dtype).reshape(())
 
 
+def _kary_operands(idx: Index, table, q):
+    """Model-free search, one table or a stack: the kernel backend of kinds
+    without a fused kernel, and the batched backend of kinds without a
+    fused batched kernel (the reference's ``QueryImpl.__post_init__``)."""
+    return (table, q), {}
+
+
 @dataclass(frozen=True)
 class QueryImpl:
     """How a kind answers ``backend="kernel"``: ``operands(index, table,
     queries) -> (args, kwargs)`` gives the kernel wrapper ``search`` its
     inputs; ``plain`` is the wrapper's twin on the same inputs (any
-    device), for holding the kernel against it."""
+    device), for holding the kernel against it.  The ``batched_*`` fields
+    do the same for a stacked index over ``(n_tables, m)`` tables and
+    ``(n_tables, B)`` queries; they default to the batched model-free
+    search."""
 
     space_bytes: Callable  # (index) -> int
     operands: Callable
     search: Callable
     plain: Callable
+    batched_operands: Callable = _kary_operands
+    batched_search: Callable = batched_kary_search
+    batched_plain: Callable = batched_kary_search_plain
 
     def kernel(self, idx: Index, table, queries):
         """int64 predecessor ranks through the kind's kernel."""
         args, kwargs = self.operands(idx, table, queries)
         return self.search(*args, **kwargs).long()
 
-
-def _kary_operands(idx: Index, table, q):
-    """Model-free search: the kernel backend of kinds without a fused kernel."""
-    return (table, q), {}
+    def batched_kernel(self, idx: Index, tables, queries):
+        """Raw int64 local ranks ``(n_tables, B)`` of a stacked index through
+        the kind's batched kernel, one launch (callers clamp to the counts)."""
+        args, kwargs = self.batched_operands(idx, tables, queries)
+        return self.batched_search(*args, **kwargs).long()
 
 
 def _kary_impl(space_bytes: Callable) -> QueryImpl:
@@ -167,7 +217,20 @@ def _rmi_operands(idx: Index, table, q):
     return args, {"steps": idx.s("ksteps")}
 
 
-RMI_IMPL = QueryImpl(_rmi_space, _rmi_operands, rmi_search, rmi_search_plain)
+def _rmi_batched_operands(idx: Index, tables, queries):
+    """Batched fused RMI kernel on the stacked ``k_*`` leaves; ``ksteps``
+    took the max over the tables at stack time."""
+    a = idx.arrays
+    u = unit_f32(queries, a["kmin"][:, None], a["inv_span"][:, None])
+    args = (u, queries, tables, a["k_root"], a["k_slope"], a["k_icept"], a["k_eps"], a["k_rlo"],
+            a["k_rhi"])
+    return args, {"steps": idx.s("ksteps")}
+
+
+RMI_IMPL = QueryImpl(
+    _rmi_space, _rmi_operands, rmi_search, rmi_search_plain,
+    _rmi_batched_operands, batched_rmi_search, batched_rmi_search_plain,
+)
 
 
 def _rmi_to_index(m, table_np: np.ndarray, extra_info=None):
@@ -233,7 +296,20 @@ def _pgm_operands(idx: Index, table, q):
     return args, {"levels": idx.s("levels"), "steps": idx.s("pksteps")}
 
 
-PGM_IMPL = QueryImpl(_pgm_space, _pgm_operands, pgm_search, pgm_search_plain)
+def _pgm_batched_operands(idx: Index, tables, queries):
+    """Batched PGM descent on the stacked ``pk_*`` leaves; the level count
+    is common (lifted at stack time) and ``pksteps`` the max."""
+    a = idx.arrays
+    u = unit_f32(queries, a["pk_kmin"][:, None], a["pk_inv_span"][:, None])
+    i32 = [a[k].to(torch.int32) for k in ("rank0", "off", "off_r", "sizes")]
+    args = (u, queries, tables, a["keys"], a["pk_u0"], a["pk_slope"], *i32, a["pk_eps"])
+    return args, {"levels": idx.s("levels"), "steps": idx.s("pksteps")}
+
+
+PGM_IMPL = QueryImpl(
+    _pgm_space, _pgm_operands, pgm_search, pgm_search_plain,
+    _pgm_batched_operands, batched_pgm_search, batched_pgm_search_plain,
+)
 
 
 def _pgm_to_index(m, table_np: np.ndarray, extra_info=None):
@@ -284,11 +360,120 @@ def _build_pgm_m_index(spec: PGMBicriteriaSpec, table_np: np.ndarray):
     return _pgm_to_index(m, table_np, {"a": spec.a})
 
 
+# -- RadixSpline -------------------------------------------------------------
+
+
+def _rs_space(idx: Index) -> int:
+    a = idx.arrays
+    m = int(a["m_valid"])
+    knots = m * (a["knot_keys"].dtype.itemsize + a["knot_ranks"].dtype.itemsize)
+    scalars = a["kmin"].nbytes + a["shift"].nbytes + a["eps_eff"].nbytes + a["m_valid"].nbytes
+    return knots + a["radix_table"].nbytes + scalars
+
+
+def _rs_operands(idx: Index, table, q):
+    """Fused RadixSpline kernel on the ``rk_*`` leaves; the radix prefix
+    (an unsigned shift) and ``u`` (f64) are computed here, outside it."""
+    a = idx.arrays
+    prefix = radix_prefix(q, a["kmin"], a["shift"], idx.s("r_bits"))
+    u = unit_f32(q, a["rk_kmin"], a["rk_inv_span"])
+    i32 = [a[k].to(torch.int32) for k in ("knot_ranks", "radix_table")]
+    scalars = [a[k].reshape(1).to(torch.int32) for k in ("m_valid", "rk_eps")]
+    args = (u, q, prefix, table, a["knot_keys"], a["rk_u0"], a["rk_slope"], *i32, *scalars)
+    return args, {"ksteps": idx.s("ksteps"), "steps": idx.s("rk_epi")}
+
+
+def _rs_batched_operands(idx: Index, tables, queries):
+    """Batched fused RadixSpline kernel on the stacked leaves: the prefix
+    per table as in the single-table path (``r_bits`` is structural, so
+    common), ``ksteps``/``rk_epi`` the max over the tables."""
+    a = idx.arrays
+    prefix = radix_prefix(queries, a["kmin"][:, None], a["shift"][:, None], idx.s("r_bits"))
+    u = unit_f32(queries, a["rk_kmin"][:, None], a["rk_inv_span"][:, None])
+    i32 = [a[k].to(torch.int32) for k in ("knot_ranks", "radix_table", "m_valid", "rk_eps")]
+    args = (u, queries, prefix, tables, a["knot_keys"], a["rk_u0"], a["rk_slope"], *i32)
+    return args, {"ksteps": idx.s("ksteps"), "steps": idx.s("rk_epi")}
+
+
+RS_IMPL = QueryImpl(
+    _rs_space, _rs_operands, rs_search, rs_search_plain,
+    _rs_batched_operands, batched_rs_search, batched_rs_search_plain,
+)
+
+
+def _build_rs_index(spec: RSSpec, table_np: np.ndarray):
+    m = build_rs(table_np, eps=spec.eps, r_bits=spec.r_bits)
+    karr, rksteps = rs_kernel_arrays(m, table_np)
+    arrays = {
+        "knot_keys": _pad_pow2(m.knot_keys, _MAXKEY),
+        "knot_ranks": _pad_pow2(m.knot_ranks, m.knot_ranks[-1]),
+        "radix_table": m.radix_table,
+        "kmin": _scalar(m.kmin, np.uint64),
+        "shift": _scalar(m.shift, np.uint64),
+        "eps_eff": _scalar(m.eps_eff, np.int64),
+        "m_valid": _scalar(m.m, np.int64),
+        # kernel re-encoding (query-time cache, not model space)
+        "rk_u0": _pad_pow2(karr["u0"], np.float32(1.0)),
+        "rk_slope": _pad_pow2(karr["slope"], np.float32(0.0)),
+        "rk_eps": _scalar(karr["eps"], np.int32),
+        "rk_kmin": _scalar(karr["kmin"], np.float64),
+        "rk_inv_span": _scalar(karr["inv_span"], np.float64),
+    }
+    static = (
+        ("r_bits", m.r_bits),
+        ("ksteps", _bucket_steps(_pow2ceil(len(m.knot_keys)))),
+        ("epi", _bucket_steps(min(2 * m.eps_eff + 3, m.n))),
+        ("rk_epi", _bucket_steps(1 << rksteps)),
+    )
+    info = {
+        "name": m.name,
+        "build_time": m.build_time,
+        "eps": m.eps,
+        "eps_eff": m.eps_eff,
+        "m": m.m,
+        "n": m.n,
+    }
+    return static, arrays, info
+
+
+# -- B+-tree -----------------------------------------------------------------
+
+
+def _btree_space(idx: Index) -> int:
+    a = idx.arrays
+    return a["keys"].nbytes + a["off"].nbytes + a["valid"].nbytes
+
+
+# the reference's BTREE answers ``pallas`` with the model-free search too
+BTREE_IMPL = _kary_impl(_btree_space)
+
+
+def _build_btree_index(spec: BTreeSpec, table_np: np.ndarray):
+    m = build_btree(table_np, fanout=spec.fanout)
+    keys = np.concatenate(m.levels) if m.levels else np.zeros((0,), dtype=np.uint64)
+    off = np.concatenate([[0], np.cumsum([len(lvl) for lvl in m.levels])]).astype(np.int64)
+    arrays = {"keys": keys, "off": off, "valid": np.asarray(m.valid, dtype=np.int64)}
+    static = (
+        ("fanout", m.fanout),
+        ("levels", len(m.levels)),
+        ("epi", _bucket_steps(min(m.fanout + 1, m.n))),
+    )
+    info = {"name": m.name, "build_time": m.build_time, "n": m.n}
+    return static, arrays, info
+
+
 # ---------------------------------------------------------------------------
 # Registry wiring — registration order IS the paper's hierarchy order.
 # ---------------------------------------------------------------------------
 
-QUERY_IMPLS = {"atomic": ATOMIC_IMPL, "ko": KO_IMPL, "rmi": RMI_IMPL, "pgm": PGM_IMPL}
+QUERY_IMPLS = {
+    "atomic": ATOMIC_IMPL,
+    "ko": KO_IMPL,
+    "rmi": RMI_IMPL,
+    "pgm": PGM_IMPL,
+    "rs": RS_IMPL,
+    "btree": BTREE_IMPL,
+}
 
 _KIND_TO_IMPL = {}
 
@@ -335,4 +520,18 @@ _reg(
         space_pct=p.get("space_pct", 2.0),
         a=p.get("a", 1.0),
     ),
+)
+_reg(
+    "RS",
+    RSSpec,
+    "rs",
+    _build_rs_index,
+    lambda **p: RSSpec(eps=p.get("eps", 32), r_bits=p.get("r_bits", 12)),
+)
+_reg(
+    "BTREE",
+    BTreeSpec,
+    "btree",
+    _build_btree_index,
+    lambda **p: BTreeSpec(fanout=p.get("fanout", 16)),
 )

@@ -33,7 +33,12 @@ BACKENDS = ("xla", "bbs", "kernel", "ref")
 PORTED_BACKENDS = ("kernel", "ref")
 
 #: leaves that hold table keys: uint64 in the reference, encoded int64 here
-KEY_LEAVES = frozenset({"fences", "keys"})
+#: (RS's ``kmin`` is a key; the other kinds' ``kmin`` is a float64 leaf)
+KEY_LEAVES = frozenset({"fences", "keys", "knot_keys", "kmin"})
+
+#: uint64 leaves that are not keys (RS's radix ``shift``): small values,
+#: held as int64 here and cast back to uint64 by :meth:`Index.to_numpy`
+UNSIGNED_LEAVES = frozenset({"shift"})
 
 
 def resolve_device(device) -> torch.device:
@@ -101,7 +106,11 @@ class Index:
         leaves = {}
         for name, v in arrays.items():
             v = np.asarray(v)
-            if v.dtype == np.uint64:
+            if v.dtype == np.uint64 and name in UNSIGNED_LEAVES:
+                if (v >= np.uint64(1 << 63)).any():
+                    raise ValueError(f"leaf {name!r} holds a value above the int64 range")
+                leaves[name] = torch.from_numpy(v.astype(np.int64)).to(dev)
+            elif v.dtype == np.uint64:
                 if name not in KEY_LEAVES:
                     raise ValueError(f"leaf {name!r} is uint64 but not a key leaf {sorted(KEY_LEAVES)}")
                 leaves[name] = keymod.encode(v, dev)
@@ -110,12 +119,18 @@ class Index:
         return cls(kind, static, leaves, info)
 
     def to_numpy(self) -> dict:
-        """The leaves as numpy arrays in the reference's layout (key leaves
-        decoded back to uint64)."""
-        return {
-            k: keymod.decode(v) if k in KEY_LEAVES else v.detach().cpu().numpy()
-            for k, v in self.arrays.items()
-        }
+        """The leaves as numpy arrays in the reference's layout: encoded key
+        leaves decode to uint64, unsigned leaves cast back to uint64, the
+        rest keep their dtype."""
+        out = {}
+        for k, v in self.arrays.items():
+            if k in KEY_LEAVES and v.dtype == torch.int64:
+                out[k] = keymod.decode(v)
+            else:
+                out[k] = v.detach().cpu().numpy()
+                if k in UNSIGNED_LEAVES:
+                    out[k] = out[k].astype(np.uint64)
+        return out
 
     # -- queries -------------------------------------------------------------
     def lookup(self, table, queries, *, backend: str = "kernel") -> torch.Tensor:

@@ -3,6 +3,7 @@ of ``repro.index.specs``, for the kinds this package builds)."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 
@@ -11,6 +12,10 @@ class IndexSpec:
     """Base class for all index build specs (hashable, immutable)."""
 
     kind = "?"  # overridden per subclass (class attribute, not a field)
+
+    def display_name(self) -> str:
+        params = ",".join(f"{f.name}={getattr(self, f.name)}" for f in dataclasses.fields(self))
+        return f"{self.kind}[{params}]" if params else self.kind
 
 
 @dataclass(frozen=True)
@@ -22,6 +27,9 @@ class AtomicSpec(IndexSpec):
     @property
     def kind(self) -> str:  # type: ignore[override]
         return {1: "L", 2: "Q", 3: "C"}[self.degree]
+
+    def display_name(self) -> str:
+        return self.kind
 
 
 @dataclass(frozen=True)
@@ -73,3 +81,20 @@ class PGMBicriteriaSpec(IndexSpec):
         if self.space_budget_bytes > 0:
             return int(self.space_budget_bytes)
         return int(self.space_pct / 100.0 * n_keys * 8)
+
+
+@dataclass(frozen=True)
+class RSSpec(IndexSpec):
+    """RadixSpline: greedy ε-spline + radix table over the top r bits."""
+
+    eps: int = 32
+    r_bits: int = 12
+    kind = "RS"
+
+
+@dataclass(frozen=True)
+class BTreeSpec(IndexSpec):
+    """Array-packed static B+-tree baseline."""
+
+    fanout: int = 16
+    kind = "BTREE"

@@ -2,28 +2,38 @@
 (counterpart of ``repro.kernels``).
 
 Each kernel module holds a wrapper (``kary_search``, ``rmi_search``,
-``pgm_search``) that checks its operands, launches the CUDA kernel on
-CUDA tensors (counting launches in the module's ``LAUNCHES``) and runs
-the twin (``_kary_body``, ``_rmi_body``, ``_pgm_body``) on CPU tensors.
+``pgm_search``, ``rs_search``) and its batched counterpart
+(``batched_*``, one launch for a stack of tables) that check their
+operands, launch the CUDA kernel on CUDA tensors (counting launches in
+the module's ``LAUNCHES`` and ``BATCHED_LAUNCHES``) and run the twin
+(``_kary_body``, ``_rmi_body``, ``_pgm_body``, ``_rs_body`` and their
+``_batched_*_body``) on CPU tensors.
 The library is built from ``csrc/`` at first use
 (:mod:`repro_torch.kernels.cuda_lib`); nothing builds at import.
 """
 
-from . import cuda_lib, kary_search, ops, pgm_search, ref, rmi_search
+from . import cuda_lib, kary_search, ops, pgm_search, ref, rmi_search, rs_search
 
 #: the kernel modules whose ``LAUNCHES`` count the main path's launches
-KERNEL_MODULES = (kary_search, rmi_search, pgm_search)
+KERNEL_MODULES = (kary_search, rmi_search, pgm_search, rs_search)
 
 
 def reset_launches() -> None:
     for mod in KERNEL_MODULES:
         mod.LAUNCHES = 0
+        mod.BATCHED_LAUNCHES = 0
 
 
 def launches() -> dict:
-    """Kernel module name -> launches since the last reset."""
-    return {mod.__name__.rsplit(".", 1)[-1]: mod.LAUNCHES for mod in KERNEL_MODULES}
+    """Kernel name -> launches since the last reset: ``<module>`` counts
+    the single-table kernel, ``batched_<module>`` the batched one."""
+    out = {}
+    for mod in KERNEL_MODULES:
+        name = mod.__name__.rsplit(".", 1)[-1]
+        out[name] = mod.LAUNCHES
+        out[f"batched_{name}"] = mod.BATCHED_LAUNCHES
+    return out
 
 
-__all__ = ["cuda_lib", "kary_search", "ops", "pgm_search", "ref", "rmi_search",
+__all__ = ["cuda_lib", "kary_search", "ops", "pgm_search", "ref", "rmi_search", "rs_search",
            "KERNEL_MODULES", "reset_launches", "launches"]

@@ -26,7 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("kary_search.cu", "rmi_search.cu", "pgm_search.cu")
+SOURCES = ("kary_search.cu", "rmi_search.cu", "pgm_search.cu", "rs_search.cu")
+#: included by every source: part of the digest, not compiled on its own
+HEADERS = ("search_common.cuh",)
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -40,17 +42,41 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 
 #: C entry points and their argument types (see each source's launcher)
 SIGNATURES = {
     # table, n, queries, nq, steps, out, stream
     "kary_search_launch": (_P, _I, _P, _L, _I, _P, _P),
+    # tables, n_tables, n, queries, q_stride, nq, steps, out, stream
+    "batched_kary_search_launch": (_P, _I, _I, _P, _L, _L, _I, _P, _P),
     # u, queries, nq, table, n, root, slope, icept, eps, rlo, rhi, b,
     # b_over_n, steps, out, stream
-    "rmi_search_launch": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, ctypes.c_double, _I, _P, _P),
+    "rmi_search_launch": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P),
+    # u, queries, q_stride, nq, n_tables, tables, n, root, slope, icept,
+    # eps, rlo, rhi, b, b_over_n, steps, out, stream
+    "batched_rmi_search_launch": (
+        _P, _P, _L, _L, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P
+    ),
     # u, queries, nq, table, n, keys, u0, slope, rank0, off, off_r, sizes,
     # eps, levels, steps, out, stream
     "pgm_search_launch": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    # u, queries, q_stride, nq, n_tables, tables, n, keys, u0, slope, kn,
+    # rank0, rn, off, off_r, sizes, eps, levels, steps, out, stream
+    "batched_pgm_search_launch": (
+        _P, _P, _L, _L, _I, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P
+    ),
+    # u, queries, prefix, nq, table, n, knots, u0, slope, ranks, mk, radix,
+    # radix_len, m_valid, eps, ksteps, steps, out, stream
+    "rs_search_launch": (
+        _P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P
+    ),
+    # u, queries, q_stride, prefix, nq, n_tables, tables, n, knots, u0,
+    # slope, ranks, mk, radix, radix_len, m_valid, eps, ksteps, steps, out,
+    # stream
+    "batched_rs_search_launch": (
+        _P, _P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P
+    ),
 }
 
 _lib = None
@@ -66,7 +92,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()
 
@@ -131,16 +157,56 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
 
 
-def require(t, name: str, dtype, device, numel=None) -> None:
-    """Validate one kernel operand: a contiguous 1-D tensor of ``dtype``
-    on ``device`` (and of ``numel`` elements when given)."""
+def _require_tensor(t, name: str, dtype, device) -> None:
     if not torch.is_tensor(t):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def require(t, name: str, dtype, device, numel=None) -> None:
+    """Validate one kernel operand: a contiguous 1-D tensor of ``dtype``
+    on ``device`` (and of ``numel`` elements when given)."""
+    _require_tensor(t, name, dtype, device)
     if t.dim() != 1 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 1-D tensor, got shape {tuple(t.shape)}")
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{name} must hold {numel} elements, got {t.numel()}")
+
+
+def require_rows(t, name: str, dtype, device, rows: int, cols=None) -> None:
+    """Validate one batched kernel operand: a contiguous 2-D tensor of
+    ``dtype`` on ``device`` with ``rows`` rows (and ``cols`` columns when
+    given), one row per table."""
+    _require_tensor(t, name, dtype, device)
+    if t.dim() != 2 or not t.is_contiguous() or t.shape[0] != rows:
+        raise ValueError(f"{name} must be a contiguous ({rows}, m) tensor, got {tuple(t.shape)}")
+    if cols is not None and t.shape[1] != cols:
+        raise ValueError(f"{name} must have {cols} columns, got {t.shape[1]}")
+
+
+def query_rows(queries, rows: int, device) -> int:
+    """Validate the batched queries: ``(rows, B)`` int64 on ``device``,
+    each row contiguous, rows either packed or one row broadcast (stride
+    0, from ``expand``).  Returns the row stride the kernels take."""
+    _require_tensor(queries, "queries", torch.int64, device)
+    if queries.dim() != 2 or queries.shape[0] != rows:
+        raise ValueError(f"queries must be ({rows}, B), got {tuple(queries.shape)}")
+    row_stride, col_stride = queries.stride()
+    if col_stride != 1 and queries.shape[1] > 1:
+        raise ValueError("each row of queries must be contiguous")
+    if row_stride not in (0, queries.shape[1]) and rows > 1:
+        raise ValueError("queries must be packed rows or one row broadcast to every table")
+    return row_stride if rows > 1 else queries.shape[1]
+
+
+def launch(fn: str, device, *args) -> None:
+    """Call the C launcher ``fn`` on ``device``'s current stream and raise
+    when it reports a CUDA error."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    check(rc, fn)

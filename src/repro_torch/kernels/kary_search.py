@@ -1,11 +1,13 @@
 """Model-free predecessor search over the whole table — the kernel backend
-of the L, Q, C and KO kinds (CUDA source: ``csrc/kary_search.cu``).
+of the L, Q, C, KO and BTREE kinds, and the batched backend of every kind
+without a fused batched kernel (CUDA source: ``csrc/kary_search.cu``).
 
-Replaces ``repro/kernels/kary_search.py:kary_search_pallas``, whose
-lane-wide k = 128 fence compare suits a TPU vector unit.  On the H100 one
-thread answers one query with a branch-free binary search (k = 2): the
-ranks do not depend on k, and a thread's ``ceil(log2 n)`` dependent loads
-touch fewer 32-byte sectors than a warp's 32-fence step.
+Replaces ``repro/kernels/kary_search.py:kary_search_pallas`` and
+``batched_kary_search_pallas``, whose lane-wide k = 128 fence compare
+suits a TPU vector unit.  On the H100 one thread answers one query with a
+branch-free binary search (k = 2): the ranks do not depend on k, and a
+thread's ``ceil(log2 n)`` dependent loads touch fewer 32-byte sectors
+than a warp's 32-fence step.
 
 Bound on the H100: bytes — every probe is a dependent gather into a table
 that, at 2^24 keys, lives in HBM.  This first design does nothing about
@@ -20,9 +22,12 @@ import torch
 from repro_torch.core.cdf import ceil_log2
 
 from . import cuda_lib
+from .ref import rows_with_probes
 
 #: kernel launches (CUDA path only); reset by callers that count them
 LAUNCHES = 0
+#: launches of the batched kernel (CUDA path only)
+BATCHED_LAUNCHES = 0
 
 
 def _kary_body(q, t, *, n: int, steps: int, probes=None):
@@ -68,13 +73,50 @@ def kary_search(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
     if queries.numel() == 0:
         return out
-    lib = cuda_lib.library()
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.kary_search_launch(
-            table.data_ptr(), n, queries.data_ptr(), queries.numel(), steps, out.data_ptr(), stream
-        )
-    cuda_lib.check(rc, "kary_search_kernel")
+    cuda_lib.launch("kary_search_launch", queries.device, table.data_ptr(), n, queries.data_ptr(),
+                    queries.numel(), steps, out.data_ptr())
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def _batched_kary_body(q, tables, *, n: int, steps: int, probes=None):
+    """The batched kernel's arithmetic: :func:`_kary_body` on each row of
+    the ``(n_tables, n)`` tables with the same row of the queries."""
+    return rows_with_probes(
+        tables, probes, lambda t, p: _kary_body(q[t], tables[t], n=n, steps=steps, probes=p)
+    )
+
+
+def batched_kary_search_plain(tables: torch.Tensor, queries: torch.Tensor, *, probes=None):
+    """The batched twin on the wrapper's operands, on any device."""
+    n = tables.shape[1]
+    return _batched_kary_body(queries, tables, n=n, steps=ceil_log2(n), probes=probes)
+
+
+def batched_kary_search(tables: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Predecessor ranks ``(n_tables, B)`` (int32) of each row of encoded
+    ``queries`` over the same row of the encoded sorted ``(n_tables, n)``
+    ``tables``, in one launch.  ``queries`` may be one ``(B,)`` batch
+    ``expand``-ed to every table.  CPU tensors take the plain twin; CUDA
+    tensors launch the kernel."""
+    dev = queries.device
+    nt = tables.shape[0] if tables.dim() == 2 else -1
+    cuda_lib.require_rows(tables, "tables", torch.int64, dev, nt)
+    q_stride = cuda_lib.query_rows(queries, nt, dev)
+    n = tables.shape[1]
+    if n == 0 or n >= 2**31:
+        raise ValueError(f"tables must hold 1 .. 2**31-1 keys a row, got {n}")
+    if dev.type == "cpu":
+        return batched_kary_search_plain(tables, queries)
+    if dev.type != "cuda":
+        raise ValueError(f"batched_kary_search runs on cuda or cpu tensors, not {dev}")
+    nq = queries.shape[1]
+    out = torch.empty((nt, nq), dtype=torch.int32, device=dev)
+    if nq == 0 or nt == 0:
+        return out
+    cuda_lib.launch("batched_kary_search_launch", dev, tables.data_ptr(), nt, n,
+                    queries.data_ptr(), q_stride, nq, ceil_log2(n), out.data_ptr())
+    global BATCHED_LAUNCHES
+    BATCHED_LAUNCHES += 1
     return out

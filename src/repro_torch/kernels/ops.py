@@ -114,3 +114,51 @@ def pgm_kernel_arrays(model, table_np: np.ndarray):
         "inv_span": inv_span,
     }
     return arrays, steps
+
+
+def rs_kernel_arrays(model, table_np: np.ndarray):
+    """Re-encode a :class:`~repro_torch.core.radix_spline.RSModel` for the
+    fused RadixSpline kernel.  Interpolation between knots is re-anchored
+    in f32 ``u`` space with a per-knot-segment slope,
+    ``pred = y1 + slope_j * max(u - u0_j, 0)``; the error of that exact
+    arithmetic is re-measured at every table key *and* at every knot
+    evaluated under its left neighbour's segment (the boundary a query
+    just below a knot reaches), and ε widens to match.
+
+    Returns ``(arrays, steps)``: f32 ``u0``/``slope`` per knot, the
+    widened scalar ``eps`` and the f64 ``kmin``/``inv_span`` of ``u``;
+    ``steps`` is the unbucketed trip count of the table search."""
+    n = model.n
+    m = model.m
+    knot_keys = np.asarray(model.knot_keys)[:m]
+    knot_ranks = np.asarray(model.knot_ranks)[:m]
+    kmin = np.float64(np.asarray(model.kmin))
+    span = np.float64(table_np[-1]) - kmin
+    inv_span = np.float64(1.0) / span if span > 0 else np.float64(1.0)
+
+    def u_of(keys_u64):
+        u = (keys_u64.astype(np.float64) - kmin) * inv_span
+        return np.clip(u, 0.0, 1.0).astype(np.float32)
+
+    u0 = u_of(knot_keys)
+    slope = np.zeros(m, dtype=np.float32)
+    if m >= 2:
+        dy = (knot_ranks[1:] - knot_ranks[:-1]).astype(np.float32)
+        du = u0[1:] - u0[:-1]
+        # knot pairs that collide in f32 u predict y1 flat; the measured
+        # ε absorbs the rank span they cover
+        np.divide(dy, du, out=slope[:-1], where=du > 0)
+        j = np.clip(np.searchsorted(knot_keys, table_np, side="right") - 1, 0, m - 2)
+        y1 = knot_ranks[j].astype(np.float32)
+        pred = y1 + slope[j] * np.maximum(u_of(table_np) - u0[j], np.float32(0.0))
+        err = np.abs(pred.astype(np.float64) - np.arange(n, dtype=np.float64))
+        # boundary extension: each knot under its left segment's model
+        pred_b = knot_ranks[:-1].astype(np.float32) + slope[:-1] * np.maximum(du, np.float32(0.0))
+        err_b = np.abs(pred_b.astype(np.float64) - knot_ranks[1:].astype(np.float64))
+        max_err = max(float(err.max()), float(err_b.max()))
+        eps = int(min(np.ceil(max_err) + 2, n))
+    else:
+        eps = max(int(n), 1)
+    steps = ceil_log2(min(2 * eps + 3, max(n, 2)))
+    arrays = {"u0": u0, "slope": slope, "eps": eps, "kmin": kmin, "inv_span": inv_span}
+    return arrays, steps

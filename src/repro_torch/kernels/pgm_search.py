@@ -1,8 +1,8 @@
 """Fused PGM descent — the kernel backend of the PGM and PGM_M kinds
 (CUDA source: ``csrc/pgm_search.cu``).
 
-Replaces ``repro/kernels/pgm_search.py:fused_pgm_search_pallas``.  Per
-query, top-down over ``levels``: gather the current segment's f32 anchor
+Replaces ``repro/kernels/pgm_search.py:fused_pgm_search_pallas`` and
+``batched_pgm_search_pallas``.  Per query, top-down over ``levels``: gather the current segment's f32 anchor
 ``u0``, slope and rank fences ``r0``/``r1``, predict
 ``r0 + slope * max(u - u0, 0)`` in f32, clamp the centre into
 ``[r0 - 1, r1 - 1]``, widen by ``ε + 1``, and run an upper-bound search
@@ -24,9 +24,12 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .ref import rows_with_probes
 
 #: kernel launches (CUDA path only); reset by callers that count them
 LAUNCHES = 0
+#: launches of the batched kernel (CUDA path only)
+BATCHED_LAUNCHES = 0
 
 
 def _bounded_ub(keys, q, base, length, *, steps: int, probes=None):
@@ -117,16 +120,76 @@ def pgm_search(u, queries, table, keys, u0, slope, rank0, off, off_r, sizes, eps
     out = torch.empty(queries.shape, dtype=torch.int32, device=dev)
     if nq == 0:
         return out
-    lib = cuda_lib.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pgm_search_launch(
-            u.data_ptr(), queries.data_ptr(), nq, table.data_ptr(), n,
-            keys.data_ptr(), u0.data_ptr(), slope.data_ptr(), rank0.data_ptr(),
-            off.data_ptr(), off_r.data_ptr(), sizes.data_ptr(), eps.data_ptr(),
-            levels, steps, out.data_ptr(), stream,
-        )
-    cuda_lib.check(rc, "pgm_search_kernel")
+    cuda_lib.launch(
+        "pgm_search_launch", dev, u.data_ptr(), queries.data_ptr(), nq, table.data_ptr(), n,
+        keys.data_ptr(), u0.data_ptr(), slope.data_ptr(), rank0.data_ptr(),
+        off.data_ptr(), off_r.data_ptr(), sizes.data_ptr(), eps.data_ptr(),
+        levels, steps, out.data_ptr(),
+    )
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def _batched_pgm_body(u, q, tables, keys, u0_a, slope_a, r0_a, off, off_r, sizes, eps, *,
+                      levels: int, n: int, steps: int, probes=None):
+    """The batched kernel's arithmetic: :func:`_pgm_body` on each table row
+    with that row of every stacked leaf (``eps`` holds one ε a table)."""
+    return rows_with_probes(
+        tables, probes,
+        lambda t, p: _pgm_body(u[t], q[t], tables[t], keys[t], u0_a[t], slope_a[t], r0_a[t],
+                               off[t], off_r[t], sizes[t], eps[t:t + 1], levels=levels, n=n,
+                               steps=steps, probes=p),
+    )
+
+
+def batched_pgm_search_plain(u, queries, tables, keys, u0, slope, rank0, off, off_r, sizes, eps,
+                             *, levels: int, steps: int, probes=None):
+    """The batched twin on the wrapper's operands, on any device."""
+    return _batched_pgm_body(u, queries, tables, keys, u0, slope, rank0, off, off_r, sizes, eps,
+                             levels=levels, n=tables.shape[1], steps=steps, probes=probes)
+
+
+def batched_pgm_search(u, queries, tables, keys, u0, slope, rank0, off, off_r, sizes, eps, *,
+                       levels: int, steps: int):
+    """Predecessor ranks ``(n_tables, B)`` (int32) through the batched PGM
+    descent, one launch for every table: row ``t`` of ``u`` and
+    ``queries`` against row ``t`` of the ``(n_tables, n)`` ``tables`` and
+    of the stacked leaves and directories (int32), with ``eps`` an
+    ``(n_tables,)`` int32 tensor.  ``levels`` is common to the tables
+    (lifted at stack time) and ``steps`` covers the widest window.
+    ``queries`` may be one ``(B,)`` batch ``expand``-ed to every table.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    dev = queries.device
+    nt = tables.shape[0] if tables.dim() == 2 else -1
+    cuda_lib.require_rows(tables, "tables", torch.int64, dev, nt)
+    q_stride = cuda_lib.query_rows(queries, nt, dev)
+    n, nq, kn = tables.shape[1], queries.shape[1], keys.shape[-1]
+    cuda_lib.require_rows(u, "u", torch.float32, dev, nt, nq)
+    cuda_lib.require_rows(keys, "keys", torch.int64, dev, nt)
+    cuda_lib.require_rows(u0, "u0", torch.float32, dev, nt, kn)
+    cuda_lib.require_rows(slope, "slope", torch.float32, dev, nt, kn)
+    cuda_lib.require_rows(rank0, "rank0", torch.int32, dev, nt)
+    cuda_lib.require_rows(off, "off", torch.int32, dev, nt, levels + 1)
+    cuda_lib.require_rows(off_r, "off_r", torch.int32, dev, nt, levels + 1)
+    cuda_lib.require_rows(sizes, "sizes", torch.int32, dev, nt, levels)
+    cuda_lib.require(eps, "eps", torch.int32, dev, nt)
+    if n == 0 or n >= 2**31 or levels < 1:
+        raise ValueError(f"need 1 .. 2**31-1 keys a table and >= 1 level, got n={n}, levels={levels}")
+    if dev.type == "cpu":
+        return batched_pgm_search_plain(u, queries, tables, keys, u0, slope, rank0, off, off_r,
+                                        sizes, eps, levels=levels, steps=steps)
+    if dev.type != "cuda":
+        raise ValueError(f"batched_pgm_search runs on cuda or cpu tensors, not {dev}")
+    out = torch.empty((nt, nq), dtype=torch.int32, device=dev)
+    if nq == 0 or nt == 0:
+        return out
+    cuda_lib.launch(
+        "batched_pgm_search_launch", dev, u.data_ptr(), queries.data_ptr(), q_stride, nq, nt,
+        tables.data_ptr(), n, keys.data_ptr(), u0.data_ptr(), slope.data_ptr(), kn,
+        rank0.data_ptr(), rank0.shape[1], off.data_ptr(), off_r.data_ptr(), sizes.data_ptr(),
+        eps.data_ptr(), levels, steps, out.data_ptr(),
+    )
+    global BATCHED_LAUNCHES
+    BATCHED_LAUNCHES += 1
     return out

@@ -1,8 +1,8 @@
 """Fused RMI predict + ε-bounded search — the kernel backend of the RMI and
 SY-RMI kinds (CUDA source: ``csrc/rmi_search.cu``).
 
-Replaces ``repro/kernels/rmi_search.py:fused_rmi_search_pallas``.  Per
-query: the f32 cubic root in Horner form on the pre-normalised ``u``
+Replaces ``repro/kernels/rmi_search.py:fused_rmi_search_pallas`` and
+``batched_rmi_search_pallas``.  Per query: the f32 cubic root in Horner form on the pre-normalised ``u``
 picks a leaf, the leaf's f32 line predicts the rank, the centre is
 clamped into the leaf's rank fences and widened by the leaf's ε, and a
 fixed-trip Khuong–Morin search over that window returns the predecessor
@@ -24,9 +24,12 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .ref import rows_with_probes
 
 #: kernel launches (CUDA path only); reset by callers that count them
 LAUNCHES = 0
+#: launches of the batched kernel (CUDA path only)
+BATCHED_LAUNCHES = 0
 
 
 def _rmi_leaf(p_root, *, b: int, n: int):
@@ -113,16 +116,68 @@ def rmi_search(u, queries, table, root, slope, icept, eps, rlo, rhi, *, steps: i
     out = torch.empty(queries.shape, dtype=torch.int32, device=dev)
     if nq == 0:
         return out
-    lib = cuda_lib.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rmi_search_launch(
-            u.data_ptr(), queries.data_ptr(), nq, table.data_ptr(), n,
-            root.data_ptr(), slope.data_ptr(), icept.data_ptr(), eps.data_ptr(),
-            rlo.data_ptr(), rhi.data_ptr(), b, b / n, steps,
-            out.data_ptr(), stream,
-        )
-    cuda_lib.check(rc, "rmi_search_kernel")
+    cuda_lib.launch(
+        "rmi_search_launch", dev, u.data_ptr(), queries.data_ptr(), nq, table.data_ptr(), n,
+        root.data_ptr(), slope.data_ptr(), icept.data_ptr(), eps.data_ptr(),
+        rlo.data_ptr(), rhi.data_ptr(), b, b / n, steps, out.data_ptr(),
+    )
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def _batched_rmi_body(u, q, tables, c, slope_a, icept_a, eps_a, rlo_a, rhi_a, *, b: int, n: int,
+                      steps: int, probes=None):
+    """The batched kernel's arithmetic: :func:`_rmi_body` on each table row
+    with that row of every stacked leaf."""
+    return rows_with_probes(
+        tables, probes,
+        lambda t, p: _rmi_body(u[t], q[t], tables[t], c[t], slope_a[t], icept_a[t], eps_a[t],
+                               rlo_a[t], rhi_a[t], b=b, n=n, steps=steps, probes=p),
+    )
+
+
+def batched_rmi_search_plain(u, queries, tables, root, slope, icept, eps, rlo, rhi, *,
+                             steps: int, probes=None):
+    """The batched twin on the wrapper's operands, on any device."""
+    return _batched_rmi_body(u, queries, tables, root, slope, icept, eps, rlo, rhi,
+                             b=slope.shape[1], n=tables.shape[1], steps=steps, probes=probes)
+
+
+def batched_rmi_search(u, queries, tables, root, slope, icept, eps, rlo, rhi, *, steps: int):
+    """Predecessor ranks ``(n_tables, B)`` (int32) through the batched
+    fused RMI kernel, one launch for every table: row ``t`` of ``u`` and
+    ``queries`` against row ``t`` of the ``(n_tables, n)`` ``tables`` and
+    of the stacked ``k_*`` leaves.  ``queries`` may be one ``(B,)`` batch
+    ``expand``-ed to every table; ``steps`` covers the widest table's
+    window.  CPU tensors take the plain twin; CUDA tensors launch the
+    kernel."""
+    dev = queries.device
+    nt = tables.shape[0] if tables.dim() == 2 else -1
+    cuda_lib.require_rows(tables, "tables", torch.int64, dev, nt)
+    q_stride = cuda_lib.query_rows(queries, nt, dev)
+    n, nq, b = tables.shape[1], queries.shape[1], slope.shape[-1]
+    cuda_lib.require_rows(u, "u", torch.float32, dev, nt, nq)
+    cuda_lib.require_rows(root, "root", torch.float32, dev, nt, 4)
+    for name, arr in (("slope", slope), ("icept", icept)):
+        cuda_lib.require_rows(arr, name, torch.float32, dev, nt, b)
+    for name, arr in (("eps", eps), ("rlo", rlo), ("rhi", rhi)):
+        cuda_lib.require_rows(arr, name, torch.int32, dev, nt, b)
+    if n == 0 or n >= 2**31 or b == 0:
+        raise ValueError(f"need 1 .. 2**31-1 keys a table and >= 1 leaf, got n={n}, b={b}")
+    if dev.type == "cpu":
+        return batched_rmi_search_plain(u, queries, tables, root, slope, icept, eps, rlo, rhi,
+                                        steps=steps)
+    if dev.type != "cuda":
+        raise ValueError(f"batched_rmi_search runs on cuda or cpu tensors, not {dev}")
+    out = torch.empty((nt, nq), dtype=torch.int32, device=dev)
+    if nq == 0 or nt == 0:
+        return out
+    cuda_lib.launch(
+        "batched_rmi_search_launch", dev, u.data_ptr(), queries.data_ptr(), q_stride, nq, nt,
+        tables.data_ptr(), n, root.data_ptr(), slope.data_ptr(), icept.data_ptr(),
+        eps.data_ptr(), rlo.data_ptr(), rhi.data_ptr(), b, b / n, steps, out.data_ptr(),
+    )
+    global BATCHED_LAUNCHES
+    BATCHED_LAUNCHES += 1
     return out

@@ -76,8 +76,10 @@ def assert_same_index(ref, port):
 
 
 def test_registry_order_matches_reference():
-    assert tix.kinds() == PORTED
-    assert tuple(k for k in rix.kinds() if k in PORTED) == PORTED
+    # every static kind of the reference, in its order; RS and BTREE are
+    # held in test_torch_rs_btree.py, GAPPED is not ported yet
+    assert tix.kinds() == PORTED + ("RS", "BTREE")
+    assert tuple(k for k in rix.kinds() if k != "GAPPED") == tix.kinds()
 
 
 @pytest.mark.parametrize("table_kind", TABLE_KINDS)
@@ -147,9 +149,9 @@ def test_from_numpy_takes_reference_leaves():
 def test_from_numpy_rejects_unported_kinds_and_stray_uint64():
     rng = np.random.default_rng(4)
     table = make_table(rng, "uniform", 1024)
-    rs = rix.build(rix.RSSpec(eps=16, r_bits=8), table)
+    gapped = rix.build("GAPPED", table, leaf_cap=64, delta_cap=128)
     with pytest.raises(ValueError, match="unknown index kind"):
-        tix.Index.from_numpy(rs.kind, rs.static, ref_leaves(rs), device="cpu")
+        tix.Index.from_numpy(gapped.kind, gapped.static, ref_leaves(gapped), device="cpu")
     ko = rix.build(rix.KOSpec(k=4), table)
     leaves = ref_leaves(ko)
     leaves["coef"] = leaves["fences"]  # a uint64 array where no key leaf belongs

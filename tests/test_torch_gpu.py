@@ -14,11 +14,15 @@ import torch
 
 from repro_torch import index as tix
 from repro_torch import kernels
+from repro_torch import tune
 from repro_torch.core import as_table, true_ranks
 
-KINDS = ("L", "Q", "C", "KO", "RMI", "SY-RMI", "PGM", "PGM_M")
+KINDS = ("L", "Q", "C", "KO", "RMI", "SY-RMI", "PGM", "PGM_M", "RS", "BTREE")
 KERNEL_OF = {"L": "kary_search", "Q": "kary_search", "C": "kary_search", "KO": "kary_search",
-             "RMI": "rmi_search", "SY-RMI": "rmi_search", "PGM": "pgm_search", "PGM_M": "pgm_search"}
+             "RMI": "rmi_search", "SY-RMI": "rmi_search", "PGM": "pgm_search", "PGM_M": "pgm_search",
+             "RS": "rs_search", "BTREE": "kary_search"}
+#: kinds with a fused batched kernel; the others take the batched model-free search
+FUSED_BATCHED = ("RMI", "SY-RMI", "PGM", "PGM_M", "RS")
 
 
 def _table(rng, kind: str, n: int) -> np.ndarray:
@@ -77,7 +81,7 @@ def test_ragged_tail_is_masked(cuda):
     table = _table(rng, "lognormal", 4096)
     for nq in (1, 255, 257, 1000):
         qs = rng.choice(table, nq)
-        for kind in ("KO", "RMI", "PGM"):
+        for kind in ("KO", "RMI", "PGM", "RS"):
             idx = tix.build(kind, table, device=cuda)
             got = idx.lookup(table, qs, backend="kernel").cpu().numpy()
             np.testing.assert_array_equal(got, true_ranks(table, qs), err_msg=f"{kind}/{nq}")
@@ -92,3 +96,44 @@ def test_rmi_leaf_boundary_table_is_exact(cuda):
     idx = tix.build(tix.RMISpec(b=len(table) // 2), table, device=cuda)
     got = idx.lookup(table, table, backend="kernel").cpu().numpy()
     np.testing.assert_array_equal(got, np.arange(len(table)))
+
+
+def _batched_kernel(kind: str) -> str:
+    return "batched_" + (KERNEL_OF[kind] if kind in FUSED_BATCHED else "kary_search")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ragged", (False, True))
+@pytest.mark.parametrize("kind", KINDS)
+def test_batched_kernel_matches_twin_and_ref_on_card(cuda, kind, ragged):
+    rng = np.random.default_rng(33)
+    sizes = (65536, 30000, 50000) if ragged else (65536, 65536, 65536)
+    tables = [_table(rng, k, n) for k, n in zip(("uniform", "clustered", "bursty"), sizes)]
+    qs = _queries(rng, np.concatenate(tables))
+    bm = tune.build_many(kind, tables, device=cuda)
+    twin = tune.build_many(kind, tables, device="cpu")
+    kernels.reset_launches()
+    got = bm.lookup(qs, backend="kernel")
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert counts[_batched_kernel(kind)] == 1
+    assert sum(counts.values()) == 1
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got, twin.lookup(qs, backend="kernel").numpy())
+    np.testing.assert_array_equal(got, bm.lookup(qs, backend="ref").cpu().numpy())
+    for i, t in enumerate(tables):
+        np.testing.assert_array_equal(got[i], true_ranks(t, qs), err_msg=f"{kind}/{i}")
+
+
+@pytest.mark.gpu
+def test_batched_ragged_tail_and_row_queries(cuda):
+    rng = np.random.default_rng(34)
+    tables = [_table(rng, "lognormal", 4096) for _ in range(3)]
+    for kind in ("BTREE", "RMI", "PGM", "RS"):
+        bm = tune.build_many(kind, tables, device=cuda)
+        for nq in (1, 255, 257, 1000):
+            rows = np.stack([rng.choice(t, nq) for t in tables])
+            got = bm.lookup(rows, backend="kernel").cpu().numpy()
+            for i, t in enumerate(tables):
+                np.testing.assert_array_equal(got[i], true_ranks(t, rows[i]), err_msg=f"{kind}/{nq}")
