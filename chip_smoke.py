@@ -5,9 +5,13 @@ Drives the port's two query paths — one index over one table
 (``Index.lookup(table, queries, backend="kernel")``) and one spec over a
 tier of tables (``tune.build_many(...)`` then
 ``BatchedIndexes.lookup(queries, backend="kernel")``, one batched launch
-for every table) — and holds every CUDA kernel on them against its plain
-PyTorch twin and against ``torch.searchsorted``, bit for bit (predecessor
-ranks are integers: the tolerance is zero).
+for every table) — and holds every CUDA search kernel on them against its
+plain PyTorch twin and against ``torch.searchsorted``, bit for bit
+(predecessor ranks are integers: the tolerance is zero).  Then it serves
+qwen2-0.5b at full width through ``DecodeEngine`` (the LM serving path,
+whose attention is the hand-written ``decode_attention`` kernel) and
+drives ``ops.embedding_bag``, holding both float kernels against their
+twins within the tolerances stated below.
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -35,12 +39,35 @@ Phases (any failure ends the run with a non-zero exit):
                batched ``torch.searchsorted``, ``unstack()`` against
                per-shard builds, times and bounds; and a locality probe:
                the single-table model-free kernel over the whole table
-               with the tier's queries in shard order and shuffled.
+               with the tier's queries in shard order and shuffled;
+6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
+               (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128), ragged
+               ``kv_len`` with 0, 1 and S, S not a tile multiple; and
+               ``embedding_bag`` on the reference test's shapes with unsorted
+               bags, ids and bags out of range and ``weights=None``: kernel
+               against twin on the card (tolerances in ``ATT_TOL``/``BAG_TOL``);
+7. serve     — qwen2-0.5b at full width (24 layers, d 896, 14/2 heads, random
+               weights from a seeded generator, bf16 compute) in a
+               ``DecodeEngine`` of 8 slots and a 32,768-position cache: 16
+               requests of 3-10 prompt tokens, and one of 700 queued first
+               (the first ticks attend over three tiles), 16 new tokens
+               each.  Every request must finish with 16 tokens and finite
+               logits; ``decode_attention`` must launch n_layers x (prefill
+               steps + ticks) times; the first 4 decode ticks are re-run
+               from the same cache with ``backend="ref"``
+               (``SERVE_ATOL``/``SERVE_RTOL``); ms a tick, tokens/s, and
+               the kernel's share of a step at the last and the first
+               ticks' positions (CUDA events);
+8. kernel times — ``decode_attention`` at qwen2's ``decode_32k`` cell and at
+               ``benchmarks/kernel_roofline.py``'s shape, ``ops.embedding_bag``
+               (its path) at that benchmark's shape and on a 2 GiB table:
+               kernel / twin / library call times, bounds, and the twin check.
 
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
-with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 5 on the CPU
-twins at a tiny size (no device result is printed).
+with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 8 on the CPU
+twins at a tiny size, phase 7 on the reduced qwen2-0.5b (no device result
+is printed).
 """
 
 from __future__ import annotations
@@ -114,6 +141,31 @@ KERNELS = {
         "headline": "RS",
     },
 }
+#: the LM serving path's kernels (phases 6-8), each with its main path
+SERVE_KERNELS = {
+    "decode_attention": {
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:85",
+        "path": "DecodeEngine -> decode_step (phase 7)",
+    },
+    "embedding_bag": {
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:56",
+        "path": "ops.embedding_bag (phase 8)",
+    },
+}
+#: kernel against twin, as (atol, rtol).  f32 attention: sums in another
+#: order (2e-5); bf16: both round one f32 result to bf16, so at most one
+#: bf16 ulp, 2^-7 of the value (rtol 8e-3), plus f32 noise near 0 (atol
+#: 1e-4); the bag's atomics add in a run-dependent order (3e-5, the
+#: reference test's tolerance).  ``assert_allclose`` semantics:
+#: |a-b| <= atol + rtol|b|.
+ATT_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 8e-3)}
+BAG_TOL = 3e-5
+#: serve logits, kernel path against the reference math (``backend="ref"``,
+#: which rounds the attention logits and weights to bf16): a few bf16 ulps
+#: at |logit| ~ 4, accumulated over 24 layers
+SERVE_ATOL, SERVE_RTOL = 0.25, 0.05
 SINGLE = tuple(k for k in KERNELS if not k.startswith("batched_"))
 BATCHED = tuple(k for k in KERNELS if k.startswith("batched_"))
 KERNEL_OF = {k: name for name in SINGLE for k in KERNELS[name]["kinds"]}
@@ -535,6 +587,361 @@ def locality_probe(dev, tables: dict, tiers: dict) -> dict:
     return out
 
 
+# -- the LM serving path's kernels (phases 6-8) ----------------------------------------
+
+
+def float_bound(n_bytes: int, n_ops: int) -> dict:
+    """Least time for a float kernel call: bytes over the HBM rate against
+    f32 operations over the non-tensor f32 rate (both kernels use the f32
+    units, not the tensor cores)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def attention_bound(q, k, kv_len) -> dict:
+    """q read and out written once; the K and V rows of each row's first
+    ``kv_len`` positions read once; 2 multiply-adds (4 ops) a query head,
+    position and dimension (logits and PV)."""
+    b, s, hkv, d = k.shape
+    n = int(torch.clamp(kv_len.long(), 0, s).sum())
+    n_bytes = 2 * q.numel() * q.element_size() + 2 * n * hkv * d * k.element_size()
+    return float_bound(n_bytes, 4 * n * q.shape[1] * d)
+
+
+def bag_bound(table, ids, num_bags: int) -> dict:
+    """The distinct in-range table rows read once, 12 bytes an item (id,
+    bag, weight), the output written once; one multiply-add (2 ops) a
+    value gathered."""
+    v, d = table.shape
+    ok = ids[(ids >= 0) & (ids < v)]
+    rows = int(torch.unique(ok).numel())
+    n_bytes = rows * d * 4 + 12 * ids.numel() + num_bags * d * 4
+    return float_bound(n_bytes, 2 * int(ok.numel()) * d)
+
+
+def max_err(got, want, atol, rtol, what: str) -> float:
+    """Max |got - want|; fails unless |got - want| <= atol + rtol |want|
+    everywhere (and both are finite where want is)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) or bool((diff > atol + rtol * w.abs()).any()):
+        fail(f"{what}: kernel vs twin max |err| {float(diff.max())} beyond atol {atol} rtol {rtol}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def attention_inputs(dev, b, hq, hkv, d, s, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+
+
+def phase_float_parity(dev, s: int) -> dict:
+    """Phase 6: each float kernel against its twin on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import _decode_body, decode_attention
+    from repro_torch.kernels.embedding_bag import _bag_body, embedding_bag
+
+    errs = {"decode_attention": 0.0, "embedding_bag": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv, d in ((4, 4, 16), (8, 2, 32), (16, 1, 64), (14, 2, 64), (32, 8, 128)):
+            q, k, v = attention_inputs(dev, 6, hq, hkv, d, s, dtype, seed=hq * d)
+            kv_len = torch.tensor([0, 1, 256, 257, s, s // 2 + 3], dtype=torch.int32, device=dev)
+            got = decode_attention(q, k, v, kv_len)
+            want = _decode_body(q, k, v, kv_len)
+            err = max_err(got, want, *ATT_TOL[dtype],
+                          f"decode_attention {dtype} ({hq},{hkv},{d}) S={s}")
+            if bool((got[0] != 0).any()):
+                fail("decode_attention: a row with kv_len 0 is not 0")
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+    log(f"[float] decode_attention f32 and bf16, 5 head shapes, S={s}, kv_len 0/1/256/257/S: "
+        f"kernel == twin within (atol, rtol) {ATT_TOL[torch.float32]} / "
+        f"{ATT_TOL[torch.bfloat16]} "
+        f"(max |err| {errs['decode_attention']:.3g})")
+
+    rng = np.random.default_rng(2024)
+    for v_, d, n_items, bags in ((100, 8, 50, 4), (1000, 64, 300, 16), (513, 32, 128, 8)):
+        table = torch.from_numpy(rng.normal(size=(v_, d)).astype(np.float32)).to(dev)
+        ids = rng.integers(0, v_, n_items).astype(np.int32)
+        ids[:4] = [-1, v_, v_ + 7, -(2**31)]
+        seg = rng.integers(-1, bags + 1, n_items).astype(np.int32)  # unsorted, some out of range
+        w = rng.normal(size=n_items).astype(np.float32)
+        ids_t, seg_t, w_t = (torch.from_numpy(x).to(dev) for x in (ids, seg, w))
+        for weights in (w_t, None):
+            got = (embedding_bag(table, ids_t, seg_t, w_t, num_bags=bags) if weights is not None
+                   else ops.embedding_bag(table, ids_t, seg_t, num_bags=bags))
+            ww = w_t if weights is not None else torch.ones_like(w_t)
+            want = _bag_body(table, ids_t, seg_t, ww, num_bags=bags)
+            err = max_err(got, want, BAG_TOL, BAG_TOL, f"embedding_bag V={v_} D={d} N={n_items}")
+            errs["embedding_bag"] = max(errs["embedding_bag"], err)
+    log(f"[float] embedding_bag on 3 shapes, unsorted bags, ids and bags out of range, weights "
+        f"given and None: kernel == twin within {BAG_TOL} (max |err| {errs['embedding_bag']:.3g})")
+    return errs
+
+
+def phase_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_requests: int,
+                long_prompt: int, max_new: int, ref_ticks: int) -> dict:
+    """Phase 7: the LM serving path at full width (the main path of
+    ``decode_attention``).  One more request, with a ``long_prompt``-token
+    prompt, is queued first: the engine decodes every slot at the largest
+    slot position, so the first ticks (those re-run on the reference math)
+    attend over several 256-position tiles."""
+    from repro_torch import configs, kernels
+    from repro_torch.kernels.decode_attention import _decode_body, decode_attention
+    from repro_torch.models import transformer
+    from repro_torch.serve import DecodeEngine, Request
+
+    cfg = configs.get(arch, reduced=reduced).config
+    t0 = time.perf_counter()
+    params = transformer.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    eng = DecodeEngine(params, cfg, batch_slots=slots, max_seq=max_seq)
+    del params  # the engine holds its bf16 compute copy
+    cache_bytes = sum(c.numel() * c.element_size() for c in eng.cache.values())
+    log(f"[serve] {arch}{' (reduced)' if reduced else ''}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.params_count} params ({cfg.param_dtype} init, {cfg.dtype} compute); "
+        f"{slots} slots x {max_seq} positions, cache {cache_bytes / 2**30:.2f} GiB; "
+        f"set up in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(3, 10)).astype(np.int32),
+                    max_new_tokens=max_new) for i in range(n_requests)]
+    reqs.insert(0, Request(rid=n_requests, max_new_tokens=max_new,
+                           prompt=rng.integers(0, cfg.vocab, long_prompt).astype(np.int32)))
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    saved = []  # (cache copy, tokens, pos, kernel logits) before the first decode ticks
+    decode, prefill = eng._decode, eng._prefill_tok
+
+    def on_decode(params, cache, tokens, pos_per_slot):
+        nonlocal finite
+        before = ({kv: c.clone() for kv, c in cache.items()} if len(saved) < ref_ticks else None)
+        logits, cache = decode(params, cache, tokens, pos_per_slot)
+        finite = finite & torch.isfinite(logits).all()
+        if before is not None:
+            saved.append((before, tokens.clone(), int(np.max(pos_per_slot)), logits.clone()))
+        return logits, cache
+
+    def on_prefill(params, cache, tokens, pos):
+        nonlocal finite
+        logits, cache = prefill(params, cache, tokens, pos)
+        finite = finite & torch.isfinite(logits).all()
+        return logits, cache
+
+    eng._decode, eng._prefill_tok = on_decode, on_prefill
+    for r in reqs:
+        eng.submit(r)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    tick_s, admit_tick_s = [], []
+    t_run = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        queued = len(eng.queue)
+        t0 = time.perf_counter()
+        eng.tick()
+        (admit_tick_s if len(eng.queue) < queued else tick_s).append(time.perf_counter() - t0)
+    run_s = time.perf_counter() - t_run
+    launches = kernels.launches()["decode_attention"]
+
+    steps = sum(len(r.prompt) for r in reqs) + eng.ticks
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    if not all(r.done and len(r.out_tokens) == max_new for r in reqs):
+        fail(f"serve: not every request finished with {max_new} tokens: "
+             f"{[len(r.out_tokens) for r in reqs]}")
+    if not bool(finite):
+        fail("serve: a logit was not finite")
+    if dev.type == "cuda" and launches != cfg.n_layers * steps:
+        fail(f"serve: decode_attention launched {launches} times, expected "
+             f"{cfg.n_layers} x {steps} (prefill steps + ticks)")
+    out = {
+        "arch": arch, "reduced": reduced, "n_layers": cfg.n_layers, "slots": slots,
+        "max_seq": max_seq, "requests": len(reqs), "long_prompt": long_prompt, "new_tokens": tokens,
+        "prefill_steps": steps - eng.ticks, "ticks": eng.ticks, "decode_attention_launches": launches,
+        "run_s": run_s, "tokens_per_s": tokens / run_s,
+        "decode_tick_ms": 1e3 * float(np.mean(tick_s)) if tick_s else None,
+        "admit_tick_ms": 1e3 * float(np.mean(admit_tick_s)) if admit_tick_s else None,
+        "metrics": eng.metrics(),
+    }
+    log(f"[serve] {len(reqs)} requests (one of {long_prompt} prompt tokens), {tokens} tokens "
+        f"({steps - eng.ticks} prefill steps, "
+        f"{eng.ticks} ticks) in {run_s:.2f} s: {out['tokens_per_s']:.1f} tokens/s (host clock); "
+        f"decode-only tick {out['decode_tick_ms']} ms, tick with admissions "
+        f"{out['admit_tick_ms']} ms; decode_attention launches {launches} = {cfg.n_layers} x {steps}")
+
+    # the first decode ticks again, from the same cache, on the reference math
+    worst, agree = 0.0, 0
+    long_pos = saved[0][2]
+    for cache, toks, pos, got in saved:
+        want, _ = transformer.decode_step(eng.params, cache, toks, pos, cfg, backend="ref")
+        diff = (got - want).abs()
+        if bool((diff > SERVE_ATOL + SERVE_RTOL * want.abs()).any()):
+            fail(f"serve: tick at pos {pos}: kernel logits vs ref max |err| {float(diff.max())}")
+        worst = max(worst, float(diff.max()))
+        agree += int((got.argmax(1) == want.argmax(1)).sum())
+    del saved
+    out.update(ref_ticks=ref_ticks, ref_max_abs_err=worst,
+               ref_argmax_agree=f"{agree}/{ref_ticks * slots}")
+    log(f"[serve] first {ref_ticks} decode ticks (from pos {long_pos}) re-run with backend='ref': "
+        f"logits max |err| "
+        f"{worst:.4g} (atol {SERVE_ATOL}, rtol {SERVE_RTOL}); argmax agrees on {agree}/"
+        f"{ref_ticks * slots} rows")
+
+    # the kernel at the path's own shapes against its twin, and its share of a
+    # step, at the last position served and at the first ticks' (long) one
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((slots, cfg.n_heads, cfg.head_dim), generator=gen, device=dev).to(
+        eng.cache["k"].dtype)
+    k0, v0 = eng.cache["k"][0], eng.cache["v"][0]
+    toks = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+    out["max_abs_err"], out["at_pos"] = 0.0, []
+    for pos in (int(np.max(eng.slot_pos)), long_pos):
+        kv_len = torch.full((slots,), pos + 1, dtype=torch.int32, device=dev)
+        err = max_err(decode_attention(q, k0, v0, kv_len), _decode_body(q, k0, v0, kv_len),
+                      *ATT_TOL[q.dtype], f"serve-shape decode_attention at pos {pos}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        row = {"pos": pos, "step_ms": device_ms(
+            lambda p=pos: transformer.decode_step(eng.params, eng.cache, toks, p, cfg), dev,
+            reps=10, warmup=2),
+            "kernel_ms": device_ms(lambda n=kv_len: decode_attention(q, k0, v0, n), dev)}
+        if row["step_ms"] is not None:
+            row["kernel_share_of_step"] = cfg.n_layers * row["kernel_ms"] / row["step_ms"]
+        out["at_pos"].append(row)
+        log(f"[serve] at pos {pos}: decode_step {row['step_ms']} ms, decode_attention "
+            f"{row['kernel_ms']} ms x {cfg.n_layers} layers = share "
+            f"{row.get('kernel_share_of_step')} of a step (CUDA events); kernel == twin at the "
+            f"path's shapes (max |err| {err:.3g})")
+    del eng
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_attention(dev, label, q, k, v, kv_len) -> dict:
+    from repro_torch.kernels.decode_attention import _decode_body, decode_attention
+
+    got = decode_attention(q, k, v, kv_len)
+    want = _decode_body(q, k, v, kv_len)
+    row = {"case": label, "shape": list(k.shape), "heads": q.shape[1], "dtype": str(q.dtype),
+           "max_abs_err": max_err(got, want, *ATT_TOL[q.dtype], label)}
+    del got, want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(k.shape[1], device=dev)[None, :] < kv_len.long()[:, None])[:, None, None, :]
+    row.update(
+        ms=device_ms(lambda: decode_attention(q, k, v, kv_len), dev),
+        plain_ms=device_ms(lambda: _decode_body(q, k, v, kv_len), dev, reps=5, warmup=1),
+        library_ms=device_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), dev,
+                             reps=5, warmup=1),
+    )
+    row.update(attention_bound(q, k, kv_len))
+    log(f"[times] decode_attention {label}: kernel {row['ms']} ms, twin {row['plain_ms']} ms, "
+        f"sdpa {row['library_ms']} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+        f"{row['bound_bytes'] / 1e9:.3f} GB); max |err| {row['max_abs_err']:.3g}")
+    return row
+
+
+def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
+    """Phase 8: kernel times at the serving shapes, and the embedding bag's
+    path (``ops.embedding_bag``), counted."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import _bag_body
+
+    att_rows = []
+    b, hq, hkv, d, s = att_a
+    q, k, v = attention_inputs(dev, b, hq, hkv, d, s, torch.bfloat16, seed=1)
+    kv_len = torch.randint(1, s + 1, (b,), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev, dtype=torch.int32)
+    att_rows.append(time_attention(dev, f"decode_32k B{b} {hq}/{hkv}x{d} S{s} bf16, kv_len U[1,S]",
+                                   q, k, v, kv_len))
+    del q, k, v
+    b, hq, hkv, d, s = att_b
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(dev, b, hq, hkv, d, s, dtype, seed=2)
+        kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
+        name = "f32" if dtype == torch.float32 else "bf16"
+        att_rows.append(time_attention(dev, f"roofline B{b} {hq}/{hkv}x{d} S{s} {name}, full",
+                                       q, k, v, kv_len))
+        del q, k, v
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the embedding bag's path: ops.embedding_bag on both cases (counted)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    # the roofline shape's bags are sorted random ids; the large table's
+    # bags hold n_items / bags items each
+    for label, (v_, d, n_items, bags), fixed in (("roofline", bag_a, False),
+                                                ("large table", bag_b, True)):
+        table = torch.randn((v_, d), generator=gen, device=dev)
+        ids = torch.randint(0, v_, (n_items,), generator=gen, device=dev, dtype=torch.int32)
+        if fixed:
+            seg = torch.arange(bags, device=dev, dtype=torch.int32).repeat_interleave(n_items // bags)
+        else:
+            seg = torch.sort(torch.randint(0, bags, (n_items,), generator=gen, device=dev,
+                                           dtype=torch.int32)).values
+        w = torch.randn((n_items,), generator=gen, device=dev)
+        cases.append((label, table, ids, seg, w, bags))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = [ops.embedding_bag(t, i, sg, w, num_bags=nb) for _, t, i, sg, w, nb in cases]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    bag_launches = kernels.launches()["embedding_bag"]
+    if dev.type == "cuda" and bag_launches != len(cases):
+        fail(f"embedding_bag launched {bag_launches} times on its path, expected {len(cases)}")
+    bag_rows = []
+    for (label, table, ids, seg, w, bags), got in zip(cases, outs):
+        want = _bag_body(table, ids, seg, w, num_bags=bags)
+        offsets = torch.searchsorted(seg.long(), torch.arange(bags, device=dev))
+        lib = torch.nn.functional.embedding_bag
+        row = {"case": f"{label} V{table.shape[0]} D{table.shape[1]} N{ids.numel()} B{bags}",
+               "max_abs_err": max_err(got, want, BAG_TOL, BAG_TOL, f"embedding_bag {label}")}
+        lib_out = lib(ids.long(), table, offsets, mode="sum", per_sample_weights=w)
+        max_err(lib_out, want, BAG_TOL, BAG_TOL, f"F.embedding_bag {label} (the yardstick's inputs)")
+        row.update(
+            ms=device_ms(lambda: ops.embedding_bag(table, ids, seg, w, num_bags=bags), dev),
+            plain_ms=device_ms(lambda: _bag_body(table, ids, seg, w, num_bags=bags), dev, reps=5,
+                               warmup=1),
+            library_ms=device_ms(lambda: lib(ids, table, offsets.to(torch.int32), mode="sum",
+                                             per_sample_weights=w), dev),
+        )
+        row.update(bag_bound(table, ids, bags))
+        bag_rows.append(row)
+        log(f"[times] embedding_bag {row['case']}: kernel {row['ms']} ms, twin {row['plain_ms']} ms, "
+            f"F.embedding_bag {row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {row['bound_bytes'] / 1e6:.1f} MB); max |err| "
+            f"{row['max_abs_err']:.3g}")
+    del cases, outs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return att_rows, bag_rows, bag_launches
+
+
+def serve_kernels_line(parity_errs, serve, att_rows, bag_rows, bag_launches) -> list:
+    """The kernels-line entries of the two float kernels: the headline case
+    is qwen2's decode_32k cell and the 2 GiB bag; every case is listed."""
+    out = []
+    for name, rows, launches, extra_err in (
+        ("decode_attention", att_rows, serve["decode_attention_launches"], serve["max_abs_err"]),
+        ("embedding_bag", bag_rows, bag_launches, 0.0),
+    ):
+        head = rows[0] if name == "decode_attention" else rows[-1]
+        spec = SERVE_KERNELS[name]
+        out.append({
+            "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
+            "launches": launches,
+            "max_abs_err": max([parity_errs[name], extra_err] + [r["max_abs_err"] for r in rows]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "path": spec["path"], "headline_case": head["case"],
+            "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "max_abs_err")} for r in rows],
+        })
+    return out
+
+
 def kernels_line(rows, launches, headline_table: str) -> dict:
     out = []
     for name, spec in KERNELS.items():
@@ -557,7 +964,7 @@ def kernels_line(rows, launches, headline_table: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 on the CPU twins at a tiny size (no device result)")
+                    help="run phases 3-8 on the CPU twins at a tiny size (no device result)")
     ap.add_argument("--out", type=Path, default=None, help="also write every row as JSON here")
     args = ap.parse_args(argv)
 
@@ -566,6 +973,9 @@ def main(argv=None) -> int:
         dev, info = torch.device("cpu"), None
         sys.path.insert(0, str(ROOT / "src"))
         parity_n, full_n, full_nq, shard_nq = 4096, 1 << 14, 1 << 12, 1 << 10
+        serve = {"reduced": True, "max_seq": 128, "long_prompt": 40}
+        times = {"att_a": (4, 14, 2, 64, 512), "att_b": (2, 32, 8, 128, 256),
+                 "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 14, 128, 1 << 14, 1 << 10)}
     else:
         info = phase_device()
         dev = torch.device("cuda")
@@ -574,6 +984,17 @@ def main(argv=None) -> int:
         from repro_torch.data import TIERS
 
         parity_n, full_n, full_nq, shard_nq = 65536, TIERS["L4"], 1 << 22, 1 << 20
+        # max_seq: the sequence length of the decode_32k shape cell
+        # long_prompt: three 256-position tiles for the first ticks
+        serve = {"reduced": False, "max_seq": 32768, "long_prompt": 700}
+        # decode_attention: qwen2-0.5b's decode_32k cell (B 128) and
+        # benchmarks/kernel_roofline.py's flash-decode shape; embedding_bag:
+        # that benchmark's shape and a 2 GiB table (beyond L2), 2^16 bags of 16
+        times = {"att_a": (128, 14, 2, 64, 32768), "att_b": (8, 32, 8, 128, 32768),
+                 "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 22, 128, 1 << 20, 1 << 16)}
+    # f32 matrix products in full f32 (no TF32) in the twins and the reference math
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     phase_parity(dev, parity_n)
@@ -584,17 +1005,32 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tier_rows, tier_launches, locality = phase_tier(dev, tables, 4, shard_nq)
     log(f"[tier] done in {time.perf_counter() - t0:.1f} s")
-    launches = {**{k: launches[k] for k in SINGLE}, **{k: tier_launches[k] for k in BATCHED}}
+    t0 = time.perf_counter()
+    parity_errs = phase_float_parity(dev, 600)
+    log(f"[float] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served = phase_serve(dev, "qwen2-0.5b", slots=8, n_requests=16, max_new=16, ref_ticks=4,
+                         **serve)
+    log(f"[serve] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    att_rows, bag_rows, bag_launches = phase_times(dev, **times)
+    log(f"[times] done in {time.perf_counter() - t0:.1f} s")
+    launches = {**{k: launches[k] for k in SINGLE}, **{k: tier_launches[k] for k in BATCHED},
+                "decode_attention": served["decode_attention_launches"],
+                "embedding_bag": bag_launches}
     line = kernels_line(rows + tier_rows, launches, "amzn64")
+    line["kernels"] += serve_kernels_line(parity_errs, served, att_rows, bag_rows, bag_launches)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": info, "rows": rows, "tier_rows": tier_rows,
-                                        "locality": locality, **line}, indent=1))
+                                        "locality": locality, "serve": served,
+                                        "attention_rows": att_rows, "bag_rows": bag_rows,
+                                        **line}, indent=1))
     if dev.type != "cuda":
         log("[rehearsal] CPU rehearsal passed; no device result")
         return 0
-    if any(launches[name] == 0 for name in KERNELS):
+    if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS)):
         fail(f"a kernel of a path never launched: {launches}")
     log(f"[device] nvidia-smi: {info['nvidia_smi']}")
     print(json.dumps(line), flush=True)

@@ -20,10 +20,14 @@ has a counterpart there:
   ``tune.build_many``, whose :class:`~repro_torch.tune.BatchedIndexes`
   answers a query batch against many tables with one batched kernel
   launch.
+* ``configs``, ``models`` and ``serve`` — the LM serving path: the LM
+  architecture configs, the dense decoder's ``decode_step`` (its
+  attention is the hand-written decode-attention kernel) and the
+  continuous-batching :class:`~repro_torch.serve.DecodeEngine`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
-from . import core, data, dist, index, kernels, tune
+from . import configs, core, data, dist, index, kernels, models, serve, tune
 
-__all__ = ["core", "data", "dist", "index", "kernels", "tune"]
+__all__ = ["configs", "core", "data", "dist", "index", "kernels", "models", "serve", "tune"]

@@ -1,0 +1,80 @@
+"""The assigned LM architectures, exact published configs (counterpart of
+``repro.configs.archs``, LM family only):
+
+  granite-3-8b, minitron-8b, qwen2-0.5b,
+  moonshot-v1-16b-a3b (MoE 64e top-6), qwen3-moe-235b-a22b (128e top-8)
+
+Each also has a ``reduced`` variant (same topology, tiny dims) for the
+CPU tests.  The MoE configs are registered, but the port's decoder
+serves dense models only until ``models/moe.py`` is ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+from repro_torch.models.transformer import LMConfig
+
+from .base import LM_SHAPES, ArchSpec, ShapeCell, register
+
+GRANITE_3_8B = LMConfig(
+    name="granite-3-8b", n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
+    head_dim=128, d_ff=12800, vocab=49155,
+)
+MINITRON_8B = LMConfig(
+    name="minitron-8b", n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    head_dim=128, d_ff=16384, vocab=256000,
+)
+QWEN2_05B = LMConfig(
+    name="qwen2-0.5b", n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
+    head_dim=64, d_ff=4864, vocab=151936, qkv_bias=True,
+)
+MOONSHOT_16B_A3B = LMConfig(
+    name="moonshot-v1-16b-a3b", n_layers=48, d_model=2048, n_heads=16,
+    n_kv_heads=16, head_dim=128, d_ff=0, vocab=163840,
+    moe=True, n_experts=64, top_k=6, n_shared=2, d_ff_expert=1408,
+)
+QWEN3_MOE_235B = LMConfig(
+    name="qwen3-moe-235b-a22b", n_layers=94, d_model=4096, n_heads=64,
+    n_kv_heads=4, head_dim=128, d_ff=0, vocab=151936,
+    moe=True, n_experts=128, top_k=8, n_shared=0, d_ff_expert=1536,
+)
+
+
+def _lm_reduced(cfg: LMConfig) -> LMConfig:
+    return replace(
+        cfg,
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=max(1, cfg.n_kv_heads * 4 // cfg.n_heads),
+        head_dim=16,
+        d_ff=0 if cfg.moe else 128,
+        vocab=256,
+        n_experts=8 if cfg.moe else 0,
+        top_k=min(2, cfg.top_k) if cfg.moe else 0,
+        d_ff_expert=32 if cfg.moe else 0,
+        n_shared=min(1, cfg.n_shared),
+    )
+
+
+def _lm_spec(cfg):
+    def full():
+        return ArchSpec(cfg.name, "lm", cfg, LM_SHAPES)
+
+    def reduced():
+        shapes = (
+            ShapeCell("train_4k", "train", {"seq_len": 64, "global_batch": 4}),
+            ShapeCell("prefill_32k", "prefill", {"seq_len": 128, "global_batch": 2}),
+            ShapeCell("decode_32k", "decode", {"seq_len": 128, "global_batch": 4}),
+            ShapeCell(
+                "long_500k", "decode", {"seq_len": 256, "global_batch": 1, "seq_shard": True}
+            ),
+        )
+        return ArchSpec(cfg.name, "lm", _lm_reduced(cfg), shapes)
+
+    return full, reduced
+
+
+for _cfg in (GRANITE_3_8B, MINITRON_8B, QWEN2_05B, MOONSHOT_16B_A3B, QWEN3_MOE_235B):
+    register(_cfg.name, *_lm_spec(_cfg))

@@ -1,0 +1,65 @@
+"""Architecture registry (counterpart of ``repro.configs.base``).
+
+Each arch registers ``spec()`` (the full published config and its shape
+cells) and ``reduced()`` (the same topology at tiny widths, for CPU
+tests).  Shape cells carry the batch and sequence sizes of each serving
+or training workload.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str  # train | prefill | decode | serve | retrieval | graph_train
+    dims: dict
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str  # lm | gnn | recsys
+    config: object
+    shapes: tuple  # tuple[ShapeCell, ...]
+    notes: str = ""
+
+
+_REGISTRY: Dict[str, Callable[[], ArchSpec]] = {}
+_REDUCED: Dict[str, Callable[[], ArchSpec]] = {}
+
+#: the reference's archs whose family is not ported yet
+UNPORTED = ("dimenet", "dlrm-mlperf", "din", "wide-deep", "sasrec")
+
+
+def register(arch_id: str, spec_fn, reduced_fn):
+    _REGISTRY[arch_id] = spec_fn
+    _REDUCED[arch_id] = reduced_fn
+
+
+def get(arch_id: str, reduced: bool = False) -> ArchSpec:
+    table = _REDUCED if reduced else _REGISTRY
+    if arch_id not in table:
+        if arch_id in UNPORTED:
+            raise KeyError(f"arch {arch_id!r} is not ported yet; available: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(_REGISTRY)}")
+    return table[arch_id]()
+
+
+def list_archs():
+    return sorted(_REGISTRY)
+
+
+LM_SHAPES = (
+    ShapeCell("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+    ShapeCell("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+    ShapeCell("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+    ShapeCell(
+        "long_500k",
+        "decode",
+        {"seq_len": 524288, "global_batch": 1, "seq_shard": True},
+    ),
+)

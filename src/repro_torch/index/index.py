@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import keys as keymod
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import predecessor_ref
 
 BACKENDS = ("xla", "bbs", "kernel", "ref")
@@ -39,16 +40,6 @@ KEY_LEAVES = frozenset({"fences", "keys", "knot_keys", "kmin"})
 #: uint64 leaves that are not keys (RS's radix ``shift``): small values,
 #: held as int64 here and cast back to uint64 by :meth:`Index.to_numpy`
 UNSIGNED_LEAVES = frozenset({"shift"})
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card: it raises when CUDA is absent, so the CPU
-    runs only when a caller asks for it with ``device="cpu"``."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class Index:

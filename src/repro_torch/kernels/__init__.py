@@ -1,27 +1,33 @@
-"""The hand-written CUDA search kernels and their plain PyTorch twins
+"""The hand-written CUDA kernels and their plain PyTorch twins
 (counterpart of ``repro.kernels``).
 
-Each kernel module holds a wrapper (``kary_search``, ``rmi_search``,
-``pgm_search``, ``rs_search``) and its batched counterpart
-(``batched_*``, one launch for a stack of tables) that check their
-operands, launch the CUDA kernel on CUDA tensors (counting launches in
-the module's ``LAUNCHES`` and ``BATCHED_LAUNCHES``) and run the twin
+Each search kernel module holds a wrapper (``kary_search``,
+``rmi_search``, ``pgm_search``, ``rs_search``) and its batched
+counterpart (``batched_*``, one launch for a stack of tables) that check
+their operands, launch the CUDA kernel on CUDA tensors (counting launches
+in the module's ``LAUNCHES`` and ``BATCHED_LAUNCHES``) and run the twin
 (``_kary_body``, ``_rmi_body``, ``_pgm_body``, ``_rs_body`` and their
-``_batched_*_body``) on CPU tensors.
+``_batched_*_body``) on CPU tensors.  ``decode_attention`` (the LM
+serving path's attention, twin ``_decode_body``) and ``embedding_bag``
+(twin ``_bag_body``) have no batched variant and count ``LAUNCHES`` only.
 The library is built from ``csrc/`` at first use
 (:mod:`repro_torch.kernels.cuda_lib`); nothing builds at import.
 """
 
-from . import cuda_lib, kary_search, ops, pgm_search, ref, rmi_search, rs_search
+from . import (
+    cuda_lib, decode_attention, embedding_bag, kary_search, ops, pgm_search, ref, rmi_search,
+    rs_search,
+)
 
 #: the kernel modules whose ``LAUNCHES`` count the main path's launches
-KERNEL_MODULES = (kary_search, rmi_search, pgm_search, rs_search)
+KERNEL_MODULES = (kary_search, rmi_search, pgm_search, rs_search, decode_attention, embedding_bag)
 
 
 def reset_launches() -> None:
     for mod in KERNEL_MODULES:
         mod.LAUNCHES = 0
-        mod.BATCHED_LAUNCHES = 0
+        if hasattr(mod, "BATCHED_LAUNCHES"):
+            mod.BATCHED_LAUNCHES = 0
 
 
 def launches() -> dict:
@@ -31,9 +37,10 @@ def launches() -> dict:
     for mod in KERNEL_MODULES:
         name = mod.__name__.rsplit(".", 1)[-1]
         out[name] = mod.LAUNCHES
-        out[f"batched_{name}"] = mod.BATCHED_LAUNCHES
+        if hasattr(mod, "BATCHED_LAUNCHES"):
+            out[f"batched_{name}"] = mod.BATCHED_LAUNCHES
     return out
 
 
-__all__ = ["cuda_lib", "kary_search", "ops", "pgm_search", "ref", "rmi_search", "rs_search",
-           "KERNEL_MODULES", "reset_launches", "launches"]
+__all__ = ["cuda_lib", "decode_attention", "embedding_bag", "kary_search", "ops", "pgm_search",
+           "ref", "rmi_search", "rs_search", "KERNEL_MODULES", "reset_launches", "launches"]

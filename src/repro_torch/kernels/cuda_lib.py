@@ -1,4 +1,4 @@
-"""Build and load the CUDA search kernels (``csrc/*.cu``) at first use.
+"""Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
 Each source compiles with its own ``nvcc`` process, all started
 together, into an object file; one more ``nvcc`` links them into
@@ -26,8 +26,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("kary_search.cu", "rmi_search.cu", "pgm_search.cu", "rs_search.cu")
-#: included by every source: part of the digest, not compiled on its own
+SOURCES = (
+    "kary_search.cu", "rmi_search.cu", "pgm_search.cu", "rs_search.cu",
+    "decode_attention.cu", "embedding_bag.cu",
+)
+#: included by the search sources: part of the digest, not compiled on its own
 HEADERS = ("search_common.cuh",)
 NVCC_FLAGS = (
     "-gencode",
@@ -77,6 +80,10 @@ SIGNATURES = {
     "batched_rs_search_launch": (
         _P, _P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P
     ),
+    # q, k, v, kv_len, out, B, S, Hkv, D, group, dtype (0 f32, 1 bf16), stream
+    "decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # table, V, D, ids, seg, w, n, num_bags, out, stream
+    "embedding_bag_launch": (_P, _I, _I, _P, _P, _P, _L, _I, _P, _P),
 }
 
 _lib = None
@@ -86,7 +93,7 @@ _ptxas = {}
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA search kernels cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return found
 
 

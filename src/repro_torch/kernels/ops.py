@@ -1,11 +1,15 @@
-"""Host re-encoders of fitted models into the search kernels' f32/i32
-arithmetic (counterpart of ``repro.kernels.ops``), with ε re-measured.
+"""The kernels' public entry points (counterpart of ``repro.kernels.ops``).
 
-The kernels predict in f32 on the pre-normalised coordinate ``u``; these
-functions re-measure every leaf's (or level's) error with exactly that
-arithmetic and widen ε so the window stays a guarantee.  The +2 margin
-budgets one fused multiply-add, so the CUDA kernels compile with
-``-fmad=false`` and the twins run unfused eager ops.
+Host re-encoders of fitted models into the search kernels' f32/i32
+arithmetic, with ε re-measured: the kernels predict in f32 on the
+pre-normalised coordinate ``u``; these functions re-measure every leaf's
+(or level's) error with exactly that arithmetic and widen ε so the window
+stays a guarantee.  The +2 margin budgets one fused multiply-add, so the
+CUDA kernels compile with ``-fmad=false`` and the twins run unfused eager
+ops.
+
+``embedding_bag`` and ``decode_attention`` take the signatures and the
+semantics of the reference's entry points, numpy arrays or tensors alike.
 """
 
 from __future__ import annotations
@@ -13,8 +17,13 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from repro_torch.core.cdf import ceil_log2
+from repro_torch.device import resolve_device
+
+from . import decode_attention as _attention
+from . import embedding_bag as _bag
 
 
 def rmi_kernel_arrays(model, table_np: np.ndarray):
@@ -162,3 +171,61 @@ def rs_kernel_arrays(model, table_np: np.ndarray):
     steps = ceil_log2(min(2 * eps + 3, max(n, 2)))
     arrays = {"u0": u0, "slope": slope, "eps": eps, "kmin": kmin, "inv_span": inv_span}
     return arrays, steps
+
+
+# ---------------------------------------------------------------------------
+# EmbeddingBag and flash-decode attention
+# ---------------------------------------------------------------------------
+
+
+def _device_of(arrays, device) -> torch.device:
+    """The device of the first tensor among ``arrays``, else ``device``
+    (the card when None)."""
+    for a in arrays:
+        if torch.is_tensor(a):
+            return a.device
+    return resolve_device(device)
+
+
+def _on(x, dtype, dev) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.to(device=dev, dtype=dtype).contiguous()
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev).contiguous()
+
+
+def embedding_bag(table, ids, seg_ids, weights=None, *, num_bags: int, v_tile: int = 512,
+                  device=None):
+    """``out[b] = sum_{seg_ids[i] == b} weights[i] * table[ids[i]]``, (num_bags,
+    D) f32; ``weights=None`` means ones.  Tensors stay on their device;
+    numpy inputs go to ``device`` (the card when None).
+
+    ``v_tile`` is the TPU kernel's vocabulary tile: the reference pads the
+    vocabulary to a multiple of it with zero rows, which add nothing, as
+    an id outside ``[0, V)`` adds nothing here, so it changes no result."""
+    if v_tile <= 0:
+        raise ValueError(f"v_tile must be positive, got {v_tile}")
+    dev = _device_of((table, ids, seg_ids, weights), device)
+    ids = _on(ids, torch.int32, dev)
+    w = (torch.ones(ids.shape, dtype=torch.float32, device=dev) if weights is None
+         else _on(weights, torch.float32, dev))
+    return _bag.embedding_bag(_on(table, torch.float32, dev), ids, _on(seg_ids, torch.int32, dev),
+                              w, num_bags=num_bags)
+
+
+def decode_attention(q, k, v, kv_len, *, s_tile: int = 256, device=None):
+    """One-token GQA attention, f32: ``q`` (B, Hq, D) over ``k``/``v`` (B, S,
+    Hkv, D), positions ``< kv_len[b]`` of row b.  Tensors stay on their
+    device; numpy inputs go to ``device`` (the card when None).
+
+    As in the reference, the cache is padded with zero rows to a multiple
+    of ``s_tile``; that matters only for a ``kv_len`` beyond S, whose extra
+    positions are those zero rows.  Otherwise ``s_tile`` changes no result."""
+    if s_tile <= 0:
+        raise ValueError(f"s_tile must be positive, got {s_tile}")
+    dev = _device_of((q, k, v, kv_len), device)
+    q, k, v = (_on(x, torch.float32, dev) for x in (q, k, v))
+    pad_s = (-k.shape[1]) % s_tile
+    if pad_s:
+        zk = torch.zeros((k.shape[0], pad_s, *k.shape[2:]), dtype=torch.float32, device=dev)
+        k, v = torch.cat([k, zk], dim=1), torch.cat([v, zk], dim=1)
+    return _attention.decode_attention(q, k, v, _on(kv_len, torch.int32, dev))

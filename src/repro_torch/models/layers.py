@@ -1,0 +1,104 @@
+"""Shared neural layers over plain tensors (counterpart of
+``repro.models.layers``): parameters are plain dicts, dtypes are explicit
+everywhere, and every initialiser draws from an explicit
+``torch.Generator`` on the device it is given.
+
+``causal_attention`` and ``cross_entropy`` wait for the prefill and
+training slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import decode_attention as _kernel
+
+#: the attention backends of the serving path: the hand-written kernel
+#: (its plain twin on CPU tensors), or the reference's plain math
+BACKENDS = ("kernel", "ref")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
+
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
+    """Normal weights of std ``1/sqrt(fan_in)`` (fan_in = ``shape[-2]``)
+    drawn in f32 on ``gen``'s device."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (w * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype, std: float = 0.02):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (w * std).to(dtype)
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+
+
+def rope_tables(seq_len: int, head_dim: int, theta: float, dtype=torch.float32, offset=0,
+                device=None):
+    """(S, hd/2) cos/sin tables; ``offset`` supports decode positions."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device) + offset
+    ang = pos[:, None] * freqs[None, :]
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, hd); cos/sin: (S, hd/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[None, :, None, :].to(x.dtype)
+    s = sin[None, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def swiglu(x, wg, wu, wd):
+    """x: (..., d) -> (..., d) through the gated FFN (weights in (in, out))."""
+    g = x @ wg.to(x.dtype)
+    u = x @ wu.to(x.dtype)
+    return (torch.nn.functional.silu(g) * u) @ wd.to(x.dtype)
+
+
+def decode_attention_plain(q, k_cache, v_cache, kv_len):
+    """The reference's one-token attention (``decode_attention_xla``) in
+    the working dtype: logits scaled by ``1/sqrt(hd)``, masked with the
+    dtype's lowest value, softmax in f32 cast back, then the PV product.
+    q: (B, Hq, hd); caches: (B, Smax, Hkv, hd); kv_len: (B,)."""
+    b, hq, hd = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    q4 = q.reshape(b, hkv, group, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", q4, k_cache) * (1.0 / math.sqrt(hd))
+    pos = torch.arange(smax, device=q.device)
+    valid = (pos[None, :] < kv_len.to(torch.int64)[:, None])[:, None, None, :]
+    logits = torch.where(valid, logits, torch.full_like(logits, torch.finfo(logits.dtype).min))
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(b, hq, hd)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, backend: str = "kernel"):
+    """One-token GQA attention over a cache: q (B, Hq, hd); caches (B,
+    Smax, Hkv, hd); ``kv_len`` an int or an int32 (B,) tensor of valid
+    lengths.  ``backend="kernel"`` takes the hand-written kernel on CUDA
+    tensors (its twin on CPU tensors); ``"ref"`` the reference's plain
+    math (:func:`decode_attention_plain`)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if not torch.is_tensor(kv_len) or kv_len.dim() == 0:
+        kv_len = torch.full((q.shape[0],), int(kv_len), dtype=torch.int32, device=q.device)
+    if backend == "ref":
+        return decode_attention_plain(q, k_cache, v_cache, kv_len)
+    return _kernel.decode_attention(q, k_cache, v_cache, kv_len.to(torch.int32))

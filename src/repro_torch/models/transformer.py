@@ -1,0 +1,191 @@
+"""Decoder-only LM, dense GQA, serving side (counterpart of
+``repro.models.transformer``).
+
+Parameters are a plain dict that mirrors the reference's pytree: the
+per-layer leaves are stacked on a leading layer axis, and every weight
+keeps the reference's ``(in, out)`` layout, so ``h @ w`` is the
+reference's product and :func:`params_from_numpy` carries the reference's
+weights across unchanged.
+
+Entry points:
+  init(gen, cfg)                                  -> params
+  init_cache(cfg, batch, max_seq)                 -> KV cache dict
+  decode_step(params, cache, tokens, pos, cfg)    -> (logits, cache)
+  params_from_numpy(np_params, cfg)               -> params
+
+Each runs on the card unless given a CPU generator or ``device="cpu"``.
+``forward`` and ``loss_fn`` wait for the training slice; a config with
+``moe=True`` raises until ``models/moe.py`` is ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+from . import layers as L
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    # numerics
+    rope_theta: float = 1e4
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    @property
+    def params_count(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        if self.moe:
+            ffn = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
+            ffn += self.n_shared * 3 * d * self.d_ff_expert
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab * d + d
+
+    @property
+    def active_params_count(self) -> int:
+        if not self.moe:
+            return self.params_count
+        d = self.d_model
+        hd = self.head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        ffn = (self.top_k + self.n_shared) * 3 * d * self.d_ff_expert + d * self.n_experts
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab * d + d
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.moe:
+        raise NotImplementedError(f"{cfg.name}: MoE layers wait for the port of models/moe.py")
+
+
+def init(gen: torch.Generator, cfg: LMConfig):
+    """Random parameters drawn from ``gen`` on its device (a CUDA generator
+    for the card, ``torch.Generator()`` for the CPU).  The reference's
+    ``jax.random`` draws cannot be reproduced; carry its weights across
+    with :func:`params_from_numpy` instead."""
+    _dense_only(cfg)
+    pd = L.dtype_of(cfg.param_dtype)
+    d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_layers
+    dev = gen.device
+    layers = {
+        "ln1": torch.ones((n, d), dtype=pd, device=dev),
+        "ln2": torch.ones((n, d), dtype=pd, device=dev),
+        "wq": L.dense_init(gen, (n, d, cfg.n_heads * hd), pd),
+        "wk": L.dense_init(gen, (n, d, cfg.n_kv_heads * hd), pd),
+        "wv": L.dense_init(gen, (n, d, cfg.n_kv_heads * hd), pd),
+        "wo": L.dense_init(gen, (n, cfg.n_heads * hd, d), pd),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = torch.zeros((n, cfg.n_heads * hd), dtype=pd, device=dev)
+        layers["bk"] = torch.zeros((n, cfg.n_kv_heads * hd), dtype=pd, device=dev)
+        layers["bv"] = torch.zeros((n, cfg.n_kv_heads * hd), dtype=pd, device=dev)
+    layers["wg"] = L.dense_init(gen, (n, d, cfg.d_ff), pd)
+    layers["wu"] = L.dense_init(gen, (n, d, cfg.d_ff), pd)
+    layers["wd"] = L.dense_init(gen, (n, cfg.d_ff, d), pd)
+    return {
+        "embed": L.embed_init(gen, (cfg.vocab, d), pd),
+        "layers": layers,
+        "ln_f": torch.ones((d,), dtype=pd, device=dev),
+        "head": L.dense_init(gen, (d, cfg.vocab), pd),
+    }
+
+
+def params_from_numpy(np_params, cfg: LMConfig, device=None):
+    """The reference's parameter pytree (leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, repro_params)``) as tensors on ``device``
+    (the card when None), in the same layout and dtype."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    return conv(np_params)
+
+
+def cast_params(params, dtype: torch.dtype):
+    """Every leaf in ``dtype``: the compute copy the reference makes with
+    ``astype(dt)`` inside each step, made once."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    return params.to(dtype)
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None):
+    """Zeroed K and V caches, (n_layers, batch, max_seq, n_kv_heads,
+    head_dim) each, in the compute dtype, on ``device`` (the card when
+    None)."""
+    dt = L.dtype_of(cfg.dtype)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: LMConfig, *, backend: str = "kernel"):
+    """tokens (B, 1) int; ``pos`` the one position every row writes and
+    attends up to -> (logits (B, V) f32, cache).
+
+    The reference returns a new cache; this writes each layer's K/V row at
+    ``pos`` into ``cache`` in place and returns it, which saves a copy of
+    the whole cache a step.  As ``lax.dynamic_update_slice`` does, the
+    write position is clamped into ``[0, max_seq - 1]``; attention covers
+    positions ``< pos + 1``.  ``backend`` picks the attention: the
+    hand-written kernel (``"kernel"``) or the reference's plain math
+    (``"ref"``)."""
+    _dense_only(cfg)
+    pos = int(pos)
+    dt = L.dtype_of(cfg.dtype)
+    lay = params["layers"]
+    b = tokens.shape[0]
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dev = params["embed"].device
+    x = params["embed"][tokens[:, 0].long()].to(dt)  # (B, d)
+    cos, sin = L.rope_tables(1, hd, cfg.rope_theta, offset=pos, device=dev)
+    smax = cache["k"].shape[2]
+    at = min(max(pos, 0), smax - 1)
+    kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
+    for i in range(cfg.n_layers):
+        h = L.rms_norm(x, lay["ln1"][i])
+        q = (h @ lay["wq"][i].to(dt)).reshape(b, hq, hd)
+        k = (h @ lay["wk"][i].to(dt)).reshape(b, hkv, hd)
+        v = (h @ lay["wv"][i].to(dt)).reshape(b, hkv, hd)
+        if cfg.qkv_bias:
+            q = q + lay["bq"][i].to(dt).reshape(hq, hd)
+            k = k + lay["bk"][i].to(dt).reshape(hkv, hd)
+            v = v + lay["bv"][i].to(dt).reshape(hkv, hd)
+        q = L.apply_rope(q[:, None], cos, sin)[:, 0]
+        k = L.apply_rope(k[:, None], cos, sin)[:, 0]
+        cache["k"][i, :, at] = k
+        cache["v"][i, :, at] = v
+        o = L.decode_attention(q, cache["k"][i], cache["v"][i], kv_len, backend=backend)
+        x = x + o.reshape(b, hq * hd) @ lay["wo"][i].to(dt)
+        x = x + L.swiglu(L.rms_norm(x, lay["ln2"][i]), lay["wg"][i], lay["wu"][i], lay["wd"][i])
+    x = L.rms_norm(x, params["ln_f"])
+    logits = (x @ params["head"].to(dt)).float()
+    return logits, cache

@@ -1,21 +1,30 @@
-"""The port's CUDA search kernels held against their plain twins on the card.
+"""The port's CUDA kernels held against their plain twins on the card.
 
 Marked ``gpu``: each test decides inside itself (through the ``cuda``
 fixture) whether a CUDA device exists and skips with a reason when none
 does, so every worker collects the same tests.  This file imports neither
 JAX nor the reference: it runs on the machine with the card, which has no
 JAX, with ``PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
-Ranks are integers and must be equal, with no tolerance.
+Ranks are integers and must be equal, with no tolerance; the float
+kernels' tolerances are stated beside their tests.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch import index as tix
 from repro_torch import kernels
 from repro_torch import tune
 from repro_torch.core import as_table, true_ranks
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import _decode_body, decode_attention
+from repro_torch.kernels.embedding_bag import _bag_body, embedding_bag
+from repro_torch.models import transformer
+from repro_torch.serve import DecodeEngine, Request
 
 KINDS = ("L", "Q", "C", "KO", "RMI", "SY-RMI", "PGM", "PGM_M", "RS", "BTREE")
 KERNEL_OF = {"L": "kary_search", "Q": "kary_search", "C": "kary_search", "KO": "kary_search",
@@ -137,3 +146,134 @@ def test_batched_ragged_tail_and_row_queries(cuda):
             got = bm.lookup(rows, backend="kernel").cpu().numpy()
             for i, t in enumerate(tables):
                 np.testing.assert_array_equal(got[i], true_ranks(t, rows[i]), err_msg=f"{kind}/{nq}")
+
+
+# -- the LM serving path's kernels: decode attention and embedding bag ----------------
+#
+# Float kernels: held against their plain twins on the card within stated
+# tolerances.  f32: the kernel's sums run in another order than the twin's
+# products (2e-5).  bf16: both compute in f32 and round the output once to
+# bf16, so they differ by at most one bf16 ulp, 2^-7 of the value (rtol
+# 8e-3), plus f32 noise near 0 (atol 1e-4; the card measured 2.44e-4 at
+# values near 0.05, one ulp).  The embedding bag adds with atomics in a
+# run-dependent order (3e-5, the reference test's tolerance).
+
+ATT_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 8e-3)}  # (atol, rtol)
+
+
+def _attention_inputs(rng, b, hq, hkv, d, s, dtype, dev):
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+               for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("hq,hkv,d", ((4, 4, 16), (8, 2, 32), (16, 1, 64), (14, 2, 64),
+                                      (32, 8, 128), (28, 4, 128)))
+def test_decode_attention_kernel_matches_twin_on_card(cuda, hq, hkv, d, dtype):
+    """Groups 1, 4, 7 and 16, head dims 16 to 128; ragged lengths with 0, 1,
+    a tile edge, S, and S not a multiple of the 256-position tile."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(41)
+    s = 600
+    q, k, v = _attention_inputs(rng, 6, hq, hkv, d, s, dtype, cuda)
+    kv_len = torch.tensor([0, 1, 256, 257, s, 433], dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    got = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert kernels.launches()["decode_attention"] == 1
+    assert got.dtype == dtype and got.shape == (6, hq, d)
+    want = _decode_body(q, k, v, kv_len)
+    atol, rtol = ATT_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.gpu
+def test_decode_attention_ops_entry_and_limits_on_card(cuda):
+    rng = np.random.default_rng(42)
+    q, k, v = (rng.normal(size=shape).astype(np.float32) for shape in
+               ((3, 8, 32), (3, 300, 2, 32), (3, 300, 2, 32)))
+    kvl = np.array([350, 20, 300], np.int32)  # past S: the zero rows of the padding count
+    got = ops.decode_attention(q, k, v, kvl, s_tile=128)
+    assert got.device.type == "cuda"
+    cpu = ops.decode_attention(q, k, v, kvl, s_tile=128, device="cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), rtol=2e-5, atol=2e-5)
+    qq, kk, vv = _attention_inputs(rng, 1, 34, 2, 64, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="query heads"):
+        decode_attention(qq, kk, vv, torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v_,d,n_items,bags,sort", ((100, 8, 50, 4, True), (1000, 64, 300, 16, True),
+                                                   (513, 32, 128, 8, True), (513, 32, 128, 8, False),
+                                                   (4096, 128, 8192, 1024, False)))
+def test_embedding_bag_kernel_matches_twin_on_card(cuda, v_, d, n_items, bags, sort):
+    rng = np.random.default_rng(43)
+    table = torch.from_numpy(rng.normal(size=(v_, d)).astype(np.float32)).to(cuda)
+    ids = rng.integers(0, v_, n_items).astype(np.int32)
+    ids[:3] = [-1, v_, v_ + 100]  # out of range: add nothing
+    seg = rng.integers(-1, bags + 1, n_items).astype(np.int32)  # some bags out of range too
+    if sort:
+        seg = np.sort(seg)
+    w = rng.normal(size=n_items).astype(np.float32)
+    ids_t, seg_t, w_t = (torch.from_numpy(x).to(cuda) for x in (ids, seg, w))
+    kernels.reset_launches()
+    got = embedding_bag(table, ids_t, seg_t, w_t, num_bags=bags)
+    torch.cuda.synchronize()
+    assert kernels.launches()["embedding_bag"] == 1
+    want = _bag_body(table, ids_t, seg_t, w_t, num_bags=bags)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-5, atol=3e-5)
+    ones = ops.embedding_bag(table, ids_t, seg_t, num_bags=bags)
+    want1 = _bag_body(table, ids_t, seg_t, torch.ones_like(w_t), num_bags=bags)
+    np.testing.assert_allclose(ones.cpu().numpy(), want1.cpu().numpy(), rtol=3e-5, atol=3e-5)
+
+
+def _tiny_lm(dtype):
+    return dataclasses.replace(configs.get("qwen2-0.5b", reduced=True).config, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_decode_step_kernel_matches_ref_on_card(cuda, dtype):
+    """A 2-layer reduced qwen2-0.5b: the kernel's logits against the
+    reference math (``backend="ref"``) over 6 positions, from equal caches.
+    bf16: the reference math rounds logits and softmax weights to bf16,
+    the kernel does not (0.1 absolute, 0.05 relative on logits ~4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_lm(dtype)
+    params = transformer.cast_params(
+        transformer.init(torch.Generator(device=cuda).manual_seed(0), cfg),
+        getattr(torch, dtype))
+    caches = [transformer.init_cache(cfg, 3, 40, device=cuda) for _ in range(2)]
+    rng = np.random.default_rng(44)
+    tol = (2e-5, 2e-5) if dtype == "float32" else (0.1, 0.05)
+    kernels.reset_launches()
+    for pos in range(6):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 1)).astype(np.int32)).to(cuda)
+        got, caches[0] = transformer.decode_step(params, caches[0], tok, pos, cfg, backend="kernel")
+        want, caches[1] = transformer.decode_step(params, caches[1], tok, pos, cfg, backend="ref")
+        caches[1] = {kv: c.clone() for kv, c in caches[0].items()}  # the next step from equal caches
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol[0], rtol=tol[1])
+        assert torch.isfinite(got).all()
+    assert kernels.launches()["decode_attention"] == 6 * cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_engine_serves_through_the_kernel_on_card(cuda):
+    cfg = _tiny_lm("bfloat16")
+    params = transformer.init(torch.Generator(device=cuda).manual_seed(1), cfg)
+    eng = DecodeEngine(params, cfg, batch_slots=4, max_seq=64)
+    rng = np.random.default_rng(45)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(3, 10)).astype(np.int32),
+                    max_new_tokens=6) for i in range(6)]
+    for r in reqs:
+        eng.submit(r)
+    kernels.reset_launches()
+    eng.run_until_drained()
+    steps = sum(len(r.prompt) for r in reqs) + eng.ticks
+    assert kernels.launches()["decode_attention"] == cfg.n_layers * steps
+    assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+    assert eng.metrics()["requests_finished"] == 6
