@@ -41,8 +41,12 @@ Phases (any failure ends the run with a non-zero exit):
                the single-table model-free kernel over the whole table
                with the tier's queries in shard order and shuffled;
 6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
-               (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128), ragged
-               ``kv_len`` with 0, 1 and S, S not a tile multiple; and
+               (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128),
+               (4,4,256), (8,8,8), ragged ``kv_len`` with 0, 1 and S, S not
+               a tile multiple, and the split's edges (shares cut at a
+               tile - 1, + 0, + 1, rows shorter than ``n_split`` tiles,
+               lengths past S, at the planned split and at 1, 2, 5 and 16
+               shares, forced through ``split_plan``); and
                ``embedding_bag`` on the reference test's shapes with unsorted
                bags, ids and bags out of range and ``weights=None``: kernel
                against twin on the card (tolerances in ``ATT_TOL``/``BAG_TOL``);
@@ -50,7 +54,7 @@ Phases (any failure ends the run with a non-zero exit):
                weights from a seeded generator, bf16 compute) in a
                ``DecodeEngine`` of 8 slots and a 32,768-position cache: 16
                requests of 3-10 prompt tokens, and one of 700 queued first
-               (the first ticks attend over three tiles), 16 new tokens
+               (the first ticks attend over ~716 positions), 16 new tokens
                each.  Every request must finish with 16 tokens and finite
                logits; ``decode_attention`` must launch n_layers x (prefill
                steps + ticks) times; the first 4 decode ticks are re-run
@@ -61,7 +65,12 @@ Phases (any failure ends the run with a non-zero exit):
 8. kernel times — ``decode_attention`` at qwen2's ``decode_32k`` cell and at
                ``benchmarks/kernel_roofline.py``'s shape, ``ops.embedding_bag``
                (its path) at that benchmark's shape and on a 2 GiB table:
-               kernel / twin / library call times, bounds, and the twin check.
+               kernel / twin / library call times, bounds, and the twin check;
+               ``decode_attention``'s split plan (kernel, tile, n_split,
+               stages, threads) and its time at other splits (forced
+               through ``split_plan``), and the
+               ``-Xptxas -v`` registers of ``decode_attention`` and
+               ``rmi_search``.
 
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
@@ -73,6 +82,7 @@ is printed).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -245,6 +255,33 @@ def device_ms(fn, dev, reps: int = 20, warmup: int = 3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, dev, reps: int = 20):
+    """Mean device ms per call of ``fn``, replayed from one CUDA graph of
+    ``reps`` calls: the host's enqueue cost (Python, ctypes) drops out,
+    which ``device_ms`` includes when a call is shorter than its enqueue.
+    None off the card."""
+    if dev.type != "cuda":
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def bound(args, table, probes, nq: int) -> dict:
@@ -636,15 +673,37 @@ def attention_inputs(dev, b, hq, hkv, d, s, dtype, seed):
                  for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
 
 
+@contextlib.contextmanager
+def forced_split(n_split):
+    """Within the block, ``decode_attention`` cuts each row into ``n_split``
+    shares (``split_plan``'s tile kept); None keeps the plan's split."""
+    from repro_torch.kernels import decode_attention as att
+
+    plan = att.split_plan
+    if n_split is not None:
+        att.split_plan = lambda *a: (plan(*a)[0], n_split)
+    try:
+        yield
+    finally:
+        att.split_plan = plan
+
+
 def phase_float_parity(dev, s: int) -> dict:
     """Phase 6: each float kernel against its twin on the card."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import _decode_body, decode_attention
+    from repro_torch.kernels.decode_attention import (
+        MAX_SPLIT,
+        _decode_body,
+        decode_attention,
+        split_plan,
+    )
     from repro_torch.kernels.embedding_bag import _bag_body, embedding_bag
 
     errs = {"decode_attention": 0.0, "embedding_bag": 0.0}
+    splits = (None, 1, 2, 5, MAX_SPLIT)
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv, d in ((4, 4, 16), (8, 2, 32), (16, 1, 64), (14, 2, 64), (32, 8, 128)):
+        for hq, hkv, d in ((4, 4, 16), (8, 2, 32), (16, 1, 64), (14, 2, 64), (32, 8, 128),
+                           (4, 4, 256), (8, 8, 8)):
             q, k, v = attention_inputs(dev, 6, hq, hkv, d, s, dtype, seed=hq * d)
             kv_len = torch.tensor([0, 1, 256, 257, s, s // 2 + 3], dtype=torch.int32, device=dev)
             got = decode_attention(q, k, v, kv_len)
@@ -654,8 +713,25 @@ def phase_float_parity(dev, s: int) -> dict:
             if bool((got[0] != 0).any()):
                 fail("decode_attention: a row with kv_len 0 is not 0")
             errs["decode_attention"] = max(errs["decode_attention"], err)
-    log(f"[float] decode_attention f32 and bf16, 5 head shapes, S={s}, kv_len 0/1/256/257/S: "
-        f"kernel == twin within (atol, rtol) {ATT_TOL[torch.float32]} / "
+            # the split's edges: shares cut at tile - 1, + 0, + 1, rows
+            # shorter than n_split tiles (empty shares), lengths past S
+            tile = split_plan(9, hkv, d, s, q.element_size(), 132)[0]
+            q, k, v = attention_inputs(dev, 9, hq, hkv, d, s, dtype, seed=hq * d + 1)
+            kv_len = torch.tensor([0, 1, tile - 1, tile, tile + 1, s, s + 5, 3 * tile - 1, 2],
+                                  dtype=torch.int32, device=dev)
+            want = _decode_body(q, k, v, kv_len)
+            for n_split in splits:
+                with forced_split(n_split):
+                    got = decode_attention(q, k, v, kv_len)
+                err = max_err(got, want, *ATT_TOL[dtype],
+                              f"decode_attention {dtype} ({hq},{hkv},{d}) S={s} split {n_split}")
+                if bool((got[0] != 0).any()):
+                    fail(f"decode_attention: a row with kv_len 0 is not 0 (split {n_split})")
+                errs["decode_attention"] = max(errs["decode_attention"], err)
+    log(f"[float] decode_attention f32 and bf16, 7 head shapes, S={s}, kv_len 0/1/256/257/S, "
+        f"and the split's edges (kv_len 0/1/tile-1/tile/tile+1/S/S+5/3 tile-1/2, n_split "
+        f"{'/'.join(str(n or 'planned') for n in splits)}): kernel == twin within (atol, rtol) "
+        f"{ATT_TOL[torch.float32]} / "
         f"{ATT_TOL[torch.bfloat16]} "
         f"(max |err| {errs['decode_attention']:.3g})")
 
@@ -685,7 +761,7 @@ def phase_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_request
     ``decode_attention``).  One more request, with a ``long_prompt``-token
     prompt, is queued first: the engine decodes every slot at the largest
     slot position, so the first ticks (those re-run on the reference math)
-    attend over several 256-position tiles."""
+    attend over many tiles, split over blocks."""
     from repro_torch import configs, kernels
     from repro_torch.kernels.decode_attention import _decode_body, decode_attention
     from repro_torch.models import transformer
@@ -802,12 +878,14 @@ def phase_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_request
         row = {"pos": pos, "step_ms": device_ms(
             lambda p=pos: transformer.decode_step(eng.params, eng.cache, toks, p, cfg), dev,
             reps=10, warmup=2),
-            "kernel_ms": device_ms(lambda n=kv_len: decode_attention(q, k0, v0, n), dev)}
+            "kernel_ms": device_ms(lambda n=kv_len: decode_attention(q, k0, v0, n), dev),
+            "kernel_graph_ms": graph_ms(lambda n=kv_len: decode_attention(q, k0, v0, n), dev)}
         if row["step_ms"] is not None:
             row["kernel_share_of_step"] = cfg.n_layers * row["kernel_ms"] / row["step_ms"]
         out["at_pos"].append(row)
         log(f"[serve] at pos {pos}: decode_step {row['step_ms']} ms, decode_attention "
-            f"{row['kernel_ms']} ms x {cfg.n_layers} layers = share "
+            f"{row['kernel_ms']} ms ({row['kernel_graph_ms']} ms replayed from a CUDA graph, "
+            f"without the host's enqueue) x {cfg.n_layers} layers = share "
             f"{row.get('kernel_share_of_step')} of a step (CUDA events); kernel == twin at the "
             f"path's shapes (max |err| {err:.3g})")
     del eng
@@ -817,12 +895,21 @@ def phase_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_request
 
 
 def time_attention(dev, label, q, k, v, kv_len) -> dict:
+    from repro_torch.kernels import decode_attention as att
     from repro_torch.kernels.decode_attention import _decode_body, decode_attention
 
     got = decode_attention(q, k, v, kv_len)
     want = _decode_body(q, k, v, kv_len)
+    b, s, hkv, d = k.shape
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    tile, n_split = att.split_plan(b, hkv, d, s, q.element_size(), sm)
+    mma = q.dtype == torch.bfloat16 and d in att.MMA_DIMS
     row = {"case": label, "shape": list(k.shape), "heads": q.shape[1], "dtype": str(q.dtype),
-           "max_abs_err": max_err(got, want, *ATT_TOL[q.dtype], label)}
+           "max_abs_err": max_err(got, want, *ATT_TOL[q.dtype], label),
+           "plan": {"kernel": mma and "tensor cores" or "CUDA cores", "tile": tile,
+                    "n_split": n_split, "stages": att.STAGES,
+                    "threads": att.MMA_THREADS if mma else att.THREADS,
+                    "blocks": b * hkv * n_split, "sms": sm}}
     del got, want
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
@@ -834,9 +921,16 @@ def time_attention(dev, label, q, k, v, kv_len) -> dict:
                              reps=5, warmup=1),
     )
     row.update(attention_bound(q, k, kv_len))
+    if dev.type == "cuda":
+        # the split's effect: the same call at other shares per (row, KV head)
+        row["n_split_ms"] = {}
+        for n in sorted({1, 2, 4, 8, 16, 32, 64, n_split}):
+            with forced_split(n):
+                row["n_split_ms"][n] = device_ms(lambda: decode_attention(q, k, v, kv_len), dev)
     log(f"[times] decode_attention {label}: kernel {row['ms']} ms, twin {row['plain_ms']} ms, "
         f"sdpa {row['library_ms']} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-        f"{row['bound_bytes'] / 1e9:.3f} GB); max |err| {row['max_abs_err']:.3g}")
+        f"{row['bound_bytes'] / 1e9:.3f} GB); max |err| {row['max_abs_err']:.3g}; "
+        f"plan {json.dumps(row['plan'])}; ms by n_split {json.dumps(row.get('n_split_ms'))}")
     return row
 
 
@@ -855,6 +949,12 @@ def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
     att_rows.append(time_attention(dev, f"decode_32k B{b} {hq}/{hkv}x{d} S{s} bf16, kv_len U[1,S]",
                                    q, k, v, kv_len))
     del q, k, v
+    from repro_torch.kernels import cuda_lib
+
+    for src in ("decode_attention.cu", "rmi_search.cu"):
+        for ln in cuda_lib.ptxas_report().get(src, []):
+            if "Compiling entry" in ln or "Used" in ln or "spill" in ln:
+                log(f"[times] ptxas {src}: {ln}")
     b, hq, hkv, d, s = att_b
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = attention_inputs(dev, b, hq, hkv, d, s, dtype, seed=2)
@@ -985,7 +1085,7 @@ def main(argv=None) -> int:
 
         parity_n, full_n, full_nq, shard_nq = 65536, TIERS["L4"], 1 << 22, 1 << 20
         # max_seq: the sequence length of the decode_32k shape cell
-        # long_prompt: three 256-position tiles for the first ticks
+        # long_prompt: ~716 positions (45 tiles of 16) for the first ticks
         serve = {"reduced": False, "max_seq": 32768, "long_prompt": 700}
         # decode_attention: qwen2-0.5b's decode_32k cell (B 128) and
         # benchmarks/kernel_roofline.py's flash-decode shape; embedding_bag:

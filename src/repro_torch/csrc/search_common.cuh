@@ -47,6 +47,32 @@ __device__ __forceinline__ int bounded_ub(const long long* __restrict__ keys, lo
   return base + (__ldg(keys + base) <= q ? 1 : 0);
 }
 
+// First index in [base, base + len) whose key is > q, like bounded_ub, but
+// each query stops once its window is one key wide: `steps` is only the
+// cap (the widest window of the index), the trips taken are
+// ceil(log2 len) for this query's own window.  The ranks are bounded_ub's,
+// since a trip at len == 1 is a no-op.
+__device__ __forceinline__ int bounded_ub_early(const long long* __restrict__ keys, long long q,
+                                                int base, int len, int steps) {
+  for (int s = 0; s < steps && len > 1; ++s) {
+    const int half = len >> 1;
+    const int mid = base + half;
+    base = (__ldg(keys + mid) <= q) ? mid : base;
+    len -= half;
+  }
+  return base + (__ldg(keys + base) <= q ? 1 : 0);
+}
+
+// The kernels' CDF coordinate of an encoded key, bit for bit the host's
+// keys.unit_f32: un-flip the sign, the uint64 rounded once to f64, then
+// (x - kmin) * inv_span in f64 (each rounded on its own), clamped to
+// [0, 1] and rounded once to f32.
+__device__ __forceinline__ float unit_f32(long long key, double kmin, double inv_span) {
+  const unsigned long long k = (unsigned long long)key ^ 0x8000000000000000ull;
+  const double u = __dmul_rn(__dsub_rn(__ull2double_rn(k), kmin), inv_span);
+  return __double2float_rn(fmin(fmax(u, 0.0), 1.0));
+}
+
 // Launch shape shared by every launcher: 256 threads a block, blocks over
 // the queries in x and over the tables in y.
 constexpr int kThreads = 256;

@@ -210,20 +210,21 @@ def _rmi_space(idx: Index) -> int:
 
 
 def _rmi_operands(idx: Index, table, q):
-    """Fused RMI kernel on the ``k_*`` leaves; ``u`` in f64 outside it."""
+    """Fused RMI kernel on the raw queries, the f64 ``kmin``/``inv_span``
+    (the kernel computes ``u``) and the ``k_*`` leaves."""
     a = idx.arrays
-    u = unit_f32(q, a["kmin"], a["inv_span"])
-    args = (u, q, table, a["k_root"], a["k_slope"], a["k_icept"], a["k_eps"], a["k_rlo"], a["k_rhi"])
+    args = (q, table, a["kmin"].reshape(1), a["inv_span"].reshape(1), a["k_root"], a["k_slope"],
+            a["k_icept"], a["k_eps"], a["k_rlo"], a["k_rhi"])
     return args, {"steps": idx.s("ksteps")}
 
 
 def _rmi_batched_operands(idx: Index, tables, queries):
-    """Batched fused RMI kernel on the stacked ``k_*`` leaves; ``ksteps``
-    took the max over the tables at stack time."""
+    """Batched fused RMI kernel on the raw queries, each table's f64
+    ``kmin``/``inv_span`` and the stacked ``k_*`` leaves; ``ksteps`` took
+    the max over the tables at stack time."""
     a = idx.arrays
-    u = unit_f32(queries, a["kmin"][:, None], a["inv_span"][:, None])
-    args = (u, queries, tables, a["k_root"], a["k_slope"], a["k_icept"], a["k_eps"], a["k_rlo"],
-            a["k_rhi"])
+    args = (queries, tables, a["kmin"], a["inv_span"], a["k_root"], a["k_slope"], a["k_icept"],
+            a["k_eps"], a["k_rlo"], a["k_rhi"])
     return args, {"steps": idx.s("ksteps")}
 
 

@@ -53,13 +53,13 @@ SIGNATURES = {
     "kary_search_launch": (_P, _I, _P, _L, _I, _P, _P),
     # tables, n_tables, n, queries, q_stride, nq, steps, out, stream
     "batched_kary_search_launch": (_P, _I, _I, _P, _L, _L, _I, _P, _P),
-    # u, queries, nq, table, n, root, slope, icept, eps, rlo, rhi, b,
-    # b_over_n, steps, out, stream
-    "rmi_search_launch": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P),
-    # u, queries, q_stride, nq, n_tables, tables, n, root, slope, icept,
-    # eps, rlo, rhi, b, b_over_n, steps, out, stream
+    # queries, nq, kmin, inv_span, table, root, slope, icept, eps, rlo, rhi,
+    # b, b_over_n, steps, out, stream
+    "rmi_search_launch": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P),
+    # queries, q_stride, nq, n_tables, kmin, inv_span, tables, n, root,
+    # slope, icept, eps, rlo, rhi, b, b_over_n, steps, out, stream
     "batched_rmi_search_launch": (
-        _P, _P, _L, _L, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P
+        _P, _L, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P
     ),
     # u, queries, nq, table, n, keys, u0, slope, rank0, off, off_r, sizes,
     # eps, levels, steps, out, stream
@@ -80,8 +80,10 @@ SIGNATURES = {
     "batched_rs_search_launch": (
         _P, _P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P
     ),
-    # q, k, v, kv_len, out, B, S, Hkv, D, group, dtype (0 f32, 1 bf16), stream
-    "decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, kv_len, out, part_acc, part_ml, counter, B, S, Hkv, D, group,
+    # tile, n_split, dtype (0 f32, 1 bf16), stream
+    "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P),
     # table, V, D, ids, seg, w, n, num_bags, out, stream
     "embedding_bag_launch": (_P, _I, _I, _P, _P, _P, _L, _I, _P, _P),
 }

@@ -21,7 +21,15 @@ from repro_torch import kernels
 from repro_torch import tune
 from repro_torch.core import as_table, true_ranks
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import _decode_body, decode_attention
+from repro_torch.data import generate, make_queries
+from repro_torch.kernels import decode_attention as att
+from repro_torch.kernels.decode_attention import (
+    MAX_SPLIT,
+    _decode_body,
+    _decode_split_body,
+    decode_attention,
+    split_plan,
+)
 from repro_torch.kernels.embedding_bag import _bag_body, embedding_bag
 from repro_torch.models import transformer
 from repro_torch.serve import DecodeEngine, Request
@@ -107,6 +115,37 @@ def test_rmi_leaf_boundary_table_is_exact(cuda):
     np.testing.assert_array_equal(got, np.arange(len(table)))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dataset", ("amzn64", "osm"))
+@pytest.mark.parametrize("kind", ("RMI", "SY-RMI"))
+def test_rmi_fused_u_operands_match_searchsorted_on_card(cuda, kind, dataset):
+    """The RMI kernels take the raw queries and the f64 kmin/inv_span and
+    compute u themselves: single-table and batched ranks equal
+    ``torch.searchsorted`` and the twins, which compute u with
+    ``unit_f32``."""
+    from repro_torch.core import keys
+
+    table = generate(dataset, 1 << 18)
+    qs = np.concatenate([make_queries(table, 50000, seed=2), _queries(np.random.default_rng(35), table)])
+    idx = tix.build(kind, table, device=cuda)
+    impl = tix.impls.query_impl(kind)
+    t, q = keys.encode(table, cuda), keys.encode(qs, cuda)
+    args, kwargs = impl.operands(idx, t, q)
+    assert args[0] is q and args[2].dtype == torch.float64  # no u among the operands
+    want = torch.searchsorted(t, q, right=True) - 1
+    got = impl.search(*args, **kwargs).long()
+    assert torch.equal(got, want)
+    assert torch.equal(got, impl.plain(*args, **kwargs).long())
+    shards = np.split(table, 4)
+    bm = tune.build_many(kind, shards, device=cuda)
+    bq = keys.encode(np.stack([make_queries(sh, 20000, seed=3) for sh in shards]), cuda)
+    bargs, bkw = impl.batched_operands(bm.index, bm.tables, bq)
+    assert bargs[2].shape == (4,) and bargs[2].dtype == torch.float64
+    got = impl.batched_search(*bargs, **bkw).long()
+    assert torch.equal(got, torch.searchsorted(bm.tables, bq, right=True) - 1)
+    assert torch.equal(got, impl.batched_plain(*bargs, **bkw).long())
+
+
 def _batched_kernel(kind: str) -> str:
     return "batched_" + (KERNEL_OF[kind] if kind in FUSED_BATCHED else "kary_search")
 
@@ -189,6 +228,94 @@ def test_decode_attention_kernel_matches_twin_on_card(cuda, hq, hkv, d, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=rtol,
                                atol=atol)
     assert (got[0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", (None, 1, 2, 5, MAX_SPLIT))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("hq,hkv,d", ((14, 2, 64), (32, 8, 128), (16, 1, 64), (4, 4, 256),
+                                      (8, 8, 8)))
+def test_decode_attention_split_edges_on_card(cuda, monkeypatch, hq, hkv, d, dtype, n_split):
+    """The split over the sequence: lengths 0, 1, a tile - 1, + 0 and + 1,
+    S, past S, and rows shorter than n_split tiles (empty shares); groups
+    7, 4, 16 and 1, head dims 8 to 256 (tiles 8 to 64).  A given n_split
+    replaces ``split_plan``'s (the wrapper's tile kept).  Two calls in a row
+    check that the combining blocks leave the ticket counters at 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(46)
+    s = 700
+    tile, _ = split_plan(9, hkv, d, s, torch.tensor([], dtype=dtype).element_size(), 132)
+    if n_split is not None:
+        plan = att.split_plan
+        monkeypatch.setattr(att, "split_plan", lambda *a: (plan(*a)[0], n_split))
+    q, k, v = _attention_inputs(rng, 9, hq, hkv, d, s, dtype, cuda)
+    kv_len = torch.tensor([0, 1, tile - 1, tile, tile + 1, s, s + 5, 3 * tile - 1, 2],
+                          dtype=torch.int32, device=cuda)
+    atol, rtol = ATT_TOL[dtype]
+    want = _decode_body(q, k, v, kv_len).float().cpu().numpy()
+    kernels.reset_launches()
+    for _ in range(2):
+        got = decode_attention(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=rtol, atol=atol)
+        assert (got[0] == 0).all()
+    assert kernels.launches()["decode_attention"] == 2
+    if n_split is not None:
+        split = _decode_split_body(q, k, v, kv_len, n_split, tile).float().cpu().numpy()
+        np.testing.assert_allclose(got.float().cpu().numpy(), split, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_decode_attention_two_streams_on_card(cuda, dtype):
+    """Calls on two streams at once, each split over the sequence, do not
+    share ticket counters or partials: both streams' outputs match the
+    twin."""
+    rng = np.random.default_rng(47)
+    s = 4096
+    inputs = [_attention_inputs(rng, 4, 14, 2, 64, s, dtype, cuda) for _ in range(2)]
+    kv_len = torch.tensor([s, s - 17, 1000, 3], dtype=torch.int32, device=cuda)
+    assert split_plan(4, 2, 64, s, inputs[0][0].element_size(), 132)[1] > 1
+    wants = [_decode_body(*t, kv_len).float().cpu().numpy() for t in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(decode_attention(*inputs[i], kv_len))
+    torch.cuda.synchronize()
+    atol, rtol = ATT_TOL[dtype]
+    for want, got in zip(wants, outs):
+        for g in got:
+            np.testing.assert_allclose(g.float().cpu().numpy(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_decode_attention_in_cuda_graph_on_card(cuda):
+    """A captured call replays right, also after an eager call of a larger
+    shape has grown the stream's cached counters."""
+    rng = np.random.default_rng(48)
+    q, k, v = _attention_inputs(rng, 2, 14, 2, 64, 2048, torch.bfloat16, cuda)
+    kv_len = torch.tensor([2048, 700], dtype=torch.int32, device=cuda)
+    want = _decode_body(q, k, v, kv_len).float().cpu().numpy()
+    atol, rtol = ATT_TOL[torch.bfloat16]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention(q, k, v, kv_len)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = [decode_attention(q, k, v, kv_len) for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o in out:
+            np.testing.assert_allclose(o.float().cpu().numpy(), want, rtol=rtol, atol=atol)
+        # 1,280 (row, KV head) pairs: more counters than the stream had cached
+        big = _attention_inputs(rng, 640, 14, 2, 64, 32, torch.bfloat16, cuda)
+        decode_attention(*big, torch.full((640,), 32, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.gpu

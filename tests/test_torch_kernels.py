@@ -21,7 +21,8 @@ from repro_torch.core import keys
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.kary_search import _kary_body, kary_search
 from repro_torch.kernels.pgm_search import pgm_search
-from repro_torch.kernels.rmi_search import rmi_search
+from repro_torch.core.cdf import ceil_log2
+from repro_torch.kernels.rmi_search import _rmi_window_body, rmi_search, rmi_search_plain
 
 from conftest import TABLE_KINDS, make_table
 from test_torch_build import clamp_table, edge_queries
@@ -83,8 +84,11 @@ def test_wrappers_validate_operands():
         kary_search(t.reshape(8, 8), t)
     u = torch.zeros(64, dtype=torch.float32)
     f, i = torch.zeros(2, dtype=torch.float32), torch.zeros(2, dtype=torch.int32)
+    one = torch.zeros(1, dtype=torch.float64)
     with pytest.raises(ValueError, match="4 elements"):
-        rmi_search(u, t, t, f, f, f, i, i, i, steps=4)
+        rmi_search(t, t, one, one, f, f, f, i, i, i, steps=4)
+    with pytest.raises(TypeError, match="float64"):  # kmin/inv_span stay f64: u is the kernel's
+        rmi_search(t, t, one.float(), one, torch.zeros(4), f, f, i, i, i, steps=4)
     with pytest.raises(ValueError, match="3 elements"):  # off needs levels + 1
         pgm_search(u, t, t, t, torch.zeros(64), torch.zeros(64), i, i, i,
                    torch.zeros(2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
@@ -125,3 +129,50 @@ def test_rmi_leaf_product_is_the_reencoders():
     # the reference's kernel, on the same leaves, misses keys here
     ref = rix.build(rix.RMISpec(b=n // 2), table)
     assert int((np.asarray(ref.lookup(table, table, backend="pallas")) != np.arange(n)).sum()) == 2
+
+
+def _early_exit_ranks(table_enc: np.ndarray, qs_enc: np.ndarray, lo, hi, steps: int):
+    """The kernel's per-query loop, one query at a time: halve the window
+    until it is one key wide (at most ``steps`` trips), then one last
+    compare.  Returns the ranks and each query's trip count."""
+    ranks, trips = np.empty(len(qs_enc), np.int64), np.empty(len(qs_enc), np.int64)
+    for i, q in enumerate(qs_enc):
+        base, length, s = int(lo[i]), int(hi[i]) - int(lo[i]) + 1, 0
+        while s < steps and length > 1:
+            half = length >> 1
+            if table_enc[base + half] <= q:
+                base += half
+            length -= half
+            s += 1
+        ranks[i] = base + int(table_enc[base] <= q) - 1
+        trips[i] = s
+    return ranks, trips
+
+
+@pytest.mark.parametrize("table_kind", TABLE_KINDS)
+@pytest.mark.parametrize("kind", ("RMI", "SY-RMI"))
+def test_rmi_trips_per_query_fit_under_steps(kind, table_kind):
+    """The kernel stops each query's search once its window is one key
+    wide, with ``steps`` (bucketed from the widest leaf window) as the cap.
+    On every table the widest window needs ``ceil_log2(hi - lo + 1) <=
+    steps`` trips, so the cap never cuts a search short, and a per-query
+    early-exit loop gives the twin's ranks; the twin's probe list counts
+    exactly those trips."""
+    rng = np.random.default_rng(23)
+    table = make_table(rng, table_kind, 20000)
+    qs = edge_queries(rng, table)
+    idx = tix.build(kind, table, device="cpu")
+    t, q = keys.encode(table, "cpu"), keys.encode(qs, "cpu")
+    args, kwargs = tix.impls.query_impl(kind).operands(idx, t, q)
+    _, _, kmin, inv_span, root, slope, icept, eps, rlo, rhi = args
+    u = keys.unit_f32(q, kmin, inv_span)
+    lo, hi = _rmi_window_body(u, root, slope, icept, eps, rlo, rhi, b=slope.numel(), n=len(table))
+    steps = kwargs["steps"]
+    assert ceil_log2(int((hi - lo + 1).max())) <= steps
+    probes = []
+    twin = rmi_search_plain(*args, **kwargs, probes=probes).numpy()
+    np.testing.assert_array_equal(twin, true_ranks(table, qs))
+    ranks, trips = _early_exit_ranks(t.numpy(), q.numpy(), lo.numpy(), hi.numpy(), steps)
+    np.testing.assert_array_equal(ranks, twin)
+    assert sum(int(p.numel()) for p in probes) == int(trips.sum()) + len(qs)
+    assert trips.max() <= steps

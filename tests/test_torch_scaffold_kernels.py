@@ -24,7 +24,13 @@ from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro_torch import kernels
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import _decode_body, decode_attention
+from repro_torch.kernels.decode_attention import (
+    MAX_SPLIT,
+    _decode_body,
+    _decode_split_body,
+    decode_attention,
+    split_plan,
+)
 from repro_torch.kernels.embedding_bag import _bag_body, embedding_bag
 
 ATT_TOL = 3e-4
@@ -113,6 +119,61 @@ def test_decode_attention_wrapper_on_cpu_takes_the_twin_in_either_dtype():
         decode_attention(*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(kvl[:1]))
     with pytest.raises(TypeError):
         decode_attention(*(torch.from_numpy(x).double() for x in (q, k, v)), torch.from_numpy(kvl))
+
+
+#: (hq, hkv, d): groups 1, 4, 7 (qwen2-0.5b) and 16 at head dims 64 and 128
+SPLIT_SHAPES = [
+    (4, 4, 64), (4, 4, 128), (32, 8, 64), (32, 8, 128),
+    (14, 2, 64), (14, 2, 128), (16, 1, 64), (16, 1, 128),
+]
+SPLIT_TOL = 2e-5  # f32 sums in another order
+
+
+@pytest.mark.parametrize("hq,hkv,d", SPLIT_SHAPES)
+def test_decode_split_body_matches_pallas_and_one_pass(hq, hkv, d):
+    """The CUDA kernel's split-and-combine arithmetic: each row's tiles cut
+    into ``n_split`` tile-aligned shares of its own ``kv_len``, combined
+    as ``sum e^(m - M) acc / max(sum e^(m - M) l, 1e-30)``.  Lengths 0, 1,
+    a tile - 1, + 0 and + 1, S, and rows shorter than ``n_split`` tiles
+    (so some shares are empty), for splits of 1 to more than S has
+    tiles: within 2e-5 of the Pallas kernel and of the one-pass twin."""
+    tile, s = 16, 160
+    q, k, v, _ = _attention_inputs(16, 8, hq, hkv, d, s)
+    kvl = np.asarray([0, 1, tile - 1, tile, tile + 1, s, 2 * tile + 3, 5 * tile - 2], np.int32)
+    pallas = _pallas_attention(q, k, v, kvl, 32)
+    one_pass = _twin_attention(q, k, v, kvl)
+    t = [torch.from_numpy(x) for x in (q, k, v, kvl)]
+    for n_split in (1, 2, 3, 7, 12):
+        got = _decode_split_body(*t, n_split, tile).numpy()
+        np.testing.assert_allclose(got, pallas, rtol=SPLIT_TOL, atol=SPLIT_TOL, err_msg=str(n_split))
+        np.testing.assert_allclose(got, one_pass, rtol=SPLIT_TOL, atol=SPLIT_TOL,
+                                   err_msg=str(n_split))
+        assert (got[0] == 0).all()
+
+
+def test_split_plan_fills_the_card_and_bounds_the_stage():
+    """bf16 at head dims 16-128 takes the tensor-core kernel's 16-position
+    tiles; otherwise a tile holds 8 KiB of K a stage (at most 64
+    positions).  The split aims at 16 blocks an SM, cuts at most 16
+    shares, and never more than a full row has tiles."""
+    # qwen2-0.5b's decode_32k cell, the roofline shape in f32 and bf16, the serving cache
+    assert split_plan(128, 2, 64, 32768, 2, 132) == (16, 9)
+    assert split_plan(8, 8, 128, 32768, 4, 132) == (16, 16)
+    assert split_plan(8, 8, 128, 32768, 2, 132) == (16, 16)
+    assert split_plan(8, 2, 64, 32768, 2, 132) == (16, 16)
+    assert split_plan(1, 1, 256, 32768, 4, 132)[0] == 8
+    assert split_plan(1, 1, 256, 32768, 2, 132)[0] == 16
+    assert split_plan(1, 1, 8, 32768, 2, 132)[0] == 64
+    assert split_plan(1, 1, 64, 32768, 4, 132)[0] == 32
+    assert split_plan(2, 1, 64, 100, 2, 132) == (16, 7)
+    assert split_plan(64, 2, 64, 32768, 2, 132) == (16, 16)
+    assert split_plan(1024, 8, 64, 32768, 2, 132) == (16, 1)
+    for b in (1, 3, 16, 128, 4096):
+        for hkv in (1, 2, 8):
+            for d, itemsize in ((8, 4), (64, 2), (128, 4), (256, 2)):
+                for s in (1, 15, 700, 32768):
+                    tile, n_split = split_plan(b, hkv, d, s, itemsize, 132)
+                    assert 1 <= n_split <= min(MAX_SPLIT, -(-s // tile))
 
 
 #: (v, d, n_items, bags, v_tile): the reference test's shapes
