@@ -29,15 +29,20 @@ Phases (any failure ends the run with a non-zero exit):
 4. full size — ``amzn64`` and ``osm`` at the L4 tier (2^24 keys, larger
                than the 50 MB L2) with 2^22 queries sampled from the table;
                all 10 kinds built with the registry defaults; launch counts
-               of the single-table path, bit-exactness, kernel / twin /
-               ``torch.searchsorted`` times (CUDA events) and the bound;
+               of the single-table path, bit-exactness, kernel / lookup /
+               twin / ``torch.searchsorted`` times (CUDA events), the bound
+               and probes a query; for the model-free kinds the trips from
+               the shared-memory tree (T), the global trips and the sweep
+               (W), for PGM/PGM_M the levels and bytes staged in shared
+               memory and the kernel's time without staging;
 5. tier      — the same two tables, each split into 4 contiguous shards of
                2^22 keys (the tier layout), 2^20 queries sampled from each
                shard: all 10 kinds through ``build_many`` and one batched
                lookup each; launch counts of the batched path (one per
                tier and kind), bit-exactness against the batched twin and
                batched ``torch.searchsorted``, ``unstack()`` against
-               per-shard builds, times and bounds; and a locality probe:
+               per-shard builds, times, bounds and the phase-4 plan lines;
+               and a locality probe:
                the single-table model-free kernel over the whole table
                with the tier's queries in shard order and shuffled;
 6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
@@ -69,8 +74,8 @@ Phases (any failure ends the run with a non-zero exit):
                ``decode_attention``'s split plan (kernel, tile, n_split,
                stages, threads) and its time at other splits (forced
                through ``split_plan``), and the
-               ``-Xptxas -v`` registers of ``decode_attention`` and
-               ``rmi_search``.
+               ``-Xptxas -v`` registers of ``decode_attention``,
+               ``rmi_search``, ``pgm_search`` and ``kary_search``.
 
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
@@ -435,6 +440,39 @@ def measure(dev, impl_search, impl_plain, args, kwargs, table, nq, lookup, libra
     return row
 
 
+def search_plan(kind: str, index, n: int, timed) -> dict:
+    """How the redesigned kernels split one lookup's work: for the
+    model-free kinds the trips served by the staged tree (T), the global
+    trips, and the window the sweep reads (at most W keys); for PGM/PGM_M
+    the levels staged in shared memory and their bytes (a list, one a
+    table of a stack), and the kernel's time with the staging budget set
+    to 0 (``timed()`` under ``STAGE_BYTES = 0``; the ranks are checked
+    there too)."""
+    from repro_torch.kernels import kary_search as kary
+    from repro_torch.kernels import pgm_search as pgm
+
+    if kind in ("PGM", "PGM_M"):
+        off = index.arrays["off"].reshape(-1, index.s("levels") + 1).cpu().numpy()
+        off_r = index.arrays["off_r"].reshape(off.shape).cpu().numpy()
+        plans = [pgm.staged_levels(o, r, index.s("levels"), pgm.STAGE_BYTES) for o, r in zip(off, off_r)]
+        budget, pgm.STAGE_BYTES = pgm.STAGE_BYTES, 0
+        try:
+            unstaged_ms, unstaged_exact = timed()
+        finally:
+            pgm.STAGE_BYTES = budget
+        if not unstaged_exact:
+            fail(f"{kind}: the kernel with no staging differs from torch.searchsorted")
+        return {"levels": index.s("levels"), "stage_budget": budget,
+                "staged_levels": [p[0] for p in plans], "staged_bytes": [p[1] for p in plans],
+                "unstaged_ms": unstaged_ms}
+    if KERNEL_OF[kind] != "kary_search":
+        return {}
+    tree, length, trips = kary.tree_levels(n), -(-n // (1 << kary.tree_levels(n))), 0
+    while length > kary.SWEEP:
+        length, trips = length - (length >> 1), trips + 1
+    return {"tree_levels": tree, "global_trips": trips, "sweep": length, "sweep_width": kary.SWEEP}
+
+
 def log_row(prefix: str, row: dict) -> None:
     ms = ("not measured" if row["ms"] is None
           else f"{row['ms']:.4f} ms ({row['mlookups_per_s']:.1f} Mlookups/s)")
@@ -444,6 +482,16 @@ def log_row(prefix: str, row: dict) -> None:
         f"searchsorted {row['library_ms']}, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}; {row['table_sectors']} table sectors, "
         f"{row['probes_per_query']:g} probes/query)")
+    plan = row.get("plan") or {}
+    if "staged_levels" in plan:
+        log(f"{prefix}: {plan['levels']} levels, staged in shared memory "
+            f"{plan['staged_levels']} levels / {plan['staged_bytes']} B of "
+            f"{plan['stage_budget']} B a block; kernel with no staging (budget 0) "
+            f"{plan['unstaged_ms']} ms")
+    elif plan:
+        log(f"{prefix}: T = {plan['tree_levels']} trips from the shared-memory tree, "
+            f"{plan['global_trips']} global trips, a sweep of {plan['sweep']} keys "
+            f"(W = {plan['sweep_width']})")
 
 
 def check_launches(launches: dict, kernels_of: dict, n_tables: int, path: str) -> None:
@@ -516,6 +564,9 @@ def phase_full(dev, n: int, nq: int, datasets) -> tuple:
             lambda: idx.lookup(t_dev, q_dev, backend="kernel"),
             lambda: torch.searchsorted(t_dev, q_dev, right=True),
         ))
+        row["plan"] = search_plan(kind, idx, len(tables[ds][0]), lambda: (
+            device_ms(lambda: impl.search(*args, **kwargs), dev),
+            bool(torch.equal(impl.search(*args, **kwargs).long(), ref))))
         rows.append(row)
         log_row(f"[full] {ds}/{kind}", row)
     return rows, launches, tables
@@ -588,6 +639,10 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
             lambda: bm.lookup(q_dev, backend="kernel"),
             lambda: torch.searchsorted(bm.tables, q, right=True),
         ))
+        row["plan"] = search_plan(kind, bm.index, bm.tables.shape[1], lambda: (
+            device_ms(lambda: impl.batched_search(*args, **kwargs), dev),
+            bool(torch.equal(torch.minimum(impl.batched_search(*args, **kwargs).long(),
+                                           bm.counts[:, None] - 1), ref))))
         rows.append(row)
         log_row(f"[tier] {ds}/{kind}", row)
         log(f"[tier] {ds}/{kind}: unstack() == per-shard build for all {len(shards)} shards "
@@ -951,7 +1006,7 @@ def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
     del q, k, v
     from repro_torch.kernels import cuda_lib
 
-    for src in ("decode_attention.cu", "rmi_search.cu"):
+    for src in ("decode_attention.cu", "rmi_search.cu", "pgm_search.cu", "kary_search.cu"):
         for ln in cuda_lib.ptxas_report().get(src, []):
             if "Compiling entry" in ln or "Used" in ln or "spill" in ln:
                 log(f"[times] ptxas {src}: {ln}")

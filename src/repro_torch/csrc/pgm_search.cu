@@ -2,46 +2,112 @@
 // single-table and batched.
 //
 // Replaces repro/kernels/pgm_search.py:fused_pgm_search_pallas and
-// batched_pgm_search_pallas (_pgm_body, _bounded_ub_limbs).  One thread per
-// query walks the levels top-down.  At each level it gathers the current
-// segment's f32 anchor u0, slope and rank fences r0/r1, predicts
-// r0 + slope * max(u - u0, 0) in f32 (clamped to +-1e9), clamps the centre
-// into [r0 - 1, r1 - 1], widens it by eps + 1, and runs an upper-bound
-// search of `steps` trips over the next level's segment keys -- or over
-// the table at the last level, whose result is the predecessor rank.
-// Every multiply and add is rounded on its own: the re-encoded eps budgets
-// one fused multiply-add only.  `levels` and `steps` are run-time values.
-// The batched kernel takes its table from blockIdx.y and runs the same
-// per-query function on that table's rows of the stacked leaves; the level
-// count is common (shallow tables were lifted at stack time) and `steps`
-// is the max over the tables.
+// batched_pgm_search_pallas (_pgm_body, _bounded_ub_limbs).  Per query:
+//   0. u = clip((q - kmin) * inv_span, 0, 1) from the encoded query, in f64
+//      and rounded once to f32 (unit_f32 in search_common.cuh, bit for bit
+//      the host's keys.unit_f32);
+//   1. top-down over `levels`: the current segment's f32 anchor u0, slope
+//      and rank fences r0/r1; r0 + slope * max(u - u0, 0) in f32 (clamped
+//      to +-1e9), its floor and ceil clamped into [r0 - 1, r1 - 1], widened
+//      by eps + 1 and clamped again;
+//   2. an upper-bound search of that window over the next level's segment
+//      keys -- or over the table at the last level, whose result is the
+//      predecessor rank -- that stops once the window is one key wide,
+//      `steps` only the cap (bounded_ub_early).
+// The level directories are read as the index holds them, int64.
 //
-// Bound on the H100: bytes.  The segment leaves are small and shared by all
-// queries; the last level's search is dependent gathers into the table,
-// which at 2^24 keys lives in HBM.  This first design does nothing about
-// that.  The plain PyTorch twins are _pgm_body and _batched_pgm_body in
-// kernels/pgm_search.py.
+// Bound on the H100: the dependent loads.  This form stages the upper
+// levels in shared memory: a persistent grid walks the queries with a
+// grid-stride loop, and each block copies, once a table, levels 0 .. S-1
+// (S the largest count below `levels` whose keys, u0, slope -- 16 bytes a
+// segment -- and int32 rank0 -- 4 bytes an entry -- fit in `stage_bytes`
+// of dynamic shared memory); a level that does not fit is read from
+// global memory by the same code.  The batched kernel's blocks take the
+// tables in turn.  The plain PyTorch twins are pgm_search_plain and
+// batched_pgm_search_plain in kernels/pgm_search.py.
 
 #include "search_common.cuh"
 
-__device__ __forceinline__ int pgm_query(float x, long long q, const long long* __restrict__ table,
-                                         int n, const long long* __restrict__ keys,
-                                         const float* __restrict__ u0,
-                                         const float* __restrict__ slope,
-                                         const int* __restrict__ rank0,
-                                         const int* __restrict__ off,
-                                         const int* __restrict__ off_r,
-                                         const int* __restrict__ sizes, int eps, int levels,
-                                         int steps) {
+// One table's leaves: the level-concatenated segment keys, f32 u0/slope
+// (pk_*), and the int64 level directories.
+struct PgmLeaves {
+  const long long* keys;
+  const float* u0;
+  const float* slope;
+  const long long* rank0;
+  const long long* off;
+  const long long* off_r;
+  const long long* sizes;
+};
+
+// The staged prefix: levels 0 .. levels-1 of the same leaves, in shared memory.
+struct PgmStaged {
+  const long long* keys;
+  const float* u0;
+  const float* slope;
+  const int* rank0;
+  int levels;
+};
+
+// Copy the largest prefix of levels (at most levels - 1) that fits in
+// `budget` bytes into `buf`; every thread of the block must call it.
+__device__ __forceinline__ PgmStaged stage_levels(const PgmLeaves& g, int levels, int budget,
+                                                  long long* buf) {
+  int s = 0;
+  while (s + 1 < levels && 16 * __ldg(g.off + s + 1) + 4 * __ldg(g.off_r + s + 1) <= budget) ++s;
+  const int kn = (int)__ldg(g.off + s);
+  const int rn = (int)__ldg(g.off_r + s);
+  long long* keys = buf;
+  float* u0 = reinterpret_cast<float*>(keys + kn);
+  float* slope = u0 + kn;
+  int* rank0 = reinterpret_cast<int*>(slope + kn);
+  for (int i = threadIdx.x; i < kn; i += blockDim.x) {
+    keys[i] = __ldg(g.keys + i);
+    u0[i] = __ldg(g.u0 + i);
+    slope[i] = __ldg(g.slope + i);
+  }
+  for (int i = threadIdx.x; i < rn; i += blockDim.x) rank0[i] = (int)__ldg(g.rank0 + i);
+  __syncthreads();
+  return PgmStaged{keys, u0, slope, rank0, s};
+}
+
+// bounded_ub_early over keys staged in shared memory (plain loads).
+__device__ __forceinline__ int bounded_ub_early_shared(const long long* keys, long long q,
+                                                       int base, int len, int steps) {
+  for (int s = 0; s < steps && len > 1; ++s) {
+    const int half = len >> 1;
+    const int mid = base + half;
+    base = (keys[mid] <= q) ? mid : base;
+    len -= half;
+  }
+  return base + (keys[base] <= q ? 1 : 0);
+}
+
+__device__ __forceinline__ int pgm_query(long long q, double kmin, double inv_span,
+                                         const long long* __restrict__ table, int n,
+                                         const PgmLeaves& g, const PgmStaged& st, int eps,
+                                         int levels, int steps) {
+  const float x = unit_f32(q, kmin, inv_span);
   const int widen = eps + 1;
   int seg = 0;
   for (int lvl = 0; lvl < levels; ++lvl) {
-    const int k = off[lvl] + seg;
-    const int r = off_r[lvl] + seg;
-    const int r0 = rank0[r];
-    const int r1 = rank0[r + 1];
-    const float du = fmaxf(__fsub_rn(x, u0[k]), 0.0f);
-    const float pred = __fadd_rn(__int2float_rn(r0), __fmul_rn(slope[k], du));
+    const int k = (int)__ldg(g.off + lvl) + seg;
+    const int r = (int)__ldg(g.off_r + lvl) + seg;
+    float u0, slope;
+    int r0, r1;
+    if (lvl < st.levels) {
+      u0 = st.u0[k];
+      slope = st.slope[k];
+      r0 = st.rank0[r];
+      r1 = st.rank0[r + 1];
+    } else {
+      u0 = __ldg(g.u0 + k);
+      slope = __ldg(g.slope + k);
+      r0 = (int)__ldg(g.rank0 + r);
+      r1 = (int)__ldg(g.rank0 + r + 1);
+    }
+    const float du = fmaxf(__fsub_rn(x, u0), 0.0f);
+    const float pred = __fadd_rn(__int2float_rn(r0), __fmul_rn(slope, du));
     const int b_lo = max(r0 - 1, 0);
     const int b_hi = r1 - 1;
     const int p_lo = clampi(floor_to_int(pred), b_lo, b_hi);
@@ -49,75 +115,104 @@ __device__ __forceinline__ int pgm_query(float x, long long q, const long long* 
     int lo = clampi(p_lo - widen, b_lo, b_hi);
     int hi = clampi(p_hi + widen, b_lo, b_hi);
     if (lvl + 1 < levels) {
-      const int base_n = off[lvl + 1];
-      const int ub = bounded_ub(keys, q, base_n + lo, hi - lo + 1, steps);
-      seg = min(max(ub - base_n - 1, 0), sizes[lvl + 1] - 1);
+      const int base_n = (int)__ldg(g.off + lvl + 1);
+      const int ub = lvl + 1 < st.levels
+                         ? bounded_ub_early_shared(st.keys, q, base_n + lo, hi - lo + 1, steps)
+                         : bounded_ub_early(g.keys, q, base_n + lo, hi - lo + 1, steps);
+      seg = min(max(ub - base_n - 1, 0), (int)__ldg(g.sizes + lvl + 1) - 1);
     } else {
       lo = clampi(lo, 0, n - 1);
       hi = clampi(hi, 0, n - 1);
-      return bounded_ub(table, q, lo, hi - lo + 1, steps) - 1;
+      return bounded_ub_early(table, q, lo, hi - lo + 1, steps) - 1;
     }
   }
   return -1;  // unreachable: the wrappers require levels >= 1
 }
 
-extern "C" __global__ void pgm_search_kernel(
-    const float* __restrict__ u, const long long* __restrict__ queries, long long nq,
-    const long long* __restrict__ table, int n, const long long* __restrict__ keys,
-    const float* __restrict__ u0, const float* __restrict__ slope,
-    const int* __restrict__ rank0, const int* __restrict__ off, const int* __restrict__ off_r,
-    const int* __restrict__ sizes, const int* __restrict__ eps, int levels, int steps,
-    int* __restrict__ out) {
-  const long long i = query_slot(nq);
-  if (i < 0) return;
-  out[i] = pgm_query(u[i], queries[i], table, n, keys, u0, slope, rank0, off, off_r, sizes, eps[0],
-                     levels, steps);
+__device__ __forceinline__ void pgm_queries(const long long* __restrict__ queries, long long nq,
+                                            double kmin, double inv_span,
+                                            const long long* __restrict__ table, int n,
+                                            const PgmLeaves& g, const PgmStaged& st, int eps,
+                                            int levels, int steps, int* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nq; i += stride)
+    out[i] = pgm_query(queries[i], kmin, inv_span, table, n, g, st, eps, levels, steps);
 }
 
-// Table t: row t of every stacked leaf, with row lengths kn (keys, u0,
-// slope), rn (rank0), levels + 1 (off, off_r), levels (sizes) and 1 (eps);
-// row t of the (n_tables, nq) u and out; queries row t at stride q_stride
-// (0 when one batch is broadcast).
+extern "C" __global__ void pgm_search_kernel(const long long* __restrict__ queries, long long nq,
+                                             const double* __restrict__ kmin,
+                                             const double* __restrict__ inv_span,
+                                             const long long* __restrict__ table, int n,
+                                             PgmLeaves g, const int* __restrict__ eps, int levels,
+                                             int steps, int stage_bytes, int* __restrict__ out) {
+  extern __shared__ long long stage[];
+  const PgmStaged st = stage_levels(g, levels, stage_bytes, stage);
+  pgm_queries(queries, nq, kmin[0], inv_span[0], table, n, g, st, eps[0], levels, steps, out);
+}
+
 extern "C" __global__ void batched_pgm_search_kernel(
-    const float* __restrict__ u, const long long* __restrict__ queries, long long q_stride,
-    long long nq, const long long* __restrict__ tables, int n, const long long* __restrict__ keys,
-    const float* __restrict__ u0, const float* __restrict__ slope, int kn,
-    const int* __restrict__ rank0, int rn, const int* __restrict__ off,
-    const int* __restrict__ off_r, const int* __restrict__ sizes, const int* __restrict__ eps,
-    int levels, int steps, int* __restrict__ out) {
-  const long long i = query_slot(nq);
-  if (i < 0) return;
-  const long long t = blockIdx.y;
-  const long long lk = t * kn;
-  out[t * nq + i] = pgm_query(u[t * nq + i], queries[t * q_stride + i], tables + t * n, n,
-                              keys + lk, u0 + lk, slope + lk, rank0 + t * rn,
-                              off + t * (levels + 1), off_r + t * (levels + 1),
-                              sizes + t * levels, eps[t], levels, steps);
+    const long long* __restrict__ queries, long long q_stride, long long nq, int n_tables,
+    const double* __restrict__ kmin, const double* __restrict__ inv_span,
+    const long long* __restrict__ tables, int n, PgmLeaves g, int kn, int rn,
+    const int* __restrict__ eps, int levels, int steps, int stage_bytes, int* __restrict__ out) {
+  extern __shared__ long long stage[];
+  for (long long t = 0; t < n_tables; ++t) {
+    if (t > 0) __syncthreads();  // every warp is done with the last table's staged levels
+    const long long lk = t * kn;
+    const PgmLeaves mine{g.keys + lk, g.u0 + lk, g.slope + lk, g.rank0 + t * rn,
+                         g.off + t * (levels + 1), g.off_r + t * (levels + 1),
+                         g.sizes + t * levels};
+    const PgmStaged st = stage_levels(mine, levels, stage_bytes, stage);
+    pgm_queries(queries + t * q_stride, nq, kmin[t], inv_span[t], tables + t * n, n, mine, st,
+                eps[t], levels, steps, out + t * nq);
+  }
 }
 
-extern "C" int pgm_search_launch(const void* u, const void* queries, long long nq,
-                                 const void* table, int n, const void* keys, const void* u0,
-                                 const void* slope, const void* rank0, const void* off,
-                                 const void* off_r, const void* sizes, const void* eps,
-                                 int levels, int steps, void* out, void* stream) {
-  pgm_search_kernel<<<search_grid(nq, 1), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)u, (const long long*)queries, nq, (const long long*)table, n,
-      (const long long*)keys, (const float*)u0, (const float*)slope, (const int*)rank0,
-      (const int*)off, (const int*)off_r, (const int*)sizes, (const int*)eps, levels, steps,
-      (int*)out);
+template <typename Kernel>
+unsigned persistent_blocks(Kernel kernel, int smem, long long nq) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) != cudaSuccess)
+    return 0;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long need = (nq + kThreads - 1) / kThreads;
+  return (unsigned)(need < resident ? need : resident);
+}
+
+extern "C" int pgm_search_launch(const void* queries, long long nq, const void* kmin,
+                                 const void* inv_span, const void* table, int n, const void* keys,
+                                 const void* u0, const void* slope, const void* rank0,
+                                 const void* off, const void* off_r, const void* sizes,
+                                 const void* eps, int levels, int steps, int stage_bytes,
+                                 void* out, void* stream) {
+  const PgmLeaves g{(const long long*)keys, (const float*)u0, (const float*)slope,
+                    (const long long*)rank0, (const long long*)off, (const long long*)off_r,
+                    (const long long*)sizes};
+  const unsigned blocks = persistent_blocks(pgm_search_kernel, stage_bytes, nq);
+  if (blocks == 0) return (int)cudaGetLastError();
+  pgm_search_kernel<<<blocks, kThreads, stage_bytes, (cudaStream_t)stream>>>(
+      (const long long*)queries, nq, (const double*)kmin, (const double*)inv_span,
+      (const long long*)table, n, g, (const int*)eps, levels, steps, stage_bytes, (int*)out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int batched_pgm_search_launch(const void* u, const void* queries, long long q_stride,
-                                         long long nq, int n_tables, const void* tables, int n,
-                                         const void* keys, const void* u0, const void* slope,
-                                         int kn, const void* rank0, int rn, const void* off,
+extern "C" int batched_pgm_search_launch(const void* queries, long long q_stride, long long nq,
+                                         int n_tables, const void* kmin, const void* inv_span,
+                                         const void* tables, int n, const void* keys,
+                                         const void* u0, const void* slope, int kn,
+                                         const void* rank0, int rn, const void* off,
                                          const void* off_r, const void* sizes, const void* eps,
-                                         int levels, int steps, void* out, void* stream) {
-  batched_pgm_search_kernel<<<search_grid(nq, n_tables), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)u, (const long long*)queries, q_stride, nq, (const long long*)tables, n,
-      (const long long*)keys, (const float*)u0, (const float*)slope, kn, (const int*)rank0, rn,
-      (const int*)off, (const int*)off_r, (const int*)sizes, (const int*)eps, levels, steps,
-      (int*)out);
+                                         int levels, int steps, int stage_bytes, void* out,
+                                         void* stream) {
+  const PgmLeaves g{(const long long*)keys, (const float*)u0, (const float*)slope,
+                    (const long long*)rank0, (const long long*)off, (const long long*)off_r,
+                    (const long long*)sizes};
+  const unsigned blocks = persistent_blocks(batched_pgm_search_kernel, stage_bytes, nq);
+  if (blocks == 0) return (int)cudaGetLastError();
+  batched_pgm_search_kernel<<<blocks, kThreads, stage_bytes, (cudaStream_t)stream>>>(
+      (const long long*)queries, q_stride, nq, n_tables, (const double*)kmin,
+      (const double*)inv_span, (const long long*)tables, n, g, kn, rn, (const int*)eps, levels,
+      steps, stage_bytes, (int*)out);
   return (int)cudaGetLastError();
 }

@@ -289,21 +289,24 @@ def _pgm_space(idx: Index) -> int:
 
 
 def _pgm_operands(idx: Index, table, q):
-    """Fused PGM descent on the ``pk_*`` leaves; ``u`` in f64 outside it."""
+    """Fused PGM descent on the raw queries, the f64 ``pk_kmin``/
+    ``pk_inv_span`` (the kernel computes ``u``), the ``pk_*`` leaves and
+    the int64 level directories as the index holds them."""
     a = idx.arrays
-    u = unit_f32(q, a["pk_kmin"], a["pk_inv_span"])
-    i32 = [a[k].to(torch.int32) for k in ("rank0", "off", "off_r", "sizes")]
-    args = (u, q, table, a["keys"], a["pk_u0"], a["pk_slope"], *i32, a["pk_eps"].reshape(1))
+    dirs = [a[k] for k in ("rank0", "off", "off_r", "sizes")]
+    args = (q, table, a["pk_kmin"].reshape(1), a["pk_inv_span"].reshape(1), a["keys"], a["pk_u0"],
+            a["pk_slope"], *dirs, a["pk_eps"].reshape(1))
     return args, {"levels": idx.s("levels"), "steps": idx.s("pksteps")}
 
 
 def _pgm_batched_operands(idx: Index, tables, queries):
-    """Batched PGM descent on the stacked ``pk_*`` leaves; the level count
-    is common (lifted at stack time) and ``pksteps`` the max."""
+    """Batched PGM descent on the raw queries, each table's f64
+    ``pk_kmin``/``pk_inv_span`` and the stacked leaves and directories; the
+    level count is common (lifted at stack time) and ``pksteps`` the max."""
     a = idx.arrays
-    u = unit_f32(queries, a["pk_kmin"][:, None], a["pk_inv_span"][:, None])
-    i32 = [a[k].to(torch.int32) for k in ("rank0", "off", "off_r", "sizes")]
-    args = (u, queries, tables, a["keys"], a["pk_u0"], a["pk_slope"], *i32, a["pk_eps"])
+    dirs = [a[k] for k in ("rank0", "off", "off_r", "sizes")]
+    args = (queries, tables, a["pk_kmin"], a["pk_inv_span"], a["keys"], a["pk_u0"], a["pk_slope"],
+            *dirs, a["pk_eps"])
     return args, {"levels": idx.s("levels"), "steps": idx.s("pksteps")}
 
 

@@ -49,10 +49,10 @@ _D = ctypes.c_double
 
 #: C entry points and their argument types (see each source's launcher)
 SIGNATURES = {
-    # table, n, queries, nq, steps, out, stream
-    "kary_search_launch": (_P, _I, _P, _L, _I, _P, _P),
-    # tables, n_tables, n, queries, q_stride, nq, steps, out, stream
-    "batched_kary_search_launch": (_P, _I, _I, _P, _L, _L, _I, _P, _P),
+    # table, n, queries, nq, out, stream
+    "kary_search_launch": (_P, _I, _P, _L, _P, _P),
+    # tables, n_tables, n, queries, q_stride, nq, out, stream
+    "batched_kary_search_launch": (_P, _I, _I, _P, _L, _L, _P, _P),
     # queries, nq, kmin, inv_span, table, root, slope, icept, eps, rlo, rhi,
     # b, b_over_n, steps, out, stream
     "rmi_search_launch": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P),
@@ -61,13 +61,16 @@ SIGNATURES = {
     "batched_rmi_search_launch": (
         _P, _L, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P
     ),
-    # u, queries, nq, table, n, keys, u0, slope, rank0, off, off_r, sizes,
-    # eps, levels, steps, out, stream
-    "pgm_search_launch": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
-    # u, queries, q_stride, nq, n_tables, tables, n, keys, u0, slope, kn,
-    # rank0, rn, off, off_r, sizes, eps, levels, steps, out, stream
+    # queries, nq, kmin, inv_span, table, n, keys, u0, slope, rank0, off,
+    # off_r, sizes, eps, levels, steps, stage_bytes, out, stream
+    "pgm_search_launch": (
+        _P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P
+    ),
+    # queries, q_stride, nq, n_tables, kmin, inv_span, tables, n, keys, u0,
+    # slope, kn, rank0, rn, off, off_r, sizes, eps, levels, steps,
+    # stage_bytes, out, stream
     "batched_pgm_search_launch": (
-        _P, _P, _L, _L, _I, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P
+        _P, _L, _L, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P
     ),
     # u, queries, prefix, nq, table, n, knots, u0, slope, ranks, mk, radix,
     # radix_len, m_valid, eps, ksteps, steps, out, stream

@@ -3,23 +3,24 @@ of the L, Q, C, KO and BTREE kinds, and the batched backend of every kind
 without a fused batched kernel (CUDA source: ``csrc/kary_search.cu``).
 
 Replaces ``repro/kernels/kary_search.py:kary_search_pallas`` and
-``batched_kary_search_pallas``, whose lane-wide k = 128 fence compare
-suits a TPU vector unit.  On the H100 one thread answers one query with a
-branch-free binary search (k = 2): the ranks do not depend on k, and a
-thread's ``ceil(log2 n)`` dependent loads touch fewer 32-byte sectors
-than a warp's 32-fence step.
+``batched_kary_search_pallas``, whose lane-wide k = 128 fence compare and
+final lane sweep suit a TPU vector unit.  On the H100 each query runs the
+trips of a binary search (k = 2; the ranks do not depend on k) and ends,
+as the TPU kernel does, in one sweep over the last window.
 
-Bound on the H100: bytes — every probe is a dependent gather into a table
-that, at 2^24 keys, lives in HBM.  This first design does nothing about
-that (no shared-memory top levels, no prefetch); the plain form comes
-first, speed is later work.
+Bound on the H100: the dependent loads, not the bytes — at 2^24 keys the
+table lives in HBM, and one thread's ``ceil(log2 n) + 1`` gathers each
+wait on the last.  The kernel serves the first ``TREE_LEVELS`` trips from
+the top of the implicit search tree, staged once a block of a persistent
+grid in shared memory (Eytzinger order, :func:`tree_positions`), makes
+global trips until the window holds at most ``SWEEP`` keys, and then
+counts the window's keys ``<= q`` with coalesced loads, a warp's windows
+at a time.  The twins below do the same arithmetic on tensors.
 """
 
 from __future__ import annotations
 
 import torch
-
-from repro_torch.core.cdf import ceil_log2
 
 from . import cuda_lib
 from .ref import rows_with_probes
@@ -28,32 +29,83 @@ from .ref import rows_with_probes
 LAUNCHES = 0
 #: launches of the batched kernel (CUDA path only)
 BATCHED_LAUNCHES = 0
+#: trips served by the shared-memory tree (``kTreeLevels`` in the source):
+#: 2^12 - 1 keys, 32 KB a block
+TREE_LEVELS = 12
+#: the final sweep's width (``kSweep``): 256 bytes, two or three 128-byte lines
+SWEEP = 32
 
 
-def _kary_body(q, t, *, n: int, steps: int, probes=None):
-    """The kernel's arithmetic on tensors: ``steps`` trips of a branch-free
-    binary search over ``t[0:n)``, then the predecessor rank (int32).
-    ``probes``, when a list, receives every table index gathered."""
+def tree_levels(n: int) -> int:
+    """Trips the staged tree serves over ``n`` keys: ``ceil(log2 n)``
+    capped at :data:`TREE_LEVELS` (0 for one key), so the window is wider
+    than one key at each of them."""
+    return min(TREE_LEVELS, (n - 1).bit_length())
+
+
+def tree_positions(n: int, device="cpu") -> torch.Tensor:
+    """Table positions of the staged tree, in Eytzinger order: entry
+    ``node`` (1 .. 2^levels - 1; entry 0 is unused, -1) is the position
+    that trip ``floor(log2 node)`` probes on the path of ``node``'s bits
+    below the leading one, first trip first, 1 = right.  Before trip ``j``
+    the window holds ``ceil(n / 2^j)`` keys whatever the path, so a path
+    fixes the position."""
+    levels = tree_levels(n)
+    halves, length = [], n
+    for _ in range(levels):
+        halves.append(length >> 1)
+        length -= length >> 1
+    halves = torch.tensor(halves + [0], dtype=torch.int64)
+    node = torch.arange(1 << levels, dtype=torch.int64)
+    depth = torch.zeros_like(node)
+    for d in range(1, levels):
+        depth += node >= (1 << d)
+    base = torch.zeros_like(node)
+    for j in range(levels - 1):  # trip j's bit, for the nodes below depth j
+        below = depth > j
+        bit = (node >> torch.clamp(depth - 1 - j, min=0)) & 1
+        base += torch.where(below, bit * halves[j], 0)
+    pos = base + halves[depth]
+    pos[0] = -1
+    return pos.to(device)
+
+
+def _kary_body(q, t, *, n: int, probes=None):
+    """The kernel's arithmetic on tensors: :func:`tree_levels` trips down
+    the staged tree, global trips while the window holds more than
+    :data:`SWEEP` keys, then the sweep's count of the window's keys
+    ``<= q``; the predecessor rank (int32).  The window's length depends
+    on ``n`` only, so it is a Python int.  ``probes``, when a list,
+    receives every table index read: the tree trips' positions, the
+    global trips' and each sweep index."""
+    tree = t[tree_positions(n, t.device).clamp(min=0)]
+    node = torch.ones(q.shape, dtype=torch.int64, device=q.device)
     base = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
-    length = torch.full(q.shape, n, dtype=torch.int32, device=q.device)
-    for _ in range(steps):
+    length = n
+    for _ in range(tree_levels(n)):
+        half = length >> 1
+        right = (tree[node] <= q).to(torch.int32)
+        if probes is not None:
+            probes.append(base + half)
+        base = base + right * half
+        node = 2 * node + right
+        length -= half
+    while length > SWEEP:
         half = length >> 1
         mid = base + half
-        go_right = (t[mid] <= q) & (length > 1)
-        base = torch.where(go_right, mid, base)
-        length = length - torch.where(length > 1, half, 0)
+        base = torch.where(t[mid] <= q, mid, base)
+        length -= half
         if probes is not None:
             probes.append(mid)
+    window = base[..., None] + torch.arange(length, dtype=torch.int32, device=q.device)
     if probes is not None:
-        probes.append(base)
-    le = (t[base] <= q).to(torch.int32)
-    return base + le - 1
+        probes.append(window.reshape(-1))
+    return base + (t[window] <= q[..., None]).sum(-1, dtype=torch.int32) - 1
 
 
 def kary_search_plain(table: torch.Tensor, queries: torch.Tensor, *, probes=None):
     """The twin on the wrapper's operands, on any device."""
-    n = table.numel()
-    return _kary_body(queries, table, n=n, steps=ceil_log2(n), probes=probes)
+    return _kary_body(queries, table, n=table.numel(), probes=probes)
 
 
 def kary_search(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
@@ -65,7 +117,6 @@ def kary_search(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     cuda_lib.require(queries, "queries", torch.int64, queries.device)
     if n == 0 or n >= 2**31:
         raise ValueError(f"table must hold 1 .. 2**31-1 keys, got {n}")
-    steps = ceil_log2(n)
     if queries.device.type == "cpu":
         return kary_search_plain(table, queries)
     if queries.device.type != "cuda":
@@ -74,24 +125,23 @@ def kary_search(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     if queries.numel() == 0:
         return out
     cuda_lib.launch("kary_search_launch", queries.device, table.data_ptr(), n, queries.data_ptr(),
-                    queries.numel(), steps, out.data_ptr())
+                    queries.numel(), out.data_ptr())
     global LAUNCHES
     LAUNCHES += 1
     return out
 
 
-def _batched_kary_body(q, tables, *, n: int, steps: int, probes=None):
+def _batched_kary_body(q, tables, *, n: int, probes=None):
     """The batched kernel's arithmetic: :func:`_kary_body` on each row of
     the ``(n_tables, n)`` tables with the same row of the queries."""
     return rows_with_probes(
-        tables, probes, lambda t, p: _kary_body(q[t], tables[t], n=n, steps=steps, probes=p)
+        tables, probes, lambda t, p: _kary_body(q[t], tables[t], n=n, probes=p)
     )
 
 
 def batched_kary_search_plain(tables: torch.Tensor, queries: torch.Tensor, *, probes=None):
     """The batched twin on the wrapper's operands, on any device."""
-    n = tables.shape[1]
-    return _batched_kary_body(queries, tables, n=n, steps=ceil_log2(n), probes=probes)
+    return _batched_kary_body(queries, tables, n=tables.shape[1], probes=probes)
 
 
 def batched_kary_search(tables: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
@@ -116,7 +166,7 @@ def batched_kary_search(tables: torch.Tensor, queries: torch.Tensor) -> torch.Te
     if nq == 0 or nt == 0:
         return out
     cuda_lib.launch("batched_kary_search_launch", dev, tables.data_ptr(), nt, n,
-                    queries.data_ptr(), q_stride, nq, ceil_log2(n), out.data_ptr())
+                    queries.data_ptr(), q_stride, nq, out.data_ptr())
     global BATCHED_LAUNCHES
     BATCHED_LAUNCHES += 1
     return out

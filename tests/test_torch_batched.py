@@ -253,14 +253,15 @@ def test_batched_wrappers_validate_operands():
     with pytest.raises(ValueError, match="packed rows or one row broadcast"):
         batched_kary_search(t, torch.zeros(2, 64, dtype=torch.int64)[:, ::2].contiguous()
                             .as_strided((2, 16), (40, 1)))
-    u = torch.zeros(2, 32, dtype=torch.float32)
     f, i = torch.zeros(2, 4, dtype=torch.float32), torch.zeros(2, 4, dtype=torch.int32)
     two = torch.zeros(2, dtype=torch.float64)
     with pytest.raises(ValueError, match="4 columns"):
         batched_rmi_search(q, t, two, two, f[:, :3].contiguous(), f, f, i, i, i, steps=4)
     with pytest.raises(ValueError, match="2 elements"):  # one kmin a table
         batched_rmi_search(q, t, two[:1], two, f, f, f, i, i, i, steps=4)
+    seg, d = torch.zeros(2, 32), torch.zeros(2, 2, dtype=torch.int64)
+    e = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="3 columns"):  # off needs levels + 1
-        batched_pgm_search(u, q, t, t, torch.zeros(2, 32), torch.zeros(2, 32), i, i, i,
-                           torch.zeros(2, 2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
-                           levels=2, steps=4)
+        batched_pgm_search(q, t, two, two, t, seg, seg, d, d, d, d, e, levels=2, steps=4)
+    with pytest.raises(ValueError, match="2 elements"):  # one kmin a table
+        batched_pgm_search(q, t, two[:1], two, t, seg, seg, d, d, d, d, e, levels=1, steps=4)

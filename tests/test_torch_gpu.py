@@ -187,6 +187,125 @@ def test_batched_ragged_tail_and_row_queries(cuda):
                 np.testing.assert_array_equal(got[i], true_ranks(t, rows[i]), err_msg=f"{kind}/{nq}")
 
 
+# -- the redesigned model-free and PGM search kernels -----------------------------------
+#
+# kary_search: the top of the implicit search tree in shared memory and a
+# final sweep; pgm_search: u in the kernel, per-query trips, staged upper
+# levels.  Both single-table and batched, against their twins and
+# torch.searchsorted, bit for bit.
+
+#: table sizes around the staged tree's (2^12) and the sweep's (16) edges
+EDGE_NS = (1, 2, 3, 7, 8, 9, 4095, 4096, 4097, 65536 + 3)
+
+
+def _clamp_table():
+    """The pinned clustered table of ``test_pallas_window_center_clamp_regression``."""
+    rng = np.random.default_rng(42)
+    centers = rng.integers(0, 2**63, size=8, dtype=np.uint64)
+    return np.unique(np.concatenate(
+        [c + rng.integers(0, 2**20, size=256, dtype=np.uint64) for c in centers]))
+
+
+def _edge_tables():
+    rng = np.random.default_rng(36)
+    out = [(f"n={n}", as_table(rng.integers(0, 2**64 - 1, 2 * n + 8, dtype=np.uint64))[:n])
+           for n in EDGE_NS]
+    return out + [("pinned clamp", _clamp_table())]
+
+
+def _all_queries(table):
+    with np.errstate(over="ignore"):
+        return np.concatenate([table, table - np.uint64(1), table + np.uint64(1),
+                               np.array([0, 2**64 - 1], dtype=np.uint64)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("KO", "PGM", "PGM_M"))
+def test_redesigned_search_kernels_match_twin_and_searchsorted_on_card(cuda, kind):
+    """Every key, key +- 1, 0 and 2^64 - 1 on tables of 1 to 65,539 keys
+    and the pinned clamp table: the single-table kernel and the batched
+    kernel (the table stacked three times, the queries expand-ed) equal
+    their twins and ``torch.searchsorted``."""
+    from repro_torch.core import keys
+
+    impl = tix.impls.query_impl(kind)
+    for label, table in _edge_tables():
+        idx = tix.build(kind, table, device=cuda)
+        t, q = keys.encode(table, cuda), keys.encode(_all_queries(table), cuda)
+        want = torch.searchsorted(t, q, right=True) - 1
+        args, kwargs = impl.operands(idx, t, q)
+        kernels.reset_launches()
+        got = impl.search(*args, **kwargs).long()
+        torch.cuda.synchronize()
+        assert kernels.launches()[KERNEL_OF[kind]] == 1, label
+        assert torch.equal(got, want), (kind, label)
+        assert torch.equal(got, impl.plain(*args, **kwargs).long()), (kind, label)
+        bm = tune.build_many(kind, [table] * 3, device=cuda)
+        bq = bm.queries_for(q)
+        assert bq.stride(0) == 0
+        bargs, bkw = impl.batched_operands(bm.index, bm.tables, bq)
+        got = impl.batched_search(*bargs, **bkw).long()
+        assert torch.equal(got, want.expand(3, -1)), (kind, label)
+        assert torch.equal(got, impl.batched_plain(*bargs, **bkw).long()), (kind, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("KO", "PGM", "PGM_M"))
+def test_redesigned_batched_kernels_on_ragged_tiers_on_card(cuda, kind):
+    """A ragged ``build_many`` (three table shapes, 65,536 / 5,000 / 30,001
+    keys: PGM levels lifted, the count clamp) with expand-ed and packed
+    queries, and 0 and 1 queries."""
+    rng = np.random.default_rng(37)
+    tables = [_table(rng, k, m) for k, m in (("clustered", 65536), ("bursty", 5000),
+                                             ("lognormal", 30001))]
+    bm = tune.build_many(kind, tables, device=cuda)
+    twin = tune.build_many(kind, tables, device="cpu")
+    qs = _queries(rng, np.concatenate(tables))
+    kernels.reset_launches()
+    got = bm.lookup(qs, backend="kernel").cpu().numpy()
+    assert kernels.launches()[_batched_kernel(kind)] == 1
+    np.testing.assert_array_equal(got, twin.lookup(qs, backend="kernel").numpy())
+    rows = np.stack([rng.choice(t, 3000) for t in tables])
+    packed = bm.lookup(rows, backend="kernel").cpu().numpy()
+    for i, t in enumerate(tables):
+        np.testing.assert_array_equal(got[i], true_ranks(t, qs), err_msg=f"{kind}/{i}")
+        np.testing.assert_array_equal(packed[i], true_ranks(t, rows[i]), err_msg=f"{kind}/{i}")
+    for nq in (0, 1):
+        few = qs[:nq]
+        assert bm.lookup(few, backend="kernel").shape == (3, nq)
+        single = tix.build(kind, tables[0], device=cuda)
+        np.testing.assert_array_equal(single.lookup(tables[0], few, backend="kernel").cpu().numpy(),
+                                      true_ranks(tables[0], few))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ("none", "some", "all but the last"))
+def test_pgm_staging_budgets_on_card(cuda, monkeypatch, where):
+    """The shared-memory budget decides how many upper levels a block
+    stages (``staged_levels``); the ranks must not depend on it.  A
+    5-level PGM (eps 2 on 65,536 osm keys) at budgets that stage 0
+    levels, some, and all but the last, single and batched."""
+    from repro_torch.core import keys
+    from repro_torch.kernels import pgm_search as pgm
+
+    table = generate("osm", 1 << 16)
+    idx = tix.build(tix.PGMSpec(eps=2), table, device=cuda)
+    a, levels = idx.to_numpy(), idx.s("levels")
+    assert levels >= 4
+    plans = {b: pgm.staged_levels(a["off"], a["off_r"], levels, b)[0] for b in range(0, 8193, 4)}
+    budget = {"none": 0, "some": min(b for b, s in plans.items() if 0 < s < levels - 1),
+              "all but the last": min(b for b, s in plans.items() if s == levels - 1)}[where]
+    monkeypatch.setattr(pgm, "STAGE_BYTES", budget)
+    qs = _all_queries(table)
+    t, q = keys.encode(table, cuda), keys.encode(qs, cuda)
+    want = torch.searchsorted(t, q, right=True) - 1
+    assert torch.equal(idx.lookup(t, q, backend="kernel"), want)
+    bm = tune.build_many(tix.PGMSpec(eps=2), np.split(table, 4), device=cuda)
+    got = bm.lookup(q, backend="kernel")
+    assert torch.equal(got, torch.searchsorted(bm.tables, bm.queries_for(q), right=True)
+                       .minimum(bm.counts[:, None]) - 1)
+
+
 # -- the LM serving path's kernels: decode attention and embedding bag ----------------
 #
 # Float kernels: held against their plain twins on the card within stated

@@ -68,10 +68,13 @@ def test_kary_twin_probes_stay_in_range_and_do_not_change_ranks():
     qs = edge_queries(rng, table)
     t, q = keys.encode(table, "cpu"), keys.encode(qs, "cpu")
     probes = []
-    got = _kary_body(q, t, n=len(table), steps=13, probes=probes)
+    got = _kary_body(q, t, n=len(table), probes=probes)
     np.testing.assert_array_equal(got.numpy(), true_ranks(table, qs))
     np.testing.assert_array_equal(got.numpy(), kary_search(t, q).numpy())
-    assert len(probes) == 14
+    # 5000 keys: 12 trips down the staged tree leave a window of
+    # ceil(5000 / 2^12) = 2 keys, under SWEEP: no global trip, one sweep
+    assert len(probes) == 13
+    assert probes[-1].numel() == 2 * len(qs)
     idx = torch.cat(probes)
     assert int(idx.min()) >= 0 and int(idx.max()) < len(table)
 
@@ -82,16 +85,25 @@ def test_wrappers_validate_operands():
         kary_search(t.to(torch.int32), t)
     with pytest.raises(ValueError, match="contiguous 1-D"):
         kary_search(t.reshape(8, 8), t)
-    u = torch.zeros(64, dtype=torch.float32)
     f, i = torch.zeros(2, dtype=torch.float32), torch.zeros(2, dtype=torch.int32)
     one = torch.zeros(1, dtype=torch.float64)
     with pytest.raises(ValueError, match="4 elements"):
         rmi_search(t, t, one, one, f, f, f, i, i, i, steps=4)
     with pytest.raises(TypeError, match="float64"):  # kmin/inv_span stay f64: u is the kernel's
         rmi_search(t, t, one.float(), one, torch.zeros(4), f, f, i, i, i, steps=4)
+    # the PGM kernel takes the raw queries, f64 kmin/inv_span (u is the
+    # kernel's) and the int64 directories as the index holds them
+    seg, d = torch.zeros(64), torch.zeros(2, dtype=torch.int64)
     with pytest.raises(ValueError, match="3 elements"):  # off needs levels + 1
-        pgm_search(u, t, t, t, torch.zeros(64), torch.zeros(64), i, i, i,
-                   torch.zeros(2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+        pgm_search(t, t, one, one, t, seg, seg, d, d, d, d, torch.zeros(1, dtype=torch.int32),
+                   levels=2, steps=4)
+    with pytest.raises(TypeError, match="int64"):  # no int32 copy of a directory
+        pgm_search(t, t, one, one, t, seg, seg, d.int(), torch.zeros(3, dtype=torch.int64),
+                   torch.zeros(3, dtype=torch.int64), d, torch.zeros(1, dtype=torch.int32),
+                   levels=2, steps=4)
+    with pytest.raises(TypeError, match="float64"):
+        pgm_search(t, t, one.float(), one, t, seg, seg, d, torch.zeros(3, dtype=torch.int64),
+                   torch.zeros(3, dtype=torch.int64), d, torch.zeros(1, dtype=torch.int32),
                    levels=2, steps=4)
 
 
