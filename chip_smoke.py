@@ -33,8 +33,8 @@ Phases (any failure ends the run with a non-zero exit):
                twin / ``torch.searchsorted`` times (CUDA events), the bound
                and probes a query; for the model-free kinds the trips from
                the shared-memory tree (T), the global trips and the sweep
-               (W), for PGM/PGM_M the levels and bytes staged in shared
-               memory and the kernel's time without staging;
+               (W), for PGM/PGM_M the levels, their segments and the trip
+               cap;
 5. tier      — the same two tables, each split into 4 contiguous shards of
                2^22 keys (the tier layout), 2^20 queries sampled from each
                shard: all 10 kinds through ``build_many`` and one batched
@@ -440,31 +440,17 @@ def measure(dev, impl_search, impl_plain, args, kwargs, table, nq, lookup, libra
     return row
 
 
-def search_plan(kind: str, index, n: int, timed) -> dict:
+def search_plan(kind: str, index, n: int) -> dict:
     """How the redesigned kernels split one lookup's work: for the
     model-free kinds the trips served by the staged tree (T), the global
     trips, and the window the sweep reads (at most W keys); for PGM/PGM_M
-    the levels staged in shared memory and their bytes (a list, one a
-    table of a stack), and the kernel's time with the staging budget set
-    to 0 (``timed()`` under ``STAGE_BYTES = 0``; the ranks are checked
-    there too)."""
+    the levels, the segments of each (a list a table of a stack) and the
+    trip cap."""
     from repro_torch.kernels import kary_search as kary
-    from repro_torch.kernels import pgm_search as pgm
 
     if kind in ("PGM", "PGM_M"):
-        off = index.arrays["off"].reshape(-1, index.s("levels") + 1).cpu().numpy()
-        off_r = index.arrays["off_r"].reshape(off.shape).cpu().numpy()
-        plans = [pgm.staged_levels(o, r, index.s("levels"), pgm.STAGE_BYTES) for o, r in zip(off, off_r)]
-        budget, pgm.STAGE_BYTES = pgm.STAGE_BYTES, 0
-        try:
-            unstaged_ms, unstaged_exact = timed()
-        finally:
-            pgm.STAGE_BYTES = budget
-        if not unstaged_exact:
-            fail(f"{kind}: the kernel with no staging differs from torch.searchsorted")
-        return {"levels": index.s("levels"), "stage_budget": budget,
-                "staged_levels": [p[0] for p in plans], "staged_bytes": [p[1] for p in plans],
-                "unstaged_ms": unstaged_ms}
+        sizes = index.arrays["sizes"].reshape(-1, index.s("levels")).cpu().numpy()
+        return {"levels": index.s("levels"), "segments": sizes.tolist(), "steps": index.s("pksteps")}
     if KERNEL_OF[kind] != "kary_search":
         return {}
     tree, length, trips = kary.tree_levels(n), -(-n // (1 << kary.tree_levels(n))), 0
@@ -483,11 +469,9 @@ def log_row(prefix: str, row: dict) -> None:
         f"({row['bound_by']}; {row['table_sectors']} table sectors, "
         f"{row['probes_per_query']:g} probes/query)")
     plan = row.get("plan") or {}
-    if "staged_levels" in plan:
-        log(f"{prefix}: {plan['levels']} levels, staged in shared memory "
-            f"{plan['staged_levels']} levels / {plan['staged_bytes']} B of "
-            f"{plan['stage_budget']} B a block; kernel with no staging (budget 0) "
-            f"{plan['unstaged_ms']} ms")
+    if "segments" in plan:
+        log(f"{prefix}: {plan['levels']} levels of {plan['segments']} segments, trips capped "
+            f"at {plan['steps']}; no level staged in shared memory (PERF.md, PR 15)")
     elif plan:
         log(f"{prefix}: T = {plan['tree_levels']} trips from the shared-memory tree, "
             f"{plan['global_trips']} global trips, a sweep of {plan['sweep']} keys "
@@ -564,9 +548,7 @@ def phase_full(dev, n: int, nq: int, datasets) -> tuple:
             lambda: idx.lookup(t_dev, q_dev, backend="kernel"),
             lambda: torch.searchsorted(t_dev, q_dev, right=True),
         ))
-        row["plan"] = search_plan(kind, idx, len(tables[ds][0]), lambda: (
-            device_ms(lambda: impl.search(*args, **kwargs), dev),
-            bool(torch.equal(impl.search(*args, **kwargs).long(), ref))))
+        row["plan"] = search_plan(kind, idx, len(tables[ds][0]))
         rows.append(row)
         log_row(f"[full] {ds}/{kind}", row)
     return rows, launches, tables
@@ -639,10 +621,7 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
             lambda: bm.lookup(q_dev, backend="kernel"),
             lambda: torch.searchsorted(bm.tables, q, right=True),
         ))
-        row["plan"] = search_plan(kind, bm.index, bm.tables.shape[1], lambda: (
-            device_ms(lambda: impl.batched_search(*args, **kwargs), dev),
-            bool(torch.equal(torch.minimum(impl.batched_search(*args, **kwargs).long(),
-                                           bm.counts[:, None] - 1), ref))))
+        row["plan"] = search_plan(kind, bm.index, bm.tables.shape[1])
         rows.append(row)
         log_row(f"[tier] {ds}/{kind}", row)
         log(f"[tier] {ds}/{kind}: unstack() == per-shard build for all {len(shards)} shards "

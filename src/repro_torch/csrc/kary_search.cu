@@ -28,7 +28,7 @@
 //      rank is base + count - 1.
 // The persistent grid (SMs x resident blocks, grid-stride over the queries)
 // keeps the staging to one 32 KB copy a block; a launch of one block a
-// 256 queries would restage it 16,384 times at 2^22 queries.  The batched
+// 512 queries would restage it 8,192 times at 2^22 queries.  The batched
 // kernel's blocks take the tables in turn, restaging the tree for each:
 // blocks spread over every table at once (blockIdx.y a table) would keep
 // the whole tier's keys in use at once, and a tier of 4 shards of 2^22 keys
@@ -42,19 +42,19 @@ constexpr int kTreeLevels = 12;  // T: 4,095 staged keys, 32 KB
 constexpr int kSweep = 32;       // W: 256 bytes, two or three 128-byte lines
 constexpr int kKaryThreads = 512;
 
-// As many blocks as the device holds at once (SMs x resident blocks of
-// `kernel`), and no more than the queries need; 0 when a runtime call
-// failed (the launcher then returns cudaGetLastError()).
+// The persistent grid: as many blocks as the device holds at once (SMs x
+// resident blocks of `kernel`), and no more than the queries need.
 template <typename Kernel>
-inline unsigned persistent_blocks(Kernel kernel, long long nq) {
+cudaError_t persistent_blocks(Kernel kernel, long long nq, unsigned* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kKaryThreads, 0) != cudaSuccess)
-    return 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kKaryThreads, 0);
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long need = (nq + kKaryThreads - 1) / kKaryThreads;
-  return (unsigned)(need < resident ? need : resident);
+  *blocks = (unsigned)(need < resident ? need : resident);
+  return e;
 }
 
 // Trips served by the staged tree: ceil(log2 n) capped at kTreeLevels, so
@@ -169,8 +169,9 @@ extern "C" __global__ void __launch_bounds__(kKaryThreads)
 
 extern "C" int kary_search_launch(const void* table, int n, const void* queries, long long nq,
                                   void* out, void* stream) {
-  const unsigned blocks = persistent_blocks(kary_search_kernel, nq);
-  if (blocks == 0) return (int)cudaGetLastError();
+  unsigned blocks = 0;
+  const cudaError_t e = persistent_blocks(kary_search_kernel, nq, &blocks);
+  if (e != cudaSuccess) return (int)e;
   kary_search_kernel<<<blocks, kKaryThreads, 0, (cudaStream_t)stream>>>(
       (const long long*)table, n, (const long long*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
@@ -179,8 +180,9 @@ extern "C" int kary_search_launch(const void* table, int n, const void* queries,
 extern "C" int batched_kary_search_launch(const void* tables, int n_tables, int n,
                                           const void* queries, long long q_stride, long long nq,
                                           void* out, void* stream) {
-  const unsigned blocks = persistent_blocks(batched_kary_search_kernel, nq);
-  if (blocks == 0) return (int)cudaGetLastError();
+  unsigned blocks = 0;
+  const cudaError_t e = persistent_blocks(batched_kary_search_kernel, nq, &blocks);
+  if (e != cudaSuccess) return (int)e;
   batched_kary_search_kernel<<<blocks, kKaryThreads, 0, (cudaStream_t)stream>>>(
       (const long long*)tables, n_tables, n, (const long long*)queries, q_stride, nq, (int*)out);
   return (int)cudaGetLastError();

@@ -62,15 +62,12 @@ SIGNATURES = {
         _P, _L, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P
     ),
     # queries, nq, kmin, inv_span, table, n, keys, u0, slope, rank0, off,
-    # off_r, sizes, eps, levels, steps, stage_bytes, out, stream
-    "pgm_search_launch": (
-        _P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P
-    ),
+    # off_r, sizes, eps, levels, steps, out, stream
+    "pgm_search_launch": (_P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     # queries, q_stride, nq, n_tables, kmin, inv_span, tables, n, keys, u0,
-    # slope, kn, rank0, rn, off, off_r, sizes, eps, levels, steps,
-    # stage_bytes, out, stream
+    # slope, kn, rank0, rn, off, off_r, sizes, eps, levels, steps, out, stream
     "batched_pgm_search_launch": (
-        _P, _L, _L, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P
+        _P, _L, _L, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P
     ),
     # u, queries, prefix, nq, table, n, knots, u0, slope, ranks, mk, radix,
     # radix_len, m_valid, eps, ksteps, steps, out, stream

@@ -45,7 +45,7 @@ def tree_levels(n: int) -> int:
 
 def tree_positions(n: int, device="cpu") -> torch.Tensor:
     """Table positions of the staged tree, in Eytzinger order: entry
-    ``node`` (1 .. 2^levels - 1; entry 0 is unused, -1) is the position
+    ``node`` (1 .. 2^levels - 1; entry 0 is unused, 0) is the position
     that trip ``floor(log2 node)`` probes on the path of ``node``'s bits
     below the leading one, first trip first, 1 = right.  Before trip ``j``
     the window holds ``ceil(n / 2^j)`` keys whatever the path, so a path
@@ -66,7 +66,7 @@ def tree_positions(n: int, device="cpu") -> torch.Tensor:
         bit = (node >> torch.clamp(depth - 1 - j, min=0)) & 1
         base += torch.where(below, bit * halves[j], 0)
     pos = base + halves[depth]
-    pos[0] = -1
+    pos[0] = 0
     return pos.to(device)
 
 
@@ -78,7 +78,7 @@ def _kary_body(q, t, *, n: int, probes=None):
     on ``n`` only, so it is a Python int.  ``probes``, when a list,
     receives every table index read: the tree trips' positions, the
     global trips' and each sweep index."""
-    tree = t[tree_positions(n, t.device).clamp(min=0)]
+    tree = t[tree_positions(n, t.device)]
     node = torch.ones(q.shape, dtype=torch.int64, device=q.device)
     base = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
     length = n

@@ -39,19 +39,6 @@ from .ref import rows_with_probes
 LAUNCHES = 0
 #: launches of the batched kernel (CUDA path only)
 BATCHED_LAUNCHES = 0
-#: dynamic shared memory a block stages the upper levels in (<= 48 KB, so
-#: no opt-in)
-STAGE_BYTES = 8192
-
-
-def staged_levels(off, off_r, levels: int, budget: int) -> tuple:
-    """The kernel's staging plan: ``(S, bytes)``, levels ``0 .. S-1``
-    staged, ``S`` the largest count below ``levels`` whose segments (16
-    bytes each) and int32 ``rank0`` entries (4 bytes) fit in ``budget``."""
-    s = 0
-    while s + 1 < levels and 16 * int(off[s + 1]) + 4 * int(off_r[s + 1]) <= budget:
-        s += 1
-    return s, 16 * int(off[s]) + 4 * int(off_r[s])
 
 def _bounded_ub(keys, q, base, length, *, steps: int, probes=None):
     """First index in [base, base+length) with key > q (``base + length``
@@ -175,7 +162,7 @@ def pgm_search(queries, table, kmin, inv_span, keys, u0, slope, rank0, off, off_
         "pgm_search_launch", dev, queries.data_ptr(), nq, kmin.data_ptr(), inv_span.data_ptr(),
         table.data_ptr(), n, keys.data_ptr(), u0.data_ptr(), slope.data_ptr(), rank0.data_ptr(),
         off.data_ptr(), off_r.data_ptr(), sizes.data_ptr(), eps.data_ptr(), levels, steps,
-        STAGE_BYTES, out.data_ptr(),
+        out.data_ptr(),
     )
     global LAUNCHES
     LAUNCHES += 1
@@ -245,7 +232,7 @@ def batched_pgm_search(queries, tables, kmin, inv_span, keys, u0, slope, rank0, 
         "batched_pgm_search_launch", dev, queries.data_ptr(), q_stride, nq, nt, kmin.data_ptr(),
         inv_span.data_ptr(), tables.data_ptr(), n, keys.data_ptr(), u0.data_ptr(),
         slope.data_ptr(), kn, rank0.data_ptr(), rank0.shape[1], off.data_ptr(), off_r.data_ptr(),
-        sizes.data_ptr(), eps.data_ptr(), levels, steps, STAGE_BYTES, out.data_ptr(),
+        sizes.data_ptr(), eps.data_ptr(), levels, steps, out.data_ptr(),
     )
     global BATCHED_LAUNCHES
     BATCHED_LAUNCHES += 1

