@@ -294,7 +294,9 @@ def bound(args, table, probes, nq: int) -> dict:
     (bytes it must move) / HBM rate and (scalar operations) / f32 rate.
     Bytes: every non-table operand read once (queries, ``u``, leaves),
     ranks written once (int32), and each distinct 32-byte table sector
-    that this run's searches touch (from the twin's probe indices)."""
+    that this run's searches touch (from the twin's probe indices: the
+    trips a search takes, and for the k-ary sweep the positions a binary
+    search of its window reads, not the sweep's other keys)."""
     operand_bytes = sum(int(a.nbytes) for a in args
                         if torch.is_tensor(a) and a.data_ptr() != table.data_ptr())
     keys_per_sector = SECTOR_BYTES // table.element_size()
@@ -453,9 +455,7 @@ def search_plan(kind: str, index, n: int) -> dict:
         return {"levels": index.s("levels"), "segments": sizes.tolist(), "steps": index.s("pksteps")}
     if KERNEL_OF[kind] != "kary_search":
         return {}
-    tree, length, trips = kary.tree_levels(n), -(-n // (1 << kary.tree_levels(n))), 0
-    while length > kary.SWEEP:
-        length, trips = length - (length >> 1), trips + 1
+    tree, trips, length = kary.search_plan(n)
     return {"tree_levels": tree, "global_trips": trips, "sweep": length, "sweep_width": kary.SWEEP}
 
 

@@ -27,33 +27,44 @@
 //      coalesced 256-byte load a window, and counts the keys <= q; the
 //      rank is base + count - 1.
 // The persistent grid (SMs x resident blocks, grid-stride over the queries)
-// keeps the staging to one 32 KB copy a block; a launch of one block a
-// 512 queries would restage it 8,192 times at 2^22 queries.  The batched
-// kernel's blocks take the tables in turn, restaging the tree for each:
-// blocks spread over every table at once (blockIdx.y a table) would keep
-// the whole tier's keys in use at once, and a tier of 4 shards of 2^22 keys
-// then misses L2 as a single 2^24-key table does.  The plain PyTorch twins
+// keeps the staging to one 8 KB copy a block; a launch of one block a
+// 512 queries would restage it 8,192 times at 2^22 queries.  In the batched
+// kernel, while one table's queries fill the resident blocks, the blocks
+// take the tables in turn, restaging the tree for each: blocks spread over
+// every table at once would keep the whole tier's keys in use at once, and
+// a tier of 4 shards of 2^22 keys then misses L2 as a single 2^24-key table
+// does.  A smaller batch leaves resident blocks idle, so the grid's rows
+// (blockIdx.y) take that many tables side by side.  The plain PyTorch twins
 // are _kary_body and _batched_kary_body in kernels/kary_search.py, whose
 // TREE_LEVELS and SWEEP are these constants.
 
 #include "search_common.cuh"
 
-constexpr int kTreeLevels = 12;  // T: 4,095 staged keys, 32 KB
-constexpr int kSweep = 32;       // W: 256 bytes, two or three 128-byte lines
+// T: 1,023 staged keys, 8 KB.  At 2^24 keys T = 12 (32 KB) is level with
+// it (within 1.5%), but a block then stages four times the keys, which
+// at a few queries a table is most of the launch (PERF.md, kary_bench.py).
+constexpr int kTreeLevels = 10;
+constexpr int kSweep = 32;  // W: 256 bytes, two or three 128-byte lines
 constexpr int kKaryThreads = 512;
+constexpr int kWarp = 32;
+static_assert(kSweep >= 1 && kSweep <= kWarp, "a window is loaded by one warp, a key a lane");
 
 // The persistent grid: as many blocks as the device holds at once (SMs x
-// resident blocks of `kernel`), and no more than the queries need.
+// resident blocks of `kernel`), and no more than one table's queries need;
+// the blocks left idle by a small batch hold further tables side by side,
+// one row of the grid (blockIdx.y) each.
 template <typename Kernel>
-cudaError_t persistent_blocks(Kernel kernel, long long nq, unsigned* blocks) {
+cudaError_t persistent_grid(Kernel kernel, long long nq, int n_tables, dim3* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kKaryThreads, 0);
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const long long need = (nq + kKaryThreads - 1) / kKaryThreads;
-  *blocks = (unsigned)(need < resident ? need : resident);
+  const long long need = nq > 0 ? (nq + kKaryThreads - 1) / kKaryThreads : 1;
+  const long long x = need < resident ? need : resident;
+  const long long y = resident / x < n_tables ? resident / x : n_tables;
+  *grid = dim3((unsigned)x, (unsigned)(y > 1 ? y : 1));
   return e;
 }
 
@@ -85,23 +96,23 @@ __device__ __forceinline__ void stage_tree(const long long* __restrict__ table, 
 
 // Predecessor rank of q in the window [base, base + len), len <= kSweep and
 // the same for every lane: lane p's window is loaded whole by the warp in
-// pass p, one key a lane, all loads issued before the first ballot, and
-// the count of its keys <= q is the popcount of the pass's ballot.  The
-// window's keys before `base` are <= q (or base is 0), those after its end
-// > q.  Every lane of the warp must call it.
+// pass p (one pass a lane), one key a lane, all loads issued before the
+// first ballot, and the count of its keys <= q is the popcount of the
+// pass's ballot.  The window's keys before `base` are <= q (or base is 0),
+// those after its end > q.  Every lane of the warp must call it.
 __device__ __forceinline__ int sweep_rank(const long long* __restrict__ table, int base, int len,
                                           long long q) {
   const int lane = threadIdx.x & 31;
   unsigned le = 0;  // bit p: this lane's key of lane p's window is <= lane p's query
 #pragma unroll
-  for (int p = 0; p < kSweep; ++p) {
+  for (int p = 0; p < kWarp; ++p) {
     const int ob = __shfl_sync(0xffffffffu, base, p);
     const long long oq = __shfl_sync(0xffffffffu, q, p);
     if (lane < len && __ldg(table + ob + lane) <= oq) le |= 1u << p;
   }
   int count = 0;
 #pragma unroll
-  for (int p = 0; p < kSweep; ++p) {
+  for (int p = 0; p < kWarp; ++p) {
     const unsigned m = __ballot_sync(0xffffffffu, (le >> p) & 1u);
     if (lane == p) count = __popc(m);
   }
@@ -152,16 +163,16 @@ extern "C" __global__ void __launch_bounds__(kKaryThreads)
 
 // Table t of `n_tables`: row t of `tables` (n keys each), row t of
 // `queries` (stride q_stride, 0 when one batch is broadcast to every
-// table) and row t of `out` (nq ranks).  Every block takes the tables in
-// turn, so the grid works on one table (at a tier's shard size, one that
-// fits in L2) at a time.
+// table) and row t of `out` (nq ranks).  The blocks of grid row y take the
+// tables y, y + gridDim.y, ... in turn; with one row, the grid works on one
+// table (at a tier's shard size, one that fits in L2) at a time.
 extern "C" __global__ void __launch_bounds__(kKaryThreads)
     batched_kary_search_kernel(const long long* __restrict__ tables, int n_tables, int n,
                                const long long* __restrict__ queries, long long q_stride,
                                long long nq, int* __restrict__ out) {
   __shared__ long long tree[1 << kTreeLevels];
-  for (long long t = 0; t < n_tables; ++t) {
-    if (t > 0) __syncthreads();  // every warp is done with the last table's tree
+  for (long long t = blockIdx.y; t < n_tables; t += gridDim.y) {
+    if (t != blockIdx.y) __syncthreads();  // every warp is done with the last table's tree
     stage_tree(tables + t * n, n, tree);
     kary_queries(tables + t * n, n, tree, queries + t * q_stride, nq, out + t * nq);
   }
@@ -169,10 +180,10 @@ extern "C" __global__ void __launch_bounds__(kKaryThreads)
 
 extern "C" int kary_search_launch(const void* table, int n, const void* queries, long long nq,
                                   void* out, void* stream) {
-  unsigned blocks = 0;
-  const cudaError_t e = persistent_blocks(kary_search_kernel, nq, &blocks);
+  dim3 grid;
+  const cudaError_t e = persistent_grid(kary_search_kernel, nq, 1, &grid);
   if (e != cudaSuccess) return (int)e;
-  kary_search_kernel<<<blocks, kKaryThreads, 0, (cudaStream_t)stream>>>(
+  kary_search_kernel<<<grid, kKaryThreads, 0, (cudaStream_t)stream>>>(
       (const long long*)table, n, (const long long*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
 }
@@ -180,10 +191,10 @@ extern "C" int kary_search_launch(const void* table, int n, const void* queries,
 extern "C" int batched_kary_search_launch(const void* tables, int n_tables, int n,
                                           const void* queries, long long q_stride, long long nq,
                                           void* out, void* stream) {
-  unsigned blocks = 0;
-  const cudaError_t e = persistent_blocks(batched_kary_search_kernel, nq, &blocks);
+  dim3 grid;
+  const cudaError_t e = persistent_grid(batched_kary_search_kernel, nq, n_tables, &grid);
   if (e != cudaSuccess) return (int)e;
-  batched_kary_search_kernel<<<blocks, kKaryThreads, 0, (cudaStream_t)stream>>>(
+  batched_kary_search_kernel<<<grid, kKaryThreads, 0, (cudaStream_t)stream>>>(
       (const long long*)tables, n_tables, n, (const long long*)queries, q_stride, nq, (int*)out);
   return (int)cudaGetLastError();
 }

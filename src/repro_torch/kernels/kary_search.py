@@ -30,8 +30,8 @@ LAUNCHES = 0
 #: launches of the batched kernel (CUDA path only)
 BATCHED_LAUNCHES = 0
 #: trips served by the shared-memory tree (``kTreeLevels`` in the source):
-#: 2^12 - 1 keys, 32 KB a block
-TREE_LEVELS = 12
+#: 2^10 - 1 keys, 8 KB a block
+TREE_LEVELS = 10
 #: the final sweep's width (``kSweep``): 256 bytes, two or three 128-byte lines
 SWEEP = 32
 
@@ -70,14 +70,40 @@ def tree_positions(n: int, device="cpu") -> torch.Tensor:
     return pos.to(device)
 
 
+def search_plan(n: int) -> tuple[int, int, int]:
+    """How a query's search over ``n`` keys splits, the same for every
+    query: the trips down the staged tree (:func:`tree_levels`), the
+    global trips, and the keys of the window the sweep reads (at most
+    :data:`SWEEP`)."""
+    levels, length, trips = tree_levels(n), -(-n // (1 << tree_levels(n))), 0
+    while length > SWEEP:
+        length, trips = length - (length >> 1), trips + 1
+    return levels, trips, length
+
+
+def _window_trips(t, q, base, length: int) -> list:
+    """The positions a binary search over the window ``[base, base +
+    length)`` reads to reach the sweep's rank: its trips and the last
+    compare at ``base``.  The bound counts these, what the function
+    needs, and not the sweep's other keys."""
+    mids = []
+    while length > 1:
+        half = length >> 1
+        mids.append(base + half)
+        base = torch.where(t[mids[-1]] <= q, mids[-1], base)
+        length -= half
+    return mids + [base]
+
+
 def _kary_body(q, t, *, n: int, probes=None):
     """The kernel's arithmetic on tensors: :func:`tree_levels` trips down
     the staged tree, global trips while the window holds more than
     :data:`SWEEP` keys, then the sweep's count of the window's keys
     ``<= q``; the predecessor rank (int32).  The window's length depends
     on ``n`` only, so it is a Python int.  ``probes``, when a list,
-    receives every table index read: the tree trips' positions, the
-    global trips' and each sweep index."""
+    receives the table indices a binary search reads for the same rank:
+    the tree trips' positions, the global trips' and the window's
+    (:func:`_window_trips`)."""
     tree = t[tree_positions(n, t.device)]
     node = torch.ones(q.shape, dtype=torch.int64, device=q.device)
     base = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
@@ -97,9 +123,9 @@ def _kary_body(q, t, *, n: int, probes=None):
         length -= half
         if probes is not None:
             probes.append(mid)
-    window = base[..., None] + torch.arange(length, dtype=torch.int32, device=q.device)
     if probes is not None:
-        probes.append(window.reshape(-1))
+        probes.extend(_window_trips(t, q, base, length))
+    window = base[..., None] + torch.arange(length, dtype=torch.int32, device=q.device)
     return base + (t[window] <= q[..., None]).sum(-1, dtype=torch.int32) - 1
 
 

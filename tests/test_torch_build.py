@@ -18,6 +18,7 @@ from repro.core import true_ranks
 from repro_torch import index as tix
 
 from conftest import TABLE_KINDS, make_table
+from test_torch_gpu import clamp_table
 
 PORTED = ("L", "Q", "C", "KO", "RMI", "SY-RMI", "PGM", "PGM_M")
 
@@ -41,20 +42,6 @@ def edge_queries(rng, table, n_random=200):
             extremes,
         ]
     ).astype(np.uint64)
-
-
-def clamp_table():
-    """The pinned clustered table of
-    ``test_pallas_window_center_clamp_regression``: dense clusters in a
-    huge key span, where f32 ``u`` collapses, with its query mix."""
-    rng = np.random.default_rng(42)
-    centers = rng.integers(0, 2**63, size=8, dtype=np.uint64)
-    parts = [c + rng.integers(0, 2**20, size=256, dtype=np.uint64) for c in centers]
-    table = np.unique(np.concatenate(parts))
-    qs = np.concatenate(
-        [rng.choice(table, 400), rng.integers(0, 2**63, 100, dtype=np.uint64)]
-    ).astype(np.uint64)
-    return table, qs
 
 
 def ref_leaves(idx) -> dict:

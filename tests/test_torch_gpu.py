@@ -66,6 +66,45 @@ def _queries(rng, table):
                            rng.integers(0, 2**64 - 1, 1000, dtype=np.uint64), extremes])
 
 
+# -- cases shared with the CPU parity tests (this file imports no JAX) ------------------
+
+#: table sizes around the edges of the k-ary kernel's plan: the staged tree
+#: (2^10 keys), the sweep (a window of 32 keys after the tree: 2^15), odd
+#: global-trip chains (32,769: a window of 33 -> 17 keys; 33,793: 34 ->
+#: 17; 65,537: 65 -> 33 -> 17) and longer ones (262,145: 257 -> ... -> 17)
+EDGE_NS = (1, 2, 3, 7, 8, 9, 1023, 1024, 1025, 4095, 4096, 4097,
+           32767, 32768, 32769, 33793, 65537, 65536 + 3, 131073, 262145)
+
+
+def edge_table(n: int) -> np.ndarray:
+    """``n`` distinct random uint64 keys, sorted, seeded by ``n``."""
+    rng = np.random.default_rng(n)
+    table = np.unique(rng.integers(0, 2**64 - 1, 2 * n + 8, dtype=np.uint64))[:n]
+    assert len(table) == n
+    return table
+
+
+def every_key_queries(table):
+    """Every key, key +- 1, 0 and 2^64 - 1."""
+    with np.errstate(over="ignore"):
+        return np.concatenate([table, table - np.uint64(1), table + np.uint64(1),
+                               np.array([0, 2**64 - 1], dtype=np.uint64)])
+
+
+def clamp_table():
+    """The pinned clustered table of
+    ``test_pallas_window_center_clamp_regression``: dense clusters in a
+    huge key span, where f32 ``u`` collapses, with its query mix."""
+    rng = np.random.default_rng(42)
+    centers = rng.integers(0, 2**63, size=8, dtype=np.uint64)
+    parts = [c + rng.integers(0, 2**20, size=256, dtype=np.uint64) for c in centers]
+    table = np.unique(np.concatenate(parts))
+    qs = np.concatenate(
+        [rng.choice(table, 400), rng.integers(0, 2**63, 100, dtype=np.uint64)]
+    ).astype(np.uint64)
+    return table, qs
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -194,35 +233,16 @@ def test_batched_ragged_tail_and_row_queries(cuda):
 # trips.  Both single-table and batched, against their twins and
 # torch.searchsorted, bit for bit.
 
-#: table sizes around the staged tree's (2^12) and the sweep's (16) edges
-EDGE_NS = (1, 2, 3, 7, 8, 9, 4095, 4096, 4097, 65536 + 3)
-
-
-def _clamp_table():
-    """The pinned clustered table of ``test_pallas_window_center_clamp_regression``."""
-    rng = np.random.default_rng(42)
-    centers = rng.integers(0, 2**63, size=8, dtype=np.uint64)
-    return np.unique(np.concatenate(
-        [c + rng.integers(0, 2**20, size=256, dtype=np.uint64) for c in centers]))
-
-
 def _edge_tables():
-    rng = np.random.default_rng(36)
-    out = [(f"n={n}", as_table(rng.integers(0, 2**64 - 1, 2 * n + 8, dtype=np.uint64))[:n])
-           for n in EDGE_NS]
-    return out + [("pinned clamp", _clamp_table())]
-
-
-def _all_queries(table):
-    with np.errstate(over="ignore"):
-        return np.concatenate([table, table - np.uint64(1), table + np.uint64(1),
-                               np.array([0, 2**64 - 1], dtype=np.uint64)])
+    out = [(f"n={n}", edge_table(n)) for n in EDGE_NS]
+    return out + [("pinned clamp", clamp_table()[0])]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ("KO", "PGM", "PGM_M"))
 def test_redesigned_search_kernels_match_twin_and_searchsorted_on_card(cuda, kind):
-    """Every key, key +- 1, 0 and 2^64 - 1 on tables of 1 to 65,539 keys
+    """Every key, key +- 1, 0 and 2^64 - 1 on tables of 1 to 262,145 keys
+    (``EDGE_NS``: the tree's, the sweep's and the global trips' edges)
     and the pinned clamp table: the single-table kernel and the batched
     kernel (the table stacked three times, the queries expand-ed) equal
     their twins and ``torch.searchsorted``."""
@@ -231,7 +251,7 @@ def test_redesigned_search_kernels_match_twin_and_searchsorted_on_card(cuda, kin
     impl = tix.impls.query_impl(kind)
     for label, table in _edge_tables():
         idx = tix.build(kind, table, device=cuda)
-        t, q = keys.encode(table, cuda), keys.encode(_all_queries(table), cuda)
+        t, q = keys.encode(table, cuda), keys.encode(every_key_queries(table), cuda)
         want = torch.searchsorted(t, q, right=True) - 1
         args, kwargs = impl.operands(idx, t, q)
         kernels.reset_launches()
@@ -276,6 +296,29 @@ def test_redesigned_batched_kernels_on_ragged_tiers_on_card(cuda, kind):
         single = tix.build(kind, tables[0], device=cuda)
         np.testing.assert_array_equal(single.lookup(tables[0], few, backend="kernel").cpu().numpy(),
                                       true_ranks(tables[0], few))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tables,nq", ((64, 1), (64, 600), (8, 51200), (4, 1 << 20)))
+def test_batched_kary_grid_rows_on_card(cuda, n_tables, nq):
+    """The batched k-ary kernel's grid: one row of blocks taking the
+    tables in turn when one table's queries fill the resident blocks
+    (2^20), else rows side by side, one table a row (1 and 600 queries
+    over 64 tables) or several in turn (51,200 queries: 100 blocks a
+    table, a few rows over 8 tables).  131,073 keys: three global trips
+    (a window of 129 -> 65 -> 33 -> 17 keys) before the sweep."""
+    from repro_torch.core import keys
+    from repro_torch.kernels.kary_search import batched_kary_search, batched_kary_search_plain
+
+    rng = np.random.default_rng(38)
+    tables = np.stack([edge_table(131073) + np.uint64(i) for i in range(n_tables)])
+    qs = np.stack([rng.choice(t, nq) + rng.integers(0, 2, nq).astype(np.uint64) for t in tables])
+    t, q = keys.encode(tables, cuda), keys.encode(qs, cuda)
+    kernels.reset_launches()
+    got = batched_kary_search(t, q).long()
+    assert kernels.launches()["batched_kary_search"] == 1
+    assert torch.equal(got, torch.searchsorted(t, q, right=True) - 1)
+    assert torch.equal(got, batched_kary_search_plain(t, q).long())
 
 
 # -- the LM serving path's kernels: decode attention and embedding bag ----------------

@@ -25,7 +25,8 @@ from repro_torch.core.cdf import ceil_log2
 from repro_torch.kernels.rmi_search import _rmi_window_body, rmi_search, rmi_search_plain
 
 from conftest import TABLE_KINDS, make_table
-from test_torch_build import clamp_table, edge_queries
+from test_torch_build import edge_queries
+from test_torch_gpu import clamp_table
 
 #: twin -> the reference spec whose "pallas" backend reaches its TPU kernel
 TWIN_SPECS = {
@@ -71,10 +72,11 @@ def test_kary_twin_probes_stay_in_range_and_do_not_change_ranks():
     got = _kary_body(q, t, n=len(table), probes=probes)
     np.testing.assert_array_equal(got.numpy(), true_ranks(table, qs))
     np.testing.assert_array_equal(got.numpy(), kary_search(t, q).numpy())
-    # 5000 keys: 12 trips down the staged tree leave a window of
-    # ceil(5000 / 2^12) = 2 keys, under SWEEP: no global trip, one sweep
-    assert len(probes) == 13
-    assert probes[-1].numel() == 2 * len(qs)
+    # 5000 keys: 10 trips down the staged tree leave a window of
+    # ceil(5000 / 2^10) = 5 keys, under SWEEP: no global trip, one sweep,
+    # whose probes are a binary search's: three trips and the last compare
+    assert len(probes) == 14
+    assert all(p.numel() == len(qs) for p in probes)
     idx = torch.cat(probes)
     assert int(idx.min()) >= 0 and int(idx.max()) < len(table)
 

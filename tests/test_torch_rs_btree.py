@@ -25,7 +25,8 @@ from repro_torch.core import keys
 from repro_torch.kernels import rs_search as trs
 
 from conftest import TABLE_KINDS, make_table
-from test_torch_build import assert_same_index, clamp_table, edge_queries
+from test_torch_build import assert_same_index, edge_queries
+from test_torch_gpu import clamp_table
 
 KINDS = ("RS", "BTREE")
 

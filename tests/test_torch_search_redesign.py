@@ -27,8 +27,10 @@ from repro_torch.core import keys
 from repro_torch.core.cdf import ceil_log2
 from repro_torch.kernels.kary_search import (
     SWEEP,
+    TREE_LEVELS,
     _kary_body,
     kary_search_plain,
+    search_plan,
     tree_levels,
     tree_positions,
 )
@@ -37,11 +39,10 @@ from repro_torch.kernels.pgm_search import _pgm_level_window
 from conftest import TABLE_KINDS, make_table
 from test_torch_batched import _tables
 from test_torch_build import edge_queries
+from test_torch_gpu import EDGE_NS, edge_table, every_key_queries
 from test_torch_kernels import _early_exit_ranks
 
 PGM_KINDS = ("PGM", "PGM_M")
-#: table sizes around the staged tree's (2^12 keys) and the sweep's edges
-EDGE_NS = (1, 2, 3, 7, 8, 9, 4095, 4096, 4097, 65536 + 3)
 
 
 def _port_of(ref):
@@ -135,27 +136,17 @@ def test_pgm_trips_per_query_fit_under_steps(kind, table_kind):
     assert sum(int(p.numel()) for p in probes) == int(trips.sum()) + len(qs)
 
 
-def _edge_table(n: int) -> np.ndarray:
-    rng = np.random.default_rng(n)
-    table = np.unique(rng.integers(0, 2**64 - 1, 2 * n + 8, dtype=np.uint64))[:n]
-    assert len(table) == n
-    return table
-
-
-def _every_key_queries(table):
-    with np.errstate(over="ignore"):
-        return np.concatenate([table, table - np.uint64(1), table + np.uint64(1),
-                               np.array([0, 2**64 - 1], dtype=np.uint64)])
-
-
 @pytest.mark.parametrize("n", EDGE_NS)
 def test_kary_sweep_twin_matches_pallas_and_searchsorted(n):
     """Tree trips, global trips down to a window of at most ``SWEEP`` keys,
     then the sweep: the ranks of ``kary_search_pallas`` (k = 128 fences a
     trip and a 128-key sweep) in interpret mode and of ``np.searchsorted``,
-    for every key, key +- 1, 0 and 2^64 - 1."""
-    table = _edge_table(n)
-    qs = _every_key_queries(table)
+    for every key, key +- 1, 0 and 2^64 - 1.  The plan's window is
+    ``ceil(n / 2^(levels + trips))`` keys, and one more global trip would
+    not have been needed; the probes are a binary search's (the bound's
+    count), one a trip and the last compare."""
+    table = edge_table(n)
+    qs = every_key_queries(table)
     t, q = keys.encode(table, "cpu"), keys.encode(qs, "cpu")
     probes = []
     got = kary_search_plain(t, q, probes=probes).numpy()
@@ -166,11 +157,12 @@ def test_kary_sweep_twin_matches_pallas_and_searchsorted(n):
     thi, tlo = split_u64(jnp.asarray(table))
     want = kary_search_pallas(qhi, qlo, thi, tlo, k=LANES, tile_q=tile, interpret=True)
     np.testing.assert_array_equal(got, np.asarray(want)[: len(qs)])
-    # the window left for the sweep is ceil(n / 2^levels), halved to <= SWEEP
-    length = -(-n // (1 << tree_levels(n)))
-    while length > SWEEP:
-        length -= length >> 1
-    assert probes[-1].numel() == length * len(qs)
+    levels, trips, length = search_plan(n)
+    assert levels == tree_levels(n) and 1 <= length <= SWEEP
+    assert length == -(-n // (1 << (levels + trips)))
+    assert trips == 0 or -(-n // (1 << (levels + trips - 1))) > SWEEP
+    assert len(probes) == levels + trips + (length - 1).bit_length() + 1
+    assert all(p.numel() == len(qs) for p in probes)
     idx = torch.cat(probes)
     assert int(idx.min()) >= 0 and int(idx.max()) < n
 
@@ -183,7 +175,7 @@ def test_kary_staged_tree_is_the_first_trips_probes(n):
     (``tree_positions``, Eytzinger order), every node is reached, and the
     twin walks the staged keys to the same probes."""
     levels = tree_levels(n)
-    assert levels == min(12, ceil_log2(n) if n > 1 else 0)
+    assert levels == min(TREE_LEVELS, ceil_log2(n) if n > 1 else 0)
     pos = tree_positions(n)
     assert pos.numel() == 1 << levels
     rng = np.random.default_rng(54)
@@ -206,7 +198,7 @@ def test_kary_staged_tree_is_the_first_trips_probes(n):
         length -= half
     assert seen == set(range(1, 1 << levels))
     assert bool((pos[1:] >= 0).all()) and int(pos.max()) < n
-    if n <= 65539:
+    if n <= max(EDGE_NS):
         t = torch.arange(n, dtype=torch.int64)
         probes = []
         got = _kary_body(q, t, n=n, probes=probes)
