@@ -471,7 +471,7 @@ def log_row(prefix: str, row: dict) -> None:
     plan = row.get("plan") or {}
     if "segments" in plan:
         log(f"{prefix}: {plan['levels']} levels of {plan['segments']} segments, trips capped "
-            f"at {plan['steps']}; no level staged in shared memory (PERF.md, PR 15)")
+            f"at {plan['steps']}; no level staged in shared memory (PERF.md)")
     elif plan:
         log(f"{prefix}: T = {plan['tree_levels']} trips from the shared-memory tree, "
             f"{plan['global_trips']} global trips, a sweep of {plan['sweep']} keys "

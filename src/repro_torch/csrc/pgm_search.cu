@@ -32,7 +32,7 @@
 // window's trips.  The upper levels are a few hundred bytes read by every
 // query and stay in L1: staging them in shared memory was measured and
 // gained nothing, while the carve-out took L1 from the last level's
-// arrays (PERF.md, PR 15).  The batched kernel takes its table from
+// arrays (PERF.md).  The batched kernel takes its table from
 // blockIdx.y and runs the same per-query function on that table's rows of
 // the stacked leaves, its own kmin/inv_span and eps; the blocks start in
 // order, so the grid works on one table (at a tier's shard size, one that
