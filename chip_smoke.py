@@ -34,7 +34,7 @@ Phases (any failure ends the run with a non-zero exit):
                and probes a query; for the model-free kinds the trips from
                the shared-memory tree (T), the global trips and the sweep
                (W), for PGM/PGM_M the levels, their segments and the trip
-               cap;
+               cap, for RS the knot and table trips a query (mean, max);
 5. tier      — the same two tables, each split into 4 contiguous shards of
                2^22 keys (the tier layout), 2^20 queries sampled from each
                shard: all 10 kinds through ``build_many`` and one batched
@@ -52,9 +52,11 @@ Phases (any failure ends the run with a non-zero exit):
                tile - 1, + 0, + 1, rows shorter than ``n_split`` tiles,
                lengths past S, at the planned split and at 1, 2, 5 and 16
                shares, forced through ``split_plan``); and
-               ``embedding_bag`` on the reference test's shapes with unsorted
-               bags, ids and bags out of range and ``weights=None``: kernel
-               against twin on the card (tolerances in ``ATT_TOL``/``BAG_TOL``);
+               ``embedding_bag`` at D 3 to 256 (the float4 and the scalar
+               path), sorted and unsorted bags, ids and bags out of range,
+               ``weights=None`` and a table at a one-float offset (not
+               16-byte aligned): kernel against twin on the card
+               (tolerances in ``ATT_TOL``/``BAG_TOL``);
 7. serve     — qwen2-0.5b at full width (24 layers, d 896, 14/2 heads, random
                weights from a seeded generator, bf16 compute) in a
                ``DecodeEngine`` of 8 slots and a 32,768-position cache: 16
@@ -70,12 +72,16 @@ Phases (any failure ends the run with a non-zero exit):
 8. kernel times — ``decode_attention`` at qwen2's ``decode_32k`` cell and at
                ``benchmarks/kernel_roofline.py``'s shape, ``ops.embedding_bag``
                (its path) at that benchmark's shape and on a 2 GiB table:
-               kernel / twin / library call times, bounds, and the twin check;
+               kernel / twin / library call times (the kernel's and the
+               library's also replayed from a CUDA graph, without the
+               host's enqueue, and the host's microseconds to enqueue a
+               call), bounds, and the twin check;
                ``decode_attention``'s split plan (kernel, tile, n_split,
                stages, threads) and its time at other splits (forced
                through ``split_plan``), and the
                ``-Xptxas -v`` registers of ``decode_attention``,
-               ``rmi_search``, ``pgm_search`` and ``kary_search``.
+               ``rmi_search``, ``pgm_search``, ``kary_search``,
+               ``rs_search`` and ``embedding_bag``.
 
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
@@ -262,6 +268,23 @@ def device_ms(fn, dev, reps: int = 20, warmup: int = 3):
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, dev, reps: int = 200):
+    """Mean host microseconds to enqueue one call of ``fn`` (host clock,
+    no synchronise inside the timed loop): what a call costs the CPU
+    before the card runs it.  None off the card."""
+    if dev.type != "cuda":
+        return None
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e6
+
+
 def graph_ms(fn, dev, reps: int = 20):
     """Mean device ms per call of ``fn``, replayed from one CUDA graph of
     ``reps`` calls: the host's enqueue cost (Python, ctypes) drops out,
@@ -442,21 +465,57 @@ def measure(dev, impl_search, impl_plain, args, kwargs, table, nq, lookup, libra
     return row
 
 
-def search_plan(kind: str, index, n: int) -> dict:
+def search_plan(kind: str, index, n: int, args=None, kwargs=None) -> dict:
     """How the redesigned kernels split one lookup's work: for the
     model-free kinds the trips served by the staged tree (T), the global
     trips, and the window the sweep reads (at most W keys); for PGM/PGM_M
     the levels, the segments of each (a list a table of a stack) and the
-    trip cap."""
+    trip cap; for RS the trips a query makes in its knot search and its
+    table search (:func:`rs_trips`)."""
     from repro_torch.kernels import kary_search as kary
 
     if kind in ("PGM", "PGM_M"):
         sizes = index.arrays["sizes"].reshape(-1, index.s("levels")).cpu().numpy()
         return {"levels": index.s("levels"), "segments": sizes.tolist(), "steps": index.s("pksteps")}
+    if kind == "RS":
+        return rs_trips(args, kwargs)
     if KERNEL_OF[kind] != "kary_search":
         return {}
     tree, trips, length = kary.search_plan(n)
     return {"tree_levels": tree, "global_trips": trips, "sweep": length, "sweep_width": kary.SWEEP}
+
+
+def rs_trips(args, kwargs) -> dict:
+    """The trips an RS query makes, mean and max over this run's queries,
+    in the knot search over its radix bucket and in the table search over
+    its window (the twin's arithmetic, whose searches stop at a one-key
+    window as the kernel's do), beside the caps ``ksteps`` and
+    ``rk_epi``.  ``args`` are single-table or batched operands."""
+    from repro_torch.kernels.pgm_search import _bounded_ub_early
+    from repro_torch.kernels.rs_search import radix_prefix, rs_search_plain
+
+    batched = args[1].dim() == 2
+    rows = ([tuple(a[t] if a.dim() == 2 else a[t:t + 1] for a in args)
+             for t in range(args[1].shape[0])] if batched else [args])
+    knot, table, nq = [], [], 0
+    for row in rows:
+        q, _, kmin, shift, _, _, knots, *_, radix, _, _ = row
+        p = torch.clamp(radix_prefix(q, kmin, shift, kwargs["r_bits"]), 0, radix.numel() - 2)
+        lo = torch.clamp(radix[p] - 1, min=0)
+        kp, tp = [], []
+        _bounded_ub_early(knots, q, lo, torch.clamp(radix[p + 1] - lo, min=1),
+                          steps=kwargs["ksteps"], probes=kp)
+        rs_search_plain(*row, **kwargs, probes=tp)
+        knot.append(kp[:-1])  # the last entry is every query's final compare
+        table.append(tp[:-1])
+        nq += q.numel()
+
+    def trips(per_row):
+        return {"mean": sum(int(p.numel()) for r in per_row for p in r) / max(nq, 1),
+                "max": max(sum(1 for p in r if p.numel()) for r in per_row)}
+
+    return {"knot_trips": trips(knot), "table_trips": trips(table),
+            "ksteps": kwargs["ksteps"], "steps": kwargs["steps"]}
 
 
 def log_row(prefix: str, row: dict) -> None:
@@ -472,6 +531,10 @@ def log_row(prefix: str, row: dict) -> None:
     if "segments" in plan:
         log(f"{prefix}: {plan['levels']} levels of {plan['segments']} segments, trips capped "
             f"at {plan['steps']}; no level staged in shared memory (PERF.md)")
+    elif "knot_trips" in plan:
+        k, t = plan["knot_trips"], plan["table_trips"]
+        log(f"{prefix}: knot search {k['mean']:.3f} trips a query (max {k['max']}, cap "
+            f"{plan['ksteps']}), table search {t['mean']:.3f} (max {t['max']}, cap {plan['steps']})")
     elif plan:
         log(f"{prefix}: T = {plan['tree_levels']} trips from the shared-memory tree, "
             f"{plan['global_trips']} global trips, a sweep of {plan['sweep']} keys "
@@ -548,7 +611,7 @@ def phase_full(dev, n: int, nq: int, datasets) -> tuple:
             lambda: idx.lookup(t_dev, q_dev, backend="kernel"),
             lambda: torch.searchsorted(t_dev, q_dev, right=True),
         ))
-        row["plan"] = search_plan(kind, idx, len(tables[ds][0]))
+        row["plan"] = search_plan(kind, idx, len(tables[ds][0]), args, kwargs)
         rows.append(row)
         log_row(f"[full] {ds}/{kind}", row)
     return rows, launches, tables
@@ -621,7 +684,7 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
             lambda: bm.lookup(q_dev, backend="kernel"),
             lambda: torch.searchsorted(bm.tables, q, right=True),
         ))
-        row["plan"] = search_plan(kind, bm.index, bm.tables.shape[1])
+        row["plan"] = search_plan(kind, bm.index, bm.tables.shape[1], args, kwargs)
         rows.append(row)
         log_row(f"[tier] {ds}/{kind}", row)
         log(f"[tier] {ds}/{kind}: unstack() == per-shard build for all {len(shards)} shards "
@@ -770,22 +833,33 @@ def phase_float_parity(dev, s: int) -> dict:
         f"(max |err| {errs['decode_attention']:.3g})")
 
     rng = np.random.default_rng(2024)
-    for v_, d, n_items, bags in ((100, 8, 50, 4), (1000, 64, 300, 16), (513, 32, 128, 8)):
+    n_cases = 0
+    for v_, d, n_items, bags, sort in ((100, 8, 50, 4, False), (1000, 64, 300, 16, False),
+                                       (513, 32, 128, 8, False), (513, 32, 128, 8, True),
+                                       (300, 3, 200, 8, True), (257, 130, 400, 16, True),
+                                       (64, 256, 500, 8, True)):
         table = torch.from_numpy(rng.normal(size=(v_, d)).astype(np.float32)).to(dev)
+        # the same table at a storage offset of one float: not 16-byte aligned
+        shifted = torch.empty(v_ * d + 1, device=dev)[1:].view(v_, d)
+        shifted.copy_(table)
         ids = rng.integers(0, v_, n_items).astype(np.int32)
         ids[:4] = [-1, v_, v_ + 7, -(2**31)]
-        seg = rng.integers(-1, bags + 1, n_items).astype(np.int32)  # unsorted, some out of range
+        seg = rng.integers(-1, bags + 1, n_items).astype(np.int32)  # some out of range
+        if sort:
+            seg = np.sort(seg)
         w = rng.normal(size=n_items).astype(np.float32)
         ids_t, seg_t, w_t = (torch.from_numpy(x).to(dev) for x in (ids, seg, w))
-        for weights in (w_t, None):
-            got = (embedding_bag(table, ids_t, seg_t, w_t, num_bags=bags) if weights is not None
-                   else ops.embedding_bag(table, ids_t, seg_t, num_bags=bags))
+        for tab, weights in ((table, w_t), (table, None), (shifted, w_t)):
+            got = (embedding_bag(tab, ids_t, seg_t, weights, num_bags=bags)
+                   if weights is not None else ops.embedding_bag(tab, ids_t, seg_t, num_bags=bags))
             ww = w_t if weights is not None else torch.ones_like(w_t)
             want = _bag_body(table, ids_t, seg_t, ww, num_bags=bags)
             err = max_err(got, want, BAG_TOL, BAG_TOL, f"embedding_bag V={v_} D={d} N={n_items}")
             errs["embedding_bag"] = max(errs["embedding_bag"], err)
-    log(f"[float] embedding_bag on 3 shapes, unsorted bags, ids and bags out of range, weights "
-        f"given and None: kernel == twin within {BAG_TOL} (max |err| {errs['embedding_bag']:.3g})")
+            n_cases += 1
+    log(f"[float] embedding_bag, {n_cases} cases: D 3/8/32/64/130/256, sorted and unsorted bags, "
+        f"ids and bags out of range, weights given and None, a table at a one-float offset: "
+        f"kernel == twin within {BAG_TOL} (max |err| {errs['embedding_bag']:.3g})")
     return errs
 
 
@@ -985,7 +1059,8 @@ def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
     del q, k, v
     from repro_torch.kernels import cuda_lib
 
-    for src in ("decode_attention.cu", "rmi_search.cu", "pgm_search.cu", "kary_search.cu"):
+    for src in ("decode_attention.cu", "rmi_search.cu", "pgm_search.cu", "kary_search.cu",
+                "rs_search.cu", "embedding_bag.cu"):
         for ln in cuda_lib.ptxas_report().get(src, []):
             if "Compiling entry" in ln or "Used" in ln or "spill" in ln:
                 log(f"[times] ptxas {src}: {ln}")
@@ -1034,19 +1109,31 @@ def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
                "max_abs_err": max_err(got, want, BAG_TOL, BAG_TOL, f"embedding_bag {label}")}
         lib_out = lib(ids.long(), table, offsets, mode="sum", per_sample_weights=w)
         max_err(lib_out, want, BAG_TOL, BAG_TOL, f"F.embedding_bag {label} (the yardstick's inputs)")
+
+        def kernel(table=table, ids=ids, seg=seg, w=w, bags=bags):
+            return ops.embedding_bag(table, ids, seg, w, num_bags=bags)
+
+        def library(table=table, ids=ids, offsets=offsets.to(torch.int32), w=w):
+            return lib(ids, table, offsets, mode="sum", per_sample_weights=w)
+
         row.update(
-            ms=device_ms(lambda: ops.embedding_bag(table, ids, seg, w, num_bags=bags), dev),
+            ms=device_ms(kernel, dev),
             plain_ms=device_ms(lambda: _bag_body(table, ids, seg, w, num_bags=bags), dev, reps=5,
                                warmup=1),
-            library_ms=device_ms(lambda: lib(ids, table, offsets.to(torch.int32), mode="sum",
-                                             per_sample_weights=w), dev),
+            library_ms=device_ms(library, dev),
+            graph_ms=graph_ms(kernel, dev),
+            library_graph_ms=graph_ms(library, dev),
+            host_us=host_us(kernel, dev),
+            library_host_us=host_us(library, dev),
         )
         row.update(bag_bound(table, ids, bags))
         bag_rows.append(row)
-        log(f"[times] embedding_bag {row['case']}: kernel {row['ms']} ms, twin {row['plain_ms']} ms, "
-            f"F.embedding_bag {row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}, {row['bound_bytes'] / 1e6:.1f} MB); max |err| "
-            f"{row['max_abs_err']:.3g}")
+        log(f"[times] embedding_bag {row['case']}: kernel {row['ms']} ms ({row['graph_ms']} ms "
+            f"replayed from a CUDA graph, {row['host_us']} us to enqueue), twin {row['plain_ms']} "
+            f"ms, F.embedding_bag {row['library_ms']} ms ({row['library_graph_ms']} ms from a "
+            f"graph, {row['library_host_us']} us to enqueue), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bound_bytes'] / 1e6:.1f} MB); "
+            f"max |err| {row['max_abs_err']:.3g}")
     del cases, outs
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1070,8 +1157,10 @@ def serve_kernels_line(parity_errs, serve, att_rows, bag_rows, bag_launches) -> 
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "path": spec["path"], "headline_case": head["case"],
-            "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "max_abs_err")} for r in rows],
+            "cases": [{k: r.get(k) for k in ("case", "ms", "graph_ms", "host_us", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms",
+                                             "library_graph_ms", "library_host_us",
+                                             "max_abs_err")} for r in rows],
         })
     return out
 

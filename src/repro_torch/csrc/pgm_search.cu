@@ -36,10 +36,11 @@
 // blockIdx.y and runs the same per-query function on that table's rows of
 // the stacked leaves, its own kmin/inv_span and eps; the blocks start in
 // order, so the grid works on one table (at a tier's shard size, one that
-// fits in L2) at a time.  The level count is common (shallow tables were
-// lifted at stack time) and `steps` is the max over the tables.  The
-// plain PyTorch twins are pgm_search_plain and batched_pgm_search_plain in
-// kernels/pgm_search.py.
+// fits in L2) at a time; past 65,535 tables a grid row takes every
+// 65,535th table in turn (search_grid).  The level count is common
+// (shallow tables were lifted at stack time) and `steps` is the max over
+// the tables.  The plain PyTorch twins are pgm_search_plain and
+// batched_pgm_search_plain in kernels/pgm_search.py.
 
 #include "search_common.cuh"
 
@@ -98,24 +99,26 @@ extern "C" __global__ void pgm_search_kernel(const long long* __restrict__ queri
   out[i] = pgm_query(queries[i], kmin[0], inv_span[0], table, n, g, eps[0], levels, steps);
 }
 
-// Table t (blockIdx.y): row t of every stacked leaf, with row lengths kn
-// (keys, u0, slope), rn (rank0), levels + 1 (off, off_r) and levels
-// (sizes); element t of kmin, inv_span and eps; row t of the (n_tables,
-// nq) out; queries row t at stride q_stride (0 when one batch is
-// broadcast).
+// Table t (blockIdx.y, then every gridDim.y-th table past it): row t of
+// every stacked leaf, with row lengths kn (keys, u0, slope), rn (rank0),
+// levels + 1 (off, off_r) and levels (sizes); element t of kmin, inv_span
+// and eps; row t of the (n_tables, nq) out; queries row t at stride
+// q_stride (0 when one batch is broadcast).
 extern "C" __global__ void batched_pgm_search_kernel(
-    const long long* __restrict__ queries, long long q_stride, long long nq,
+    const long long* __restrict__ queries, long long q_stride, long long nq, int n_tables,
     const double* __restrict__ kmin, const double* __restrict__ inv_span,
     const long long* __restrict__ tables, int n, PgmLeaves g, int kn, int rn,
     const int* __restrict__ eps, int levels, int steps, int* __restrict__ out) {
   const long long i = query_slot(nq);
   if (i < 0) return;
-  const long long t = blockIdx.y;
-  const long long lk = t * kn;
-  const PgmLeaves mine{g.keys + lk, g.u0 + lk, g.slope + lk, g.rank0 + t * rn,
-                       g.off + t * (levels + 1), g.off_r + t * (levels + 1), g.sizes + t * levels};
-  out[t * nq + i] = pgm_query(queries[t * q_stride + i], kmin[t], inv_span[t], tables + t * n, n,
-                              mine, eps[t], levels, steps);
+  for (long long t = blockIdx.y; t < n_tables; t += gridDim.y) {
+    const long long lk = t * kn;
+    const PgmLeaves mine{g.keys + lk, g.u0 + lk, g.slope + lk, g.rank0 + t * rn,
+                         g.off + t * (levels + 1), g.off_r + t * (levels + 1),
+                         g.sizes + t * levels};
+    out[t * nq + i] = pgm_query(queries[t * q_stride + i], kmin[t], inv_span[t], tables + t * n,
+                                n, mine, eps[t], levels, steps);
+  }
 }
 
 extern "C" int pgm_search_launch(const void* queries, long long nq, const void* kmin,
@@ -143,7 +146,7 @@ extern "C" int batched_pgm_search_launch(const void* queries, long long q_stride
                     (const long long*)rank0, (const long long*)off, (const long long*)off_r,
                     (const long long*)sizes};
   batched_pgm_search_kernel<<<search_grid(nq, n_tables), kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)queries, q_stride, nq, (const double*)kmin, (const double*)inv_span,
-      (const long long*)tables, n, g, kn, rn, (const int*)eps, levels, steps, (int*)out);
+      (const long long*)queries, q_stride, nq, n_tables, (const double*)kmin,
+      (const double*)inv_span, (const long long*)tables, n, g, kn, rn, (const int*)eps, levels, steps, (int*)out);
   return (int)cudaGetLastError();
 }

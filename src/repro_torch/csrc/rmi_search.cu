@@ -26,7 +26,8 @@
 // re-encoder's leaf, and the window is a guarantee again.  The batched
 // kernel takes its table from blockIdx.y and runs the same per-query
 // function on that table's rows of the stacked leaves and its own kmin and
-// inv_span; `steps` is the max over the tables.
+// inv_span; `steps` is the max over the tables.  A grid row takes more
+// than one table only past 65,535 tables (search_grid).
 //
 // Bound on the H100: bytes.  The leaf gathers read a few KB shared by all
 // queries; each search trip is a dependent gather into the table, which at
@@ -82,12 +83,13 @@ extern "C" __global__ void rmi_search_kernel(
                      b_over_n, steps);
 }
 
-// Table t: row t of the (n_tables, n) tables, the (n_tables, 4) roots and
-// the (n_tables, b) leaves, element t of the (n_tables,) kmin and inv_span;
-// row t of the (n_tables, nq) out; queries row t at stride q_stride (0 when
-// one batch is broadcast).
+// Table t (blockIdx.y, then every gridDim.y-th table past it): row t of the
+// (n_tables, n) tables, the (n_tables, 4) roots and the (n_tables, b)
+// leaves, element t of the (n_tables,) kmin and inv_span; row t of the
+// (n_tables, nq) out; queries row t at stride q_stride (0 when one batch
+// is broadcast).
 extern "C" __global__ void batched_rmi_search_kernel(
-    const long long* __restrict__ queries, long long q_stride, long long nq,
+    const long long* __restrict__ queries, long long q_stride, long long nq, int n_tables,
     const double* __restrict__ kmin, const double* __restrict__ inv_span,
     const long long* __restrict__ tables, int n, const float* __restrict__ root,
     const float* __restrict__ slope, const float* __restrict__ icept,
@@ -95,11 +97,12 @@ extern "C" __global__ void batched_rmi_search_kernel(
     double b_over_n, int steps, int* __restrict__ out) {
   const long long i = query_slot(nq);
   if (i < 0) return;
-  const long long t = blockIdx.y;
-  const long long lb = t * b;
-  out[t * nq + i] = rmi_query(queries[t * q_stride + i], kmin[t], inv_span[t], tables + t * n,
-                              root + t * 4, slope + lb, icept + lb, eps + lb, rlo + lb, rhi + lb,
-                              b, b_over_n, steps);
+  for (long long t = blockIdx.y; t < n_tables; t += gridDim.y) {
+    const long long lb = t * b;
+    out[t * nq + i] = rmi_query(queries[t * q_stride + i], kmin[t], inv_span[t], tables + t * n,
+                                root + t * 4, slope + lb, icept + lb, eps + lb, rlo + lb,
+                                rhi + lb, b, b_over_n, steps);
+  }
 }
 
 extern "C" int rmi_search_launch(const void* queries, long long nq, const void* kmin,
@@ -121,8 +124,8 @@ extern "C" int batched_rmi_search_launch(const void* queries, long long q_stride
                                          const void* rlo, const void* rhi, int b, double b_over_n,
                                          int steps, void* out, void* stream) {
   batched_rmi_search_kernel<<<search_grid(nq, n_tables), kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)queries, q_stride, nq, (const double*)kmin, (const double*)inv_span,
-      (const long long*)tables, n, (const float*)root, (const float*)slope, (const float*)icept,
+      (const long long*)queries, q_stride, nq, n_tables, (const double*)kmin,
+      (const double*)inv_span, (const long long*)tables, n, (const float*)root, (const float*)slope, (const float*)icept,
       (const int*)eps, (const int*)rlo, (const int*)rhi, b, b_over_n, steps, (int*)out);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,8 @@
 //
 // Keys are uint64 stored as int64 with the sign bit flipped, so one signed
 // 64-bit compare orders them.  Each kernel answers one query per thread;
-// the batched kernels take the table index from blockIdx.y and step their
-// pointers by the row strides they are given.
+// the batched kernels take the tables blockIdx.y, blockIdx.y + gridDim.y,
+// ... in turn and step their pointers by the row strides they are given.
 
 #pragma once
 
@@ -33,25 +33,10 @@ __device__ __forceinline__ int ceil_to_int(float x) {
 }
 
 // First index in [base, base + len) whose key is > q (base + len if none):
-// a Khuong-Morin loop of a fixed `steps` trips.  Extra trips are no-ops
-// once the window is one key wide, so `steps` may exceed ceil(log2 len).
-__device__ __forceinline__ int bounded_ub(const long long* __restrict__ keys, long long q,
-                                          int base, int len, int steps) {
-  for (int s = 0; s < steps; ++s) {
-    const int half = len >> 1;
-    const int mid = base + half;
-    const bool go_right = (__ldg(keys + mid) <= q) && (len > 1);
-    base = go_right ? mid : base;
-    len -= (len > 1) ? half : 0;
-  }
-  return base + (__ldg(keys + base) <= q ? 1 : 0);
-}
-
-// First index in [base, base + len) whose key is > q, like bounded_ub, but
-// each query stops once its window is one key wide: `steps` is only the
-// cap (the widest window of the index), the trips taken are
-// ceil(log2 len) for this query's own window.  The ranks are bounded_ub's,
-// since a trip at len == 1 is a no-op.
+// a Khuong-Morin loop that halves the window until it is one key wide, so
+// each query makes ceil(log2 len) trips for its own window.  `steps` is
+// only the cap (bucketed from the widest window of the index); a trip at
+// len == 1 would be a no-op, so the ranks are a fixed `steps`-trip loop's.
 __device__ __forceinline__ int bounded_ub_early(const long long* __restrict__ keys, long long q,
                                                 int base, int len, int steps) {
   for (int s = 0; s < steps && len > 1; ++s) {
@@ -74,9 +59,15 @@ __device__ __forceinline__ float unit_f32(long long key, double kmin, double inv
 }
 
 // Launch shape shared by every launcher: 256 threads a block, blocks over
-// the queries in x and over the tables in y.
+// the queries in x and over the tables in y.  gridDim.y is capped at its
+// hardware limit, 65,535: past it a grid row takes the tables row,
+// row + 65,535, ... in turn (each batched kernel loops
+// for (t = blockIdx.y; t < n_tables; t += gridDim.y)).  Below the cap one
+// row is one table, and the blocks still start table by table.
 constexpr int kThreads = 256;
+constexpr int kMaxGridY = 65535;
 
 inline dim3 search_grid(long long nq, int n_tables) {
-  return dim3((unsigned)((nq + kThreads - 1) / kThreads), (unsigned)n_tables);
+  return dim3((unsigned)((nq + kThreads - 1) / kThreads),
+              (unsigned)(n_tables < kMaxGridY ? n_tables : kMaxGridY));
 }

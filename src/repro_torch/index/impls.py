@@ -31,7 +31,6 @@ from repro_torch.core.atomic import build_atomic
 from repro_torch.core.btree import build_btree
 from repro_torch.core.cdf import ceil_log2
 from repro_torch.core.kbfs import build_ko
-from repro_torch.core.keys import unit_f32
 from repro_torch.core.pgm import build_pgm, build_pgm_bicriteria
 from repro_torch.core.radix_spline import build_rs
 from repro_torch.core.rmi import build_rmi
@@ -58,7 +57,6 @@ from repro_torch.kernels.rmi_search import (
 from repro_torch.kernels.rs_search import (
     batched_rs_search,
     batched_rs_search_plain,
-    radix_prefix,
     rs_search,
     rs_search_plain,
 )
@@ -376,27 +374,28 @@ def _rs_space(idx: Index) -> int:
 
 
 def _rs_operands(idx: Index, table, q):
-    """Fused RadixSpline kernel on the ``rk_*`` leaves; the radix prefix
-    (an unsigned shift) and ``u`` (f64) are computed here, outside it."""
+    """Fused RadixSpline kernel on the raw queries, the key ``kmin`` and
+    ``shift`` (the kernel computes the unsigned radix prefix), the f64
+    ``rk_kmin``/``rk_inv_span`` (the kernel computes ``u``), the ``rk_*``
+    leaves and the int64 knot ranks and radix table as the index holds
+    them."""
     a = idx.arrays
-    prefix = radix_prefix(q, a["kmin"], a["shift"], idx.s("r_bits"))
-    u = unit_f32(q, a["rk_kmin"], a["rk_inv_span"])
-    i32 = [a[k].to(torch.int32) for k in ("knot_ranks", "radix_table")]
-    scalars = [a[k].reshape(1).to(torch.int32) for k in ("m_valid", "rk_eps")]
-    args = (u, q, prefix, table, a["knot_keys"], a["rk_u0"], a["rk_slope"], *i32, *scalars)
-    return args, {"ksteps": idx.s("ksteps"), "steps": idx.s("rk_epi")}
+    scalars = [a[k].reshape(1) for k in ("kmin", "shift", "rk_kmin", "rk_inv_span")]
+    args = (q, table, *scalars, a["knot_keys"], a["rk_u0"], a["rk_slope"], a["knot_ranks"],
+            a["radix_table"], a["m_valid"].reshape(1), a["rk_eps"].reshape(1))
+    return args, {"r_bits": idx.s("r_bits"), "ksteps": idx.s("ksteps"), "steps": idx.s("rk_epi")}
 
 
 def _rs_batched_operands(idx: Index, tables, queries):
-    """Batched fused RadixSpline kernel on the stacked leaves: the prefix
-    per table as in the single-table path (``r_bits`` is structural, so
-    common), ``ksteps``/``rk_epi`` the max over the tables."""
+    """Batched fused RadixSpline kernel on the raw queries and the stacked
+    leaves, each table's ``kmin``, ``shift``, ``rk_kmin``, ``rk_inv_span``,
+    ``m_valid`` and ``rk_eps``; ``r_bits`` is structural, so common, and
+    ``ksteps``/``rk_epi`` took the max over the tables at stack time."""
     a = idx.arrays
-    prefix = radix_prefix(queries, a["kmin"][:, None], a["shift"][:, None], idx.s("r_bits"))
-    u = unit_f32(queries, a["rk_kmin"][:, None], a["rk_inv_span"][:, None])
-    i32 = [a[k].to(torch.int32) for k in ("knot_ranks", "radix_table", "m_valid", "rk_eps")]
-    args = (u, queries, prefix, tables, a["knot_keys"], a["rk_u0"], a["rk_slope"], *i32)
-    return args, {"ksteps": idx.s("ksteps"), "steps": idx.s("rk_epi")}
+    args = (queries, tables, *(a[k] for k in ("kmin", "shift", "rk_kmin", "rk_inv_span",
+                                              "knot_keys", "rk_u0", "rk_slope", "knot_ranks",
+                                              "radix_table", "m_valid", "rk_eps")))
+    return args, {"r_bits": idx.s("r_bits"), "ksteps": idx.s("ksteps"), "steps": idx.s("rk_epi")}
 
 
 RS_IMPL = QueryImpl(

@@ -69,16 +69,18 @@ SIGNATURES = {
     "batched_pgm_search_launch": (
         _P, _L, _L, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P
     ),
-    # u, queries, prefix, nq, table, n, knots, u0, slope, ranks, mk, radix,
-    # radix_len, m_valid, eps, ksteps, steps, out, stream
+    # queries, nq, kmin, shift, rk_kmin, rk_inv_span, table, n, knots, u0,
+    # slope, ranks, mk, radix, radix_len, top, m_valid, eps, ksteps, steps,
+    # out, stream
     "rs_search_launch": (
-        _P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P
+        _P, _L, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P
     ),
-    # u, queries, q_stride, prefix, nq, n_tables, tables, n, knots, u0,
-    # slope, ranks, mk, radix, radix_len, m_valid, eps, ksteps, steps, out,
-    # stream
+    # queries, q_stride, nq, n_tables, kmin, shift, rk_kmin, rk_inv_span,
+    # tables, n, knots, u0, slope, ranks, mk, radix, radix_len, top, m_valid,
+    # eps, ksteps, steps, out, stream
     "batched_rs_search_launch": (
-        _P, _P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P
+        _P, _L, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I,
+        _P, _P
     ),
     # q, k, v, kv_len, out, part_acc, part_ml, counter, B, S, Hkv, D, group,
     # tile, n_split, dtype (0 f32, 1 bf16), stream
@@ -213,9 +215,16 @@ def query_rows(queries, rows: int, device) -> int:
 
 def launch(fn: str, device, *args) -> None:
     """Call the C launcher ``fn`` on ``device``'s current stream and raise
-    when it reports a CUDA error."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+    when it reports a CUDA error.  The launch runs on the current device,
+    switched to ``device`` around the call only when it differs; the
+    stream comes as a raw handle, without a ``torch.cuda.Stream`` object
+    (together a third of a small kernel's host cost, PERF.md)."""
+    launcher = getattr(library(), fn)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        rc = launcher(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = launcher(*args, torch._C._cuda_getCurrentRawStream(index))
     check(rc, fn)

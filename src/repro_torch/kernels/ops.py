@@ -189,6 +189,8 @@ def _device_of(arrays, device) -> torch.device:
 
 def _on(x, dtype, dev) -> torch.Tensor:
     if torch.is_tensor(x):
+        if x.dtype == dtype and x.device == dev and x.is_contiguous():
+            return x  # the common case, without ``to``'s argument parsing
         return x.to(device=dev, dtype=dtype).contiguous()
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev).contiguous()
 

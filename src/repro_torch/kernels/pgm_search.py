@@ -40,25 +40,11 @@ LAUNCHES = 0
 #: launches of the batched kernel (CUDA path only)
 BATCHED_LAUNCHES = 0
 
-def _bounded_ub(keys, q, base, length, *, steps: int, probes=None):
-    """First index in [base, base+length) with key > q (``base + length``
-    if none): a fixed-trip Khuong–Morin loop (the RS twin's)."""
-    for _ in range(steps):
-        half = length >> 1
-        mid = base + half
-        go_right = (keys[mid] <= q) & (length > 1)
-        base = torch.where(go_right, mid, base)
-        length = length - torch.where(length > 1, half, 0)
-        if probes is not None:
-            probes.append(mid)
-    if probes is not None:
-        probes.append(base)
-    return base + (keys[base] <= q).to(torch.int32)
-
 
 def _bounded_ub_early(keys, q, base, length, *, steps: int, probes=None):
-    """:func:`_bounded_ub` with the kernel's early exit: a query's trips
-    end once its window is one key wide (``steps`` only the cap).
+    """First index in [base, base+length) with key > q (``base + length``
+    if none): the kernels' Khuong–Morin loop, whose trips end once a
+    query's window is one key wide (``steps`` only the cap).
     ``probes`` receives each trip's probes of the queries still searching,
     then the last probe of every query."""
     for _ in range(steps):

@@ -226,12 +226,13 @@ def test_batched_ragged_tail_and_row_queries(cuda):
                 np.testing.assert_array_equal(got[i], true_ranks(t, rows[i]), err_msg=f"{kind}/{nq}")
 
 
-# -- the redesigned model-free and PGM search kernels -----------------------------------
+# -- the redesigned model-free, PGM and RS search kernels ------------------------------
 #
 # kary_search: the top of the implicit search tree in shared memory and a
 # final sweep; pgm_search: u in the kernel, int64 directories, per-query
-# trips.  Both single-table and batched, against their twins and
-# torch.searchsorted, bit for bit.
+# trips; rs_search: u and the unsigned radix prefix in the kernel, int64
+# leaves, per-query trips in both searches.  Both single-table and
+# batched, against their twins and torch.searchsorted, bit for bit.
 
 def _edge_tables():
     out = [(f"n={n}", edge_table(n)) for n in EDGE_NS]
@@ -239,7 +240,7 @@ def _edge_tables():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ("KO", "PGM", "PGM_M"))
+@pytest.mark.parametrize("kind", ("KO", "PGM", "PGM_M", "RS"))
 def test_redesigned_search_kernels_match_twin_and_searchsorted_on_card(cuda, kind):
     """Every key, key +- 1, 0 and 2^64 - 1 on tables of 1 to 262,145 keys
     (``EDGE_NS``: the tree's, the sweep's and the global trips' edges)
@@ -270,7 +271,7 @@ def test_redesigned_search_kernels_match_twin_and_searchsorted_on_card(cuda, kin
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ("KO", "PGM", "PGM_M"))
+@pytest.mark.parametrize("kind", ("KO", "PGM", "PGM_M", "RS"))
 def test_redesigned_batched_kernels_on_ragged_tiers_on_card(cuda, kind):
     """A ragged ``build_many`` (three table shapes, 65,536 / 5,000 / 30,001
     keys: PGM levels lifted, the count clamp) with expand-ed and packed
@@ -296,6 +297,92 @@ def test_redesigned_batched_kernels_on_ragged_tiers_on_card(cuda, kind):
         single = tix.build(kind, tables[0], device=cuda)
         np.testing.assert_array_equal(single.lookup(tables[0], few, backend="kernel").cpu().numpy(),
                                       true_ranks(tables[0], few))
+
+
+def rs_span_table():
+    """Keys from near 0 to near 2^64: ``q - kmin`` has its top bit set for
+    the upper half of the key space, where the radix prefix must be an
+    unsigned shift (``test_rs_prefix_is_unsigned_on_a_span_of_2_63_or_more``)."""
+    rng = np.random.default_rng(15)
+    return np.unique(np.concatenate([
+        rng.integers(0, 2**20, 2000, dtype=np.uint64),
+        rng.integers(2**63, 2**64 - 1, 2000, dtype=np.uint64),
+        np.array([2**63 - 1, 2**63, 2**64 - 2], dtype=np.uint64),
+    ]))
+
+
+#: a key span below 2^r: shift 0, and a query far above the table has an
+#: unsigned difference of 2^63 or more, which clamps to the top prefix
+RS_SHIFT0 = (np.arange(100, 400, 3, dtype=np.uint64),
+             np.array([0, 99, 100, 101, 398, 399, 2**40, 2**63, 2**64 - 1], dtype=np.uint64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("span >= 2^63", "shift 0"))
+def test_rs_unsigned_prefix_on_card(cuda, case):
+    """The RS kernels compute the radix prefix as an unsigned shift: on a
+    key span of 2^63 or more, and with shift 0 and queries 2^63 or more
+    above the table, single-table and batched (the table stacked twice)
+    ranks equal the twins and ``torch.searchsorted``."""
+    from repro_torch.core import keys
+
+    if case == "shift 0":
+        table, extra = RS_SHIFT0
+        spec = tix.RSSpec(eps=4, r_bits=12)
+    else:
+        table = rs_span_table()
+        extra = np.array([0, 2**63 - 1, 2**63, 2**63 + 1, 2**64 - 1], dtype=np.uint64)
+        spec = tix.RSSpec(eps=16, r_bits=10)
+    idx = tix.build(spec, table, device=cuda)
+    assert (int(idx.arrays["shift"]) == 0) == (case == "shift 0")
+    impl = tix.impls.query_impl("RS")
+    qs = np.concatenate([every_key_queries(table), extra])
+    t, q = keys.encode(table, cuda), keys.encode(qs, cuda)
+    want = torch.searchsorted(t, q, right=True) - 1
+    args, kwargs = impl.operands(idx, t, q)
+    got = impl.search(*args, **kwargs).long()
+    assert torch.equal(got, want)
+    assert torch.equal(got, impl.plain(*args, **kwargs).long())
+    bm = tune.build_many(spec, [table, table], device=cuda)
+    bq = bm.queries_for(q)
+    bargs, bkw = impl.batched_operands(bm.index, bm.tables, bq)
+    got = impl.batched_search(*bargs, **bkw).long()
+    assert torch.equal(got, want.expand(2, -1))
+    assert torch.equal(got, impl.batched_plain(*bargs, **bkw).long())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("RMI", "PGM", "RS"))
+def test_batched_search_kernels_past_65535_tables_on_card(cuda, kind):
+    """The grid's y dimension holds at most 65,535 rows: the batched RMI,
+    PGM and RS kernels loop each row over the tables past that.  65,537
+    stacked copies of one small index's leaves (not through
+    ``build_many``), each table's own queries: one launch, the ranks of
+    ``torch.searchsorted``."""
+    from repro_torch.core import keys
+    from repro_torch.dist import stack_indexes
+
+    n_tables, n = 65537, 64
+    table = edge_table(n)
+    # small leaves: every leaf is copied 65,537 times
+    spec = {"RMI": tix.RMISpec(b=16), "PGM": tix.PGMSpec(eps=8),
+            "RS": tix.RSSpec(eps=8, r_bits=6)}[kind]
+    stacked = stack_indexes([tix.build(spec, table, device=cuda)])
+    leaves = {k: a.expand(n_tables, *a.shape[1:]).contiguous() for k, a in stacked.arrays.items()}
+    many = tix.Index(kind, stacked.static, leaves)
+    t = keys.encode(table, cuda)
+    tables = t.expand(n_tables, n).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(39)
+    q = tables.gather(1, torch.randint(0, n, (n_tables, 48), generator=gen, device=cuda))
+    q = torch.cat([q, q - 1, q + 1], dim=1)
+    impl = tix.impls.query_impl(kind)
+    args, kwargs = impl.batched_operands(many, tables, q)
+    kernels.reset_launches()
+    got = impl.batched_search(*args, **kwargs).long()
+    torch.cuda.synchronize()
+    assert kernels.launches()["batched_" + KERNEL_OF[kind]] == 1
+    assert got.shape == (n_tables, q.shape[1])
+    assert torch.equal(got, torch.searchsorted(tables, q, right=True) - 1)
 
 
 @pytest.mark.gpu
@@ -490,6 +577,42 @@ def test_embedding_bag_kernel_matches_twin_on_card(cuda, v_, d, n_items, bags, s
     ones = ops.embedding_bag(table, ids_t, seg_t, num_bags=bags)
     want1 = _bag_body(table, ids_t, seg_t, torch.ones_like(w_t), num_bags=bags)
     np.testing.assert_allclose(ones.cpu().numpy(), want1.cpu().numpy(), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", (True, False), ids=("aligned", "offset"))
+@pytest.mark.parametrize("sort", (True, False), ids=("sorted", "unsorted"))
+@pytest.mark.parametrize("d", (1, 3, 4, 128, 130, 256))
+def test_embedding_bag_paths_on_card(cuda, d, sort, aligned):
+    """The kernel's float4 path (D % 4 == 0 and a 16-byte aligned table)
+    and its scalar path (any other D, or a table at a storage offset of one
+    float): sorted bags (runs summed in registers), unsorted ones (runs of
+    one), ids and bags out of range, bags longer than a warp's 32-item
+    chunk, and empty bags."""
+    rng = np.random.default_rng(49)
+    v_, n_items, bags = 777, 3000, 40
+    data = torch.from_numpy(rng.normal(size=(v_, d)).astype(np.float32)).to(cuda)
+    if aligned:
+        table = data
+    else:
+        table = torch.empty(v_ * d + 1, device=cuda)[1:].view(v_, d)
+        table.copy_(data)
+        assert table.data_ptr() % 16 != 0 and table.is_contiguous()
+    ids = rng.integers(0, v_, n_items).astype(np.int32)
+    ids[:5] = [-1, v_, v_ + 1, 2**31 - 1, -(2**31)]
+    seg = rng.integers(-1, bags + 1, n_items).astype(np.int32)
+    seg[seg == 7] = 8  # bag 7 stays empty
+    if sort:
+        seg = np.sort(seg)
+    w = rng.normal(size=n_items).astype(np.float32)
+    ids_t, seg_t, w_t = (torch.from_numpy(x).to(cuda) for x in (ids, seg, w))
+    kernels.reset_launches()
+    got = embedding_bag(table, ids_t, seg_t, w_t, num_bags=bags)
+    torch.cuda.synchronize()
+    assert kernels.launches()["embedding_bag"] == 1
+    want = _bag_body(data, ids_t, seg_t, w_t, num_bags=bags)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-5, atol=3e-5)
+    assert bool((got[7] == 0).all())
 
 
 def _tiny_lm(dtype):

@@ -26,7 +26,7 @@ from repro_torch.kernels import rs_search as trs
 
 from conftest import TABLE_KINDS, make_table
 from test_torch_build import assert_same_index, edge_queries
-from test_torch_gpu import clamp_table
+from test_torch_gpu import RS_SHIFT0, clamp_table, rs_span_table
 
 KINDS = ("RS", "BTREE")
 
@@ -109,11 +109,7 @@ def test_rs_prefix_is_unsigned_on_a_span_of_2_63_or_more():
     shift; torch's arithmetic ``>>`` on the int64 difference would
     sign-extend it into a negative prefix and a wrong knot range."""
     rng = np.random.default_rng(15)
-    table = np.unique(np.concatenate([
-        rng.integers(0, 2**20, 2000, dtype=np.uint64),
-        rng.integers(2**63, 2**64 - 1, 2000, dtype=np.uint64),
-        np.array([2**63 - 1, 2**63, 2**64 - 2], dtype=np.uint64),
-    ]))
+    table = rs_span_table()
     assert int(table[-1]) - int(table[0]) >= 2**63
     qs = edge_queries(rng, table)
     ref = rix.build(rix.RSSpec(eps=16, r_bits=10), table)
@@ -133,11 +129,14 @@ def test_rs_prefix_is_unsigned_on_a_span_of_2_63_or_more():
     naive = torch.clamp((torch.maximum(q, kmin) - kmin) >> shift, max=(1 << r_bits) - 1)
     wrong = naive.numpy() != got.numpy()
     assert wrong.any() and not wrong[~d_top_bit].any()
+    # fed to the kernel's stages (the twin's body) in place of the prefix
     impl = tix.impls.query_impl("RS")
-    args, kwargs = impl.operands(port, keys.encode(table, "cpu"), q)
-    naive_args = list(args)
-    naive_args[2] = naive.to(torch.int32)
-    naive_ranks = impl.plain(*naive_args, **kwargs).numpy()
+    t = keys.encode(table, "cpu")
+    args, kwargs = impl.operands(port, t, q)
+    _, _, _, _, rk_kmin, rk_inv_span, *leaves = args
+    u = keys.unit_f32(q, rk_kmin, rk_inv_span)
+    naive_ranks = trs._rs_body(u, q, naive.to(torch.int32), t, *leaves, n=len(table),
+                               ksteps=kwargs["ksteps"], steps=kwargs["steps"]).numpy()
     assert (naive_ranks != true_ranks(table, qs)).any()
 
 
@@ -145,8 +144,7 @@ def test_rs_prefix_with_shift_zero_clamps_huge_differences():
     """A key span below 2^r gives shift 0; a query far above the table
     then has an unsigned difference of 2^63 or more, which must clamp to
     the top prefix, not go negative."""
-    table = np.arange(100, 400, 3, dtype=np.uint64)
-    qs = np.array([0, 99, 100, 101, 398, 399, 2**40, 2**63, 2**64 - 1], dtype=np.uint64)
+    table, qs = RS_SHIFT0
     ref = rix.build(rix.RSSpec(eps=4, r_bits=12), table)
     port = tix.build(tix.RSSpec(eps=4, r_bits=12), table, device="cpu")
     assert_same_index(ref, port)
@@ -234,15 +232,29 @@ def test_core_rs_and_btree_fits_match_reference():
 
 
 def test_rs_wrapper_validates_operands():
+    """The wrapper takes the leaves as the index holds them (int64 knot
+    ranks and radix table, f64 ``rk_kmin``/``rk_inv_span``) and raises on
+    anything else, on the CPU as on the card."""
     t = keys.encode(np.arange(1, 65, dtype=np.uint64), "cpu")
-    u = torch.zeros(64, dtype=torch.float32)
-    p = torch.zeros(64, dtype=torch.int32)
+    f64 = torch.ones(1, dtype=torch.float64)
     f = torch.zeros(8, dtype=torch.float32)
-    i = torch.zeros(8, dtype=torch.int32)
-    one = torch.ones(1, dtype=torch.int32)
+    i = torch.zeros(8, dtype=torch.int64)
+
+    def call(r_bits=3, **changed):
+        ops = dict(queries=t, table=t, kmin=t[:1], shift=torch.ones(1, dtype=torch.int64),
+                   rk_kmin=f64, rk_inv_span=f64, knots=t[:8], u0=f, slope=f, ranks=i, radix=i,
+                   m_valid=torch.ones(1, dtype=torch.int64), eps=torch.ones(1, dtype=torch.int32))
+        ops.update(changed)
+        return trs.rs_search(*ops.values(), r_bits=r_bits, ksteps=4, steps=4)
+
+    assert call().shape == (64,)
     with pytest.raises(ValueError, match="8 elements"):  # ranks per knot
-        trs.rs_search(u, t, p, t, t[:8], f, f, i[:4], i, one, one, ksteps=4, steps=4)
-    with pytest.raises(TypeError, match="int32"):
-        trs.rs_search(u, t, p.long(), t, t[:8], f, f, i, i, one, one, ksteps=4, steps=4)
+        call(ranks=i[:4])
+    with pytest.raises(TypeError, match="int64"):  # no int32 copy of a leaf
+        call(ranks=i.int())
+    with pytest.raises(TypeError, match="float64"):
+        call(rk_kmin=f64.float())
     with pytest.raises(ValueError, match="radix"):
-        trs.rs_search(u, t, p, t, t[:8], f, f, i, i[:1], one, one, ksteps=4, steps=4)
+        call(radix=i[:1])
+    with pytest.raises(ValueError, match="r_bits"):
+        call(r_bits=31)

@@ -176,11 +176,15 @@ def test_split_plan_fills_the_card_and_bounds_the_stage():
                     assert 1 <= n_split <= min(MAX_SPLIT, -(-s // tile))
 
 
-#: (v, d, n_items, bags, v_tile): the reference test's shapes
+#: (v, d, n_items, bags, v_tile): the reference test's shapes, and widths
+#: that are not a multiple of 4 (the CUDA kernel's scalar path)
 BAG_SHAPES = [
     (100, 8, 50, 4, 32),
     (1000, 64, 300, 16, 512),
     (513, 32, 128, 8, 128),
+    (100, 1, 50, 4, 32),
+    (300, 3, 200, 8, 128),
+    (257, 130, 400, 16, 128),
 ]
 
 

@@ -1,10 +1,12 @@
-"""The redesigned model-free and PGM search kernels' twins held against the
-JAX package's Pallas kernels in interpret mode.
+"""The redesigned model-free, PGM and RS search kernels' twins held against
+the JAX package's Pallas kernels in interpret mode.
 
 ``pgm_search``: the twins take the raw queries and the index's f64
 ``pk_kmin``/``pk_inv_span`` and compute ``u`` themselves (the kernel's
 first step), read the int64 level directories, and stop each level's
-search once its window is one key wide.  ``kary_search``: the first trips
+search once its window is one key wide.  ``rs_search``: the same, and the
+unsigned radix prefix from the key ``kmin`` and ``shift`` leaves; both
+the knot search and the table search stop at a one-key window.  ``kary_search``: the first trips
 come from the top of the implicit search tree (staged in shared memory by
 the kernel, in Eytzinger order) and the last ones become one sweep of at
 most ``SWEEP`` keys.  Ranks are integers: no tolerance.
@@ -35,11 +37,19 @@ from repro_torch.kernels.kary_search import (
     tree_positions,
 )
 from repro_torch.kernels.pgm_search import _pgm_level_window
+from repro_torch.kernels.rs_search import _rs_window_body, radix_prefix
 
 from conftest import TABLE_KINDS, make_table
 from test_torch_batched import _tables
 from test_torch_build import edge_queries
-from test_torch_gpu import EDGE_NS, edge_table, every_key_queries
+from test_torch_gpu import (
+    EDGE_NS,
+    RS_SHIFT0,
+    clamp_table,
+    edge_table,
+    every_key_queries,
+    rs_span_table,
+)
 from test_torch_kernels import _early_exit_ranks
 
 PGM_KINDS = ("PGM", "PGM_M")
@@ -129,6 +139,124 @@ def test_pgm_trips_per_query_fit_under_steps(kind, table_kind):
         assert trips.max() <= steps
         if lvl + 1 < levels:
             seg = torch.from_numpy(np.clip(ranks - base, 0, int(sizes[lvl + 1]) - 1)).to(torch.int32)
+    probes = []
+    twin = impl.plain(*args, **kwargs, probes=probes).numpy()
+    np.testing.assert_array_equal(twin, true_ranks(table, qs))
+    np.testing.assert_array_equal(ranks, twin)
+    assert sum(int(p.numel()) for p in probes) == int(trips.sum()) + len(qs)
+
+
+def _rs_case(name: str):
+    """(table, queries, reference spec) of one RS case: a ``make_table``
+    kind, the pinned clamp table, a key span of 2^63 or more, or shift 0."""
+    rng = np.random.default_rng(55)
+    if name == "pinned clamp":
+        table, qs = clamp_table()
+        return table, qs, rix.spec_for("RS")
+    if name == "span >= 2^63":
+        table = rs_span_table()
+        return table, edge_queries(rng, table), rix.RSSpec(eps=16, r_bits=10)
+    if name == "shift 0":
+        return RS_SHIFT0 + (rix.RSSpec(eps=4, r_bits=12),)
+    table = make_table(rng, name, 8192)
+    return table, edge_queries(rng, table), rix.spec_for("RS")
+
+
+@pytest.mark.parametrize("case", TABLE_KINDS + ("pinned clamp", "span >= 2^63", "shift 0"))
+def test_rs_twin_on_raw_queries_matches_pallas(case):
+    """The single-table twin on the raw queries (``u`` and the prefix its
+    own) equals the reference's ``fused_rs_search_pallas`` (through its
+    ``_rs_pallas`` dispatch, which computes both outside the kernel) and
+    the true ranks.  The dispatch passes the queries and the index's own
+    leaf tensors: no ``u``, no prefix, no cast."""
+    table, qs, spec = _rs_case(case)
+    ref = rix.build(spec, table)
+    port = _port_of(ref)
+    impl = tix.impls.query_impl("RS")
+    t, q = keys.encode(table, "cpu"), keys.encode(qs, "cpu")
+    args, kwargs = impl.operands(port, t, q)
+    assert args[0] is q and args[1] is t
+    a = port.arrays
+    for arg, leaf in zip(args[2:], ("kmin", "shift", "rk_kmin", "rk_inv_span", "knot_keys", "rk_u0",
+                                   "rk_slope", "knot_ranks", "radix_table", "m_valid", "rk_eps")):
+        assert arg.data_ptr() == a[leaf].data_ptr() and arg.dtype == a[leaf].dtype, leaf
+    assert kwargs["r_bits"] == port.s("r_bits")
+    got = impl.plain(*args, **kwargs).numpy()
+    np.testing.assert_array_equal(got, np.asarray(ref.lookup(table, qs, backend="pallas")))
+    np.testing.assert_array_equal(got, true_ranks(table, qs))
+
+
+@pytest.mark.parametrize("stack", ("ragged", "span >= 2^63", "shift 0"))
+def test_batched_rs_twin_on_raw_queries_matches_pallas(stack):
+    """The batched twin, each row's ``u`` and prefix from its own table's
+    leaves, equals the reference's ``batched_rs_search_pallas`` (after the
+    count clamp both apply) on a ragged stack, on a stack of key spans of
+    2^63 or more, and on a stack of shift-0 tables (equal pow2 lengths, so
+    that no padding widens their span)."""
+    rng = np.random.default_rng(56)
+    params = {"ragged": {}, "span >= 2^63": {"eps": 16, "r_bits": 10},
+              "shift 0": {"eps": 4, "r_bits": 12}}[stack]
+    if stack == "ragged":
+        tables = _tables(rng)
+    elif stack == "span >= 2^63":
+        tables = [rs_span_table(), rs_span_table()[1::2]]
+    else:
+        tables = [np.arange(100, 484, 3, dtype=np.uint64), np.arange(5000, 5384, 3, dtype=np.uint64)]
+    qs = np.concatenate([rng.choice(np.concatenate(tables), 1500), RS_SHIFT0[1]]).astype(np.uint64)
+    rb = rtune.build_many(rix.spec_for("RS", **params), tables)
+    tb = ttune.build_many(tix.spec_for("RS", **params), tables, device="cpu")
+    assert bool((tb.index.arrays["shift"] == 0).all()) == (stack == "shift 0")
+    impl = tix.impls.query_impl("RS")
+    q = tb.queries_for(keys.encode(qs, "cpu"))
+    args, kwargs = impl.batched_operands(tb.index, tb.tables, q)
+    assert args[0] is q and args[2].shape == (len(tables),) and args[2].dtype == torch.int64
+    assert all(x.dtype == torch.int64 for x in (args[3], args[9], args[10], args[11]))
+    got = torch.minimum(impl.batched_plain(*args, **kwargs).long(), tb.counts[:, None] - 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(rb.lookup(qs, backend="pallas")))
+    for i, t in enumerate(tables):
+        np.testing.assert_array_equal(got[i].numpy(), true_ranks(t, qs))
+
+
+@pytest.mark.parametrize("case", TABLE_KINDS + ("span >= 2^63",))
+def test_rs_trips_per_query_fit_under_caps(case):
+    """The kernel stops the knot search and the table search once the
+    query's window is one key wide, ``ksteps`` and ``rk_epi`` only the
+    caps.  The widest radix bucket needs ``ceil_log2(len) <= ksteps``
+    knot trips and the widest ε-window ``ceil_log2(hi - lo + 1) <=
+    rk_epi`` table trips; a per-query early-exit loop gives the knot
+    search's upper bound (``np.searchsorted`` inside the bucket) and the
+    twin's ranks; the twin's probe list counts exactly the table trips
+    taken."""
+    rng = np.random.default_rng(57)
+    if case == "span >= 2^63":
+        table = rs_span_table()
+        idx = tix.build(tix.RSSpec(eps=16, r_bits=10), table, device="cpu")
+    else:
+        table = make_table(rng, case, 20000)
+        idx = tix.build("RS", table, device="cpu")
+    qs = edge_queries(rng, table)
+    impl = tix.impls.query_impl("RS")
+    t, q = keys.encode(table, "cpu"), keys.encode(qs, "cpu")
+    args, kwargs = impl.operands(idx, t, q)
+    _, _, kmin, shift, rk_kmin, rk_inv_span, knots, *leaves = args
+    ksteps, steps = kwargs["ksteps"], kwargs["steps"]
+    radix = leaves[3]
+    prefix = radix_prefix(q, kmin, shift, kwargs["r_bits"])
+    p = torch.clamp(prefix, 0, radix.numel() - 2)
+    lo_k = torch.clamp(radix[p] - 1, min=0)
+    len_k = torch.clamp(radix[p + 1] - lo_k, min=1)
+    assert ceil_log2(int(len_k.max())) <= ksteps
+    knot_ranks, knot_trips = _early_exit_ranks(knots.numpy(), q.numpy(), lo_k.numpy(),
+                                               (lo_k + len_k - 1).numpy(), ksteps)
+    assert knot_trips.max() <= ksteps
+    ub = np.clip(np.searchsorted(knots.numpy(), q.numpy(), side="right"), lo_k.numpy(),
+                 (lo_k + len_k).numpy())
+    np.testing.assert_array_equal(knot_ranks, ub - 1)
+    u = keys.unit_f32(q, rk_kmin, rk_inv_span)
+    lo, hi = _rs_window_body(u, q, prefix, knots, *leaves, n=len(table), ksteps=ksteps)
+    assert ceil_log2(int((hi - lo + 1).max())) <= steps
+    ranks, trips = _early_exit_ranks(t.numpy(), q.numpy(), lo.numpy(), hi.numpy(), steps)
+    assert trips.max() <= steps
     probes = []
     twin = impl.plain(*args, **kwargs, probes=probes).numpy()
     np.testing.assert_array_equal(twin, true_ranks(table, qs))
