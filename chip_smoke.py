@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two query paths — one index over one table
-(``Index.lookup(table, queries, backend="kernel")``) and one spec over a
-tier of tables (``tune.build_many(...)`` then
-``BatchedIndexes.lookup(queries, backend="kernel")``, one batched launch
-for every table) — and holds every CUDA search kernel on them against its
-plain PyTorch twin and against ``torch.searchsorted``, bit for bit
-(predecessor ranks are integers: the tolerance is zero).  Then it serves
+Drives the port's three query paths — one index over one table
+(``Index.lookup(table, queries, backend="kernel")``, and the interval
+backends ``"xla"`` and ``"bbs"``), one spec over a tier of tables
+(``tune.build_many(...)`` then ``BatchedIndexes.lookup(queries,
+backend="kernel")``, one batched launch for every table), and a sharded
+tier of one table (``dist.ShardedIndex.build(...)`` then
+``dist.sharded_lookup(sidx, queries, backend="kernel")``: route, one
+batched launch for every shard, rebase) — and holds every CUDA search
+kernel on them against its plain PyTorch twin and against
+``torch.searchsorted``, bit for bit (predecessor ranks are integers: the
+tolerance is zero).  Then it serves
 qwen2-0.5b at full width through ``DecodeEngine`` (the LM serving path,
 whose attention is the hand-written ``decode_attention`` kernel) and
 drives ``ops.embedding_bag``, holding both float kernels against their
@@ -21,11 +25,12 @@ Phases (any failure ends the run with a non-zero exit):
                kernel's ``-Xptxas -v`` registers, shared memory and spills;
 3. parity    — the five test table shapes and the pinned clustered table
                at n = 65,536 with the edge query mix, all 10 kinds:
-               kernel == twin on the card == ``"ref"``; then the batched
-               path for every kind on two same-length batches of 3 of
-               those tables and on a ragged batch (65,536 / 30,000 /
-               50,000 keys): batched kernel == batched twin == ``"ref"``
-               == per-row numpy ``searchsorted``;
+               kernel == twin on the card == ``"xla"`` == ``"bbs"`` ==
+               ``"ref"``; then the batched path for every kind on two
+               same-length batches of 3 of those tables and on a ragged
+               batch (65,536 / 30,000 / 50,000 keys): batched kernel ==
+               batched twin == ``"xla"`` == ``"bbs"`` == ``"ref"`` ==
+               per-row numpy ``searchsorted``;
 4. full size — ``amzn64`` and ``osm`` at the L4 tier (2^24 keys, larger
                than the 50 MB L2) with 2^22 queries sampled from the table;
                all 10 kinds built with the registry defaults; launch counts
@@ -35,6 +40,11 @@ Phases (any failure ends the run with a non-zero exit):
                the shared-memory tree (T), the global trips and the sweep
                (W), for PGM/PGM_M the levels, their segments and the trip
                cap, for RS the knot and table trips a query (mean, max);
+               then the interval backends on the same builds:
+               ``"xla"`` and ``"bbs"`` == the kernel's ranks == ``"ref"``
+               == numpy, every window of ``Index.intervals`` holds its
+               rank, the reduction factor, and ``lookup_ms`` of each
+               backend (CUDA events);
 5. tier      — the same two tables, each split into 4 contiguous shards of
                2^22 keys (the tier layout), 2^20 queries sampled from each
                shard: all 10 kinds through ``build_many`` and one batched
@@ -45,6 +55,24 @@ Phases (any failure ends the run with a non-zero exit):
                and a locality probe:
                the single-table model-free kernel over the whole table
                with the tier's queries in shard order and shuffled;
+5b. sharded  — ``ShardedIndex`` / ``sharded_lookup``: parity of all 10
+               kinds on a 4-shard tier (65,536 keys) and a 160-shard tier
+               (16,384 keys: the router's k-ary branch), with the edge
+               query mix and every fence key ± 1, every backend ==
+               ``Index.lookup`` on the whole table == numpy; then at
+               phase 5's scale (4 shards of 2^22 keys) with phase 4's
+               2^22 queries over the whole table, SY-RMI, PGM_M, RS and
+               KO on both tables, ``backend="kernel"``: one batched
+               launch a call (counted), exact against
+               ``torch.searchsorted``; the batched kernel on the tier's own
+               ``(4, 2^22)`` operands (every query to every shard, three in
+               four outside it) == batched twin == each padded shard's
+               ``searchsorted``, before the clamp and the owner select; the
+               stacked leaves equal to phase 5's ``build_many`` on the same
+               shards; ``lookup_ms`` beside ``BatchedIndexes.lookup`` on
+               those shards and the router alone (CUDA events); and the
+               router's k-ary branch (160 fences) on the 2^22 queries,
+               against ``searchsorted`` and timed;
 6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
                (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128),
                (4,4,256), (8,8,8), ragged ``kv_len`` with 0, 1 and S, S not
@@ -187,6 +215,9 @@ BAG_TOL = 3e-5
 #: which rounds the attention logits and weights to bf16): a few bf16 ulps
 #: at |logit| ~ 4, accumulated over 24 layers
 SERVE_ATOL, SERVE_RTOL = 0.25, 0.05
+#: the kinds of the sharded tier at phase 5's scale (phase 5b): the
+#: headline kind of each batched kernel
+SHARDED_KINDS = ("SY-RMI", "PGM_M", "RS", "KO")
 SINGLE = tuple(k for k in KERNELS if not k.startswith("batched_"))
 BATCHED = tuple(k for k in KERNELS if k.startswith("batched_"))
 KERNEL_OF = {k: name for name in SINGLE for k in KERNELS[name]["kinds"]}
@@ -411,13 +442,14 @@ def phase_parity(dev, n: int) -> None:
             impl = tix.impls.query_impl(kind)
             args, kwargs = impl.operands(idx, t, q)
             twin = impl.plain(*args, **kwargs).long()
+            interval = [(b, idx.lookup(t, q, backend=b).cpu().numpy()) for b in tix.INTERVAL_BACKENDS]
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             check_equal(f"{name}/{kind}", got.cpu().numpy(),
-                        (("twin", twin.cpu().numpy()), ("ref", ref.cpu().numpy()),
+                        (("twin", twin.cpu().numpy()), *interval, ("ref", ref.cpu().numpy()),
                          ("numpy", want)))
         log(f"[parity] {name} n={len(table)} nq={len(qs_np)}: all {len(KINDS)} kinds "
-            f"kernel == twin == ref")
+            f"kernel == twin == xla == bbs == ref")
 
     # -- the batched path: two same-length batches of the six tables, one ragged --
     tables = [t for _, t in cases]
@@ -439,13 +471,15 @@ def phase_parity(dev, n: int) -> None:
             ref = bm.lookup(qs_np, backend="ref")
             impl, _, args, kwargs = batched_answer(bm, qs_np)
             twin = torch.minimum(impl.batched_plain(*args, **kwargs).long(), bm.counts[:, None] - 1)
+            interval = [(b, bm.lookup(qs_np, backend=b).cpu().numpy()) for b in tix.INTERVAL_BACKENDS]
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             check_equal(f"batched {label}/{kind}", got.cpu().numpy(),
-                        (("batched twin", twin.cpu().numpy()), ("ref", ref.cpu().numpy()),
-                         ("numpy", want)))
+                        (("batched twin", twin.cpu().numpy()), *interval,
+                         ("ref", ref.cpu().numpy()), ("numpy", want)))
         log(f"[parity] batched {label} ({'/'.join(str(len(t)) for t in batch)} keys, "
-            f"nq={len(qs_np)}): all {len(KINDS)} kinds batched kernel == batched twin == ref")
+            f"nq={len(qs_np)}): all {len(KINDS)} kinds batched kernel == batched twin == xla == "
+            f"bbs == ref")
 
 
 def measure(dev, impl_search, impl_plain, args, kwargs, table, nq, lookup, library) -> dict:
@@ -588,7 +622,7 @@ def phase_full(dev, n: int, nq: int, datasets) -> tuple:
         check_launches(launches, KERNEL_OF, len(tables), "single-table")
 
     # -- check and measure each (table, kind) --
-    rows = []
+    rows, numpy_ranks = [], {}
     for (ds, kind), (idx, t_dev, q_dev, build_s) in built.items():
         impl = tix.impls.query_impl(kind)
         got = answers[(ds, kind)]
@@ -612,9 +646,51 @@ def phase_full(dev, n: int, nq: int, datasets) -> tuple:
             lambda: torch.searchsorted(t_dev, q_dev, right=True),
         ))
         row["plan"] = search_plan(kind, idx, len(tables[ds][0]), args, kwargs)
+        if ds not in numpy_ranks:
+            numpy_ranks[ds] = np.searchsorted(tables[ds][0], tables[ds][1], side="right") - 1
+        row.update(interval_backends(dev, f"{ds}/{kind}", idx, t_dev, q_dev, got, ref,
+                                     numpy_ranks[ds]))
         rows.append(row)
         log_row(f"[full] {ds}/{kind}", row)
+        log_intervals(f"[full] {ds}/{kind}", row)
     return rows, launches, tables
+
+
+def windows_hold(lo, hi, ranks) -> bool:
+    """Every window holds its rank: the bounded search finds the upper
+    bound ``rank + 1`` in ``[lo, hi + 1]`` (a window may start one past
+    the rank, as RMI's does in a gap between clusters)."""
+    return bool(((lo - 1 <= ranks) & (ranks <= hi)).all())
+
+
+def interval_backends(dev, what: str, idx, t_dev, q_dev, got, ref, want_np) -> dict:
+    """``"xla"`` and ``"bbs"`` on one built index: their ranks equal the
+    kernel's, ``"ref"``'s and numpy's, every window holds its rank; the
+    reduction factor (paper §2) and ``lookup_ms`` of each backend and of
+    ``intervals`` alone (CUDA events)."""
+    from repro_torch import index as tix
+    from repro_torch.core.cdf import reduction_factor
+
+    check_equal(what, got.cpu().numpy(), (("numpy", want_np),))
+    lo, hi = idx.intervals(t_dev, q_dev)
+    if not windows_hold(lo, hi, ref):
+        fail(f"intervals: a window of {what} misses its rank")
+    out = {"reduction_factor": reduction_factor(lo, hi, t_dev.numel()),
+           "mean_window": float((hi - lo + 1).double().mean()),
+           "intervals_ms": device_ms(lambda: idx.intervals(t_dev, q_dev), dev, reps=10, warmup=2)}
+    for backend in tix.INTERVAL_BACKENDS:
+        if not torch.equal(idx.lookup(t_dev, q_dev, backend=backend), got):
+            fail(f"{backend}: {what} ranks differ from the kernel's")
+        out[f"{backend}_lookup_ms"] = device_ms(
+            lambda b=backend: idx.lookup(t_dev, q_dev, backend=b), dev, reps=10, warmup=2)
+    return out
+
+
+def log_intervals(prefix: str, row: dict) -> None:
+    log(f"{prefix}: xla == bbs == kernel == ref == numpy, every window holds its rank; "
+        f"reduction factor {row['reduction_factor']:.6f}% (mean window "
+        f"{row['mean_window']:.1f} keys); lookup_ms xla {row['xla_lookup_ms']}, bbs "
+        f"{row['bbs_lookup_ms']}, kernel {row['lookup_ms']}; intervals {row['intervals_ms']}")
 
 
 def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
@@ -689,7 +765,7 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
         log_row(f"[tier] {ds}/{kind}", row)
         log(f"[tier] {ds}/{kind}: unstack() == per-shard build for all {len(shards)} shards "
             f"(checked in {unstack_s:.1f} s)")
-    return rows, launches, locality_probe(dev, tables, tiers)
+    return rows, launches, locality_probe(dev, tables, tiers), built
 
 
 def locality_probe(dev, tables: dict, tiers: dict) -> dict:
@@ -719,6 +795,115 @@ def locality_probe(dev, tables: dict, tiers: dict) -> dict:
         log(f"[tier] {ds} locality probe, kary_search over all {len(table)} keys: "
             f"{json.dumps(out[ds])}")
     return out
+
+
+def phase_sharded(dev, tables: dict, tier_built: dict, parity_n: int) -> tuple:
+    """The sharded tier (``ShardedIndex.build`` -> ``sharded_lookup``):
+    parity on small tiers, every backend; then the kernel path at phase
+    5's scale on phase 4's tables and queries (counted, timed)."""
+    from repro_torch import index as tix
+    from repro_torch import kernels
+    from repro_torch.core import keys
+    from repro_torch.dist import sharded_index as tsi
+
+    rng = np.random.default_rng(2025)
+    for label, table_kind, n, n_shards in (("4 shards", "lognormal", parity_n, 4),
+                                            ("160 shards", "bursty", parity_n // 4, 160)):
+        table = make_table(rng, table_kind, n)
+        for kind in KINDS:
+            sidx = tsi.ShardedIndex.build(kind, table, n_shards, device=dev)
+            fences = keys.decode(sidx.fences)
+            with np.errstate(over="ignore"):
+                qs_np = np.concatenate([edge_queries(rng, table, n_keys=min(4096, len(table))),
+                                        fences, fences - np.uint64(1), fences + np.uint64(1)])
+            want = np.searchsorted(table, qs_np, side="right").astype(np.int64) - 1
+            t, q = keys.encode(table, dev), keys.encode(qs_np, dev)
+            whole = tix.build(kind, table, device=dev).lookup(t, q, backend="kernel")
+            got = [(b, tsi.sharded_lookup(sidx, q, backend=b).cpu().numpy())
+                   for b in tsi.TIER_BACKENDS]
+            check_equal(f"sharded {label}/{kind}", whole.cpu().numpy(), got + [("numpy", want)])
+        log(f"[sharded] {label} of a {table_kind} table of {len(table)} keys, nq={len(qs_np)} "
+            f"(fence keys +- 1 included): all {len(KINDS)} kinds, sharded_lookup on "
+            f"{'/'.join(tsi.TIER_BACKENDS)} == Index.lookup == numpy")
+
+    # -- the kernel path at scale: build, then one lookup each (counted) --
+    n_shards = 4
+    built = {}
+    for ds, (table, qs) in tables.items():
+        for kind in SHARDED_KINDS:
+            t0 = time.perf_counter()
+            built[(ds, kind)] = (tsi.ShardedIndex.build(kind, table, n_shards, device=dev),
+                                 time.perf_counter() - t0)
+    queries = {ds: keys.encode(qs, dev) for ds, (_, qs) in tables.items()}
+    kernels.reset_launches()
+    answers = {key: tsi.sharded_lookup(sidx, queries[key[0]], backend="kernel")
+               for key, (sidx, _) in built.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernels.launches()
+    log(f"[sharded] sharded path launches: {json.dumps(launches)}")
+    if dev.type == "cuda":
+        check_launches(launches, {k: BATCHED_KERNEL_OF[k] for k in SHARDED_KINDS}, len(tables),
+                       "sharded")
+
+    rows = []
+    for (ds, kind), (sidx, build_s) in built.items():
+        table, q = tables[ds][0], queries[ds]
+        t_dev = keys.encode(table, dev)
+        want = torch.searchsorted(t_dev, q, right=True) - 1
+        if not torch.equal(answers[(ds, kind)], want):
+            fail(f"sharded: {ds}/{kind} kernel path != torch.searchsorted")
+        # the batched kernel on the operands the tier gives it: every query
+        # to every shard, most outside it, held raw (before the clamp and the
+        # owner select) against its twin and each padded shard's searchsorted
+        impl = tix.impls.query_impl(kind)
+        bq = q[None, :].expand(n_shards, q.numel())
+        args, kwargs = impl.batched_operands(sidx.index, sidx.tables, bq)
+        raw = impl.batched_search(*args, **kwargs).long()
+        twin = impl.batched_plain(*args, **kwargs).long()
+        local = torch.searchsorted(sidx.tables, bq.contiguous(), right=True) - 1
+        err = int((raw - twin).abs().max())
+        if err != 0 or not torch.equal(raw, local):
+            fail(f"sharded: {ds}/{kind} batched kernel vs twin max |err| {err} on the tier's "
+                 f"operands, equal to the shards' searchsorted: {bool(torch.equal(raw, local))}")
+        owners = tsi.route_owners(sidx.fences, q).long()
+        outside = float((owners[None, :] != torch.arange(n_shards, device=dev)[:, None])
+                        .double().mean())
+        del raw, twin, local
+        bm = tier_built[(ds, kind)][0]
+        have, same = sidx.index.to_numpy(), bm.index.to_numpy()
+        if sidx.index.static != bm.index.static or any(
+                have[k].tobytes() != same[k].tobytes() for k in same) or set(have) != set(same):
+            fail(f"sharded: {ds}/{kind} stacked leaves differ from build_many's on the same shards")
+        row = {
+            "table": ds, "kind": kind, "kernel": BATCHED_KERNEL_OF[kind], "n_shards": n_shards,
+            "n": len(table), "nq": int(q.numel()), "build_s": build_s, "exact": True,
+            "max_abs_err": err, "outside_share": outside,
+            "lookup_ms": device_ms(lambda: tsi.sharded_lookup(sidx, q, backend="kernel"), dev),
+            "batched_lookup_ms": device_ms(lambda: bm.lookup(q, backend="kernel"), dev),
+            "route_ms": device_ms(lambda: tsi.route_owners(sidx.fences, q), dev),
+        }
+        rows.append(row)
+        log(f"[sharded] {ds}/{kind}: {n_shards} shards of {sidx.tables.shape[1]} keys, "
+            f"{row['nq']} queries over the whole table, build {build_s:.1f} s; exact vs "
+            f"searchsorted, leaves == build_many's; batched kernel on the tier's "
+            f"({n_shards}, {row['nq']}) operands == twin (max |err| {err}) == each shard's "
+            f"searchsorted, {outside:.4f} of them outside their shard; "
+            f"sharded_lookup {row['lookup_ms']} ms, "
+            f"BatchedIndexes.lookup (all queries to every shard) {row['batched_lookup_ms']} ms, "
+            f"route_owners {row['route_ms']} ms")
+
+    # -- the router's k-ary branch (more than 128 fences) at the same query count --
+    for ds, (table, _) in tables.items():
+        q = queries[ds]
+        fences = keys.encode(table[:: len(table) // 160][:160], dev)
+        owners = tsi.route_owners(fences, q)
+        if not torch.equal(owners.long(), torch.searchsorted(fences[1:], q, right=True)):
+            fail(f"sharded: {ds} route_owners over 160 fences != torch.searchsorted")
+        ms = device_ms(lambda: tsi.route_owners(fences, q), dev, reps=5, warmup=1)
+        log(f"[sharded] {ds} route_owners over 160 fences (k-ary branch), {q.numel()} queries: "
+            f"== searchsorted, {ms} ms")
+    return rows, launches
 
 
 # -- the LM serving path's kernels (phases 6-8) ----------------------------------------
@@ -1226,8 +1411,12 @@ def main(argv=None) -> int:
     rows, launches, tables = phase_full(dev, full_n, full_nq, ("amzn64", "osm"))
     log(f"[full] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    tier_rows, tier_launches, locality = phase_tier(dev, tables, 4, shard_nq)
+    tier_rows, tier_launches, locality, tier_built = phase_tier(dev, tables, 4, shard_nq)
     log(f"[tier] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_rows, sharded_launches = phase_sharded(dev, tables, tier_built, parity_n)
+    del tier_built
+    log(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     parity_errs = phase_float_parity(dev, 600)
     log(f"[float] done in {time.perf_counter() - t0:.1f} s")
@@ -1238,16 +1427,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     att_rows, bag_rows, bag_launches = phase_times(dev, **times)
     log(f"[times] done in {time.perf_counter() - t0:.1f} s")
-    launches = {**{k: launches[k] for k in SINGLE}, **{k: tier_launches[k] for k in BATCHED},
+    by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k]} for k in BATCHED}
+    launches = {**{k: launches[k] for k in SINGLE},
+                **{k: sum(paths.values()) for k, paths in by_path.items()},
                 "decode_attention": served["decode_attention_launches"],
                 "embedding_bag": bag_launches}
     line = kernels_line(rows + tier_rows, launches, "amzn64")
+    for entry in line["kernels"]:
+        if entry["name"] in by_path:
+            entry["launches_by_path"] = by_path[entry["name"]]
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+                r["max_abs_err"] for r in sharded_rows if r["kernel"] == entry["name"]])
     line["kernels"] += serve_kernels_line(parity_errs, served, att_rows, bag_rows, bag_launches)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": info, "rows": rows, "tier_rows": tier_rows,
-                                        "locality": locality, "serve": served,
+                                        "sharded_rows": sharded_rows, "locality": locality, "serve": served,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
                                         **line}, indent=1))
     if dev.type != "cuda":

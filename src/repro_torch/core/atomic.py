@@ -3,7 +3,9 @@
 One degree-1/2/3 least-squares polynomial of the key->rank curve, with
 an exact error bound: the polynomial's extremes between consecutive keys
 lie at the keys or at its critical points, so evaluating both bounds the
-window half-width.  Host numpy, operation for operation as the reference.
+window half-width.  Host numpy, operation for operation as the reference;
+the query side (:func:`atomic_window`, ``AtomicModel.intervals``) runs on
+encoded key tensors.
 """
 
 from __future__ import annotations
@@ -12,6 +14,10 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from . import search
+from .keys import to_f64
 
 
 def poly_fit(u: np.ndarray, y: np.ndarray, degree: int) -> np.ndarray:
@@ -24,6 +30,25 @@ def poly_fit(u: np.ndarray, y: np.ndarray, degree: int) -> np.ndarray:
 
 def poly_eval_np(coef: np.ndarray, u: np.ndarray) -> np.ndarray:
     return ((coef[3] * u + coef[2]) * u + coef[1]) * u + coef[0]
+
+
+def poly_eval_torch(coef: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """:func:`poly_eval_np` on tensors (the reference's ``poly_eval_jnp``):
+    separate multiplies and adds, no fused multiply-add."""
+    return ((coef[..., 3] * u + coef[..., 2]) * u + coef[..., 1]) * u + coef[..., 0]
+
+
+def atomic_window(q, coef, kmin, inv_span, eps, *, n: int):
+    """Inclusive window ``[lo, hi]`` of each encoded query: the polynomial
+    at ``u`` widened by ``eps``, clipped to the table.  The leaves are a
+    stack's (``(N, 4)`` coef, the rest ``(N,)``), the queries ``(N, B)``;
+    one model is the stack of one (:func:`search.one_table`)."""
+    coef, kmin, inv_span, eps = coef[:, None], kmin[:, None], inv_span[:, None], eps[:, None]
+    u = torch.clamp((to_f64(q) - kmin) * inv_span, 0.0, 1.0)  # out-of-domain queries clamp
+    p = torch.clamp(poly_eval_torch(coef, u), -4.0e15, 4.0e15)
+    lo = torch.floor(p).to(torch.int64) - eps
+    hi = torch.ceil(p).to(torch.int64) + eps
+    return torch.clamp(lo, 0, n - 1), torch.clamp(hi, 0, n - 1)
 
 
 def poly_crit_points(coef: np.ndarray) -> np.ndarray:
@@ -70,6 +95,27 @@ class AtomicModel:
     n: int
     build_time: float = 0.0
     name: str = ""
+
+    def intervals(self, table, q):
+        """Window of each encoded query (``table`` and ``q`` are encoded
+        key tensors on one device)."""
+        dev = q.device
+        return search.one_table(atomic_window, q, torch.as_tensor(self.coef, device=dev),
+                                torch.tensor(self.kmin, dtype=torch.float64, device=dev),
+                                torch.tensor(self.inv_span, dtype=torch.float64, device=dev),
+                                self.eps, n=self.n)
+
+    @property
+    def max_window(self) -> int:
+        return min(2 * self.eps + 3, self.n)
+
+    def predecessor(self, table, q):
+        lo, hi = self.intervals(table, q)
+        return search.bounded_bfs(table, q, lo, hi, max_window=self.max_window)
+
+    def space_bytes(self) -> int:
+        # coefficients actually used + kmin/span + eps: constant space
+        return 8 * (self.degree + 1) + 16 + 8
 
 
 def build_atomic(table_np: np.ndarray, degree: int = 1) -> AtomicModel:

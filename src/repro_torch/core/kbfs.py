@@ -2,7 +2,9 @@
 
 Partition the table into ``k`` equal-rank segments, fit L, Q and C per
 segment and keep the one with the smallest exact error bound.  Constant
-space; host numpy, operation for operation as the reference.
+space; host numpy, operation for operation as the reference.  The query
+side (:func:`ko_window`, ``KOModel.intervals``) runs on encoded key
+tensors.
 """
 
 from __future__ import annotations
@@ -11,8 +13,31 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from .atomic import poly_exact_eps, poly_fit
+from . import search
+from .atomic import poly_eval_torch, poly_exact_eps, poly_fit
+from .keys import encode, to_f64
+from .search import take_fill
+
+
+def ko_window(q, fences, coef, kmin_seg, inv_span_seg, eps, seg_start):
+    """Inclusive window of each encoded query: the sequential fence scan
+    picks the segment ``s`` (k-1 compares), whose polynomial at ``u``
+    widened by its ``eps`` is clamped into the range the fences prove,
+    ``[seg_start[s] - 1, seg_start[s+1] - 1]``.  The leaves are a stack's,
+    the queries ``(N, B)``; one model is the stack of one
+    (:func:`search.one_table`)."""
+    s = (q[..., None] >= fences[:, None, :]).to(torch.int64).sum(-1)
+    coef = torch.stack([take_fill(coef[..., j], s) for j in range(4)], -1)
+    u = torch.clamp((to_f64(q) - take_fill(kmin_seg, s)) * take_fill(inv_span_seg, s), 0.0, 1.0)
+    p = torch.clamp(poly_eval_torch(coef, u), -4.0e15, 4.0e15)
+    e = take_fill(eps, s)
+    lo = torch.floor(p).to(torch.int64) - e
+    hi = torch.ceil(p).to(torch.int64) + e
+    b_lo = torch.clamp(take_fill(seg_start, s) - 1, min=0)
+    b_hi = take_fill(seg_start, s + 1) - 1
+    return search.clip(lo, b_lo, b_hi), search.clip(hi, b_lo, b_hi)
 
 
 @dataclass
@@ -30,9 +55,32 @@ class KOModel:
     build_time: float = 0.0
     name: str = "KO"
 
+    def intervals(self, table, q):
+        """Window of each encoded query (``table`` and ``q`` are encoded
+        key tensors on one device)."""
+        dev = q.device
+        leaves = [torch.as_tensor(a, device=dev)
+                  for a in (self.coef, self.kmin_seg, self.inv_span_seg, self.eps, self.seg_start)]
+        return search.one_table(ko_window, q, encode(self.fences, dev), *leaves)
+
     @property
     def max_window(self) -> int:
         return min(2 * self.max_eps + 3, self.max_width + 2, self.n)
+
+    def predecessor(self, table, q, *, branchy: bool = False):
+        lo, hi = self.intervals(table, q)
+        if branchy:  # KO-BBS epilogue
+            return _bounded_bbs(table, q, lo, hi)
+        return search.bounded_bfs(table, q, lo, hi, max_window=self.max_window)
+
+    def space_bytes(self) -> int:
+        # fences + coeffs + rescale + eps per segment: O(k) = constant
+        return self.k * (8 + 32 + 16 + 4) + 8
+
+
+def _bounded_bbs(table, q, lo, hi):
+    """Branchy bounded epilogue (for KO-BBS) — the shared one in search."""
+    return search.bounded_bbs_branchy(table, q, lo, hi)
 
 
 def build_ko(table_np: np.ndarray, k: int = 15) -> KOModel:

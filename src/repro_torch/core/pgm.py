@@ -6,6 +6,8 @@ starts when the cone empties), recursing over segment first-keys until
 one segment remains.  ``build_pgm_bicriteria`` bisects ε for the
 smallest model that fits a byte budget.  Host numpy, operation for
 operation as the reference; the device scan fits wait for a later slice.
+The query side (:func:`pgm_window`, ``PGMModel.intervals``) runs on
+encoded key tensors.
 """
 
 from __future__ import annotations
@@ -15,8 +17,46 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
+import torch
+
+from . import search
+from .cdf import ceil_log2
+from .keys import encode, to_f64
+from .search import KEY_FILL, take_fill
 
 _CHUNK = 4096
+
+
+def pgm_window(q, keys, slope, rank0, off, off_r, sizes, eps, *, levels: int, n: int, steps: int):
+    """Inclusive window of each encoded query over the table: the descent
+    over ``levels`` (root first) of the level-concatenated segment leaves.
+    At each level the current segment predicts ``r0 + slope * max(q - x0,
+    0)`` in float64, clamped into ``[r0 - 1, r1 - 1]`` (segment ``s``
+    covers entries ``[r0[s], r0[s+1])`` of the level below) and widened by
+    ``eps + 1``; a ``steps``-trip search of that window over the next
+    level's keys picks the next segment.  The leaves are a stack's
+    (per-table directories, as lifted at stack time), the queries
+    ``(N, B)``; one model is the stack of one (:func:`search.one_table`)."""
+    eps = eps[:, None]
+    qf = to_f64(q)
+    seg = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    for lvl in range(levels):
+        o, o_r = off[:, lvl, None], off_r[:, lvl, None]
+        x0 = to_f64(take_fill(keys, o + seg, KEY_FILL))
+        r0 = take_fill(rank0, o_r + seg)
+        pred = r0.to(torch.float64) + take_fill(slope, o + seg) * torch.clamp(qf - x0, min=0.0)
+        pred = torch.clamp(pred, -1.0, 4.0e15)  # overflow-safe int cast
+        b_lo = torch.clamp(r0 - 1, min=0)
+        b_hi = take_fill(rank0, o_r + seg + 1) - 1
+        lo = search.clip(torch.floor(pred).to(torch.int64) - (eps + 1), b_lo, b_hi)
+        hi = search.clip(torch.ceil(pred).to(torch.int64) + (eps + 1), b_lo, b_hi)
+        if lvl + 1 == levels:
+            return torch.clamp(lo, 0, n - 1), torch.clamp(hi, 0, n - 1)
+        off_n = off[:, lvl + 1, None]
+        length = torch.clamp(hi - lo + 1, min=1)
+        ub = search.bounded_upper_bound(keys, q, off_n + lo, length, steps=steps)
+        seg = search.clip(ub - off_n - 1, 0, sizes[:, lvl + 1, None] - 1)
+    raise AssertionError("unreachable")
 
 
 def pla_segments(keys_f64: np.ndarray, eps: int):
@@ -98,6 +138,29 @@ class PGMModel:
     n_segments_l0: int
     build_time: float = 0.0
     name: str = "PGM"
+
+    def intervals(self, table, q):
+        """Window of each encoded query (``table`` and ``q`` are encoded
+        key tensors on one device): :func:`pgm_window` on the levels
+        concatenated root first."""
+        dev = q.device
+        sizes = np.asarray(self.level_sizes, dtype=np.int64)
+        off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        off_r = np.concatenate([[0], np.cumsum(sizes + 1)]).astype(np.int64)
+        leaves = [torch.as_tensor(a, device=dev) for a in (
+            np.concatenate(self.level_slope), np.concatenate(self.level_rank0), off, off_r, sizes,
+            np.int64(self.eps))]
+        return search.one_table(pgm_window, q, encode(np.concatenate(self.level_keys), dev),
+                                *leaves, levels=len(self.level_keys), n=self.n,
+                                steps=ceil_log2(2 * (self.eps + 2) + 3))
+
+    @property
+    def max_window(self) -> int:
+        return min(2 * (self.eps + 2) + 3, self.n)
+
+    def predecessor(self, table, q):
+        lo, hi = self.intervals(table, q)
+        return search.bounded_bfs(table, q, lo, hi, max_window=self.max_window)
 
     def space_bytes(self) -> int:
         # key (8) + slope (8) + rank0 (8) per segment, all levels

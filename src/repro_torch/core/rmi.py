@@ -5,7 +5,8 @@ check and a linear fallback) partitions the universe; ``b`` linear
 leaves predict the rank.  Per-leaf error bounds are measured over the
 leaf's rank range extended by one key on each side and leaf slopes are
 clamped >= 0, so the predicted window is a guarantee.  Host numpy,
-operation for operation as the reference.
+operation for operation as the reference; the query side
+(:func:`rmi_window`, ``RMIModel.intervals``) runs on encoded key tensors.
 """
 
 from __future__ import annotations
@@ -14,8 +15,12 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from .atomic import poly_eval_np, poly_fit
+from . import search
+from .atomic import poly_eval_np, poly_eval_torch, poly_fit
+from .keys import to_f64
+from .search import take_fill
 
 ROOT_TYPES = ("linear", "cubic", "spline")
 
@@ -37,13 +42,59 @@ class RMIModel:
     build_time: float = 0.0
     name: str = "RMI"
 
+    def _leaf_of(self, u):
+        return rmi_leaf(u, torch.as_tensor(self.root_coef, device=u.device), self.b, self.n)
+
+    def intervals(self, table, q):
+        """Window of each encoded query (``table`` and ``q`` are encoded
+        key tensors on one device)."""
+        dev = q.device
+        leaves = [torch.as_tensor(a, device=dev) for a in (
+            self.root_coef, self.leaf_slope, self.leaf_icept, self.leaf_eps, self.leaf_r,
+            self.kmin, self.inv_span)]
+        return search.one_table(rmi_window, q, *leaves, n=self.n)
+
     @property
     def max_window(self) -> int:
         return max(self.max_window_, 1)
 
+    def predecessor(self, table, q):
+        lo, hi = self.intervals(table, q)
+        return search.bounded_bfs(table, q, lo, hi, max_window=self.max_window)
+
     def space_bytes(self) -> int:
         # slope + intercept (f64) + eps (i32) + rank fence (i64) per leaf, + root
         return self.b * (8 + 8 + 4 + 8) + 32 + 24
+
+
+def rmi_leaf(u, root_coef, b: int, n: int):
+    """Leaf of each ``u``: the root's prediction scaled to ``b`` leaves, in
+    float64 (``root_coef`` broadcast against ``u``)."""
+    p = torch.clamp(poly_eval_torch(root_coef, u), -4.0e15, 4.0e15)
+    return torch.clamp(torch.floor(p * (b / n)).to(torch.int64), 0, b - 1)
+
+
+def rmi_window(q, root_coef, leaf_slope, leaf_icept, leaf_eps, leaf_r, kmin, inv_span, *, n: int):
+    """Inclusive window of each encoded query: the root picks the leaf,
+    whose line at ``u`` widened by its ``eps`` is clamped into
+    ``[r_l - 1, r_{l+1}]``, the range a monotone root proves (the high
+    fence is ``r_{l+1}``, not ``r_{l+1} - 1``: a one-ulp difference between
+    the build's and the query's root evaluation may flip the leaf of a
+    boundary key, which the extended ``eps`` covers).  The leaves are a
+    stack's, the queries ``(N, B)``; one model is the stack of one
+    (:func:`search.one_table`)."""
+    b = leaf_slope.shape[-1]
+    root_coef, kmin, inv_span = root_coef[:, None], kmin[:, None], inv_span[:, None]
+    u = torch.clamp((to_f64(q) - kmin) * inv_span, 0.0, 1.0)
+    leaf = rmi_leaf(u, root_coef, b, n)
+    p = torch.clamp(take_fill(leaf_slope, leaf) * u + take_fill(leaf_icept, leaf),
+                    -4.0e15, 4.0e15)
+    eps = take_fill(leaf_eps, leaf)
+    lo = torch.floor(p).to(torch.int64) - eps
+    hi = torch.ceil(p).to(torch.int64) + eps
+    b_lo = torch.clamp(take_fill(leaf_r, leaf) - 1, min=0)
+    b_hi = torch.clamp(take_fill(leaf_r, leaf + 1), max=n - 1)
+    return search.clip(lo, b_lo, b_hi), search.clip(hi, b_lo, b_hi)
 
 
 def _fit_root(u: np.ndarray, ranks: np.ndarray, root_type: str) -> np.ndarray:

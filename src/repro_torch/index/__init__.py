@@ -3,14 +3,16 @@ queries (counterpart of ``repro.index``).
 
     from repro_torch import index as ix
     idx = ix.build(ix.PGMSpec(eps=64), table)          # leaves on the card
-    ranks = idx.lookup(table, queries, backend="kernel")
+    ranks = idx.lookup(table, queries, backend="kernel")   # or "xla", "bbs", "ref"
+    lo, hi = idx.intervals(table, queries)             # the predicted windows
 
 ``device=None`` means the card and raises without one; tests pass
 ``device="cpu"``, where the kernels' plain twins answer.
 """
 
 from . import impls  # noqa: F401  — registers the kinds
-from .index import BACKENDS, KEY_LEAVES, PORTED_BACKENDS, Index, build, resolve_device
+from .index import (BACKENDS, INTERVAL_BACKENDS, KEY_LEAVES, Index, build, lookup_impl,
+                    resolve_device)
 from .registry import entry, kinds, spec_for
 from .specs import (
     AtomicSpec,
@@ -26,10 +28,11 @@ from .specs import (
 
 __all__ = [
     "BACKENDS",
+    "INTERVAL_BACKENDS",
     "KEY_LEAVES",
-    "PORTED_BACKENDS",
     "Index",
     "build",
+    "lookup_impl",
     "resolve_device",
     "entry",
     "kinds",

@@ -5,11 +5,14 @@ KO, RMI, SY-RMI, PGM, PGM_M, RS and BTREE).
 Each kind contributes a host build that runs the fit in
 :mod:`repro_torch.core` and flattens the model into the reference's
 leaves and statics (numpy; :meth:`Index.from_numpy` moves them to the
-device), and a :class:`QueryImpl` with ``space_bytes`` and the kernel
-dispatch, the counterpart of the reference's ``pallas``, plus its batched
-arm, the counterpart of ``pallas_batched``: the RMI family, the PGM
-family and RS have fused batched kernels, every other kind answers a
-stack of tables with the batched model-free search.
+device), and a :class:`QueryImpl` with ``intervals`` (the window the
+``xla`` and ``bbs`` backends search, computed by the core module's
+``*_window`` on a stack's leaves), ``epi_steps``,
+``space_bytes`` and the kernel dispatch, the counterpart of the
+reference's ``pallas``, plus its batched arm, the counterpart of
+``pallas_batched``: the RMI family, the PGM family and RS have fused
+batched kernels, every other kind answers a stack of tables with the
+batched model-free search.
 
 The reference's two cache normalisations are kept so leaves and statics
 match it exactly: variable-length PGM leaves are padded to the next
@@ -27,13 +30,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.atomic import build_atomic
-from repro_torch.core.btree import build_btree
+from repro_torch.core.atomic import atomic_window, build_atomic
+from repro_torch.core.btree import btree_window, build_btree
 from repro_torch.core.cdf import ceil_log2
-from repro_torch.core.kbfs import build_ko
-from repro_torch.core.pgm import build_pgm, build_pgm_bicriteria
-from repro_torch.core.radix_spline import build_rs
-from repro_torch.core.rmi import build_rmi
+from repro_torch.core.kbfs import build_ko, ko_window
+from repro_torch.core.pgm import build_pgm, build_pgm_bicriteria, pgm_window
+from repro_torch.core.radix_spline import build_rs, rs_window
+from repro_torch.core.rmi import build_rmi, rmi_window
 from repro_torch.core.sy_rmi import build_sy_rmi
 from repro_torch.kernels.kary_search import (
     batched_kary_search,
@@ -109,14 +112,19 @@ def _kary_operands(idx: Index, table, q):
 
 @dataclass(frozen=True)
 class QueryImpl:
-    """How a kind answers ``backend="kernel"``: ``operands(index, table,
-    queries) -> (args, kwargs)`` gives the kernel wrapper ``search`` its
-    inputs; ``plain`` is the wrapper's twin on the same inputs (any
-    device), for holding the kernel against it.  The ``batched_*`` fields
-    do the same for a stacked index over ``(n_tables, m)`` tables and
-    ``(n_tables, B)`` queries; they default to the batched model-free
-    search."""
+    """How a kind answers queries.  ``intervals(index, tables, queries) ->
+    (lo, hi)`` is the window that ``xla`` and ``bbs`` search, on a stack
+    (``(N, m)`` tables, ``(N, B)`` queries; one table goes through
+    :func:`repro_torch.index.index.windows` as the stack of one), and
+    ``epi_steps`` the trips of the ``xla`` search.  ``backend="kernel"``:
+    ``operands(index, table, queries) -> (args, kwargs)`` gives the kernel
+    wrapper ``search`` its inputs; ``plain`` is the wrapper's twin on the
+    same inputs (any device), for holding the kernel against it.  The
+    ``batched_*`` fields do the same for a stacked index over
+    ``(n_tables, m)`` tables and ``(n_tables, B)`` queries; they default
+    to the batched model-free search."""
 
+    intervals: Callable  # (index, table, q) -> (lo, hi)
     space_bytes: Callable  # (index) -> int
     operands: Callable
     search: Callable
@@ -124,6 +132,10 @@ class QueryImpl:
     batched_operands: Callable = _kary_operands
     batched_search: Callable = batched_kary_search
     batched_plain: Callable = batched_kary_search_plain
+
+    @staticmethod
+    def epi_steps(idx: Index) -> int:
+        return idx.s("epi")
 
     def kernel(self, idx: Index, table, queries):
         """int64 predecessor ranks through the kind's kernel."""
@@ -137,11 +149,16 @@ class QueryImpl:
         return self.batched_search(*args, **kwargs).long()
 
 
-def _kary_impl(space_bytes: Callable) -> QueryImpl:
-    return QueryImpl(space_bytes, _kary_operands, kary_search, kary_search_plain)
+def _kary_impl(intervals: Callable, space_bytes: Callable) -> QueryImpl:
+    return QueryImpl(intervals, space_bytes, _kary_operands, kary_search, kary_search_plain)
 
 
 # -- atomic (L / Q / C) ------------------------------------------------------
+
+
+def _atomic_intervals(idx: Index, table, q):
+    a = idx.arrays
+    return atomic_window(q, a["coef"], a["kmin"], a["inv_span"], a["eps"], n=table.shape[-1])
 
 
 def _atomic_space(idx: Index) -> int:
@@ -150,7 +167,7 @@ def _atomic_space(idx: Index) -> int:
     return 8 * (idx.s("degree") + 1) + a["kmin"].nbytes + a["inv_span"].nbytes + a["eps"].nbytes
 
 
-ATOMIC_IMPL = _kary_impl(_atomic_space)
+ATOMIC_IMPL = _kary_impl(_atomic_intervals, _atomic_space)
 
 
 def _build_atomic_index(spec: AtomicSpec, table_np: np.ndarray):
@@ -169,6 +186,12 @@ def _build_atomic_index(spec: AtomicSpec, table_np: np.ndarray):
 # -- KO ----------------------------------------------------------------------
 
 
+def _ko_intervals(idx: Index, table, q):
+    a = idx.arrays
+    return ko_window(q, *(a[k] for k in ("fences", "coef", "kmin_seg", "inv_span_seg", "eps",
+                                          "seg_start")))
+
+
 def _ko_space(idx: Index) -> int:
     a = idx.arrays
     return sum(
@@ -176,7 +199,7 @@ def _ko_space(idx: Index) -> int:
     )
 
 
-KO_IMPL = _kary_impl(_ko_space)
+KO_IMPL = _kary_impl(_ko_intervals, _ko_space)
 
 
 def _build_ko_index(spec: KOSpec, table_np: np.ndarray):
@@ -195,6 +218,13 @@ def _build_ko_index(spec: KOSpec, table_np: np.ndarray):
 
 
 # -- RMI / SY-RMI ------------------------------------------------------------
+
+
+def _rmi_intervals(idx: Index, table, q):
+    a = idx.arrays
+    leaves = (a[k] for k in ("root_coef", "leaf_slope", "leaf_icept", "leaf_eps", "leaf_r", "kmin",
+                             "inv_span"))
+    return rmi_window(q, *leaves, n=table.shape[-1])
 
 
 def _rmi_space(idx: Index) -> int:
@@ -227,7 +257,7 @@ def _rmi_batched_operands(idx: Index, tables, queries):
 
 
 RMI_IMPL = QueryImpl(
-    _rmi_space, _rmi_operands, rmi_search, rmi_search_plain,
+    _rmi_intervals, _rmi_space, _rmi_operands, rmi_search, rmi_search_plain,
     _rmi_batched_operands, batched_rmi_search, batched_rmi_search_plain,
 )
 
@@ -274,6 +304,12 @@ def _build_sy_rmi_index(spec: SYRMISpec, table_np: np.ndarray):
 # -- PGM / PGM_M -------------------------------------------------------------
 
 
+def _pgm_intervals(idx: Index, table, q):
+    a = idx.arrays
+    leaves = (a[k] for k in ("keys", "slope", "rank0", "off", "off_r", "sizes", "eps"))
+    return pgm_window(q, *leaves, levels=idx.s("levels"), n=table.shape[-1], steps=idx.s("epi"))
+
+
 def _pgm_space(idx: Index) -> int:
     # valid prefixes of the level-concatenated leaves (the pow2 sentinel pad
     # is cache bucketing, not model space) + level directories
@@ -309,7 +345,7 @@ def _pgm_batched_operands(idx: Index, tables, queries):
 
 
 PGM_IMPL = QueryImpl(
-    _pgm_space, _pgm_operands, pgm_search, pgm_search_plain,
+    _pgm_intervals, _pgm_space, _pgm_operands, pgm_search, pgm_search_plain,
     _pgm_batched_operands, batched_pgm_search, batched_pgm_search_plain,
 )
 
@@ -365,6 +401,13 @@ def _build_pgm_m_index(spec: PGMBicriteriaSpec, table_np: np.ndarray):
 # -- RadixSpline -------------------------------------------------------------
 
 
+def _rs_intervals(idx: Index, table, q):
+    a = idx.arrays
+    leaves = (a[k] for k in ("knot_keys", "knot_ranks", "radix_table", "kmin", "shift", "eps_eff",
+                             "m_valid"))
+    return rs_window(q, *leaves, r_bits=idx.s("r_bits"), n=table.shape[-1], steps=idx.s("ksteps"))
+
+
 def _rs_space(idx: Index) -> int:
     a = idx.arrays
     m = int(a["m_valid"])
@@ -399,7 +442,7 @@ def _rs_batched_operands(idx: Index, tables, queries):
 
 
 RS_IMPL = QueryImpl(
-    _rs_space, _rs_operands, rs_search, rs_search_plain,
+    _rs_intervals, _rs_space, _rs_operands, rs_search, rs_search_plain,
     _rs_batched_operands, batched_rs_search, batched_rs_search_plain,
 )
 
@@ -442,13 +485,19 @@ def _build_rs_index(spec: RSSpec, table_np: np.ndarray):
 # -- B+-tree -----------------------------------------------------------------
 
 
+def _btree_intervals(idx: Index, table, q):
+    a = idx.arrays
+    return btree_window(q, a["keys"], a["off"], a["valid"], fanout=idx.s("fanout"),
+                        levels=idx.s("levels"), n=table.shape[-1])
+
+
 def _btree_space(idx: Index) -> int:
     a = idx.arrays
     return a["keys"].nbytes + a["off"].nbytes + a["valid"].nbytes
 
 
 # the reference's BTREE answers ``pallas`` with the model-free search too
-BTREE_IMPL = _kary_impl(_btree_space)
+BTREE_IMPL = _kary_impl(_btree_intervals, _btree_space)
 
 
 def _build_btree_index(spec: BTreeSpec, table_np: np.ndarray):

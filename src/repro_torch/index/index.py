@@ -1,4 +1,4 @@
-"""The :class:`Index` of torch tensors and its query path (counterpart of
+r"""The :class:`Index` of torch tensors and its query path (counterpart of
 ``repro.index.index``).
 
 A learned index is data: a few flat arrays driven by one lookup
@@ -8,15 +8,19 @@ device, with the reference's names, dtypes and shapes; the key leaves
 where the reference holds uint64.  ``save``/``load`` use the reference's
 npz layout, so either package reads the other's files.
 
-Backends (``lookup(..., backend=...)``):
+Backends (``lookup(..., backend=...)``; the port's default is
+``"kernel"``, the reference's ``"xla"``):
 
 * ``"kernel"`` — the hand-written CUDA kernels (the reference's
-  ``"pallas"``): the fused RMI and PGM kernels for RMI/SY-RMI and
-  PGM/PGM_M, the model-free search for L/Q/C/KO.  On CPU tensors the
-  kernels' plain twins run instead;
-* ``"ref"`` — ``torch.searchsorted`` oracle;
-* ``"xla"``, ``"bbs"`` — the reference's interval + bounded-search
-  paths, not ported yet: they raise ``ValueError``.
+  ``"pallas"``): the fused RMI, PGM and RadixSpline kernels for
+  RMI/SY-RMI, PGM/PGM_M and RS, the model-free search for L/Q/C/KO/BTREE.
+  On CPU tensors the kernels' plain twins run instead;
+* ``"xla"`` — the kind's predicted window (:meth:`Index.intervals`) then
+  the branch-free bounded search, ``epi`` trips: the reference's default
+  path, tensor ops on the index's device;
+* ``"bbs"`` — the same window, then the branchy early-exit search (the
+  paper's \*-BBS), which syncs with the host once a trip on the card;
+* ``"ref"`` — ``torch.searchsorted`` oracle.
 """
 
 from __future__ import annotations
@@ -27,11 +31,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import keys as keymod
+from repro_torch.core import search
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import predecessor_ref
 
-BACKENDS = ("xla", "bbs", "kernel", "ref")
-PORTED_BACKENDS = ("kernel", "ref")
+#: the backends that search the kind's predicted window (:func:`windows`)
+INTERVAL_BACKENDS = ("xla", "bbs")
+
+BACKENDS = (*INTERVAL_BACKENDS, "kernel", "ref")
 
 #: leaves that hold table keys: uint64 in the reference, encoded int64 here
 #: (RS's ``kmin`` is a key; the other kinds' ``kmin`` is a float64 leaf)
@@ -124,24 +131,31 @@ class Index:
         return out
 
     # -- queries -------------------------------------------------------------
+    def intervals(self, table, queries) -> tuple:
+        """Predicted inclusive window ``[lo, hi]`` (int64) of each query.
+        ``table`` and ``queries`` as in :meth:`lookup`."""
+        dev = self.device
+        return windows(self, keymod.as_keys(table, dev), keymod.as_keys(queries, dev))
+
+    def backends(self) -> tuple:
+        """The backends this kind supports: every static kind supports all
+        of :data:`BACKENDS`."""
+        return BACKENDS
+
     def lookup(self, table, queries, *, backend: str = "kernel") -> torch.Tensor:
         """Predecessor ranks (int64, on the index's device) of ``queries``
         over the sorted ``table``.  Both are encoded int64 tensors or uint64
         numpy arrays, which are encoded and moved to the index's device."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
-        if backend not in PORTED_BACKENDS:
-            raise ValueError(
-                f"backend {backend!r} is not ported yet; choose from {PORTED_BACKENDS}"
-            )
         dev = self.device
-        table = keymod.as_keys(table, dev)
-        queries = keymod.as_keys(queries, dev)
-        if backend == "ref":
-            return predecessor_ref(table, queries)
-        from . import impls
+        return lookup_impl(self, keymod.as_keys(table, dev), keymod.as_keys(queries, dev), backend)
 
-        return impls.query_impl(self.kind).kernel(self, table, queries)
+    def predecessor(self, table, queries, *, branchy: bool = False, backend: str | None = None):
+        r"""Predecessor ranks; ``branchy=True`` selects the \*-BBS epilogue.
+        The backend defaults to ``"xla"`` (``"bbs"`` when branchy), as in
+        the reference."""
+        return self.lookup(table, queries, backend=backend or ("bbs" if branchy else "xla"))
 
     # -- accounting / serialization -----------------------------------------
     def space_bytes(self) -> int:
@@ -175,6 +189,42 @@ class Index:
             arrays = {k[len("arr_"):]: z[k] for k in z.files if k.startswith("arr_")}
         static = tuple((k, int(v)) for k, v in meta["static"])
         return cls.from_numpy(meta["kind"], static, arrays, meta.get("info"), device=device)
+
+
+def windows(index: Index, table, queries) -> tuple:
+    """The kind's predicted windows on encoded tensors, one table or a
+    stack.  The ``*_window`` functions take a stack only, so one table is
+    the stack of one: its leaves and table gain a leading table axis and
+    the queries become ``(1, B)``."""
+    from . import impls
+
+    intervals = impls.query_impl(index.kind).intervals
+    if table.dim() == 2:
+        return intervals(index, table, queries)
+    one = Index(index.kind, index.static, {k: v[None] for k, v in index.arrays.items()})
+    lo, hi = intervals(one, table[None], queries.reshape(1, -1))
+    return lo.reshape(queries.shape), hi.reshape(queries.shape)
+
+
+def lookup_impl(index: Index, table, queries, backend: str) -> torch.Tensor:
+    """The lookup body on encoded tensors already on the index's device:
+    one table (``(m,)`` table, any query shape) or a stack (a stacked
+    index, ``(N, m)`` tables, ``(N, B)`` queries: raw local ranks, which
+    the caller clamps to each table's valid count).  ``"kernel"`` on a
+    stack is one launch of the kind's batched kernel; ``"xla"``/``"bbs"``
+    search every table's window in one pass of tensor ops."""
+    from . import impls
+
+    impl = impls.query_impl(index.kind)
+    stacked = table.dim() == 2
+    if backend == "ref":
+        return predecessor_ref(table, queries.contiguous() if stacked else queries)
+    if backend == "kernel":
+        return (impl.batched_kernel if stacked else impl.kernel)(index, table, queries)
+    lo, hi = windows(index, table, queries)
+    if backend == "bbs":
+        return search.bounded_bbs_branchy(table, queries, lo, hi)
+    return search.bounded_bfs(table, queries, lo, hi, max_window=1 << impl.epi_steps(index))
 
 
 def build(kind_or_spec, table, *, device=None, **params) -> Index:

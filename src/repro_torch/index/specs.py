@@ -1,5 +1,7 @@
 """Hashable build specs, one frozen dataclass per index kind (counterpart
-of ``repro.index.specs``, for the kinds this package builds)."""
+of ``repro.index.specs``, for the kinds this package builds).  Each spec
+class's ``default_grid(n_keys)`` is the reference's: the handful of
+configurations that span the kind's time-space curve."""
 
 from __future__ import annotations
 
@@ -17,6 +19,13 @@ class IndexSpec:
         params = ",".join(f"{f.name}={getattr(self, f.name)}" for f in dataclasses.fields(self))
         return f"{self.kind}[{params}]" if params else self.kind
 
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        """The kind's default candidate specs for a table of ``n_keys``:
+        the sweep grid of the Pareto tuner (a later slice).  The base grid
+        is the kind's default configuration."""
+        return (cls(),)
+
 
 @dataclass(frozen=True)
 class AtomicSpec(IndexSpec):
@@ -31,6 +40,10 @@ class AtomicSpec(IndexSpec):
     def display_name(self) -> str:
         return self.kind
 
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        return tuple(cls(degree=d) for d in (1, 2, 3))
+
 
 @dataclass(frozen=True)
 class KOSpec(IndexSpec):
@@ -38,6 +51,10 @@ class KOSpec(IndexSpec):
 
     k: int = 15
     kind = "KO"
+
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        return tuple(cls(k=k) for k in (7, 15, 31) if k <= max(n_keys // 2, 2))
 
 
 @dataclass(frozen=True)
@@ -47,6 +64,11 @@ class RMISpec(IndexSpec):
     b: int = 1024
     root_type: str = "linear"
     kind = "RMI"
+
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        bs = [b for b in (64, 1024, 16384, 262144) if b <= max(n_keys // 2, 2)] or [2]
+        return tuple(cls(b=b) for b in bs)
 
 
 @dataclass(frozen=True)
@@ -58,6 +80,11 @@ class SYRMISpec(IndexSpec):
     winner_root: str = "linear"
     kind = "SY-RMI"
 
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        # the paper's small-model-space sweep: budgets as a % of table bytes
+        return tuple(cls(space_pct=p) for p in (0.05, 0.7, 2.0, 10.0))
+
 
 @dataclass(frozen=True)
 class PGMSpec(IndexSpec):
@@ -65,6 +92,10 @@ class PGMSpec(IndexSpec):
 
     eps: int = 64
     kind = "PGM"
+
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        return tuple(cls(eps=e) for e in (16, 64, 256))
 
 
 @dataclass(frozen=True)
@@ -82,6 +113,10 @@ class PGMBicriteriaSpec(IndexSpec):
             return int(self.space_budget_bytes)
         return int(self.space_pct / 100.0 * n_keys * 8)
 
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        return tuple(cls(space_pct=p) for p in (0.05, 0.7, 2.0))
+
 
 @dataclass(frozen=True)
 class RSSpec(IndexSpec):
@@ -91,6 +126,11 @@ class RSSpec(IndexSpec):
     r_bits: int = 12
     kind = "RS"
 
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        r = 8 if n_keys < 1 << 16 else 12
+        return tuple(cls(eps=e, r_bits=r) for e in (16, 64))
+
 
 @dataclass(frozen=True)
 class BTreeSpec(IndexSpec):
@@ -98,3 +138,7 @@ class BTreeSpec(IndexSpec):
 
     fanout: int = 16
     kind = "BTREE"
+
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        return tuple(cls(fanout=f) for f in (8, 16))

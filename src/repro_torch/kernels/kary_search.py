@@ -16,14 +16,23 @@ grid in shared memory (Eytzinger order, :func:`tree_positions`), makes
 global trips until the window holds at most ``SWEEP`` keys, and then
 counts the window's keys ``<= q`` with coalesced loads, a warp's windows
 at a time.  The twins below do the same arithmetic on tensors.
+
+:func:`kary_owner_route`, the sharded tier's router, is no kernel: the
+reference computes it with plain array ops, and so does the port.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import cuda_lib
 from .ref import rows_with_probes
+
+#: the reference's lane width: the router's compare-and-sum handles this
+#: many fences at once before it splits k-ary
+LANES = 128
 
 #: kernel launches (CUDA path only); reset by callers that count them
 LAUNCHES = 0
@@ -34,6 +43,33 @@ BATCHED_LAUNCHES = 0
 TREE_LEVELS = 10
 #: the final sweep's width (``kSweep``): 256 bytes, two or three 128-byte lines
 SWEEP = 32
+
+#: queries a pass of the router's k-ary branch takes: each trip holds
+#: ``(chunk, k - 1)`` fence positions and keys, 64 MiB of int64 at k = 128
+ROUTE_CHUNK = 1 << 16
+
+
+def kary_owner_route(boundaries: torch.Tensor, q: torch.Tensor, *, k: int = LANES) -> torch.Tensor:
+    """Owner shard (int32) of each encoded query on a fence array.
+
+    ``boundaries`` holds the encoded first key of shards ``1..S-1``
+    (sorted); the owner of ``q`` is ``#{i : boundaries[i] <= q}`` in
+    ``[0, S-1]``, so an exact fence key routes to the shard that starts
+    with it.  Up to ``k`` fences this is one compare-and-sum; beyond that
+    a k-ary search (:func:`repro_torch.core.search.bounded_kary_upper_bound`)
+    in passes of :data:`ROUTE_CHUNK` queries, which bound its memory."""
+    from repro_torch.core import search
+
+    nb = int(boundaries.shape[0])
+    if nb == 0:
+        return torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    if nb <= k:
+        return (boundaries[None, :] <= q[:, None]).sum(-1, dtype=torch.int32)
+    steps = max(1, int(math.ceil(math.log(nb) / math.log(k))))
+    owners = [search.bounded_kary_upper_bound(boundaries, c, torch.zeros_like(c), torch.full_like(c, nb),
+                                              k=k, steps=steps).to(torch.int32)
+              for c in q.reshape(-1).split(ROUTE_CHUNK)]
+    return torch.cat(owners).reshape(q.shape)
 
 
 def tree_levels(n: int) -> int:

@@ -13,6 +13,9 @@ real key.
 with ONE launch of the kind's batched kernel (``backend="kernel"``, the
 reference's ``"pallas"``): the fused batched RMI, PGM or RadixSpline
 kernel where the kind has one, the batched model-free search otherwise.
+``"xla"`` and ``"bbs"`` compute every table's windows and search them in
+one pass of tensor ops over the stack (the reference vmaps the
+single-table path); ``"ref"`` is ``torch.searchsorted`` per row.
 
 The vmapped and fast fits (``fit="vmap"``/``"fast"``/``"auto"``) are the
 device-fit slice's work; ``build_grid`` waits for the tuner.
@@ -32,16 +35,14 @@ from repro_torch.dist.sharded_index import (
     stack_arrays,
 )
 from repro_torch.index import registry
-from repro_torch.index.impls import query_impl
-from repro_torch.index.index import BACKENDS, PORTED_BACKENDS, Index, resolve_device
+from repro_torch.index.index import BACKENDS, Index, lookup_impl, resolve_device
 from repro_torch.index.specs import IndexSpec
 
 #: fit strategies of the reference; only ``host`` is ported
 FITS = ("host", "vmap", "fast", "auto")
 
-#: backends of the batched lookup: ``kernel`` launches the kind's batched
-#: kernel once for every table, ``ref`` is ``torch.searchsorted`` per row
-BATCH_BACKENDS = PORTED_BACKENDS
+#: backends of the batched lookup: all of ``Index.lookup``'s
+BATCH_BACKENDS = BACKENDS
 
 
 def _resolve_spec(kind_or_spec, **params) -> IndexSpec:
@@ -125,16 +126,9 @@ class BatchedIndexes:
         device, for ``(N, B)`` queries or one ``(B,)`` batch broadcast to
         every table.  ``backend="kernel"`` is one launch of the kind's
         batched kernel."""
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown batched backend {backend!r}; choose from {BATCH_BACKENDS}")
         if backend not in BATCH_BACKENDS:
-            raise ValueError(f"batched backend {backend!r} is not ported yet; "
-                             f"choose from {BATCH_BACKENDS}")
-        q = self.queries_for(queries)
-        if backend == "ref":
-            r = torch.searchsorted(self.tables, q.contiguous(), right=True) - 1
-        else:
-            r = query_impl(self.kind).batched_kernel(self.index, self.tables, q)
+            raise ValueError(f"unknown batched backend {backend!r}; choose from {BATCH_BACKENDS}")
+        r = lookup_impl(self.index, self.tables, self.queries_for(queries), backend)
         # hits in the padded tail clamp back to the last real key
         return torch.minimum(r, self.counts[:, None] - 1)
 

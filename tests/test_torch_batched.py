@@ -200,10 +200,11 @@ def test_build_many_needs_the_card_unless_asked_and_rejects_unported_options():
     with pytest.raises(ValueError, match="unknown fit"):
         ttune.build_many("PGM", tables, fit="scan", device="cpu")
     tb = ttune.build_many("BTREE", tables, device="cpu")
-    assert ttune.BATCH_BACKENDS == ("kernel", "ref")
+    # every backend is ported: xla and bbs answer (parity in test_torch_intervals.py)
+    assert ttune.BATCH_BACKENDS == tix.BACKENDS
+    want = np.stack([true_ranks(t, tables[0]) for t in tables])
     for backend in ("xla", "bbs"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            tb.lookup(tables[0], backend=backend)
+        np.testing.assert_array_equal(tb.lookup(tables[0], backend=backend).numpy(), want)
     with pytest.raises(ValueError, match="unknown batched backend"):
         tb.lookup(tables[0], backend="pallas")
     with pytest.raises(ValueError, match="expected"):

@@ -661,3 +661,86 @@ def test_engine_serves_through_the_kernel_on_card(cuda):
     assert kernels.launches()["decode_attention"] == cfg.n_layers * steps
     assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
     assert eng.metrics()["requests_finished"] == 6
+
+
+# -- the interval backends (xla, bbs) and the one-process sharded tier -----------------
+#
+# xla and bbs are tensor ops on the card (no kernel of the port): the
+# windows equal the CPU's, bit for bit, and the ranks equal the kernel's and
+# torch.searchsorted.  The sharded tier's kernel path is one batched launch.
+
+
+def _windows_hold(lo, hi, want):
+    """The bounded search finds ``rank + 1`` in ``[lo, hi + 1]``."""
+    return bool(((lo - 1 <= want) & (want <= hi)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table_kind", ("uniform", "lognormal", "clustered", "bursty", "sequential"))
+@pytest.mark.parametrize("kind", KINDS)
+def test_interval_backends_match_searchsorted_on_card(cuda, kind, table_kind):
+    from repro_torch.core import keys
+
+    rng = np.random.default_rng(61)
+    table = _table(rng, table_kind, 65536)
+    qs = _queries(rng, table)
+    idx = tix.build(kind, table, device=cuda)
+    twin = tix.Index.from_numpy(idx.kind, idx.static, idx.to_numpy(), idx.info, device="cpu")
+    t, q = keys.encode(table, cuda), keys.encode(qs, cuda)
+    want = torch.searchsorted(t, q, right=True) - 1
+    lo, hi = idx.intervals(t, q)
+    cpu_lo, cpu_hi = twin.intervals(table, qs)
+    assert torch.equal(lo.cpu(), cpu_lo) and torch.equal(hi.cpu(), cpu_hi)
+    assert _windows_hold(lo, hi, want)
+    kernels.reset_launches()
+    for backend in tix.INTERVAL_BACKENDS:
+        got = idx.lookup(t, q, backend=backend)
+        assert got.device.type == "cuda" and got.dtype == torch.int64
+        assert torch.equal(got, want), (kind, table_kind, backend)
+    assert sum(kernels.launches().values()) == 0  # tensor ops, no kernel of the port
+    assert torch.equal(idx.lookup(t, q, backend="kernel"), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+def test_batched_interval_backends_on_card(cuda, kind):
+    rng = np.random.default_rng(62)
+    tables = [_table(rng, k, n) for k, n in (("clustered", 65536), ("bursty", 5000),
+                                             ("lognormal", 30001))]
+    bm = tune.build_many(kind, tables, device=cuda)
+    twin = tune.build_many(kind, tables, device="cpu")
+    qs = _queries(rng, np.concatenate(tables))
+    for backend in tix.INTERVAL_BACKENDS:
+        got = bm.lookup(qs, backend=backend).cpu().numpy()
+        np.testing.assert_array_equal(got, twin.lookup(qs, backend=backend).numpy())
+        for i, t in enumerate(tables):
+            np.testing.assert_array_equal(got[i], true_ranks(t, qs), err_msg=f"{kind}/{backend}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", (4, 160))
+@pytest.mark.parametrize("kind", KINDS)
+def test_sharded_lookup_on_card(cuda, kind, n_shards):
+    """Every backend of ``sharded_lookup`` equals ``torch.searchsorted`` on
+    the whole table, fence keys included; ``backend="kernel"`` is exactly
+    one launch of the kind's batched kernel.  160 shards take the router's
+    k-ary branch."""
+    from repro_torch.core import keys
+    from repro_torch.dist import sharded_index as tsi
+
+    rng = np.random.default_rng(63)
+    table = _table(rng, "lognormal", 40000 if n_shards == 4 else 64000)
+    sidx = tsi.ShardedIndex.build(kind, table, n_shards, device=cuda)
+    fences = keys.decode(sidx.fences)
+    qs = np.concatenate([_queries(rng, table), fences, fences - np.uint64(1), fences + np.uint64(1)])
+    t, q = keys.encode(table, cuda), keys.encode(qs, cuda)
+    want = torch.searchsorted(t, q, right=True) - 1
+    for backend in tsi.TIER_BACKENDS:
+        kernels.reset_launches()
+        got = tsi.sharded_lookup(sidx, q, backend=backend)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        assert got.device.type == "cuda" and got.dtype == torch.int64
+        assert torch.equal(got, want), (kind, n_shards, backend)
+        expected = {_batched_kernel(kind): 1} if backend == "kernel" else {}
+        assert {k: v for k, v in counts.items() if v} == expected, (kind, backend, counts)
