@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three query paths — one index over one table
+Drives the port's four query paths — one index over one table
 (``Index.lookup(table, queries, backend="kernel")``, and the interval
 backends ``"xla"`` and ``"bbs"``), one spec over a tier of tables
 (``tune.build_many(...)`` then ``BatchedIndexes.lookup(queries,
 backend="kernel")``, one batched launch for every table), and a sharded
 tier of one table (``dist.ShardedIndex.build(...)`` then
 ``dist.sharded_lookup(sidx, queries, backend="kernel")``: route, one
-batched launch for every shard, rebase) — and holds every CUDA search
+batched launch for every shard, rebase), and the same tier one shard a
+rank (``sharded_lookup(sidx, queries, ctx, mode="a2a"/"allgather")`` on
+``torch.distributed``: one single-table launch a rank) — and holds every CUDA search
 kernel on them against its plain PyTorch twin and against
 ``torch.searchsorted``, bit for bit (predecessor ranks are integers: the
 tolerance is zero).  Then it serves
@@ -73,6 +75,24 @@ Phases (any failure ends the run with a non-zero exit):
                those shards and the router alone (CUDA events); and the
                router's k-ary branch (160 fences) on the 2^22 queries,
                against ``searchsorted`` and timed;
+5c. collective — phase 5b's scale tiers saved (``ShardedIndex.save``), then
+               4 ranks spawned on the one card in one gloo group (one rank
+               a card over NCCL where there are 4 cards), each loading its
+               own shard: ``sharded_lookup(ctx, mode="a2a",
+               cap_factor=4.0)`` and ``mode="allgather"`` on phase 4's 2^22
+               queries, ``backend="kernel"`` (the single-table kernels'
+               launches counted per mode) == phase 5b's ``mode="ref"`` ==
+               numpy; each rank's single-table kernel == twin == the
+               padded shard's ``searchsorted`` on the exact requests it
+               received, fill rows included; per rank and tier the a2a
+               stages (route, bucket, both exchanges, local answer,
+               unbucket, gather) and both whole calls, by CUDA events
+               between barriers; a skewed batch (2^22 - 1 queries on the
+               last shard, ``cap_factor=2.0``) whose ``DROPPED`` set equals
+               the host model of the exchange; every kind and backend on
+               2 and 4 ranks at the parity size; ``refresh_shard`` then
+               ``rebalance_shards``, each followed by an a2a lookup ==
+               numpy;
 6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
                (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128),
                (4,4,256), (8,8,8), ragged ``kv_len`` with 0, 1 and S, S not
@@ -123,6 +143,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -800,7 +821,9 @@ def locality_probe(dev, tables: dict, tiers: dict) -> dict:
 def phase_sharded(dev, tables: dict, tier_built: dict, parity_n: int) -> tuple:
     """The sharded tier (``ShardedIndex.build`` -> ``sharded_lookup``):
     parity on small tiers, every backend; then the kernel path at phase
-    5's scale on phase 4's tables and queries (counted, timed)."""
+    5's scale on phase 4's tables and queries (counted, timed).  Returns
+    the rows, the launches, and the scale tiers with their answers (for
+    phase 5c)."""
     from repro_torch import index as tix
     from repro_torch import kernels
     from repro_torch.core import keys
@@ -903,7 +926,348 @@ def phase_sharded(dev, tables: dict, tier_built: dict, parity_n: int) -> tuple:
         ms = device_ms(lambda: tsi.route_owners(fences, q), dev, reps=5, warmup=1)
         log(f"[sharded] {ds} route_owners over 160 fences (k-ary branch), {q.numel()} queries: "
             f"== searchsorted, {ms} ms")
-    return rows, launches
+    return rows, launches, {key: (sidx, answers[key]) for key, (sidx, _) in built.items()}
+
+
+# -- phase 5c: the tier's collective modes, one shard a rank --------------------------
+
+#: ranks of phase 5c, spawned on the one card, joined in a gloo group
+RANKS = 4
+#: a2a stages timed on each rank, in the order the path runs them
+A2A_STAGES = ("route", "bucket", "exchange_requests", "answer", "exchange_replies", "unbucket",
+              "gather")
+
+
+def host_drop_model(owners: np.ndarray, n_shards: int, cap: int) -> np.ndarray:
+    """Which queries of a padded batch the a2a exchange drops, on the host:
+    each source rank's slice sorted stably by owner, the first ``cap`` of
+    each (source, owner) pair kept, the rest dropped (pad rows count)."""
+    b_loc = len(owners) // n_shards
+    dropped = np.zeros(len(owners), dtype=bool)
+    for src in range(n_shards):
+        o = owners[src * b_loc:(src + 1) * b_loc]
+        order = np.argsort(o, kind="stable")
+        so = o[order]
+        pos = np.arange(b_loc) - np.searchsorted(so, so, side="left")
+        dropped[src * b_loc + order[pos >= cap]] = True
+    return dropped
+
+
+def phase_collective(dev, tables: dict, scale: dict, parity_n: int) -> tuple:
+    """Phase 5c: phase 5b's scale tiers saved, then ``RANKS`` spawned ranks
+    on the card in one gloo group, each holding one shard: the a2a and
+    allgather modes on phase 4's queries (counted), the kernel against its
+    twin on each rank's received requests, per-stage times, a skewed
+    batch's drops against the host model, parity of every kind and backend
+    on 2 and 4 ranks, and refresh and rebalance followed by a lookup."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import index as tix
+    from repro_torch.core import keys
+    from repro_torch.dist import collectives
+    from repro_torch.dist import sharded_index as tsi
+
+    work = ROOT / "build" / "collective"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2027)
+    main = []
+    for (ds, kind), (sidx, ref) in scale.items():
+        name = f"{ds}_{kind}"
+        sidx.save(work / f"{name}.npz")
+        np.save(work / f"ref_{name}.npy", ref.cpu().numpy())
+        main.append({"name": name, "ds": ds, "kind": kind})
+    for ds, (table, qs) in tables.items():
+        np.save(work / f"q_{ds}.npy", qs)
+        np.save(work / f"np_{ds}.npy", np.searchsorted(table, qs, side="right").astype(np.int64) - 1)
+        # the skewed batch: every query from the last shard's keys, B not a
+        # multiple of RANKS; its drop set from the host model of the exchange
+        sidx = scale[(ds, SHARDED_KINDS[0])][0]
+        last = int(sidx.offsets[-1])
+        skew = rng.choice(table[last:], len(qs) - 1).astype(np.uint64)
+        padded = np.concatenate([skew, np.zeros((-len(skew)) % RANKS, np.uint64)])
+        owners = np.searchsorted(keys.decode(sidx.fences)[1:], padded, side="right")
+        cap = collectives.exchange_capacity(len(padded) // RANKS, RANKS, 2.0)
+        np.save(work / f"skew_{ds}.npy", skew)
+        np.save(work / f"skew_np_{ds}.npy",
+                np.searchsorted(table, skew, side="right").astype(np.int64) - 1)
+        np.save(work / f"skew_drop_{ds}.npy", host_drop_model(owners, RANKS, cap)[:len(skew)])
+    # parity tiers: every kind at parity_n on 2 and 4 shards, every fence key +- 1
+    parity = []
+    table = make_table(rng, "lognormal", parity_n)
+    np.save(work / "parity_table.npy", table)
+    for n_shards in (2, RANKS):
+        for kind in KINDS:
+            sidx = tsi.ShardedIndex.build(kind, table, n_shards, device="cpu")
+            fences = keys.decode(sidx.fences)
+            with np.errstate(over="ignore"):
+                qs = np.concatenate([edge_queries(rng, table, n_keys=min(4096, len(table))),
+                                     fences, fences - np.uint64(1), fences + np.uint64(1)])
+            name = f"parity{n_shards}_{kind}"
+            sidx.save(work / f"{name}.npz")
+            np.save(work / f"q_{name}.npy", qs[:-1])  # an odd batch: the a2a path pads it
+            np.save(work / f"np_{name}.npy",
+                    np.searchsorted(table, qs[:-1], side="right").astype(np.int64) - 1)
+            parity.append({"name": name, "kind": kind, "n_shards": n_shards})
+    # refresh and rebalance: a SY-RMI tier with room in each shard's padded table
+    maint = make_table(rng, "lognormal", parity_n * 3 // 4)
+    sidx = tsi.ShardedIndex.build("SY-RMI", maint, RANKS, device="cpu")
+    sidx.save(work / "maint.npz")
+    m = int(sidx.tables.shape[1])
+    new_keys = keys.decode(sidx.tables[1])[:int(sidx.counts[1]) - 5]
+    tix.build("SY-RMI", tsi._pad_sorted_table(new_keys, m), device="cpu").save(
+        work / "maint_shard1.npz")
+    np.save(work / "maint_shard1.npy", new_keys)
+    merged = np.concatenate([keys.decode(sidx.tables[s])[:int(sidx.counts[s])] if s != 1 else
+                             new_keys for s in range(RANKS)])
+    np.save(work / "maint_merged.npy", merged)
+    np.save(work / "maint_bounds.npy", tsi.weighted_quantile_bounds(
+        merged, keys.decode(sidx.fences), [2.0, 1.0, 1.0, 1.0]))
+    mq = edge_queries(rng, merged, n_keys=4096)
+    np.save(work / "maint_q.npy", mq)
+    np.save(work / "maint_np.npy", np.searchsorted(merged, mq, side="right").astype(np.int64) - 1)
+    # one rank a card over NCCL where there are enough cards (unverified on a
+    # one-card machine); else every rank on the one device over gloo, which
+    # stages the CUDA tensors of its collectives through the host (NCCL
+    # refuses two ranks on one card)
+    nccl = dev.type == "cuda" and torch.cuda.device_count() >= RANKS
+    (work / "job.json").write_text(json.dumps({"device": dev.type, "main": main,
+                                               "parity": parity, "datasets": list(tables),
+                                               "backend": "nccl" if nccl else "gloo"}))
+    prep_s = time.perf_counter() - t0
+    log(f"[collective] saved {len(main)} scale tiers, {len(parity)} parity tiers and the "
+        f"maintenance tier in {prep_s:.1f} s; spawning {RANKS} ranks "
+        + ("one a card, NCCL" if nccl else f"on one {dev.type} device, one gloo group"))
+
+    t0 = time.perf_counter()
+    procs = mp.start_processes(collective_rank, args=(RANKS, str(work)), nprocs=RANKS,
+                               join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    try:
+        while not procs.join(timeout=1.0):  # a rank's failure raises here
+            if time.monotonic() > deadline:
+                fail(f"phase 5c: the {RANKS} ranks ran past 600 s")
+    finally:
+        for proc in procs.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(5)
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(RANKS)]
+    ranks_s = time.perf_counter() - t0
+
+    launches = {path: {k: sum(r["launches"][path][k] for r in ranks) for k in KERNELS}
+                for path in ("a2a", "allgather")}
+    for path, counts in launches.items():
+        log(f"[collective] {path} path launches over {RANKS} ranks: {json.dumps(counts)}")
+    for r in ranks:
+        for name, st in r["stages"].items():
+            log(f"[collective] rank {r['rank']} {name}: a2a ms " + ", ".join(
+                f"{k} {st[k]:.4f}" for k in A2A_STAGES + ("whole",) if st.get(k) is not None)
+                + f"; allgather {st['allgather']}; host ms a2a {st['host_whole']:.3f}, allgather "
+                f"{st['host_allgather']:.3f}; {st['requests']} requests received")
+    if any(r["checks"] != ranks[0]["checks"] for r in ranks):
+        fail("phase 5c: the ranks ran different checks")
+    for line in ranks[0]["checks"]:
+        log(f"[collective] every rank: {line}")
+    log(f"[collective] done: {RANKS} ranks in {ranks_s:.1f} s (prep {prep_s:.1f} s)")
+    return launches, ranks
+
+
+def collective_rank(rank: int, world: int, work_dir: str) -> None:
+    """One rank of phase 5c (spawned; joins the gloo group, runs, leaves).
+    Any failure raises, which fails the parent's join."""
+    import torch.distributed as dist
+
+    work = Path(work_dir)
+    job = json.loads((work / "job.json").read_text())
+    if job["device"] == "cuda":
+        job["device"] = f"cuda:{rank if job['backend'] == 'nccl' else 0}"
+        torch.cuda.set_device(torch.device(job["device"]))
+    else:  # the CPU rehearsal: the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(job["backend"], init_method=f"file://{work / 'pg_init'}", rank=rank,
+                            world_size=world)
+    try:
+        result = collective_rank_body(rank, world, work, job)
+    finally:
+        dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def _rank_ms(fn, dev, group, reps: int = 5):
+    """``fn()``'s result and its mean ms over ``reps`` calls after one warm
+    call, each between a barrier of every rank and a synchronise: CUDA
+    events on the card (None on the CPU) and the host clock."""
+    import torch.distributed as dist
+
+    dev_ms, host_ms = [], []
+    for _ in range(reps + 1):
+        dist.barrier(group=group)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            end.record()
+            torch.cuda.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    return out, (float(np.mean(dev_ms[1:])) if dev_ms else None), float(np.mean(host_ms[1:]))
+
+
+def collective_rank_body(rank: int, world: int, work: Path, job: dict) -> dict:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import index as tix
+    from repro_torch import kernels
+    from repro_torch.core import keys
+    from repro_torch.dist import ShardingCtx, collectives, rebalance_shards, refresh_shard
+    from repro_torch.dist import sharded_index as tsi
+    from repro_torch.index import registry
+
+    dev = torch.device(job["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    grid = torch.arange(world)
+    ctx = ShardingCtx(mesh=DeviceMesh(dev.type, grid.reshape(1, world),
+                                      mesh_dim_names=("data", "model")))  # tp -> model
+    group, me = ctx.group("tp"), ctx.index("tp")
+    tiers = {c["name"]: tsi.ShardedIndex.load(work / f"{c['name']}.npz", device=dev, shard=me)
+             for c in job["main"]}
+    queries = {ds: keys.encode(np.load(work / f"q_{ds}.npy"), dev) for ds in job["datasets"]}
+    checks = []
+
+    # -- the main path, each mode counted from 0 --
+    answers, launches = {}, {}
+    for mode, cap_factor in (("a2a", 4.0), ("allgather", 2.0)):
+        kernels.reset_launches()
+        for c in job["main"]:
+            answers[(mode, c["name"])] = tsi.sharded_lookup(
+                tiers[c["name"]], queries[c["ds"]], ctx, mode=mode, backend="kernel",
+                cap_factor=cap_factor)
+        sync()
+        launches[mode] = kernels.launches()
+        for c in job["main"]:
+            want = [("phase 5b mode='ref'", np.load(work / f"ref_{c['name']}.npy")),
+                    ("numpy", np.load(work / f"np_{c['ds']}.npy"))]
+            check_equal(f"rank {rank} {mode} {c['name']}", answers[(mode, c["name"])].cpu().numpy(),
+                        want)
+    for name in KERNELS if dev.type == "cuda" else ():  # the CPU twins launch nothing
+        want = sum(1 for c in job["main"] if KERNEL_OF[c["kind"]] == name)
+        for mode in launches:
+            if launches[mode][name] != want:
+                fail(f"rank {rank}: {name} launched {launches[mode][name]} times on the {mode} "
+                     f"path, expected {want}")
+    checks.append(f"a2a (cap_factor 4.0) and allgather == phase 5b's mode='ref' == numpy on "
+                  f"{len(job['main'])} tiers, one single-table launch a tier and mode")
+
+    # -- the kernel on the requests this rank received; the a2a stages, timed --
+    stages, errs = {}, []
+    for c in job["main"]:
+        sidx, q = tiers[c["name"]], queries[c["ds"]]
+        n = sidx.n_shards
+        b_loc = -(-q.numel() // n)
+        qp = torch.cat([q, q.new_full((b_loc * n - q.numel(),), tsi.PAD_KEY)])
+        q_loc = qp[me * b_loc:(me + 1) * b_loc]
+        cap = collectives.exchange_capacity(b_loc, n, 4.0)
+        impl = tix.impls.query_impl(c["kind"])
+        st = {}
+        owner, st["route"], _ = _rank_ms(lambda: tsi.route_owners(sidx.fences, q_loc), dev, group)
+        (req, slots, valid, order), st["bucket"], _ = _rank_ms(
+            lambda: collectives.bucket_by_owner(owner, q_loc, n, cap, tsi.PAD_KEY), dev, group)
+        received, st["exchange_requests"], st["host_exchange_requests"] = _rank_ms(
+            lambda: collectives.all_to_all(req, group), dev, group)
+        received = received.reshape(-1)
+        g, st["answer"], _ = _rank_ms(lambda: tsi._answer_shard(sidx, me, received, "kernel"),
+                                      dev, group)
+        back, st["exchange_replies"], st["host_exchange_replies"] = _rank_ms(
+            lambda: collectives.all_to_all(g.reshape(n, cap), group), dev, group)
+        part, st["unbucket"], _ = _rank_ms(lambda: collectives.unbucket_inverse(
+            back, slots, valid, order, b_loc, tsi.DROPPED), dev, group)
+        whole_stages, st["gather"], st["host_gather"] = _rank_ms(
+            lambda: tsi._gather_slices(part, group, n)[:q.numel()], dev, group)
+        got, st["whole"], st["host_whole"] = _rank_ms(lambda: tsi.sharded_lookup(
+            sidx, q, ctx, mode="a2a", backend="kernel", cap_factor=4.0), dev, group)
+        _, st["allgather"], st["host_allgather"] = _rank_ms(lambda: tsi.sharded_lookup(
+            sidx, q, ctx, mode="allgather", backend="kernel"), dev, group)
+        if not (torch.equal(whole_stages, got) and torch.equal(got, answers[("a2a", c["name"])])):
+            fail(f"rank {rank}: {c['name']} the staged a2a != sharded_lookup's")
+        # the single-table kernel on exactly these requests, before the clamp
+        args, kwargs = impl.operands(sidx.shard(me), sidx.tables[0], received)
+        raw = impl.search(*args, **kwargs).long()
+        twin = impl.plain(*args, **kwargs).long()
+        local = torch.searchsorted(sidx.tables[0], received, right=True) - 1
+        err = int((raw - twin).abs().max())
+        if err != 0 or not torch.equal(raw, local):
+            fail(f"rank {rank}: {c['name']} {KERNEL_OF[c['kind']]} vs twin max |err| {err} on its "
+                 f"{received.numel()} received requests; == the shard's searchsorted: "
+                 f"{bool(torch.equal(raw, local))}")
+        errs.append(err)
+        st.update(requests=received.numel(), request_bytes=int(req.nbytes), max_abs_err=err)
+        stages[c["name"]] = st
+    checks.append("each tier's single-table kernel == twin == the padded shard's searchsorted on "
+                  "the requests this rank received (fill rows included)")
+
+    # -- a skewed batch at the default cap_factor 2.0: drops as the host model --
+    for c in job["main"]:
+        skew = np.load(work / f"skew_{c['ds']}.npy")
+        got = tsi.sharded_lookup(tiers[c["name"]], skew, ctx, mode="a2a").cpu().numpy()
+        model = np.load(work / f"skew_drop_{c['ds']}.npy")
+        exact = np.load(work / f"skew_np_{c['ds']}.npy")
+        if not np.array_equal(got == tsi.DROPPED, model):
+            fail(f"rank {rank}: {c['name']} skewed batch drops {int((got == tsi.DROPPED).sum())} "
+                 f"queries, the host model {int(model.sum())}")
+        check_equal(f"rank {rank} skewed {c['name']}", got[~model], (("numpy", exact[~model]),))
+    checks.append(f"skewed batches (B = {len(skew)}, all on the last shard, cap_factor 2.0): "
+                  f"DROPPED == the host model ({int(model.sum())} dropped), the rest == numpy")
+
+    # -- parity: every kind and backend, 2 ranks ((2, 2) mesh, tp = model) and 4 ((1, 4) mesh,
+    #    tp over the flattened (data, model) dims) --
+    layouts = {2: ShardingCtx(mesh=DeviceMesh(dev.type, grid.reshape(2, world // 2),
+                                              mesh_dim_names=("data", "model"))),
+               world: ShardingCtx(mesh=DeviceMesh(dev.type, grid.reshape(1, world),
+                                                  mesh_dim_names=("data", "model")),
+                                  rules={"tp": ("data", "model")})}
+    for c in job["parity"]:
+        pctx = layouts[c["n_shards"]]
+        sidx = tsi.ShardedIndex.load(work / f"{c['name']}.npz", device=dev,
+                                     shard=pctx.index("tp"))
+        qs = np.load(work / f"q_{c['name']}.npy")
+        want = np.load(work / f"np_{c['name']}.npy")
+        for mode in ("a2a", "allgather"):
+            for backend in tsi.TIER_BACKENDS:
+                got = tsi.sharded_lookup(sidx, qs, pctx, mode=mode, backend=backend,
+                                         cap_factor=float(c["n_shards"]))
+                check_equal(f"rank {rank} parity {c['name']} {mode}/{backend}",
+                            got.cpu().numpy(), (("numpy", want),))
+    checks.append(f"parity: {len(job['parity'])} tiers (every kind, 2 and {world} shards), a2a "
+                  f"and allgather on {'/'.join(tsi.TIER_BACKENDS)} == numpy")
+
+    # -- refresh_shard, then rebalance_shards, each followed by an a2a lookup --
+    sidx = tsi.ShardedIndex.load(work / "maint.npz", device=dev, shard=me)
+    mq = np.load(work / "maint_q.npy")
+    refresh_shard(sidx, 1, tix.Index.load(work / "maint_shard1.npz", device=dev),
+                  np.load(work / "maint_shard1.npy"))
+    check_equal(f"rank {rank} after refresh_shard", tsi.sharded_lookup(
+        sidx, mq, ctx, mode="a2a", cap_factor=4.0).cpu().numpy(),
+        (("numpy", np.load(work / "maint_np.npy")),))
+    spec = registry.spec_for("SY-RMI")
+    bounds = np.load(work / "maint_bounds.npy")
+    rebalance_shards(sidx, np.load(work / "maint_merged.npy"), bounds,
+                     lambda part: tix.build(spec, part, device=dev))
+    if not np.array_equal(sidx.counts.cpu().numpy(), np.diff(bounds)):
+        fail(f"rank {rank}: rebalance_shards left counts {sidx.counts.tolist()}")
+    check_equal(f"rank {rank} after rebalance_shards", tsi.sharded_lookup(
+        sidx, mq, ctx, mode="a2a", cap_factor=4.0).cpu().numpy(),
+        (("numpy", np.load(work / "maint_np.npy")),))
+    checks.append(f"refresh_shard (shard 1, 5 keys retired) then rebalance_shards (counts "
+                  f"{np.diff(bounds).tolist()}): a2a == numpy on the new table")
+    return {"rank": rank, "launches": launches, "stages": stages, "checks": checks,
+            "max_abs_err": max(errs)}
 
 
 # -- the LM serving path's kernels (phases 6-8) ----------------------------------------
@@ -1414,9 +1778,13 @@ def main(argv=None) -> int:
     tier_rows, tier_launches, locality, tier_built = phase_tier(dev, tables, 4, shard_nq)
     log(f"[tier] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sharded_rows, sharded_launches = phase_sharded(dev, tables, tier_built, parity_n)
+    sharded_rows, sharded_launches, scale = phase_sharded(dev, tables, tier_built, parity_n)
     del tier_built
     log(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    collective_launches, collective_ranks = phase_collective(dev, tables, scale, parity_n)
+    del scale
+    log(f"[collective] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     parity_errs = phase_float_parity(dev, 600)
     log(f"[float] done in {time.perf_counter() - t0:.1f} s")
@@ -1428,8 +1796,9 @@ def main(argv=None) -> int:
     att_rows, bag_rows, bag_launches = phase_times(dev, **times)
     log(f"[times] done in {time.perf_counter() - t0:.1f} s")
     by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k]} for k in BATCHED}
-    launches = {**{k: launches[k] for k in SINGLE},
-                **{k: sum(paths.values()) for k, paths in by_path.items()},
+    by_path.update({k: {"single": launches[k], "a2a": collective_launches["a2a"][k],
+                        "allgather": collective_launches["allgather"][k]} for k in SINGLE})
+    launches = {**{k: sum(paths.values()) for k, paths in by_path.items()},
                 "decode_attention": served["decode_attention_launches"],
                 "embedding_bag": bag_launches}
     line = kernels_line(rows + tier_rows, launches, "amzn64")
@@ -1437,20 +1806,24 @@ def main(argv=None) -> int:
         if entry["name"] in by_path:
             entry["launches_by_path"] = by_path[entry["name"]]
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [
-                r["max_abs_err"] for r in sharded_rows if r["kernel"] == entry["name"]])
+                r["max_abs_err"] for r in sharded_rows if r["kernel"] == entry["name"]] + [
+                st["max_abs_err"] for r in collective_ranks for name, st in r["stages"].items()
+                if KERNEL_OF[name.split("_", 1)[1]] == entry["name"]])
     line["kernels"] += serve_kernels_line(parity_errs, served, att_rows, bag_rows, bag_launches)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": info, "rows": rows, "tier_rows": tier_rows,
-                                        "sharded_rows": sharded_rows, "locality": locality, "serve": served,
+                                        "sharded_rows": sharded_rows, "locality": locality,
+                                        "collective_ranks": collective_ranks, "serve": served,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
                                         **line}, indent=1))
     if dev.type != "cuda":
         log("[rehearsal] CPU rehearsal passed; no device result")
         return 0
-    if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS)):
-        fail(f"a kernel of a path never launched: {launches}")
+    if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS)) or any(
+            by_path[name][path] == 0 for name in SINGLE for path in ("a2a", "allgather")):
+        fail(f"a kernel of a path never launched: {json.dumps(by_path)}")
     log(f"[device] nvidia-smi: {info['nvidia_smi']}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

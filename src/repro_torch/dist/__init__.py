@@ -1,10 +1,40 @@
-"""Tier substrate (counterpart of ``repro.dist``): leaf-wise stacking of
-same-spec per-table indexes, and the sharded tier answered in one
-process (``ShardedIndex``, ``sharded_lookup``).  The collective modes on
-``torch.distributed`` are a later slice."""
+"""Tier substrate (counterpart of ``repro.dist``).
 
-from . import sharded_index
-from .sharded_index import DROPPED, NO_PRED, ShardedIndex, sharded_lookup, stack_indexes
+``sharding`` maps logical axis names (dp / fsdp / tp / ep / edge / row)
+onto the named dims of a ``DeviceMesh`` and gives each its process group;
+``collectives`` holds the owner-exchange bucketing and the psum helpers
+on ``torch.distributed``; ``sharded_index`` stacks same-spec per-shard
+indexes leaf-wise and answers a tier in one process (``mode="ref"``) or
+one shard a rank (``"a2a"``, ``"allgather"``), and refreshes and
+rebalances its shards in place."""
 
-__all__ = ["sharded_index", "DROPPED", "NO_PRED", "ShardedIndex", "sharded_lookup",
-           "stack_indexes"]
+from . import collectives, sharded_index, sharding
+from .sharded_index import (
+    DROPPED,
+    NO_PRED,
+    ShardedIndex,
+    rebalance_shards,
+    refresh_shard,
+    shard_build_table,
+    sharded_lookup,
+    stack_indexes,
+    weighted_quantile_bounds,
+)
+from .sharding import ShardingCtx, single_device_ctx
+
+__all__ = [
+    "collectives",
+    "sharding",
+    "sharded_index",
+    "ShardingCtx",
+    "single_device_ctx",
+    "DROPPED",
+    "NO_PRED",
+    "ShardedIndex",
+    "rebalance_shards",
+    "refresh_shard",
+    "shard_build_table",
+    "sharded_lookup",
+    "stack_indexes",
+    "weighted_quantile_bounds",
+]

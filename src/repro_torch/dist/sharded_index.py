@@ -1,5 +1,5 @@
-"""A sharded tier of per-shard learned indexes, in one process
-(counterpart of ``repro.dist.sharded_index``).
+"""A sharded tier of per-shard learned indexes (counterpart of
+``repro.dist.sharded_index``).
 
 A tier holds many sorted tables, one per shard of a partitioned keyspace.
 Same-spec per-table indexes stack leaf-wise into one :class:`Index` whose
@@ -14,18 +14,35 @@ keys), so the stacked leaves equal the reference's.
 
 :class:`ShardedIndex` splits a global sorted table into contiguous
 shards, each padded to a common power-of-two length with a strictly
-increasing continuation of its last key, and :func:`sharded_lookup`
-answers a query batch against the whole tier: the fence array routes
-each query to its owner shard (:func:`route_owners`), every shard answers
-every query against its own table (``backend="kernel"``: ONE launch of
-the kind's batched kernel for the whole tier), each local rank is clamped
-to its shard's valid count and rebased to a global rank, and the owner's
-answer is kept.  Ranks equal ``Index.lookup`` on the whole table.  This
-is the reference's single-device ``mode="ref"``; its collective modes
-(``"a2a"``, ``"allgather"``, a sharding context) and its routing
-telemetry come with ``torch.distributed`` and the observability port,
-later slices, as do ``refresh_shard`` and the rest of the tier's
-maintenance.  GAPPED's leaf padding waits for the GAPPED kind.
+increasing continuation of its last key.  A process holds the whole tier
+or, loaded with ``ShardedIndex.load(path, shard=s)``, one shard's leaves
+and table; the fences, counts, offsets and last keys are on every
+holder.  :func:`sharded_lookup` answers a query batch against the tier:
+
+* ``mode="ref"`` — one process, every shard held: the fence array routes
+  each query to its owner (:func:`route_owners`), every shard answers
+  every query (``backend="kernel"``: ONE launch of the kind's batched
+  kernel), each local rank is clamped and rebased to a global rank, and
+  the owner's answer is kept.
+* ``mode="a2a"`` — one rank a shard over the ``tp`` group of a
+  :class:`~repro_torch.dist.sharding.ShardingCtx`: each rank routes its
+  slice of the batch, buckets it by owner into a capacity-factored
+  ``(n_shards, cap)`` request matrix, exchanges it with one
+  ``all_to_all``, answers the requests it received on its own shard
+  (``backend="kernel"``: one launch of the kind's single-table kernel),
+  sends the global ranks back with a second ``all_to_all`` and scatters
+  them into query order; one ``all_gather`` gives every rank the whole
+  ``(B,)`` answer.  Queries beyond a (source, owner) pair's ``cap``
+  slots come back as :data:`DROPPED`; ``cap_factor >= n_shards`` never
+  drops.
+* ``mode="allgather"`` — every rank answers the whole batch on its own
+  shard, keeps the queries it owns, and one ``all_reduce`` merges them.
+
+Ranks equal ``Index.lookup`` on the whole table (but the drops).
+:func:`refresh_shard` installs a rebuilt shard in place, after every
+check has passed, and :func:`rebalance_shards` moves the shard bounds
+through it.  The reference's tier telemetry waits for the observability
+port, and GAPPED's leaf padding and shard mutation for the GAPPED kind.
 """
 
 from __future__ import annotations
@@ -34,6 +51,7 @@ import json
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import keys as keymod
 from repro_torch.core.search import NO_PRED
@@ -42,10 +60,16 @@ from repro_torch.index.impls import _pad_pow2
 from repro_torch.index.index import BACKENDS, Index, lookup_impl, resolve_device
 from repro_torch.index.specs import IndexSpec
 
-#: rank of a query dropped by the reference's capacity-factored exchange
+from . import collectives
+
+#: rank of a query dropped by the capacity-factored exchange
 #: (``mode="a2a"``); distinct from :data:`NO_PRED`, the below-the-first-key
-#: rank.  The one-process tier never drops a query.
+#: rank.  The other modes never drop a query.
 DROPPED = -2
+
+#: the key the a2a path pads a ragged batch and fills empty request slots
+#: with: the reference's uint64 ``0``, encoded
+PAD_KEY = keymod.SIGN
 
 _MAXKEY = np.uint64(np.iinfo(np.uint64).max)
 
@@ -215,6 +239,8 @@ def _pad_sorted_table(t: np.ndarray, m: int) -> np.ndarray:
     return np.concatenate([t, ext])
 
 
+
+
 # ---------------------------------------------------------------------------
 # The tier
 # ---------------------------------------------------------------------------
@@ -223,28 +249,45 @@ def _pad_sorted_table(t: np.ndarray, m: int) -> np.ndarray:
 class ShardedIndex:
     """A tier of per-shard learned indexes over a partitioned keyspace.
 
-    index:   stacked :class:`Index`: every leaf has a leading shard axis.
-    tables:  ``(n_shards, m)`` encoded int64 per-shard sorted tables, padded
-             to a common power-of-two ``m`` (strictly increasing pad).
+    index:   stacked :class:`Index`: every leaf has a leading axis over the
+             held shards.
+    tables:  ``(held, m)`` encoded int64 per-shard sorted tables, padded to
+             a common power-of-two ``m`` (strictly increasing pad).
     fences:  ``(n_shards,)`` encoded first key of each shard; the router
              searches ``fences[1:]``.
     counts:  ``(n_shards,)`` int64 valid (unpadded) keys per shard.
     offsets: ``(n_shards,)`` int64 global rank of each shard's first key.
+    lasts:   ``(n_shards,)`` encoded last key of each shard (what
+             :func:`refresh_shard` checks a rebuilt neighbour against).
+    first:   the shard number of the first held row: the held shards are
+             ``first .. first + held - 1`` (all of them, or one).
     """
 
-    __slots__ = ("index", "tables", "fences", "counts", "offsets", "info")
+    __slots__ = ("index", "tables", "fences", "counts", "offsets", "lasts", "first", "info")
 
-    def __init__(self, index: Index, tables, fences, counts, offsets, info=None):
+    def __init__(self, index: Index, tables, fences, counts, offsets, info=None, *, lasts=None,
+                 first: int = 0):
+        if lasts is None:  # each held table's last valid key: every shard must be held
+            if first != 0 or tables.shape[0] != counts.shape[0]:
+                raise ValueError("a tier that holds some of its shards needs their last keys")
+            lasts = tables[torch.arange(tables.shape[0], device=tables.device), counts - 1]
         object.__setattr__(self, "index", index)
         object.__setattr__(self, "tables", tables)
         object.__setattr__(self, "fences", fences)
         object.__setattr__(self, "counts", counts)
         object.__setattr__(self, "offsets", offsets)
+        object.__setattr__(self, "lasts", lasts)
+        object.__setattr__(self, "first", int(first))
         object.__setattr__(self, "info", dict(info or {}))
 
     @property
     def n_shards(self) -> int:
-        return int(self.tables.shape[0])
+        return int(self.fences.shape[0])
+
+    @property
+    def held(self) -> range:
+        """The shard numbers whose leaves and tables this process holds."""
+        return range(self.first, self.first + int(self.tables.shape[0]))
 
     @property
     def kind(self) -> str:
@@ -256,19 +299,26 @@ class ShardedIndex:
 
     def __repr__(self):
         return (f"ShardedIndex(kind={self.kind!r}, n_shards={self.n_shards}, "
-                f"m={int(self.tables.shape[1])})")
+                f"m={int(self.tables.shape[1])}, held={self.held.start}..{self.held.stop - 1})")
+
+    def _row(self, s: int) -> int:
+        if s not in self.held:
+            raise ValueError(f"shard {s} is not held here (this tier holds shards "
+                             f"{self.held.start}..{self.held.stop - 1} of {self.n_shards})")
+        return s - self.first
 
     def shard(self, s: int) -> Index:
-        """The per-shard :class:`Index` view of shard ``s`` (sliced leaves)."""
+        """The per-shard :class:`Index` view of held shard ``s`` (sliced leaves)."""
+        row = self._row(s)
         return Index(self.index.kind, self.index.static,
-                     {k: v[s] for k, v in self.index.arrays.items()},
+                     {k: v[row] for k, v in self.index.arrays.items()},
                      info={"shard": s, **self.info})
 
     def space_bytes(self) -> int:
         """Model bytes across the tier plus the router's fence, count and
         offset arrays."""
         router = 8 * (self.fences.numel() + self.counts.numel() + self.offsets.numel())
-        return self.n_shards * self.shard(0).space_bytes() + router
+        return self.n_shards * self.shard(self.first).space_bytes() + router
 
     @staticmethod
     def build(kind_or_spec, table_np, n_shards: int, *, bounds=None, device=None,
@@ -317,12 +367,17 @@ class ShardedIndex:
             counts=torch.from_numpy(counts).to(dev),
             offsets=torch.from_numpy(offsets).to(dev),
             info={"spec": spec.display_name(), "n": n, "m": m},
+            lasts=keymod.encode(np.asarray([t[-1] for t in locals_], dtype=np.uint64), dev),
         )
 
     def save(self, path) -> None:
         """npz in the reference's layout (``idx_<leaf>``, ``tables``,
         ``fences``, ``counts``, ``offsets`` and a JSON ``__meta__``; keys
-        as uint64), so either package reads the other's files."""
+        as uint64), so either package reads the other's files.  Needs
+        every shard held."""
+        if len(self.held) != self.n_shards:
+            raise ValueError("save needs every shard held; this tier holds "
+                             f"{self.held.start}..{self.held.stop - 1} of {self.n_shards}")
         payload = {f"idx_{k}": v for k, v in self.index.to_numpy().items()}
         payload.update(tables=keymod.decode(self.tables), fences=keymod.decode(self.fences),
                        counts=self.counts.cpu().numpy(), offsets=self.offsets.cpu().numpy())
@@ -335,20 +390,30 @@ class ShardedIndex:
         np.savez(path, **payload)
 
     @classmethod
-    def load(cls, path, *, device=None) -> "ShardedIndex":
+    def load(cls, path, *, device=None, shard=None) -> "ShardedIndex":
         """Read an npz written by either package's ``save`` onto ``device``
-        (default: the card)."""
+        (default: the card): every shard, or with ``shard=s`` only shard
+        ``s``'s leaves and table (the fences, counts, offsets and last keys
+        of every shard)."""
         dev = resolve_device(device)
         with np.load(path) as z:
             meta = json.loads(bytes(z["__meta__"]).decode())
             arrays = {k[len("idx_"):]: z[k] for k in z.files if k.startswith("idx_")}
             tables, fences = z["tables"], z["fences"]
             counts, offsets = z["counts"], z["offsets"]
+        lasts = tables[np.arange(len(counts)), counts - 1]
+        first = 0
+        if shard is not None:
+            if not 0 <= shard < len(counts):
+                raise ValueError(f"shard {shard} out of range [0, {len(counts)})")
+            first = int(shard)
+            arrays = {k: v[first:first + 1] for k, v in arrays.items()}
+            tables = tables[first:first + 1]
         static = tuple((k, int(v)) for k, v in meta["static"])
         index = Index.from_numpy(meta["kind"], static, arrays, meta.get("info"), device=dev)
         return cls(index, keymod.encode(tables, dev), keymod.encode(fences, dev),
                    torch.from_numpy(counts).to(dev), torch.from_numpy(offsets).to(dev),
-                   info=meta.get("info"))
+                   info=meta.get("info"), lasts=keymod.encode(lasts, dev), first=first)
 
 
 # ---------------------------------------------------------------------------
@@ -373,10 +438,20 @@ def _answer_local(local_index: Index, local_table, count, offset, queries, backe
     return torch.where(r < 0, NO_PRED, offset + r)
 
 
+def _answer_shard(sidx: ShardedIndex, s: int, queries, backend: str):
+    """Held shard ``s``'s global ranks of ``queries`` (one table's lookup:
+    ``backend="kernel"`` launches the kind's single-table kernel)."""
+    return _answer_local(sidx.shard(s), sidx.tables[sidx._row(s)], sidx.counts[s],
+                         sidx.offsets[s], queries, backend)
+
+
 def _lookup_vmapped(sidx: ShardedIndex, queries, backend: str):
     """Every shard answers every query (``backend="kernel"``: one batched
     launch), then each query keeps its owner's answer: the reference's
     single-device sweep, a leading shard axis for its ``vmap``."""
+    if len(sidx.held) != sidx.n_shards:
+        raise ValueError(f"mode='ref' needs every shard held; this tier holds "
+                         f"{sidx.held.start}..{sidx.held.stop - 1} of {sidx.n_shards}")
     owners = route_owners(sidx.fences, queries)
     bq = queries[None, :].expand(sidx.n_shards, queries.shape[0])
     granks = _answer_local(sidx.index, sidx.tables, sidx.counts[:, None], sidx.offsets[:, None],
@@ -384,43 +459,325 @@ def _lookup_vmapped(sidx: ShardedIndex, queries, backend: str):
     return torch.take_along_dim(granks, owners[None, :].long(), dim=0)[0]
 
 
-#: the reference's lookup modes; the one-process port answers ``"ref"``
-#: (and ``"auto"``, which resolves to it without a sharding context)
+# ---------------------------------------------------------------------------
+# The collective modes: a2a exchange and allgather (all_reduce)
+# ---------------------------------------------------------------------------
+
+
+def a2a_requests(sidx: ShardedIndex, q_loc, cap: int, group):
+    """The first half of the a2a exchange on one rank: route its slice of
+    the batch, bucket it by owner into ``(n_shards, cap)`` requests (empty
+    slots hold :data:`PAD_KEY`) and exchange them.  Returns ``(received,
+    slots, valid, order)``: row ``i`` of ``received`` holds the requests
+    from group rank ``i``, which this rank answers on its own shard."""
+    owner = route_owners(sidx.fences, q_loc)
+    req, slots, valid, order = collectives.bucket_by_owner(owner, q_loc, sidx.n_shards, cap,
+                                                           PAD_KEY)
+    return collectives.all_to_all(req, group), slots, valid, order
+
+
+def _lookup_a2a(sidx: ShardedIndex, q_loc, group, me: int, backend: str, cap: int):
+    """Global ranks of this rank's slice ``q_loc`` of the padded batch:
+    requests out, the local answer, replies back, unsorted (drops keep
+    :data:`DROPPED`)."""
+    received, slots, valid, order = a2a_requests(sidx, q_loc, cap, group)
+    g = _answer_shard(sidx, me, received.reshape(-1), backend)
+    back = collectives.all_to_all(g.reshape(sidx.n_shards, cap), group)
+    return collectives.unbucket_inverse(back, slots, valid, order, q_loc.shape[0], DROPPED)
+
+
+def _lookup_allgather(sidx: ShardedIndex, queries, ctx, axes: tuple, backend: str):
+    """Every rank answers the whole batch on its own shard and keeps the
+    queries it owns; one all_reduce (sum) over the group merges them."""
+    me = ctx.axes_group(axes)[1]
+    owner = route_owners(sidx.fences, queries)
+    g = _answer_shard(sidx, me, queries, backend)
+    mine = torch.where(owner.long() == me, g, torch.zeros_like(g))
+    return collectives.psum_if_mapped(mine, axes, ctx)
+
+
+def _gather_slices(part, group, n_ranks: int):
+    """Every rank's ``(b_loc,)`` slice, in group-rank order: the ``(B,)``
+    global answer on every rank."""
+    parts = [torch.empty_like(part) for _ in range(n_ranks)]
+    dist.all_gather(parts, part.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+#: the reference's lookup modes
 MODES = ("auto", "a2a", "allgather", "ref")
 
 #: backends of the tier's local answer: all of ``Index.lookup``'s
 TIER_BACKENDS = BACKENDS
 
-_LATER = "comes with the torch.distributed slice of the port"
-
 
 def sharded_lookup(sidx: ShardedIndex, queries, ctx=None, *, backend: str = "kernel",
-                   mode: str = "auto", telemetry: bool = False):
+                   mode: str = "auto", cap_factor: float = 2.0, telemetry: bool = False):
     """Predecessor ranks (int64, global) of a flat ``(B,)`` query batch
     (uint64 numpy or encoded int64) against the whole tier: equal to
-    ``Index.lookup`` on the concatenated table.
+    ``Index.lookup`` on the concatenated table, but the over-capacity
+    drops of ``mode="a2a"``, which report :data:`DROPPED`.
 
-    ``mode="ref"`` (and ``"auto"`` with no ``ctx``) runs the one-process
-    sweep; ``backend`` is any of :data:`TIER_BACKENDS` (``"kernel"``: one
-    launch of the kind's batched kernel for every shard).  A sharding
-    context, ``mode="a2a"``/``"allgather"`` and ``telemetry`` raise
-    ``ValueError``: they come with later slices of the port (and with them
-    the reference's ``cap_factor`` and telemetry sinks).  Example::
+    ``ctx`` is a :class:`~repro_torch.dist.sharding.ShardingCtx`; the tier
+    is laid out over its ``tp`` axis, one shard a rank (the rank at
+    position ``s`` of the ``tp`` group holds shard ``s``).  Under a
+    context every rank of the group calls with the same batch and gets
+    the same ``(B,)`` answer.  ``mode``:
+
+    * ``"a2a"`` — each rank routes a ``1/n_shards`` slice, a
+      capacity-factored double ``all_to_all`` exchange (``cap_factor``;
+      ``>= n_shards`` never drops);
+    * ``"allgather"`` — masked local answers over the whole batch, merged
+      with one ``all_reduce`` (never drops);
+    * ``"ref"`` — the one-process sweep over every shard (needs them all
+      held);
+    * ``"auto"`` — ``a2a`` when the ``tp`` extent equals the shard count
+      (> 1), else ``ref``.
+
+    ``backend`` is any of :data:`TIER_BACKENDS`.  ``"kernel"``: one launch
+    of the kind's batched kernel for every shard in ``ref`` mode, one
+    launch of its single-table kernel a rank in ``a2a`` and ``allgather``.
+    ``telemetry`` raises ``ValueError``: it comes with the observability
+    port.  Example::
 
         sidx = ShardedIndex.build("PGM", table, n_shards=4, eps=64)
         ranks = sharded_lookup(sidx, queries, backend="kernel")
+        # on each of 4 ranks of a (1, 4) ("data", "model") mesh:
+        mine = ShardedIndex.load(path, shard=ctx.index("tp"))
+        ranks = sharded_lookup(mine, queries, ctx, mode="a2a")
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
     if backend not in TIER_BACKENDS:
         raise ValueError(f"unknown tier backend {backend!r}; choose from {TIER_BACKENDS}")
-    if ctx is not None:
-        raise ValueError(f"a sharding context {_LATER}; call without ctx (mode='ref')")
-    if mode in ("a2a", "allgather"):
-        raise ValueError(f"mode={mode!r} {_LATER}; use mode='ref' or 'auto'")
     if telemetry:
         raise ValueError("tier telemetry comes with the observability slice of the port")
     queries = keymod.as_keys(queries, sidx.device)
     if queries.dim() != 1:
         raise ValueError("sharded_lookup expects a flat (B,) query vector")
-    return _lookup_vmapped(sidx, queries, backend)
+    n_shards = sidx.n_shards
+    tp = ctx.n("tp") if ctx is not None else 1
+    axes = ctx.mesh_axes("tp") if ctx is not None else ()
+    spmd_ok = tp == n_shards and n_shards > 1 and bool(axes)
+    if mode == "auto":
+        mode = "a2a" if spmd_ok else "ref"
+    if mode in ("a2a", "allgather") and not spmd_ok:
+        raise ValueError(
+            f"mode={mode!r} needs the mesh tp extent ({tp}) to equal n_shards "
+            f"({n_shards}); use mode='ref' or 'auto'"
+        )
+    if mode == "ref":
+        return _lookup_vmapped(sidx, queries, backend)
+    if mode == "allgather":
+        return _lookup_allgather(sidx, queries, ctx, axes, backend)
+    group, me = ctx.axes_group(axes)
+    b = queries.shape[0]
+    pad = (-b) % n_shards
+    if pad:
+        queries = torch.cat([queries, queries.new_full((pad,), PAD_KEY)])
+    b_loc = queries.shape[0] // n_shards
+    cap = collectives.exchange_capacity(b_loc, n_shards, cap_factor)
+    part = _lookup_a2a(sidx, queries[me * b_loc:(me + 1) * b_loc], group, me, backend, cap)
+    return _gather_slices(part, group, n_shards)[:b]
+
+
+# ---------------------------------------------------------------------------
+# In-place refresh
+# ---------------------------------------------------------------------------
+
+
+def refresh_shard(sidx: ShardedIndex, shard: int, new_index: Index, new_table) -> ShardedIndex:
+    """Install a rebuilt shard into the tier in place; returns ``sidx``.
+
+    The reference donates the old tier to a jitted ``.at[shard].set``;
+    here the new leaves and table are written into the resident tensors,
+    but only after every check has passed, so a refused install (a
+    ``ValueError``) leaves the tier exactly as it was.  Under a sharding
+    context every rank calls it the same way: the rank that holds
+    ``shard`` writes its leaves and table, and every rank updates the
+    fences, counts, offsets and last keys (a rebuilt shard may change its
+    key count).
+
+    ``new_index`` must be built with a shard-stable spec: structural
+    statics must match the tier and its (padded) leaves must fit the
+    stacked leaf shapes.  ``new_table`` is the shard's raw (unpadded)
+    sorted uint64 keys, but the index must be fitted on
+    :func:`shard_build_table` of it: the kinds normalise predictions by
+    the lookup-time table length, which is the padded resident row.
+    """
+    kind = sidx.index.kind
+    if new_index.kind != kind:
+        raise ValueError(f"kind mismatch: tier is {kind!r}, got {new_index.kind!r}")
+    static, arrays = new_index.static, new_index.to_numpy()
+    if registry.entry(kind).query_key == "pgm":
+        if dict(static)["levels"] < sidx.index.s("levels"):
+            static, arrays = _lift_pgm_levels(static, arrays, sidx.index.s("levels"))
+    for (name, have), (n2, new) in zip(sidx.index.static, static):
+        if name != n2:
+            raise ValueError("static key mismatch between tier and rebuilt shard")
+        if name in _STEP_KEYS:
+            if new > have:
+                raise ValueError(
+                    f"rebuilt shard needs {name}={new} > tier's {have}: restack the tier "
+                    "(a larger trip count cannot be installed in place)"
+                )
+        elif new != have:
+            raise ValueError(f"static {name!r} mismatch: tier {have}, rebuilt shard {new}")
+    new_table = np.asarray(new_table, dtype=np.uint64)
+    if len(new_table) == 0:
+        raise ValueError("cannot install an empty shard")
+    m = int(sidx.tables.shape[1])
+    if len(new_table) > m:
+        raise ValueError(f"rebuilt shard has {len(new_table)} keys > tier table capacity {m}")
+    # the rebuilt key set must stay inside this shard's fence slot, or
+    # global ranks would silently go wrong for every later shard
+    if shard > 0:
+        prev_last = keymod.decode(sidx.lasts[shard - 1:shard])[0]
+        if new_table[0] <= prev_last:
+            raise ValueError(
+                f"rebuilt shard {shard} starts at {new_table[0]}, inside the previous "
+                f"shard's range (its last key is {prev_last})"
+            )
+    if shard + 1 < sidx.n_shards:
+        next_fence = keymod.decode(sidx.fences[shard + 1:shard + 2])[0]
+        if new_table[-1] >= next_fence:
+            raise ValueError(
+                f"rebuilt shard {shard} ends at {new_table[-1]}, at or beyond the next "
+                f"shard's fence {next_fence}"
+            )
+    leaves = {}
+    for k, v in sidx.index.arrays.items():
+        if k not in arrays:
+            raise ValueError(f"rebuilt shard is missing leaf {k!r}")
+        leaves[k] = _pad_to(arrays[k], tuple(v.shape[1:]))
+    # encoded on the host by every rank, so every rank refuses alike
+    new = Index.from_numpy(kind, static, leaves, device="cpu")
+    padded_tab = keymod.encode(_pad_sorted_table(new_table, m), "cpu")
+    # -- every check passed: write in place --
+    if shard in sidx.held:
+        row = sidx._row(shard)
+        for k, v in sidx.index.arrays.items():
+            v[row].copy_(new.arrays[k])
+        sidx.tables[row].copy_(padded_tab)
+    ends = keymod.encode_np(new_table[[0, -1]])
+    sidx.fences[shard] = int(ends[0])
+    sidx.lasts[shard] = int(ends[1])
+    sidx.counts[shard] = len(new_table)
+    sidx.offsets.copy_(torch.cumsum(sidx.counts, 0) - sidx.counts)
+    return sidx
+
+
+# ---------------------------------------------------------------------------
+# Skew-aware rebalancing: weighted-quantile fences + ordered re-shard
+# ---------------------------------------------------------------------------
+
+
+def shard_build_table(kind: str, part, m: int) -> np.ndarray:
+    """The table a replacement shard index must be *fitted* on to be
+    installable at stacked capacity ``m`` (as :meth:`ShardedIndex.build`
+    fits): the padded table, because the kinds' query paths normalise
+    model predictions by the lookup-time table length, which is the
+    resident padded row.  Raises ``ValueError`` when ``part`` no longer
+    fits ``m`` (the restack cue).  The reference's raw-part branch for
+    self-contained kinds (GAPPED) comes with the GAPPED kind."""
+    registry.entry(kind)
+    return _pad_sorted_table(np.asarray(part, dtype=np.uint64), m)
+
+
+def weighted_quantile_bounds(merged_keys, fences, weights) -> np.ndarray:
+    """Rank partition of ``merged_keys`` that evens out *observed* load.
+
+    The per-shard query counts ``weights`` (one per current fence slot)
+    define a piecewise-constant traffic density over the sorted global
+    key set: every key in current shard ``s`` carries ``weights[s]``
+    spread evenly over that shard's keys.  Inverting the cumulative
+    weight at ``j/S`` for ``j = 1..S-1`` yields new shard bounds under
+    which each shard would have answered an equal share of the observed
+    traffic.
+
+    Degenerate inputs stay well-formed: an all-zero weight vector falls
+    back to the even split, and the bounds are clamped to a strictly
+    increasing partition with at least one key per shard
+    (:func:`refresh_shard` rejects empty shards).  Keys outside the
+    current fence range attach to the nearest shard.  Host numpy, as in
+    the reference; ``fences`` are uint64 keys (``keys.decode`` of a
+    tier's).
+    """
+    merged = np.asarray(merged_keys, dtype=np.uint64)
+    fences = np.asarray(fences, dtype=np.uint64)
+    w = np.asarray(weights, dtype=np.float64).reshape(-1)
+    n, S = len(merged), len(fences)
+    if len(w) != S:
+        raise ValueError(f"got {len(w)} weights for {S} fence slots")
+    if n < S:
+        raise ValueError(f"cannot split {n} keys across {S} shards")
+    own = np.clip(np.searchsorted(fences, merged, side="right") - 1, 0, S - 1)
+    per_owner = np.bincount(own, minlength=S).astype(np.float64)
+    if w.sum() <= 0:
+        w = np.ones(S, dtype=np.float64)
+    # a shard that owns no current keys contributes no density rows;
+    # spread every observed weight over its owner's resident keys
+    per_key = np.where(per_owner[own] > 0, w[own] / np.maximum(per_owner[own], 1.0), 0.0)
+    if per_key.sum() <= 0:
+        per_key = np.ones(n, dtype=np.float64)
+    cum = np.cumsum(per_key)
+    targets = cum[-1] * np.arange(1, S, dtype=np.float64) / S
+    inner = np.searchsorted(cum, targets, side="left") + 1
+    # clamp to a strictly increasing partition with >= 1 key per shard
+    for j in range(len(inner)):
+        lo = (inner[j - 1] + 1) if j else 1
+        inner[j] = max(int(inner[j]), lo)
+    for j in range(len(inner) - 1, -1, -1):
+        hi = (inner[j + 1] - 1) if j + 1 < len(inner) else n - 1
+        inner[j] = min(int(inner[j]), hi)
+    return np.concatenate([[0], inner, [n]]).astype(np.int64)
+
+
+def rebalance_shards(sidx: ShardedIndex, merged_keys, bounds, build_shard) -> ShardedIndex:
+    """Repartition the tier at ``bounds`` over the global sorted key set
+    through :func:`refresh_shard` installs, in place; returns ``sidx``.
+
+    Each boundary move orders only the two adjacent shards' installs
+    (``refresh_shard`` checks the new shard against the *current*
+    neighbours: a boundary moving right means the right shard must shrink
+    before the left can grow, and vice versa), so the dependencies form
+    an acyclically oriented path and a deferred-retry sweep ends in at
+    most ``n_shards`` rounds; a refused install leaves the tier as it was
+    and is retried.  Raises ``ValueError`` when a rebuilt shard cannot be
+    installed at all (e.g. it outgrew the stacked table capacity): the
+    caller's cue to rebuild with ``ShardedIndex.build(..., bounds=...)``.
+
+    ``build_shard(build_table)`` builds the per-shard :class:`Index` for a
+    key slice already run through :func:`shard_build_table`.  Every shard
+    is built, and capacity-checked, before the first install, so a
+    partition that cannot be installed fails with the tier intact.  Under
+    a sharding context every rank calls it the same way.
+    """
+    merged = np.asarray(merged_keys, dtype=np.uint64)
+    bounds = np.asarray(bounds, dtype=np.int64).reshape(-1)
+    S = sidx.n_shards
+    if len(bounds) != S + 1 or bounds[0] != 0 or bounds[-1] != len(merged):
+        raise ValueError(
+            f"bounds must partition [0, {len(merged)}] into {S} shards, got {bounds.tolist()}"
+        )
+    if (np.diff(bounds) < 1).any():
+        raise ValueError(f"bounds must give every shard >= 1 key, got {bounds.tolist()}")
+    m = int(sidx.tables.shape[1])
+    kind = sidx.index.kind
+    parts = [merged[bounds[s]:bounds[s + 1]] for s in range(S)]
+    built = [build_shard(shard_build_table(kind, p, m)) for p in parts]
+    remaining = set(range(S))
+    while remaining:
+        progressed = False
+        last_err: Exception | None = None
+        for s in sorted(remaining):
+            try:
+                refresh_shard(sidx, s, built[s], parts[s])
+            except ValueError as e:
+                last_err = e
+                continue
+            remaining.discard(s)
+            progressed = True
+        if not progressed:
+            raise ValueError(f"rebalance not installable via refresh_shard: {last_err}")
+    return sidx

@@ -3,7 +3,10 @@
 Each source compiles with its own ``nvcc`` process, all started
 together, into an object file; one more ``nvcc`` links them into
 ``build/repro_torch/libkernels.so`` at the repository root, which is
-loaded with :mod:`ctypes`.  The sources expose a plain C interface
+loaded with :mod:`ctypes`.  A file lock in the build directory
+(``fcntl.flock``) serialises the check and the build, so processes that
+reach the kernels together (the ranks of a process group, test workers)
+build once and load.  The sources expose a plain C interface
 (pointers and the stream as ``void*``, sizes as ``int``/``long long``),
 so no PyTorch header is compiled and a build takes seconds.
 
@@ -15,7 +18,9 @@ invalidates the library through a digest stamp beside it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -108,11 +113,29 @@ def _digest() -> str:
     return h.hexdigest()
 
 
-def build() -> Path:
-    """Compile every source (in parallel) and link ``libkernels.so``.
-    Records ``-Xptxas -v`` output per source (see :func:`ptxas_report`)."""
-    nvcc = _nvcc()
+@contextlib.contextmanager
+def _build_lock():
+    """Hold an exclusive lock on ``BUILD_DIR/build.lock``; the kernel
+    releases it when the holder exits, however it exits."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def build() -> Path:
+    """Compile every source (in parallel) and link ``libkernels.so``, under
+    the build lock.  Records ``-Xptxas -v`` output per source (see
+    :func:`ptxas_report`)."""
+    with _build_lock():
+        return _build()
+
+
+def _build() -> Path:
+    nvcc = _nvcc()
     procs = []
     for name in SOURCES:
         obj = BUILD_DIR / (Path(name).stem + ".o")
@@ -147,13 +170,16 @@ def ptxas_report() -> dict:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if missing or stale."""
+    """The loaded kernel library, built first if missing or stale (checked
+    and built under the build lock: a process that waits on another's
+    build finds it fresh and loads it)."""
     global _lib
     if _lib is None:
         lib = BUILD_DIR / "libkernels.so"
         stamp = BUILD_DIR / "libkernels.stamp"
-        if not (lib.exists() and stamp.exists() and stamp.read_text() == _digest()):
-            lib = build()
+        with _build_lock():
+            if not (lib.exists() and stamp.exists() and stamp.read_text() == _digest()):
+                lib = _build()
         handle = ctypes.CDLL(str(lib))
         for fn, argtypes in SIGNATURES.items():
             getattr(handle, fn).argtypes = list(argtypes)

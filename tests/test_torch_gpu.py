@@ -7,9 +7,16 @@ JAX nor the reference: it runs on the machine with the card, which has no
 JAX, with ``PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 Ranks are integers and must be equal, with no tolerance; the float
 kernels' tolerances are stated beside their tests.
+
+It also holds the spawned-rank harness of the tier's collective modes
+(:func:`run_ranks`, :func:`replay_cases`), which the CPU parity tests in
+``test_torch_collectives.py`` share: a rank imports this file, not JAX.
 """
 
 import dataclasses
+import json
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -744,3 +751,180 @@ def test_sharded_lookup_on_card(cuda, kind, n_shards):
         assert torch.equal(got, want), (kind, n_shards, backend)
         expected = {_batched_kernel(kind): 1} if backend == "kernel" else {}
         assert {k: v for k, v in counts.items() if v} == expected, (kind, backend, counts)
+
+
+# -- spawned ranks over gloo: the tier's collective modes ----------------------------------
+
+
+def run_ranks(target, world: int, work_dir, *args, timeout: float = 600.0) -> None:
+    """Run ``target(rank, world, *args)`` in ``world`` spawned processes
+    joined in one gloo process group (``file://`` rendezvous in
+    ``work_dir``, so parallel test workers never share a port).  The
+    first failure of any rank is raised here; past ``timeout`` seconds
+    every rank is killed and ``TimeoutError`` raised."""
+    import torch.multiprocessing as mp
+
+    init = Path(work_dir) / "pg_init"
+    procs = mp.start_processes(_rank_main, args=(world, str(init), target, args), nprocs=world,
+                               join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not procs.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks of {target.__name__} ran past {timeout} s")
+    finally:
+        for proc in procs.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(5)
+
+
+def _rank_main(rank: int, world: int, init_file: str, target, args) -> None:
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        target(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _case_ctx(ctxs: dict, case: dict, world: int, dev):
+    """The case's sharding context (one per mesh and rules: building one
+    is collective, and every rank replays the same cases in order)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import ShardingCtx
+
+    names = tuple(case.get("names", ("data", "model")))
+    key = json.dumps([case["mesh"], names, case.get("rules"), case.get("profile", "tp_fsdp")])
+    if key not in ctxs:
+        mesh = DeviceMesh(dev.type, torch.arange(world).reshape(case["mesh"]),
+                          mesh_dim_names=names)
+        ctxs[key] = ShardingCtx(mesh=mesh, profile=case.get("profile", "tp_fsdp"),
+                                rules=case.get("rules") or {})
+    return ctxs[key]
+
+
+def received_requests_check(sidx, queries, ctx, cap_factor: float) -> dict:
+    """Hold this rank's single-table kernel against its twin, and against
+    ``searchsorted`` of the padded shard table, on the exact requests the
+    a2a exchange delivers to it (fill rows included), before the clamp.
+    Returns the request count and the kernel's launches; raises on a
+    difference."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist import sharded_index as tsi
+
+    group, me = ctx.axes_group(ctx.mesh_axes("tp"))
+    n = sidx.n_shards
+    q = tsi.keymod.as_keys(queries, sidx.device)
+    q = torch.cat([q, q.new_full(((-q.numel()) % n,), tsi.PAD_KEY)])
+    b_loc = q.numel() // n
+    cap = collectives.exchange_capacity(b_loc, n, cap_factor)
+    received = tsi.a2a_requests(sidx, q[me * b_loc:(me + 1) * b_loc], cap, group)[0].reshape(-1)
+    impl = tix.impls.query_impl(sidx.kind)
+    table = sidx.tables[sidx._row(me)]
+    args, kwargs = impl.operands(sidx.shard(me), table, received)
+    kernels.reset_launches()
+    raw = impl.search(*args, **kwargs).long()
+    launched = kernels.launches()[KERNEL_OF[sidx.kind]]
+    twin = impl.plain(*args, **kwargs).long()
+    local = torch.searchsorted(table, received, right=True) - 1
+    if not (torch.equal(raw, twin) and torch.equal(raw, local)):
+        raise AssertionError(f"rank {me}: {sidx.kind} kernel != twin or searchsorted on its "
+                             f"{received.numel()} received requests")
+    return {"requests": received.numel(), "launches": launched}
+
+
+def replay_cases(rank: int, world: int, work_dir: str, device: str) -> None:
+    """One rank of a case list (``work_dir/cases.json``): each case builds
+    or reuses its mesh's :class:`ShardingCtx`, loads the rank's shard of a
+    saved tier, optionally refreshes or rebalances it, and runs
+    ``sharded_lookup``; or, with ``probe``, resolves every logical axis.
+    Writes ``out{rank}.npz`` (answers; a refreshed or rebalanced shard's
+    leaves and the tier's vectors) and ``out{rank}.json`` (probes, request
+    checks, launches of the collective paths)."""
+    from repro_torch.core import keys
+    from repro_torch.dist import ShardedIndex, rebalance_shards, refresh_shard, sharded_lookup
+    from repro_torch.index import registry
+
+    work, dev = Path(work_dir), torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    spec = json.loads((work / "cases.json").read_text())
+    ctxs, arrays, notes = {}, {}, {}
+    for case in spec["cases"]:
+        name = case["name"]
+        ctx = _case_ctx(ctxs, case, world, dev)
+        if "probe" in case:
+            notes[name] = {lg: [list(ctx.mesh_axes(lg)), ctx.n(lg), ctx.index(lg)]
+                           for lg in case["probe"]}
+            continue
+        me = ctx.index("tp")
+        sidx = ShardedIndex.load(work / case["tier"], device=dev, shard=me)
+        if "refresh" in case:
+            r = case["refresh"]
+            refresh_shard(sidx, r["shard"], tix.Index.load(work / r["index"], device=dev),
+                          np.load(work / r["table"]))
+        if "rebalance" in case:
+            r = case["rebalance"]
+            shard_spec = registry.spec_for(r["kind"], **r["params"])
+            rebalance_shards(sidx, np.load(work / r["merged"]), np.load(work / r["bounds"]),
+                             lambda part: tix.build(shard_spec, part, device=dev))
+        if "refresh" in case or "rebalance" in case:
+            for k, v in sidx.shard(me).to_numpy().items():
+                arrays[f"{name}/idx_{k}"] = v
+            arrays[f"{name}/table"] = keys.decode(sidx.tables[0])
+            for k in ("fences", "lasts"):
+                arrays[f"{name}/{k}"] = keys.decode(getattr(sidx, k))
+            for k in ("counts", "offsets"):
+                arrays[f"{name}/{k}"] = getattr(sidx, k).cpu().numpy()
+        qs = np.load(work / case["queries"])
+        kernels.reset_launches()
+        got = sharded_lookup(sidx, qs, ctx, mode=case["mode"], backend=case["backend"],
+                             cap_factor=case.get("cap_factor", 2.0))
+        launches = kernels.launches()
+        arrays[name] = got.cpu().numpy()
+        notes[name] = {"launches": launches[KERNEL_OF[sidx.kind]],
+                       "others": sum(launches.values()) - launches[KERNEL_OF[sidx.kind]]}
+        if case.get("check_requests"):
+            notes[name].update(received_requests_check(sidx, qs, ctx, case["cap_factor"]))
+    np.savez(work / f"out{rank}.npz", **arrays)
+    (work / f"out{rank}.json").write_text(json.dumps(notes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ("a2a", "allgather"))
+def test_collective_modes_two_ranks_on_card(cuda, tmp_path, mode):
+    """Two gloo ranks on the one card, one shard each: ``sharded_lookup``
+    in ``mode`` on ``backend="kernel"`` equals ``torch.searchsorted`` on
+    the whole table for the headline kind of each single-table kernel,
+    launches that kernel on every rank and nothing else, and (a2a) the
+    kernel equals its twin on each rank's received requests."""
+    from repro_torch.core import keys
+    from repro_torch.dist import ShardedIndex
+
+    rng = np.random.default_rng(64)
+    table = _table(rng, "lognormal", 40000)
+    qs = _queries(rng, table)[:-1]  # an odd batch: the a2a path pads it
+    np.save(tmp_path / "qs.npy", qs)
+    cases = []
+    for kind in ("SY-RMI", "PGM_M", "RS", "KO"):
+        ShardedIndex.build(kind, table, 2, device="cpu").save(tmp_path / f"{kind}.npz")
+        cases.append({"name": kind, "tier": f"{kind}.npz", "queries": "qs.npy", "mesh": [1, 2],
+                      "mode": mode, "backend": "kernel", "cap_factor": 2.0,
+                      "check_requests": mode == "a2a"})
+    (tmp_path / "cases.json").write_text(json.dumps({"cases": cases}))
+    run_ranks(replay_cases, 2, tmp_path, str(tmp_path), "cuda")
+    t = keys.encode(table, cuda)
+    want = (torch.searchsorted(t, keys.encode(qs, cuda), right=True) - 1).cpu().numpy()
+    for rank in range(2):
+        notes = json.loads((tmp_path / f"out{rank}.json").read_text())
+        with np.load(tmp_path / f"out{rank}.npz") as out:
+            for case in cases:
+                np.testing.assert_array_equal(out[case["name"]], want, err_msg=case["name"])
+                note = notes[case["name"]]
+                assert note["launches"] == 1 and note["others"] == 0, (case["name"], note)
+                if mode == "a2a":  # every slot of the (2, cap) requests, cap = half the batch
+                    assert note["requests"] == len(qs) + 1, (case["name"], note)

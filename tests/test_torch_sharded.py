@@ -178,8 +178,9 @@ def test_kernel_tier_is_one_batched_call_and_later_modes_raise(monkeypatch):
     """``backend="kernel"`` answers the whole tier with one call of the
     lookup body on the stacked ``(n_shards, m)`` tables, which is one
     launch of the kind's batched kernel on the card (on the CPU its twin
-    runs and nothing launches); the collective modes, a context and
-    telemetry name the later slices."""
+    runs and nothing launches); the collective modes without a context
+    whose ``tp`` extent equals the shard count raise the reference's mesh
+    error, and telemetry names the later slice."""
     table = _table(53)
     sidx = tsi.ShardedIndex.build("SY-RMI", table, 4, device="cpu")
     calls = []
@@ -198,14 +199,25 @@ def test_kernel_tier_is_one_batched_call_and_later_modes_raise(monkeypatch):
     assert tsi.MODES == rsi.MODES and tdist.DROPPED == rsi.DROPPED
     assert tdist.NO_PRED == rsi.NO_PRED
     assert tsi.TIER_BACKENDS == ("xla", "bbs", "kernel", "ref")
-    for kwargs, msg in (({"mode": "a2a"}, "torch.distributed"),
-                        ({"mode": "allgather"}, "torch.distributed"),
-                        ({"ctx": object()}, "torch.distributed"),
+    class TwoWay:  # a context whose tp extent (2) is not the tier's 4 shards
+        def n(self, logical):
+            return 2
+
+        def mesh_axes(self, logical):
+            return ("model",)
+
+    for kwargs, msg in (({"mode": "a2a"}, r"mesh tp extent \(1\) to equal n_shards \(4\)"),
+                        ({"mode": "allgather"}, r"mesh tp extent \(1\)"),
+                        ({"ctx": TwoWay(), "mode": "a2a"}, r"mesh tp extent \(2\)"),
                         ({"telemetry": True}, "observability"),
                         ({"mode": "bogus"}, "unknown mode"),
                         ({"backend": "pallas"}, "unknown tier backend")):
         with pytest.raises(ValueError, match=msg):
             tsi.sharded_lookup(sidx, qs, **kwargs)
+    with pytest.raises(ValueError, match=r"mesh tp extent \(1\)"):
+        rsi.sharded_lookup(rsi.ShardedIndex.build("SY-RMI", table, 4), qs, mode="a2a")
+    # with a context of another extent, "auto" stays the one-process sweep
+    np.testing.assert_array_equal(tsi.sharded_lookup(sidx, qs, TwoWay()).numpy(), got)
     with pytest.raises(ValueError, match="flat"):
         tsi.sharded_lookup(sidx, keys.encode(qs[:200].reshape(2, 100), "cpu"))
     if not torch.cuda.is_available():
