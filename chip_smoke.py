@@ -13,7 +13,9 @@ rank (``sharded_lookup(sidx, queries, ctx, mode="a2a"/"allgather")`` on
 ``torch.distributed``: one single-table launch a rank) — and holds every CUDA search
 kernel on them against its plain PyTorch twin and against
 ``torch.searchsorted``, bit for bit (predecessor ranks are integers: the
-tolerance is zero).  Then it serves
+tolerance is zero).  It drives the updatable GAPPED kind's write path
+(``Index.insert_batch``/``compact``, ``insert_into_shard``/``compact_shard``)
+on the same tables, tensor ops with no kernel.  Then it serves
 qwen2-0.5b at full width through ``DecodeEngine`` (the LM serving path,
 whose attention is the hand-written ``decode_attention`` kernel) and
 drives ``ops.embedding_bag``, holding both float kernels against their
@@ -32,7 +34,9 @@ Phases (any failure ends the run with a non-zero exit):
                same-length batches of 3 of those tables and on a ragged
                batch (65,536 / 30,000 / 50,000 keys): batched kernel ==
                batched twin == ``"xla"`` == ``"bbs"`` == ``"ref"`` ==
-               per-row numpy ``searchsorted``;
+               per-row numpy ``searchsorted``; GAPPED on every table and
+               batch: ``"xla"`` == ``"bbs"`` == ``"ref"`` == numpy, and
+               ``"kernel"`` refused;
 4. full size — ``amzn64`` and ``osm`` at the L4 tier (2^24 keys, larger
                than the 50 MB L2) with 2^22 queries sampled from the table;
                all 10 kinds built with the registry defaults; launch counts
@@ -61,7 +65,8 @@ Phases (any failure ends the run with a non-zero exit):
                kinds on a 4-shard tier (65,536 keys) and a 160-shard tier
                (16,384 keys: the router's k-ary branch), with the edge
                query mix and every fence key ± 1, every backend ==
-               ``Index.lookup`` on the whole table == numpy; then at
+               ``Index.lookup`` on the whole table == numpy (GAPPED on its
+               three backends); then at
                phase 5's scale (4 shards of 2^22 keys) with phase 4's
                2^22 queries over the whole table, SY-RMI, PGM_M, RS and
                KO on both tables, ``backend="kernel"``: one batched
@@ -90,9 +95,25 @@ Phases (any failure ends the run with a non-zero exit):
                between barriers; a skewed batch (2^22 - 1 queries on the
                last shard, ``cap_factor=2.0``) whose ``DROPPED`` set equals
                the host model of the exchange; every kind and backend on
-               2 and 4 ranks at the parity size; ``refresh_shard`` then
-               ``rebalance_shards``, each followed by an a2a lookup ==
-               numpy;
+               2 and 4 ranks at the parity size (GAPPED mutated first:
+               routed inserts in every shard, shard 0's delta populated);
+               ``refresh_shard`` then ``rebalance_shards``, each followed
+               by an a2a lookup == numpy;
+5d. mutation — GAPPED at the registry's default spec on every second key of
+               phase 4's tables (2^23 keys, 128 MiB of leaves), insert
+               batches of 2^10, 2^12, 2^14 and 2^16 of the held-back keys
+               (an eighth of each duplicates), one batch packed into one
+               leaf (more keys than its gaps: all to the delta), then
+               ``compact``: after every step ``"xla"`` == ``"bbs"`` ==
+               ``"ref"`` == numpy over the live keys on phase 4's queries
+               plus the inserted keys, each ``InsertReport`` against the host
+               model, ``"kernel"`` refused, no kernel launched; insert,
+               compact and lookup ms by CUDA events.  Then a GAPPED tier of
+               each table (4 shards of 2^22 keys): 2^16 fresh keys routed by
+               ``route_owners`` into ``insert_into_shard``, ``compact_shard``
+               on every shard, ``sharded_lookup(mode="ref", backend="xla")``
+               == numpy, and the counts, offsets, fences and last keys equal
+               to a tier built on the live keys;
 6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
                (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128),
                (4,4,256), (8,8,8), ragged ``kv_len`` with 0, 1 and S, S not
@@ -161,6 +182,9 @@ SCALAR_OPS_PER_S = 67e12
 SECTOR_BYTES = 32
 
 KINDS = ("L", "Q", "C", "KO", "RMI", "SY-RMI", "PGM", "PGM_M", "RS", "BTREE")
+#: the updatable kind: no kernel (the reference has no Pallas path for it),
+#: so ``backend="kernel"`` raises; it answers on these three backends
+GAPPED_BACKENDS = ("xla", "bbs", "ref")
 KERNELS = {
     "kary_search": {
         "source": "src/repro_torch/csrc/kary_search.cu",
@@ -443,6 +467,22 @@ def batched_answer(bm, queries):
     return impl, q, args, kwargs
 
 
+def expect_no_kernel(index, table, queries, what: str) -> None:
+    """GAPPED refuses ``backend="kernel"`` (the port's default) with the
+    reference's message; ``index`` is an ``Index`` (``table`` given) or a
+    ``BatchedIndexes`` (``table`` None)."""
+    try:
+        if table is None:
+            index.lookup(queries, backend="kernel")
+        else:
+            index.lookup(table, queries)
+    except ValueError as e:
+        if "supports backends" in str(e):
+            return
+        raise
+    fail(f"{what}: backend='kernel' answered instead of raising")
+
+
 def phase_parity(dev, n: int) -> None:
     from repro_torch import index as tix
     from repro_torch import tune
@@ -469,8 +509,13 @@ def phase_parity(dev, n: int) -> None:
             check_equal(f"{name}/{kind}", got.cpu().numpy(),
                         (("twin", twin.cpu().numpy()), *interval, ("ref", ref.cpu().numpy()),
                          ("numpy", want)))
+        gapped = tix.build("GAPPED", table, device=dev)
+        expect_no_kernel(gapped, t, q, f"{name}/GAPPED")
+        check_equal(f"{name}/GAPPED xla", gapped.lookup(t, q, backend="xla").cpu().numpy(),
+                    [(b, gapped.lookup(t, q, backend=b).cpu().numpy()) for b in GAPPED_BACKENDS[1:]]
+                    + [("numpy", want)])
         log(f"[parity] {name} n={len(table)} nq={len(qs_np)}: all {len(KINDS)} kinds "
-            f"kernel == twin == xla == bbs == ref")
+            f"kernel == twin == xla == bbs == ref; GAPPED xla == bbs == ref, kernel refused")
 
     # -- the batched path: two same-length batches of the six tables, one ragged --
     tables = [t for _, t in cases]
@@ -498,9 +543,14 @@ def phase_parity(dev, n: int) -> None:
             check_equal(f"batched {label}/{kind}", got.cpu().numpy(),
                         (("batched twin", twin.cpu().numpy()), *interval,
                          ("ref", ref.cpu().numpy()), ("numpy", want)))
+        bm = tune.build_many("GAPPED", batch, device=dev)
+        expect_no_kernel(bm, None, qs_np, f"batched {label}/GAPPED")
+        check_equal(f"batched {label}/GAPPED xla", bm.lookup(qs_np, backend="xla").cpu().numpy(),
+                    [(b, bm.lookup(qs_np, backend=b).cpu().numpy()) for b in GAPPED_BACKENDS[1:]]
+                    + [("numpy", want)])
         log(f"[parity] batched {label} ({'/'.join(str(len(t)) for t in batch)} keys, "
             f"nq={len(qs_np)}): all {len(KINDS)} kinds batched kernel == batched twin == xla == "
-            f"bbs == ref")
+            f"bbs == ref; GAPPED xla == bbs == ref, kernel refused")
 
 
 def measure(dev, impl_search, impl_plain, args, kwargs, table, nq, lookup, library) -> dict:
@@ -833,7 +883,7 @@ def phase_sharded(dev, tables: dict, tier_built: dict, parity_n: int) -> tuple:
     for label, table_kind, n, n_shards in (("4 shards", "lognormal", parity_n, 4),
                                             ("160 shards", "bursty", parity_n // 4, 160)):
         table = make_table(rng, table_kind, n)
-        for kind in KINDS:
+        for kind in KINDS + ("GAPPED",):
             sidx = tsi.ShardedIndex.build(kind, table, n_shards, device=dev)
             fences = keys.decode(sidx.fences)
             with np.errstate(over="ignore"):
@@ -841,13 +891,15 @@ def phase_sharded(dev, tables: dict, tier_built: dict, parity_n: int) -> tuple:
                                         fences, fences - np.uint64(1), fences + np.uint64(1)])
             want = np.searchsorted(table, qs_np, side="right").astype(np.int64) - 1
             t, q = keys.encode(table, dev), keys.encode(qs_np, dev)
-            whole = tix.build(kind, table, device=dev).lookup(t, q, backend="kernel")
-            got = [(b, tsi.sharded_lookup(sidx, q, backend=b).cpu().numpy())
-                   for b in tsi.TIER_BACKENDS]
+            backends = tix.impls.query_impl(kind).backends
+            whole = tix.build(kind, table, device=dev).lookup(t, q, backend=backends[0] if
+                                                              kind == "GAPPED" else "kernel")
+            got = [(b, tsi.sharded_lookup(sidx, q, backend=b).cpu().numpy()) for b in backends]
             check_equal(f"sharded {label}/{kind}", whole.cpu().numpy(), got + [("numpy", want)])
         log(f"[sharded] {label} of a {table_kind} table of {len(table)} keys, nq={len(qs_np)} "
             f"(fence keys +- 1 included): all {len(KINDS)} kinds, sharded_lookup on "
-            f"{'/'.join(tsi.TIER_BACKENDS)} == Index.lookup == numpy")
+            f"{'/'.join(tsi.TIER_BACKENDS)} == Index.lookup == numpy; GAPPED on "
+            f"{'/'.join(GAPPED_BACKENDS)}")
 
     # -- the kernel path at scale: build, then one lookup each (counted) --
     n_shards = 4
@@ -1000,17 +1052,20 @@ def phase_collective(dev, tables: dict, scale: dict, parity_n: int) -> tuple:
     table = make_table(rng, "lognormal", parity_n)
     np.save(work / "parity_table.npy", table)
     for n_shards in (2, RANKS):
-        for kind in KINDS:
+        for kind in KINDS + ("GAPPED",):
             sidx = tsi.ShardedIndex.build(kind, table, n_shards, device="cpu")
+            live = table
+            if kind == "GAPPED":  # mutated: inserts in every shard, shard 0's delta populated
+                live = mutate_tier(rng, sidx, table, len(table) // 32)
             fences = keys.decode(sidx.fences)
             with np.errstate(over="ignore"):
-                qs = np.concatenate([edge_queries(rng, table, n_keys=min(4096, len(table))),
+                qs = np.concatenate([edge_queries(rng, live, n_keys=min(4096, len(live))),
                                      fences, fences - np.uint64(1), fences + np.uint64(1)])
             name = f"parity{n_shards}_{kind}"
             sidx.save(work / f"{name}.npz")
             np.save(work / f"q_{name}.npy", qs[:-1])  # an odd batch: the a2a path pads it
             np.save(work / f"np_{name}.npy",
-                    np.searchsorted(table, qs[:-1], side="right").astype(np.int64) - 1)
+                    np.searchsorted(live, qs[:-1], side="right").astype(np.int64) - 1)
             parity.append({"name": name, "kind": kind, "n_shards": n_shards})
     # refresh and rebalance: a SY-RMI tier with room in each shard's padded table
     maint = make_table(rng, "lognormal", parity_n * 3 // 4)
@@ -1239,13 +1294,14 @@ def collective_rank_body(rank: int, world: int, work: Path, job: dict) -> dict:
         qs = np.load(work / f"q_{c['name']}.npy")
         want = np.load(work / f"np_{c['name']}.npy")
         for mode in ("a2a", "allgather"):
-            for backend in tsi.TIER_BACKENDS:
+            for backend in tix.impls.query_impl(c["kind"]).backends:
                 got = tsi.sharded_lookup(sidx, qs, pctx, mode=mode, backend=backend,
                                          cap_factor=float(c["n_shards"]))
                 check_equal(f"rank {rank} parity {c['name']} {mode}/{backend}",
                             got.cpu().numpy(), (("numpy", want),))
     checks.append(f"parity: {len(job['parity'])} tiers (every kind, 2 and {world} shards), a2a "
-                  f"and allgather on {'/'.join(tsi.TIER_BACKENDS)} == numpy")
+                  f"and allgather on {'/'.join(tsi.TIER_BACKENDS)} == numpy; GAPPED mutated "
+                  f"(delta populated) on {'/'.join(GAPPED_BACKENDS)}")
 
     # -- refresh_shard, then rebalance_shards, each followed by an a2a lookup --
     sidx = tsi.ShardedIndex.load(work / "maint.npz", device=dev, shard=me)
@@ -1268,6 +1324,231 @@ def collective_rank_body(rank: int, world: int, work: Path, job: dict) -> dict:
                   f"{np.diff(bounds).tolist()}): a2a == numpy on the new table")
     return {"rank": rank, "launches": launches, "stages": stages, "checks": checks,
             "max_abs_err": max(errs)}
+
+
+# -- phase 5d: the updatable GAPPED kind and its mutation surface ---------------------
+
+
+def fresh_keys(rng, table: np.ndarray, n: int) -> np.ndarray:
+    """Up to ``n`` keys absent from the sorted ``table``: midpoints of
+    random gaps of two or more."""
+    i = rng.choice(len(table) - 1, min(n, len(table) - 1), replace=False)
+    gap = table[i + 1] - table[i]
+    i, gap = i[gap >= 2], gap[gap >= 2]
+    return np.unique(table[i] + gap // np.uint64(2))
+
+
+def packed_batch(index, live: np.ndarray, extra: int) -> np.ndarray:
+    """Fresh keys packed into the widest key range of one leaf of a GAPPED
+    index (not its last), ``extra`` more than the leaf's free slots: the
+    leaf absorbs all or nothing, so the whole batch overflows into the
+    delta."""
+    from repro_torch.core import keys
+
+    a = index.arrays
+    counts = a["counts"].cpu().numpy()
+    lo, hi = keys.decode(a["fences"]), keys.decode(a["route"])
+    ok = (counts > 0) & (hi != np.uint64(2**64 - 1))
+    width = np.where(ok, hi - lo, 0)
+    leaf = int(np.argmax(width))
+    k = int(a["keys"].shape[1]) - int(counts[leaf]) + extra
+    step = (hi[leaf] - lo[leaf] - np.uint64(1)) // np.uint64(k + 1)
+    if step < 1:
+        fail(f"mutation: no leaf range wide enough for {k} keys")
+    batch = np.setdiff1d(lo[leaf] + np.uint64(1) + np.arange(k, dtype=np.uint64) * step, live)
+    if len(batch) <= k - extra:
+        fail("mutation: the packed batch fits the leaf's gaps")
+    return batch
+
+
+def mutate_tier(rng, sidx, table: np.ndarray, n_fresh: int) -> np.ndarray:
+    """Insert ``n_fresh`` fresh keys into a GAPPED tier (in place), routed
+    by ``route_owners``, then a batch packed into one leaf of shard 0 that
+    overflows into its delta; returns the live keys."""
+    from repro_torch.core import keys
+    from repro_torch.dist import sharded_index as tsi
+
+    fresh = fresh_keys(rng, table, n_fresh)
+    owners = tsi.route_owners(sidx.fences, keys.encode(fresh, sidx.device)).cpu().numpy()
+    for s in range(sidx.n_shards):
+        tsi.insert_into_shard(sidx, s, fresh[owners == s])
+    live = add_keys(table, fresh)[0]
+    packed = packed_batch(sidx.shard(0), live, 32)
+    _, report = tsi.insert_into_shard(sidx, 0, packed)
+    if report.overflowed != len(packed):
+        fail(f"mutation: the packed batch overflowed {report.overflowed} of {len(packed)} keys")
+    return add_keys(live, packed)[0]
+
+
+def add_keys(live: np.ndarray, batch: np.ndarray) -> tuple:
+    """The sorted ``live`` keys with the batch's new ones inserted (the
+    ``np.union1d``, without re-sorting the live keys), and how many were
+    new."""
+    u = np.unique(batch)
+    i = np.searchsorted(live, u)
+    new = u[(i == len(live)) | (live[np.minimum(i, len(live) - 1)] != u)]
+    return np.insert(live, np.searchsorted(live, new), new), len(new)
+
+
+def host_ranks(live: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """numpy ``searchsorted(right) - 1``, the queries visited in sorted
+    order (a binary search per query misses the host's caches)."""
+    order = np.argsort(queries)
+    out = np.empty(len(queries), dtype=np.int64)
+    out[order] = np.searchsorted(live, queries[order], side="right") - 1
+    return out
+
+
+def check_report(what: str, report, batch: np.ndarray, live: np.ndarray) -> np.ndarray:
+    """The report against the host model (fresh = the batch's keys not yet
+    live, duplicates = the rest); returns the new live keys."""
+    live, n_fresh = add_keys(live, batch)
+    got = (report.requested, report.absorbed + report.overflowed, report.duplicates)
+    want = (len(batch), n_fresh, len(batch) - n_fresh)
+    if got != want:
+        fail(f"mutation: {what} report (requested, absorbed + overflowed, duplicates) {got}, "
+             f"host model {want}")
+    return live
+
+
+def gapped_ranks(dev, what: str, idx, t_dev, queries, live: np.ndarray) -> None:
+    """xla == bbs == ref == numpy over the live keys; kernel refused."""
+    from repro_torch.core import keys
+
+    q = keys.encode(queries, dev)
+    want = host_ranks(live, queries)
+    got = [(b, idx.lookup(t_dev, q, backend=b).cpu().numpy()) for b in GAPPED_BACKENDS]
+    check_equal(f"mutation {what} {got[0][0]}", got[0][1], got[1:] + [("numpy", want)])
+    expect_no_kernel(idx, t_dev, q, what)
+
+
+def phase_mutation(dev, tables: dict, batches, tier_fresh: int) -> list:
+    """Phase 5d: GAPPED on phase 4's tables (built on every second key,
+    the other half held back), insert batches of ``batches`` sizes (an
+    eighth of each batch duplicates of live keys) and one batch packed
+    into one leaf that overflows into the delta, then ``compact``: after
+    every step ``xla`` == ``bbs`` == ``ref`` == numpy on phase 4's queries
+    plus the inserted keys, each report against the host model, no
+    kernel launched; insert, compact and lookup times by CUDA events.
+    Then the tier: a GAPPED ``ShardedIndex`` of each table (4 shards),
+    ``tier_fresh`` fresh keys routed into ``insert_into_shard``, then
+    ``compact_shard``, ``sharded_lookup(mode="ref", backend="xla")`` ==
+    numpy and the tier's vectors equal to a tier built on the live keys."""
+    from repro_torch import index as tix
+    from repro_torch import kernels
+    from repro_torch.core import keys
+    from repro_torch.dist import sharded_index as tsi
+    from repro_torch.index.updatable import live_keys
+
+    rows = []
+    kernels.reset_launches()
+    for ds, (table, qs) in tables.items():
+        t_table = time.perf_counter()
+        rng = np.random.default_rng(2029)
+        base, held = table[::2], rng.permutation(table[1::2])
+        t0 = time.perf_counter()
+        idx = tix.build("GAPPED", base, device=dev)
+        row = {"table": ds, "n": len(base), "nq": len(qs), "build_s": time.perf_counter() - t0,
+               "n_leaves": idx.info["n_leaves"], "leaf_bytes": int(idx.arrays["keys"].nbytes),
+               "insert_ms": {}, "reports": []}
+        t_dev = keys.encode(base, dev)  # the build table: GAPPED ignores it
+        live, inserted, start = base, [], 0
+        gapped_ranks(dev, f"{ds} build", idx, t_dev, qs, live)
+        for size in batches:
+            label, n_new = f"batch {size}", size - size // 8
+            batch = rng.permutation(np.concatenate([held[start:start + n_new],
+                                                    rng.choice(base, size // 8)]))
+            start += n_new
+            new, report = idx.insert_batch(batch)
+            row["insert_ms"][len(batch)] = device_ms(lambda b=batch: idx.insert_batch(b), dev,
+                                                     reps=5, warmup=1)
+            live = check_report(f"{ds} {label}", report, batch, live)
+            idx = new
+            inserted.append(batch)
+            gapped_ranks(dev, f"{ds} {label}", idx, t_dev, np.concatenate([qs, *inserted]), live)
+            row["reports"].append(dict(report.__dict__))
+        packed = packed_batch(idx, live, 64)
+        new, report = idx.insert_batch(packed)
+        live = check_report(f"{ds} packed leaf", report, packed, live)
+        if report.overflowed != len(packed) or report.delta_count != len(packed):
+            fail(f"mutation: {ds} packed batch overflowed {report.overflowed} of {len(packed)}")
+        row["reports"].append(dict(report.__dict__))
+        row["packed_insert_ms"] = device_ms(lambda: idx.insert_batch(packed), dev, reps=5, warmup=1)
+        idx = new
+        inserted.append(packed)
+        queries = keys.encode(np.concatenate([qs, *inserted]), dev)
+        gapped_ranks(dev, f"{ds} packed leaf", idx, t_dev, keys.decode(queries), live)
+        for b in GAPPED_BACKENDS:
+            row[f"{b}_lookup_ms_delta"] = device_ms(
+                lambda b=b: idx.lookup(t_dev, queries, backend=b), dev, reps=5, warmup=1)
+        row["compact_ms"] = device_ms(lambda: idx.compact(), dev, reps=5, warmup=1)
+        idx = idx.compact()
+        if int(idx.arrays["delta_count"]) != 0:
+            fail(f"mutation: {ds} compact left {int(idx.arrays['delta_count'])} delta keys")
+        gapped_ranks(dev, f"{ds} compacted", idx, t_dev, keys.decode(queries), live)
+        if not np.array_equal(live_keys(idx), live):
+            fail(f"mutation: {ds} live_keys after compact != the host's live set")
+        for b in GAPPED_BACKENDS:
+            row[f"{b}_lookup_ms"] = device_ms(
+                lambda b=b: idx.lookup(t_dev, queries, backend=b), dev, reps=5, warmup=1)
+        row.update(nq_final=int(queries.numel()), n_live=len(live),
+                   root_eps=int(idx.arrays["root_eps"]))
+        log(f"[mutation] {ds}: GAPPED on {len(base)} keys ({row['n_leaves']} leaves, "
+            f"{row['leaf_bytes'] / 2**20:.0f} MiB of leaves, build {row['build_s']:.1f} s); "
+            f"inserts {json.dumps(row['insert_ms'])} ms by batch size, packed leaf "
+            f"({len(packed)} keys, all to the delta) {row['packed_insert_ms']} ms, compact "
+            f"{row['compact_ms']} ms; lookup ms with the delta populated xla "
+            f"{row['xla_lookup_ms_delta']}, bbs {row['bbs_lookup_ms_delta']}, ref "
+            f"{row['ref_lookup_ms_delta']}; compacted xla {row['xla_lookup_ms']}, bbs "
+            f"{row['bbs_lookup_ms']}, ref {row['ref_lookup_ms']} ({row['nq_final']} queries); "
+            f"every step xla == bbs == ref == numpy, reports == host model, kernel refused "
+            f"({time.perf_counter() - t_table:.1f} s)")
+        rows.append(row)
+
+        # -- the tier: fresh keys routed into insert_into_shard, then compact_shard --
+        t_table = t0 = time.perf_counter()
+        sidx = tsi.ShardedIndex.build("GAPPED", table, 4, device=dev)
+        tier = {"table": ds, "n": len(table), "build_s": time.perf_counter() - t0}
+        fresh = fresh_keys(rng, table, tier_fresh)
+        owners = tsi.route_owners(sidx.fences, keys.encode(fresh, dev)).cpu().numpy()
+        t0 = time.perf_counter()
+        for s in range(sidx.n_shards):
+            _, report = tsi.insert_into_shard(sidx, s, fresh[owners == s])
+            if report.absorbed + report.overflowed != int((owners == s).sum()):
+                fail(f"mutation: {ds} tier shard {s} report {report}")
+        tier["insert_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for s in range(sidx.n_shards):
+            tsi.compact_shard(sidx, s)
+        tier["compact_s"] = time.perf_counter() - t0
+        live = add_keys(table, fresh)[0]
+        tq = np.concatenate([qs, fresh])
+        got = tsi.sharded_lookup(sidx, tq, mode="ref", backend="xla").cpu().numpy()
+        check_equal(f"mutation {ds} tier", got, (("numpy", host_ranks(live, tq)),))
+        counts = sidx.counts.cpu().numpy()
+        fresh_tier = tsi.ShardedIndex.build("GAPPED", live, 4, device="cpu",
+                                            bounds=np.concatenate([[0], np.cumsum(counts)]))
+        for k in ("counts", "offsets", "fences", "lasts"):
+            if not np.array_equal(getattr(sidx, k).cpu().numpy(), getattr(fresh_tier, k).numpy()):
+                fail(f"mutation: {ds} tier {k} != a tier built on the live keys")
+        q_dev = keys.encode(tq, dev)
+        tier["xla_lookup_ms"] = device_ms(
+            lambda: tsi.sharded_lookup(sidx, q_dev, mode="ref", backend="xla"), dev, reps=3,
+            warmup=1)
+        tier["nq"] = len(tq)
+        log(f"[mutation] {ds} tier: 4 GAPPED shards of {len(table) // 4} keys (build "
+            f"{tier['build_s']:.1f} s), {len(fresh)} fresh keys routed into insert_into_shard "
+            f"({tier['insert_s']:.2f} s host), compact_shard ({tier['compact_s']:.2f} s host); "
+            f"sharded_lookup(mode='ref', backend='xla') == numpy on {len(tq)} queries "
+            f"({tier['xla_lookup_ms']} ms); counts, offsets, fences and lasts == a tier built "
+            f"on the live keys ({time.perf_counter() - t_table:.1f} s)")
+        rows.append({"tier": tier})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernels.launches()
+    log(f"[mutation] GAPPED path launches: {json.dumps(launches)}")
+    check_launches(launches, {}, 0, "GAPPED")
+    return rows
 
 
 # -- the LM serving path's kernels (phases 6-8) ----------------------------------------
@@ -1745,6 +2026,7 @@ def main(argv=None) -> int:
         dev, info = torch.device("cpu"), None
         sys.path.insert(0, str(ROOT / "src"))
         parity_n, full_n, full_nq, shard_nq = 4096, 1 << 14, 1 << 12, 1 << 10
+        mutation_batches, tier_fresh = (1 << 4, 1 << 6, 1 << 8), 1 << 8
         serve = {"reduced": True, "max_seq": 128, "long_prompt": 40}
         times = {"att_a": (4, 14, 2, 64, 512), "att_b": (2, 32, 8, 128, 256),
                  "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 14, 128, 1 << 14, 1 << 10)}
@@ -1756,6 +2038,7 @@ def main(argv=None) -> int:
         from repro_torch.data import TIERS
 
         parity_n, full_n, full_nq, shard_nq = 65536, TIERS["L4"], 1 << 22, 1 << 20
+        mutation_batches, tier_fresh = (1 << 10, 1 << 12, 1 << 14, 1 << 16), 1 << 16
         # max_seq: the sequence length of the decode_32k shape cell
         # long_prompt: ~716 positions (45 tiles of 16) for the first ticks
         serve = {"reduced": False, "max_seq": 32768, "long_prompt": 700}
@@ -1786,6 +2069,9 @@ def main(argv=None) -> int:
     del scale
     log(f"[collective] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    mutation_rows = phase_mutation(dev, tables, mutation_batches, tier_fresh)
+    log(f"[mutation] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     parity_errs = phase_float_parity(dev, 600)
     log(f"[float] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1815,7 +2101,8 @@ def main(argv=None) -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": info, "rows": rows, "tier_rows": tier_rows,
                                         "sharded_rows": sharded_rows, "locality": locality,
-                                        "collective_ranks": collective_ranks, "serve": served,
+                                        "collective_ranks": collective_ranks,
+                                        "mutation_rows": mutation_rows, "serve": served,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
                                         **line}, indent=1))
     if dev.type != "cuda":

@@ -6,13 +6,16 @@ onto the named dims of a ``DeviceMesh`` and gives each its process group;
 on ``torch.distributed``; ``sharded_index`` stacks same-spec per-shard
 indexes leaf-wise and answers a tier in one process (``mode="ref"``) or
 one shard a rank (``"a2a"``, ``"allgather"``), and refreshes and
-rebalances its shards in place."""
+rebalances its shards in place; an updatable (GAPPED) tier also takes
+key batches into a shard and compacts it in place."""
 
 from . import collectives, sharded_index, sharding
 from .sharded_index import (
     DROPPED,
     NO_PRED,
     ShardedIndex,
+    compact_shard,
+    insert_into_shard,
     rebalance_shards,
     refresh_shard,
     shard_build_table,
@@ -31,6 +34,8 @@ __all__ = [
     "DROPPED",
     "NO_PRED",
     "ShardedIndex",
+    "compact_shard",
+    "insert_into_shard",
     "rebalance_shards",
     "refresh_shard",
     "shard_build_table",

@@ -41,8 +41,13 @@ holder.  :func:`sharded_lookup` answers a query batch against the tier:
 Ranks equal ``Index.lookup`` on the whole table (but the drops).
 :func:`refresh_shard` installs a rebuilt shard in place, after every
 check has passed, and :func:`rebalance_shards` moves the shard bounds
-through it.  The reference's tier telemetry waits for the observability
-port, and GAPPED's leaf padding and shard mutation for the GAPPED kind.
+through it.  A tier of the updatable GAPPED kind also takes writes:
+:func:`insert_into_shard` absorbs a routed key batch into one shard and
+:func:`compact_shard` folds its delta buffer, both in place after every
+check, keeping the counts, offsets, fences and last keys live.  GAPPED
+shards are built on their raw tables (the kind owns its keys, so a pad
+key must never become live) and stack with inert zero-count leaves.
+The reference's tier telemetry waits for the observability port.
 """
 
 from __future__ import annotations
@@ -55,9 +60,9 @@ import torch.distributed as dist
 
 from repro_torch.core import keys as keymod
 from repro_torch.core.search import NO_PRED
-from repro_torch.index import registry
+from repro_torch.index import impls, mutation, registry
 from repro_torch.index.impls import _pad_pow2
-from repro_torch.index.index import BACKENDS, Index, lookup_impl, resolve_device
+from repro_torch.index.index import BACKENDS, Index, check_backend, lookup_impl, resolve_device
 from repro_torch.index.specs import IndexSpec
 
 from . import collectives
@@ -146,13 +151,56 @@ def _pgm_level_arrays(keys, slope, rank0, pk_u0, pk_slope, sizes) -> dict:
     }
 
 
+def _pad_gapped_leaves(static: tuple, arrays: dict, target_l: int) -> tuple:
+    """Pad a GAPPED index (numpy leaves) to ``target_l`` leaves with inert
+    rows: max-key ``keys``/``fences``/``route`` and zero ``counts``;
+    returns ``(static, arrays)``.
+
+    The generic :func:`_pad_to` repeats the last entry of integer leaves,
+    which would fabricate live keys in the padded rows: zero counts keep
+    them empty (they absorb nothing and compaction skips them), and
+    max-key route entries keep the owner search inside the real leaves."""
+    n_leaves, cap = (int(d) for d in arrays["keys"].shape)
+    if n_leaves == target_l:
+        return static, arrays
+    if n_leaves > target_l:
+        raise ValueError(f"cannot shrink a GAPPED index from {n_leaves} to {target_l} leaves")
+    pad = target_l - n_leaves
+    out = dict(arrays)
+    out["keys"] = np.concatenate([arrays["keys"], np.full((pad, cap), _MAXKEY, np.uint64)])
+    out["counts"] = np.concatenate([arrays["counts"], np.zeros((pad,), np.int64)])
+    for k in ("fences", "route"):
+        out[k] = np.concatenate([arrays[k], np.full((pad,), _MAXKEY, np.uint64)])
+    return static, out
+
+
 def _harmonize(kind: str, per_table: list) -> list:
     """Make per-table ``(static, arrays)`` pairs stackable where the kind
-    allows it: PGM-shaped kinds lift shallow tables to the deepest."""
+    allows it: PGM-shaped kinds lift shallow tables to the deepest, GAPPED
+    pads tables of fewer leaves with inert zero-count leaves."""
     if registry.entry(kind).query_key == "pgm":
         target = max(dict(s)["levels"] for s, _ in per_table)
         return [_lift_pgm_levels(s, a, target) for s, a in per_table]
+    if kind == "GAPPED":
+        target = max(int(a["keys"].shape[0]) for _, a in per_table)
+        return [_pad_gapped_leaves(s, a, target) for s, a in per_table]
     return list(per_table)
+
+
+def _self_contained(kind: str) -> bool:
+    """Kinds that own their keys (GAPPED): their lookup ignores the table."""
+    return impls.query_impl(kind).lookup is not None
+
+
+def _live_lasts(arrays: dict) -> torch.Tensor:
+    """The largest live key (leaves and delta) of each table of a stacked
+    self-contained index, encoded."""
+    keys, counts, delta = arrays["keys"], arrays["counts"], arrays["delta"]
+    pos = torch.arange(keys.shape[-1], device=keys.device)
+    main = torch.where(pos < counts[..., None], keys, keymod.SIGN).amax(dim=(-2, -1))
+    dpos = torch.arange(delta.shape[-1], device=keys.device)
+    dvals = torch.where(dpos < arrays["delta_count"][..., None], delta, keymod.SIGN)
+    return torch.maximum(main, dvals.amax(-1))
 
 
 def _merge_static(statics: list) -> tuple:
@@ -257,8 +305,10 @@ class ShardedIndex:
              searches ``fences[1:]``.
     counts:  ``(n_shards,)`` int64 valid (unpadded) keys per shard.
     offsets: ``(n_shards,)`` int64 global rank of each shard's first key.
-    lasts:   ``(n_shards,)`` encoded last key of each shard (what
-             :func:`refresh_shard` checks a rebuilt neighbour against).
+    lasts:   ``(n_shards,)`` encoded last live key of each shard (what
+             :func:`refresh_shard` checks a rebuilt neighbour against;
+             kept live by :func:`insert_into_shard`, where a GAPPED
+             shard's ``tables`` row becomes a stale snapshot).
     first:   the shard number of the first held row: the held shards are
              ``first .. first + held - 1`` (all of them, or one).
     """
@@ -267,10 +317,13 @@ class ShardedIndex:
 
     def __init__(self, index: Index, tables, fences, counts, offsets, info=None, *, lasts=None,
                  first: int = 0):
-        if lasts is None:  # each held table's last valid key: every shard must be held
+        if lasts is None:  # each shard's last live key: every shard must be held
             if first != 0 or tables.shape[0] != counts.shape[0]:
                 raise ValueError("a tier that holds some of its shards needs their last keys")
-            lasts = tables[torch.arange(tables.shape[0], device=tables.device), counts - 1]
+            if _self_contained(index.kind):  # the tables are build-time snapshots
+                lasts = _live_lasts(index.arrays)
+            else:
+                lasts = tables[torch.arange(tables.shape[0], device=tables.device), counts - 1]
         object.__setattr__(self, "index", index)
         object.__setattr__(self, "tables", tables)
         object.__setattr__(self, "fences", fences)
@@ -325,8 +378,9 @@ class ShardedIndex:
               **params) -> "ShardedIndex":
         """Partition a global sorted uint64 table into ``n_shards``
         contiguous shards, build one same-spec index per shard (on the
-        padded shard tables, as the reference does), and stack them on
-        ``device`` (default: the card).
+        padded shard tables, as the reference does; a self-contained kind
+        such as GAPPED on the raw ones, so no pad key becomes live), and
+        stack them on ``device`` (default: the card).
 
         ``bounds`` overrides the even split with an explicit strictly
         increasing rank partition ``[0, ..., n]`` of length
@@ -352,7 +406,8 @@ class ShardedIndex:
         locals_ = [table_np[bounds[i]:bounds[i + 1]] for i in range(n_shards)]
         m = _pow2ceil(max(len(t) for t in locals_))
         padded = [_pad_sorted_table(t, m) for t in locals_]
-        per_shard = [registry.entry(spec.kind).build(spec, p) for p in padded]
+        build_tables = locals_ if _self_contained(spec.kind) else padded
+        per_shard = [registry.entry(spec.kind).build(spec, p) for p in build_tables]
         stacked = stack_arrays(_harmonize(spec.kind, [(s, a) for s, a, _ in per_shard]))
         name = per_shard[0][2].get("name", spec.kind)
         index = Index.from_numpy(spec.kind, *stacked,
@@ -394,14 +449,21 @@ class ShardedIndex:
         """Read an npz written by either package's ``save`` onto ``device``
         (default: the card): every shard, or with ``shard=s`` only shard
         ``s``'s leaves and table (the fences, counts, offsets and last keys
-        of every shard)."""
+        of every shard).  A self-contained kind's last keys come from every
+        shard's leaves, as its tables may be stale snapshots."""
         dev = resolve_device(device)
         with np.load(path) as z:
             meta = json.loads(bytes(z["__meta__"]).decode())
             arrays = {k[len("idx_"):]: z[k] for k in z.files if k.startswith("idx_")}
             tables, fences = z["tables"], z["fences"]
             counts, offsets = z["counts"], z["offsets"]
-        lasts = tables[np.arange(len(counts)), counts - 1]
+        if _self_contained(meta["kind"]):
+            leaves = {k: torch.from_numpy(np.asarray(arrays[k])) for k in
+                      ("counts", "delta_count")}
+            leaves.update({k: keymod.encode(arrays[k], "cpu") for k in ("keys", "delta")})
+            lasts = keymod.decode(_live_lasts(leaves))
+        else:
+            lasts = tables[np.arange(len(counts)), counts - 1]
         first = 0
         if shard is not None:
             if not 0 <= shard < len(counts):
@@ -534,7 +596,8 @@ def sharded_lookup(sidx: ShardedIndex, queries, ctx=None, *, backend: str = "ker
     * ``"auto"`` — ``a2a`` when the ``tp`` extent equals the shard count
       (> 1), else ``ref``.
 
-    ``backend`` is any of :data:`TIER_BACKENDS`.  ``"kernel"``: one launch
+    ``backend`` is any of :data:`TIER_BACKENDS` that the kind claims (not
+    ``"kernel"`` for GAPPED, which raises).  ``"kernel"``: one launch
     of the kind's batched kernel for every shard in ``ref`` mode, one
     launch of its single-table kernel a rank in ``a2a`` and ``allgather``.
     ``telemetry`` raises ``ValueError``: it comes with the observability
@@ -550,6 +613,7 @@ def sharded_lookup(sidx: ShardedIndex, queries, ctx=None, *, backend: str = "ker
         raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
     if backend not in TIER_BACKENDS:
         raise ValueError(f"unknown tier backend {backend!r}; choose from {TIER_BACKENDS}")
+    check_backend(sidx.kind, backend)
     if telemetry:
         raise ValueError("tier telemetry comes with the observability slice of the port")
     queries = keymod.as_keys(queries, sidx.device)
@@ -645,6 +709,9 @@ def refresh_shard(sidx: ShardedIndex, shard: int, new_index: Index, new_table) -
                 f"rebuilt shard {shard} ends at {new_table[-1]}, at or beyond the next "
                 f"shard's fence {next_fence}"
             )
+    if kind == "GAPPED":
+        # inert zero-count leaf rows, not the generic edge replication
+        static, arrays = _pad_gapped_leaves(static, arrays, int(sidx.index.arrays["keys"].shape[1]))
     leaves = {}
     for k, v in sidx.index.arrays.items():
         if k not in arrays:
@@ -675,13 +742,17 @@ def refresh_shard(sidx: ShardedIndex, shard: int, new_index: Index, new_table) -
 def shard_build_table(kind: str, part, m: int) -> np.ndarray:
     """The table a replacement shard index must be *fitted* on to be
     installable at stacked capacity ``m`` (as :meth:`ShardedIndex.build`
-    fits): the padded table, because the kinds' query paths normalise
-    model predictions by the lookup-time table length, which is the
-    resident padded row.  Raises ``ValueError`` when ``part`` no longer
-    fits ``m`` (the restack cue).  The reference's raw-part branch for
-    self-contained kinds (GAPPED) comes with the GAPPED kind."""
+    fits): for the static kinds the padded table, because their query
+    paths normalise model predictions by the lookup-time table length,
+    which is the resident padded row; for self-contained kinds (GAPPED),
+    which own their keys, the raw part, so a pad key never becomes live.
+    Raises ``ValueError`` when a static kind's ``part`` no longer fits
+    ``m`` (the restack cue)."""
     registry.entry(kind)
-    return _pad_sorted_table(np.asarray(part, dtype=np.uint64), m)
+    part = np.asarray(part, dtype=np.uint64)
+    if _self_contained(kind):
+        return part
+    return _pad_sorted_table(part, m)
 
 
 def weighted_quantile_bounds(merged_keys, fences, weights) -> np.ndarray:
@@ -780,4 +851,128 @@ def rebalance_shards(sidx: ShardedIndex, merged_keys, bounds, build_shard) -> Sh
             progressed = True
         if not progressed:
             raise ValueError(f"rebalance not installable via refresh_shard: {last_err}")
+    return sidx
+
+
+# ---------------------------------------------------------------------------
+# In-place shard mutation (updatable kinds: GAPPED)
+# ---------------------------------------------------------------------------
+
+#: the shard's holder raised NeedsRebuild (the status word of a mutation's exchange)
+_REFUSED = 1
+
+
+def _mutate_shard(sidx: ShardedIndex, shard: int, ctx, mutate) -> tuple:
+    """Run ``mutate(local) -> (new_local, report_or_None, new_count)`` on
+    held shard ``shard``'s :class:`Index` view, then write its leaves and
+    the tier's vectors in place; returns the report.  Nothing is written
+    when ``mutate`` raises.  A tier that holds one shard learns the new
+    count, fence, last key and report from the holder: every rank of the
+    ``tp`` group calls alike and one ``all_reduce`` (max) over ``ctx``'s
+    group carries them (the holder's entries, the minimum elsewhere)."""
+    local_tier = len(sidx.held) != sidx.n_shards
+    if local_tier and (ctx is None or ctx.group("tp") is None):
+        raise ValueError(f"a tier that holds shards {sidx.held.start}..{sidx.held.stop - 1} of "
+                         f"{sidx.n_shards} mutates a shard only under its sharding context "
+                         "(pass ctx)")
+    new_local, report, err = None, None, None
+    if shard in sidx.held:
+        try:
+            new_local, report, count = mutate(sidx.shard(shard))
+        except mutation.NeedsRebuild as e:
+            if not local_tier:
+                raise
+            err = e
+    if local_tier:
+        vec = torch.full((11,), keymod.SIGN, dtype=torch.int64, device=sidx.device)
+        if shard in sidx.held:
+            vec[0] = _REFUSED if err is not None else 0
+        if new_local is not None:
+            vec[1] = count
+            vec[2] = new_local.arrays["fences"][0]
+            vec[3] = _live_lasts(new_local.arrays)
+            if report is not None:
+                vec[4:] = torch.tensor([report.requested, report.absorbed, report.overflowed,
+                                        report.duplicates, report.delta_count, report.delta_cap,
+                                        int(report.compacted)])
+        dist.all_reduce(vec, op=dist.ReduceOp.MAX, group=ctx.group("tp"))
+        got = vec.tolist()
+        if got[0] == _REFUSED:
+            raise err if err is not None else mutation.NeedsRebuild(
+                f"shard {shard}'s holder refused the mutation: NeedsRebuild")
+        count, fence, last = got[1:4]
+        if got[4] != keymod.SIGN:
+            report = mutation.InsertReport(*got[4:10], compacted=bool(got[10]))
+    else:
+        fence, last = new_local.arrays["fences"][0], _live_lasts(new_local.arrays)
+    # -- every check passed: write in place --
+    if new_local is not None:
+        row = sidx._row(shard)
+        for k, v in sidx.index.arrays.items():
+            v[row].copy_(new_local.arrays[k])
+    sidx.fences[shard] = fence
+    sidx.lasts[shard] = last
+    sidx.counts[shard] = count
+    sidx.offsets.copy_(torch.cumsum(sidx.counts, 0) - sidx.counts)
+    return report
+
+
+def insert_into_shard(sidx: ShardedIndex, shard: int, keys, ctx=None, *,
+                      auto_compact: bool = True) -> tuple:
+    """Absorb a key batch (uint64 numpy or encoded) into one shard of an
+    updatable tier without rebuilding; returns ``(sidx, InsertReport)``.
+
+    The shard's :class:`Index` view runs the kind's ``insert_batch``
+    (gap absorption first, delta overflow second; see
+    :mod:`repro_torch.index.mutation`), and its new leaves are written
+    into the tier in place, with the shard's count, fence (its live
+    minimum), last live key and the offsets, once every check has
+    passed: a refusal (the fence ``ValueError``, ``NeedsRebuild``)
+    leaves the tier as it was.  ``sidx.tables`` is not touched: a
+    self-contained kind's lookup ignores it, and it becomes a stale
+    build-time snapshot.  As in the reference, only the next fence is
+    checked: route keys with :func:`route_owners` first.
+
+    A tier loaded one shard a rank (``ShardedIndex.load(path, shard=s)``)
+    takes ``ctx``: every rank of its ``tp`` group calls alike, the rank
+    that holds ``shard`` writes its leaves and every rank updates the
+    per-shard vectors and gets the report.  Raises ``TypeError`` for
+    static kinds and :class:`~repro_torch.index.NeedsRebuild` when the
+    shard's fixed capacity is exhausted, the cue to rebuild the shard
+    through :func:`refresh_shard`."""
+    if not 0 <= shard < sidx.n_shards:
+        raise ValueError(f"shard {shard} out of range [0, {sidx.n_shards})")
+    keys = keymod.as_keys(keys, sidx.device).reshape(-1)
+    if keys.numel() and shard + 1 < sidx.n_shards:
+        # fence discipline: a key at/beyond the next fence belongs to a
+        # later shard; absorbing it here would corrupt global ranks
+        top, next_fence = keymod.decode(torch.stack([keys.max(), sidx.fences[shard + 1]]))
+        if top >= next_fence:
+            raise ValueError(
+                f"key {int(top)} at/beyond shard {shard}'s next fence "
+                f"{int(next_fence)}: route keys with route_owners first"
+            )
+    mutation._mutator(sidx.index)  # static kinds raise TypeError on every rank
+
+    def mutate(local):
+        new, report = mutation.insert_batch(local, keys, auto_compact=auto_compact)
+        return new, report, int(sidx.counts[shard]) + report.absorbed + report.overflowed
+
+    return sidx, _mutate_shard(sidx, shard, ctx, mutate)
+
+
+def compact_shard(sidx: ShardedIndex, shard: int, ctx=None) -> ShardedIndex:
+    """Fold one updatable shard's delta buffer into its leaves in place;
+    returns ``sidx``.  The live key set, so the counts and offsets, stays
+    the same.  Raises ``NeedsRebuild`` (the tier unchanged) when the live
+    set no longer fits the shard's leaves.  ``ctx`` as in
+    :func:`insert_into_shard`."""
+    if not 0 <= shard < sidx.n_shards:
+        raise ValueError(f"shard {shard} out of range [0, {sidx.n_shards})")
+    mutation._mutator(sidx.index)
+
+    def mutate(local):
+        return mutation.compact(local), None, int(sidx.counts[shard])
+
+    _mutate_shard(sidx, shard, ctx, mutate)
     return sidx

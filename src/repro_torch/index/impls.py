@@ -1,6 +1,7 @@
 """Per-kind builds and kernel dispatch behind the :class:`Index` API
 (counterpart of ``repro.index.impls``, for the ten static kinds L, Q, C,
-KO, RMI, SY-RMI, PGM, PGM_M, RS and BTREE).
+KO, RMI, SY-RMI, PGM, PGM_M, RS and BTREE; the updatable GAPPED
+registers from :mod:`repro_torch.index.updatable`).
 
 Each kind contributes a host build that runs the fit in
 :mod:`repro_torch.core` and flattens the model into the reference's
@@ -64,7 +65,7 @@ from repro_torch.kernels.rs_search import (
     rs_search_plain,
 )
 
-from .index import Index
+from .index import BACKENDS, Index
 from .registry import register
 from .specs import (
     AtomicSpec,
@@ -122,16 +123,25 @@ class QueryImpl:
     same inputs (any device), for holding the kernel against it.  The
     ``batched_*`` fields do the same for a stacked index over
     ``(n_tables, m)`` tables and ``(n_tables, B)`` queries; they default
-    to the batched model-free search."""
+    to the batched model-free search.
+
+    ``lookup(index, table, queries, backend) -> ranks`` overrides all of
+    it for a self-contained kind (GAPPED, whose answer is not a window of
+    ``table``): :func:`~repro_torch.index.index.lookup_impl` dispatches
+    to it before any generic backend, on one table and on a stack.
+    ``backends`` are the backends the kind claims; the entry points
+    refuse the others."""
 
     intervals: Callable  # (index, table, q) -> (lo, hi)
     space_bytes: Callable  # (index) -> int
-    operands: Callable
-    search: Callable
-    plain: Callable
+    operands: Callable = None
+    search: Callable = None
+    plain: Callable = None
     batched_operands: Callable = _kary_operands
     batched_search: Callable = batched_kary_search
     batched_plain: Callable = batched_kary_search_plain
+    lookup: Callable = None
+    backends: tuple = BACKENDS
 
     @staticmethod
     def epi_steps(idx: Index) -> int:

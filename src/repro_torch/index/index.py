@@ -21,6 +21,15 @@ Backends (``lookup(..., backend=...)``; the port's default is
 * ``"bbs"`` — the same window, then the branchy early-exit search (the
   paper's \*-BBS), which syncs with the host once a trip on the card;
 * ``"ref"`` — ``torch.searchsorted`` oracle.
+
+Each kind claims its backends (:meth:`Index.backends`): the static kinds
+all four, the updatable GAPPED only ``"xla"``, ``"bbs"`` and ``"ref"``.
+GAPPED has no kernel, as the reference has no Pallas path for it, so
+``backend="kernel"`` on it raises ``ValueError``, the port's default
+included: pass ``backend="xla"``.  GAPPED owns its keys and answers
+from its leaves and delta on every backend, ignoring ``table``; its
+``insert_batch``/``compact`` return a new index and leave the old one
+as it was.
 """
 
 from __future__ import annotations
@@ -41,8 +50,9 @@ INTERVAL_BACKENDS = ("xla", "bbs")
 BACKENDS = (*INTERVAL_BACKENDS, "kernel", "ref")
 
 #: leaves that hold table keys: uint64 in the reference, encoded int64 here
-#: (RS's ``kmin`` is a key; the other kinds' ``kmin`` is a float64 leaf)
-KEY_LEAVES = frozenset({"fences", "keys", "knot_keys", "kmin"})
+#: (RS's ``kmin`` is a key; the other kinds' ``kmin``, GAPPED's too, is a
+#: float64 leaf)
+KEY_LEAVES = frozenset({"fences", "keys", "knot_keys", "kmin", "route", "delta"})
 
 #: uint64 leaves that are not keys (RS's radix ``shift``): small values,
 #: held as int64 here and cast back to uint64 by :meth:`Index.to_numpy`
@@ -138,16 +148,21 @@ class Index:
         return windows(self, keymod.as_keys(table, dev), keymod.as_keys(queries, dev))
 
     def backends(self) -> tuple:
-        """The backends this kind supports: every static kind supports all
-        of :data:`BACKENDS`."""
-        return BACKENDS
+        """The backends this kind supports (a subset of :data:`BACKENDS`:
+        all of it for the static kinds, no ``"kernel"`` for GAPPED)."""
+        from . import impls
+
+        return impls.query_impl(self.kind).backends
 
     def lookup(self, table, queries, *, backend: str = "kernel") -> torch.Tensor:
         """Predecessor ranks (int64, on the index's device) of ``queries``
         over the sorted ``table``.  Both are encoded int64 tensors or uint64
-        numpy arrays, which are encoded and moved to the index's device."""
+        numpy arrays, which are encoded and moved to the index's device.
+        A backend the kind does not claim raises ``ValueError``: GAPPED
+        on ``"kernel"``, the default, so GAPPED callers name a backend."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+        check_backend(self.kind, backend)
         dev = self.device
         return lookup_impl(self, keymod.as_keys(table, dev), keymod.as_keys(queries, dev), backend)
 
@@ -156,6 +171,24 @@ class Index:
         The backend defaults to ``"xla"`` (``"bbs"`` when branchy), as in
         the reference."""
         return self.lookup(table, queries, backend=backend or ("bbs" if branchy else "xla"))
+
+    # -- mutation (updatable kinds only) ------------------------------------
+    def insert_batch(self, keys, *, auto_compact: bool = True):
+        """Insert a batch of keys (uint64 numpy or an encoded tensor) into
+        an updatable kind (GAPPED); returns ``(new_index, InsertReport)``
+        and leaves this index as it was.  Leaf gaps absorb first, the
+        delta buffer takes the overflow, and ``auto_compact`` folds the
+        delta into the leaves when it would overflow.  Static kinds raise
+        ``TypeError``; see :mod:`repro_torch.index.mutation`."""
+        from . import mutation
+
+        return mutation.insert_batch(self, keys, auto_compact=auto_compact)
+
+    def compact(self) -> "Index":
+        """Fold the delta buffer into the gapped leaves (a new index)."""
+        from . import mutation
+
+        return mutation.compact(self)
 
     # -- accounting / serialization -----------------------------------------
     def space_bytes(self) -> int:
@@ -191,6 +224,16 @@ class Index:
         return cls.from_numpy(meta["kind"], static, arrays, meta.get("info"), device=device)
 
 
+def check_backend(kind: str, backend: str) -> None:
+    """Refuse a backend the kind does not claim, with the reference's
+    message."""
+    from . import impls
+
+    claimed = impls.query_impl(kind).backends
+    if backend not in claimed:
+        raise ValueError(f"kind {kind!r} supports backends {claimed}, not {backend!r}")
+
+
 def windows(index: Index, table, queries) -> tuple:
     """The kind's predicted windows on encoded tensors, one table or a
     stack.  The ``*_window`` functions take a stack only, so one table is
@@ -216,6 +259,10 @@ def lookup_impl(index: Index, table, queries, backend: str) -> torch.Tensor:
     from . import impls
 
     impl = impls.query_impl(index.kind)
+    if impl.lookup is not None:
+        # self-contained kinds (GAPPED's two-tier merge) own their keys:
+        # the answer ignores ``table`` on every backend
+        return impl.lookup(index, table, queries, backend)
     stacked = table.dim() == 2
     if backend == "ref":
         return predecessor_ref(table, queries.contiguous() if stacked else queries)

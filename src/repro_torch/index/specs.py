@@ -1,5 +1,5 @@
 """Hashable build specs, one frozen dataclass per index kind (counterpart
-of ``repro.index.specs``, for the kinds this package builds).  Each spec
+of ``repro.index.specs``).  Each spec
 class's ``default_grid(n_keys)`` is the reference's: the handful of
 configurations that span the kind's time-space curve."""
 
@@ -142,3 +142,23 @@ class BTreeSpec(IndexSpec):
     @classmethod
     def default_grid(cls, n_keys: int) -> tuple:
         return tuple(cls(fanout=f) for f in (8, 16))
+
+
+@dataclass(frozen=True)
+class GappedSpec(IndexSpec):
+    """ALEX-style updatable index: gapped leaves + sorted delta buffer.
+
+    ``leaf_cap`` keys of capacity per leaf, filled to ``fill`` at build /
+    compaction time (the rest are model-guided insertion gaps);
+    ``delta_cap`` bounds the sorted overflow buffer merged at lookup.
+    """
+
+    leaf_cap: int = 256
+    fill: float = 0.75
+    delta_cap: int = 1024
+    kind = "GAPPED"
+
+    @classmethod
+    def default_grid(cls, n_keys: int) -> tuple:
+        caps = [c for c in (64, 256, 1024) if c <= max(n_keys, 64)]
+        return tuple(cls(leaf_cap=c) for c in caps) or (cls(leaf_cap=64),)

@@ -15,7 +15,10 @@ reference's ``"pallas"``): the fused batched RMI, PGM or RadixSpline
 kernel where the kind has one, the batched model-free search otherwise.
 ``"xla"`` and ``"bbs"`` compute every table's windows and search them in
 one pass of tensor ops over the stack (the reference vmaps the
-single-table path); ``"ref"`` is ``torch.searchsorted`` per row.
+single-table path); ``"ref"`` is ``torch.searchsorted`` per row.  The
+updatable GAPPED kind stacks too (tables of fewer leaves padded with
+inert zero-count leaves) and answers on ``"xla"``, ``"bbs"`` and
+``"ref"`` only; ``"kernel"`` raises for it.
 
 The vmapped and fast fits (``fit="vmap"``/``"fast"``/``"auto"``) are the
 device-fit slice's work; ``build_grid`` waits for the tuner.
@@ -35,7 +38,7 @@ from repro_torch.dist.sharded_index import (
     stack_arrays,
 )
 from repro_torch.index import registry
-from repro_torch.index.index import BACKENDS, Index, lookup_impl, resolve_device
+from repro_torch.index.index import BACKENDS, Index, check_backend, lookup_impl, resolve_device
 from repro_torch.index.specs import IndexSpec
 
 #: fit strategies of the reference; only ``host`` is ported
@@ -125,9 +128,11 @@ class BatchedIndexes:
         """Predecessor ranks per table, ``(N, B)`` int64 on the batch's
         device, for ``(N, B)`` queries or one ``(B,)`` batch broadcast to
         every table.  ``backend="kernel"`` is one launch of the kind's
-        batched kernel."""
+        batched kernel; a backend the kind does not claim (GAPPED's
+        ``"kernel"``) raises ``ValueError``."""
         if backend not in BATCH_BACKENDS:
             raise ValueError(f"unknown batched backend {backend!r}; choose from {BATCH_BACKENDS}")
+        check_backend(self.kind, backend)
         r = lookup_impl(self.index, self.tables, self.queries_for(queries), backend)
         # hits in the padded tail clamp back to the last real key
         return torch.minimum(r, self.counts[:, None] - 1)

@@ -63,10 +63,11 @@ def assert_same_index(ref, port):
 
 
 def test_registry_order_matches_reference():
-    # every static kind of the reference, in its order; RS and BTREE are
-    # held in test_torch_rs_btree.py, GAPPED is not ported yet
-    assert tix.kinds() == PORTED + ("RS", "BTREE")
-    assert tuple(k for k in rix.kinds() if k != "GAPPED") == tix.kinds()
+    # every kind of the reference, in its order: RS and BTREE are held in
+    # test_torch_rs_btree.py, the updatable GAPPED (last) in
+    # test_torch_updatable.py
+    assert tix.kinds() == PORTED + ("RS", "BTREE", "GAPPED")
+    assert rix.kinds() == tix.kinds()
 
 
 @pytest.mark.parametrize("table_kind", TABLE_KINDS)
@@ -134,11 +135,20 @@ def test_from_numpy_takes_reference_leaves():
 
 
 def test_from_numpy_rejects_unported_kinds_and_stray_uint64():
+    """GAPPED, the last kind ported, loads from the reference's leaves;
+    a kind neither package has and a stray uint64 leaf are refused."""
     rng = np.random.default_rng(4)
     table = make_table(rng, "uniform", 1024)
     gapped = rix.build("GAPPED", table, leaf_cap=64, delta_cap=128)
+    port = tix.Index.from_numpy(gapped.kind, gapped.static, ref_leaves(gapped), gapped.info,
+                                device="cpu")
+    assert_same_index(gapped, port)
+    # GAPPED's key leaves, its routing fences and delta included, hold the encoding
+    for k in ("keys", "fences", "route", "delta"):
+        assert port.arrays[k].dtype == torch.int64, k
+    assert port.arrays["kmin"].dtype == torch.float64
     with pytest.raises(ValueError, match="unknown index kind"):
-        tix.Index.from_numpy(gapped.kind, gapped.static, ref_leaves(gapped), device="cpu")
+        tix.Index.from_numpy("NOPE", gapped.static, ref_leaves(gapped), device="cpu")
     ko = rix.build(rix.KOSpec(k=4), table)
     leaves = ref_leaves(ko)
     leaves["coef"] = leaves["fences"]  # a uint64 array where no key leaf belongs

@@ -46,11 +46,11 @@ from repro_torch.dist import sharded_index as tsi
 from repro_torch.dist import sharding as tsh
 
 from conftest import make_queries, make_table
-from test_torch_gpu import replay_cases, run_ranks
+from test_torch_gpu import fresh_keys, packed_batch, replay_cases, run_ranks
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PARAMS = {"RMI": {"b": 64}, "PGM": {"eps": 32}, "BTREE": {"fanout": 8}, "SY-RMI": {},
-          "PGM_M": {}, "RS": {}, "KO": {}}
+          "PGM_M": {}, "RS": {}, "KO": {}, "GAPPED": {"leaf_cap": 64, "delta_cap": 128}}
 #: (n_shards, mesh shape, tp rule, kinds): 2-way on a (2, 2) mesh's model
 #: dim, 4-way over the flattened (data, model) dims of a (1, 4) mesh
 LAYOUTS = ((2, [2, 2], ["model"], ("RMI", "PGM", "BTREE")),
@@ -62,11 +62,17 @@ PROBE_MESHES = (([1, 4], ["data", "model"]), ([2, 2], ["data", "model"]),
 #: port backends besides the reference's default ``xla``: same ranks
 PORT_BACKENDS = ("kernel", "bbs", "ref")
 
+
+def port_backends(kind: str) -> tuple:
+    """``xla`` and the port backends the kind claims (GAPPED: no kernel)."""
+    claimed = tix.impls.query_impl(kind).backends
+    return tuple(b for b in ("xla",) + PORT_BACKENDS if b in claimed)
+
 # The reference side: runs every case's collective mode on 4 forced host
 # devices on the tiers and inputs the port saved (either package reads the
 # other's npz), and saves each answer and each refreshed or rebalanced tier.
 REF_SCRIPT = r"""
-import json, os, sys
+import dataclasses, json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import numpy as np
 import jax
@@ -101,6 +107,18 @@ for case in spec["cases"]:
         sidx = si.refresh_shard(sidx, r["shard"], ix.Index.load(path(r["index"])),
                                 np.load(path(r["table"])))
         sidx.save(path(r["after"]))
+    if "insert" in case:
+        r = case["insert"]
+        with np.load(path(r["batches"])) as z:
+            batches = [z["shard%d" % s] for s in range(case["n_shards"])]
+        reports = []
+        for s, b in enumerate(batches):
+            sidx, rep = si.insert_into_shard(sidx, s, b)
+            reports.append([int(x) for x in dataclasses.astuple(rep)])
+        for s in r["compact"]:
+            sidx = si.compact_shard(sidx, s)
+        sidx.save(path(r["after"]))
+        json.dump(reports, open(path(r["reports"]), "w"))
     if "rebalance" in case:
         r = case["rebalance"]
         spec_r = registry.spec_for(r["kind"], **r["params"])
@@ -157,13 +175,33 @@ def _cases(work: Path) -> list:
             tiers[name].save(work / name)
         return name
 
+    # GAPPED: the tier saved as built, and mutated (routed inserts in every
+    # shard, a batch packed into one leaf of shard 2 that populates its
+    # delta, shard 1 compacted), whose answers hold against its live keys
+    gapped = tsi.ShardedIndex.load(work / tier("GAPPED", 4), device="cpu")
+    fresh = fresh_keys(rng, table, 300)
+    owners = tsi.route_owners(gapped.fences, keys.encode(fresh, "cpu")).numpy()
+    batches = {f"shard{s}": fresh[owners == s] for s in range(4)}
+    packed = packed_batch(gapped.shard(2), np.union1d(table, fresh), 8)
+    batches["shard2"] = np.union1d(batches["shard2"], packed)
+    np.savez(work / "gapped_batches.npz", **batches)
+    for s in range(4):
+        tsi.insert_into_shard(gapped, s, batches[f"shard{s}"])
+    tsi.compact_shard(gapped, 1)
+    assert int(gapped.index.arrays["delta_count"][2]) >= len(packed) > 0
+    gapped.save(work / "tier_4_GAPPED_mutated.npz")
+    np.save(work / "gapped_live.npy", np.union1d(table, np.concatenate(list(batches.values()))))
+
     cases = []
     for n, mesh, tp, kinds in LAYOUTS:
         layout = {"n_shards": n, "mesh": mesh, "rules": {"tp": tp}}
         for kind in kinds:
+            mutated = {"tier": "tier_4_GAPPED_mutated.npz", "live": "gapped_live.npy"}
+            where = mutated if kind == "GAPPED" else {"tier": tier(kind, n)}
             for mode, batch in (("a2a", "even"), ("a2a", "ragged"), ("allgather", "ragged")):
-                cases.append({**layout, "name": f"{mode}/{n}/{kind}/{batch}", "tier": tier(kind, n),
-                              "mode": mode, "queries": f"q_{batch}.npy", "cap_factor": float(n)})
+                cases.append({**layout, **where, "name": f"{mode}/{n}/{kind}/{batch}",
+                              "kind": kind, "mode": mode, "queries": f"q_{batch}.npy",
+                              "cap_factor": float(n)})
         cases.append({**layout, "name": f"a2a/{n}/RMI/ragged@1.0", "tier": tier("RMI", n),
                       "mode": "a2a", "queries": "q_ragged.npy", "cap_factor": 1.0})
         if n == 4:  # the reference's skewed overflow case, and a ragged one
@@ -182,6 +220,11 @@ def _cases(work: Path) -> list:
     cases.append({**four, "name": "refresh/4/RMI", "tier": tier("RMI", 4), "queries": "q_even.npy",
                   "refresh": {"shard": 1, "index": "refresh_idx.npz", "table": "refresh_keys.npy",
                               "after": "refresh_after.npz"}})
+    # the same inserts and compaction, made by the ranks under the context
+    cases.append({**four, "name": "insert/4/GAPPED", "kind": "GAPPED", "tier": tier("GAPPED", 4),
+                  "queries": "q_even.npy", "live": "gapped_live.npy",
+                  "insert": {"batches": "gapped_batches.npz", "compact": [1],
+                             "after": "insert_after.npz", "reports": "insert_reports.json"}})
     wide_tier = tiers[tier("RMI", 4, "wide")]
     np.save(work / "rebalance_bounds.npy", tsi.weighted_quantile_bounds(
         wide, keys.decode(wide_tier.fences), [2.0, 1.0, 1.0, 1.0]))
@@ -210,7 +253,7 @@ def runs(tmp_path_factory):
             port.append(case)
             continue
         port += [{**case, "name": f"{case['name']}:{backend}", "backend": backend}
-                 for backend in ("xla",) + PORT_BACKENDS]
+                 for backend in port_backends(case.get("kind", "RMI"))]
     (work / "cases.json").write_text(json.dumps({"cases": port}))
     (work / "ref_cases.json").write_text(json.dumps({"cases": cases}))
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
@@ -235,6 +278,45 @@ def runs(tmp_path_factory):
 
 def _ref_answer(work: Path, name: str) -> np.ndarray:
     return np.load(work / ("ref_" + name.replace("/", "_") + ".npy"))
+
+
+def test_inserts_under_ranks_match_reference(runs):
+    """``insert_into_shard`` on every shard and ``compact_shard`` of shard
+    1, called alike on the 4 ranks under the context (each holding one
+    shard): every rank's reports equal the reference's, its shard's leaves
+    equal the reference's mutated tier, every rank's fences, counts,
+    offsets and last live keys equal it, and the a2a lookup after equals
+    the reference's and numpy over the live keys, on every backend GAPPED
+    claims."""
+    work, cases, outs, notes = runs
+    name = "insert/4/GAPPED"
+    after = rsi.ShardedIndex.load(work / "insert_after.npz")
+    reports = json.loads((work / "insert_reports.json").read_text())
+    live = np.load(work / "gapped_live.npy")
+    want = _ref_answer(work, name)
+    qs = np.load(work / "q_even.npy")
+    np.testing.assert_array_equal(want, true_ranks(live, qs))
+    lasts = np.array([live[live < f].max() for f in np.asarray(after.fences)[1:]] + [live.max()],
+                     dtype=np.uint64)
+    for rank in range(4):
+        for backend in port_backends("GAPPED"):
+            key = f"{name}:{backend}"
+            assert notes[rank][f"{key}/reports"] == reports, (rank, backend)
+            assert notes[rank][key] == {"launches": 0, "others": 0}
+            np.testing.assert_array_equal(outs[rank][key], want, err_msg=f"rank {rank} {backend}")
+            for k, v in after.index.arrays.items():
+                np.testing.assert_array_equal(outs[rank][f"{key}/idx_{k}"], np.asarray(v[rank]),
+                                              err_msg=f"{key} {k}")
+            for k in ("fences", "counts", "offsets"):
+                np.testing.assert_array_equal(outs[rank][f"{key}/{k}"],
+                                              np.asarray(getattr(after, k)))
+            np.testing.assert_array_equal(outs[rank][f"{key}/lasts"], lasts)
+    # the tier the port mutated in one process, which the lookup cases load,
+    # equals the reference's mutated tier
+    mutated = tsi.ShardedIndex.load(work / "tier_4_GAPPED_mutated.npz", device="cpu")
+    for k, v in after.index.arrays.items():
+        assert mutated.index.to_numpy()[k].tobytes() == np.asarray(v).tobytes(), k
+    np.testing.assert_array_equal(keys.decode(mutated.lasts), lasts)
 
 
 def _lookup_names():
@@ -304,7 +386,7 @@ def test_collective_modes_match_reference(runs, name):
     want = _ref_answer(work, name)
     case = next(c for c in cases if c["name"] == name)
     qs = np.load(work / case["queries"])
-    exact = true_ranks(np.load(work / "table.npy"), qs)
+    exact = true_ranks(np.load(work / case.get("live", "table.npy")), qs)
     dropped = want == rsi.DROPPED
     if case["cap_factor"] >= case["n_shards"]:
         assert not dropped.any()
@@ -312,7 +394,7 @@ def test_collective_modes_match_reference(runs, name):
         assert dropped.any()
     np.testing.assert_array_equal(want[~dropped], exact[~dropped])
     for rank in range(4):
-        for backend in ("xla",) + PORT_BACKENDS:
+        for backend in port_backends(case.get("kind", "RMI")):
             got = outs[rank][f"{name}:{backend}"]
             assert got.dtype == np.int64 and got.shape == qs.shape
             np.testing.assert_array_equal(got, want, err_msg=f"rank {rank} {backend}")

@@ -840,13 +840,16 @@ def received_requests_check(sidx, queries, ctx, cap_factor: float) -> dict:
 def replay_cases(rank: int, world: int, work_dir: str, device: str) -> None:
     """One rank of a case list (``work_dir/cases.json``): each case builds
     or reuses its mesh's :class:`ShardingCtx`, loads the rank's shard of a
-    saved tier, optionally refreshes or rebalances it, and runs
+    saved tier, optionally refreshes or rebalances it or inserts key
+    batches into its shards (``insert``: one batch a shard, then the listed
+    shards compacted, every rank alike under the context), and runs
     ``sharded_lookup``; or, with ``probe``, resolves every logical axis.
-    Writes ``out{rank}.npz`` (answers; a refreshed or rebalanced shard's
-    leaves and the tier's vectors) and ``out{rank}.json`` (probes, request
-    checks, launches of the collective paths)."""
+    Writes ``out{rank}.npz`` (answers; a refreshed, rebalanced or mutated
+    shard's leaves and the tier's vectors) and ``out{rank}.json`` (probes,
+    insert reports, request checks, launches of the collective paths)."""
     from repro_torch.core import keys
-    from repro_torch.dist import ShardedIndex, rebalance_shards, refresh_shard, sharded_lookup
+    from repro_torch.dist import (ShardedIndex, compact_shard, insert_into_shard, rebalance_shards,
+                                  refresh_shard, sharded_lookup)
     from repro_torch.index import registry
 
     work, dev = Path(work_dir), torch.device(device)
@@ -880,14 +883,29 @@ def replay_cases(rank: int, world: int, work_dir: str, device: str) -> None:
                 arrays[f"{name}/{k}"] = keys.decode(getattr(sidx, k))
             for k in ("counts", "offsets"):
                 arrays[f"{name}/{k}"] = getattr(sidx, k).cpu().numpy()
+        if "insert" in case:  # every rank alike: the holder writes, all update the vectors
+            r = case["insert"]
+            with np.load(work / r["batches"]) as z:
+                batches = [z[f"shard{s}"] for s in range(sidx.n_shards)]
+            reports = [dataclasses.astuple(insert_into_shard(sidx, s, b, ctx)[1])
+                       for s, b in enumerate(batches)]
+            for s in r.get("compact", ()):
+                compact_shard(sidx, s, ctx)
+            notes[f"{name}/reports"] = reports
+            for k, v in sidx.shard(me).to_numpy().items():
+                arrays[f"{name}/idx_{k}"] = v
+            for k in ("fences", "lasts"):
+                arrays[f"{name}/{k}"] = keys.decode(getattr(sidx, k))
+            for k in ("counts", "offsets"):
+                arrays[f"{name}/{k}"] = getattr(sidx, k).cpu().numpy()
         qs = np.load(work / case["queries"])
         kernels.reset_launches()
         got = sharded_lookup(sidx, qs, ctx, mode=case["mode"], backend=case["backend"],
                              cap_factor=case.get("cap_factor", 2.0))
         launches = kernels.launches()
         arrays[name] = got.cpu().numpy()
-        notes[name] = {"launches": launches[KERNEL_OF[sidx.kind]],
-                       "others": sum(launches.values()) - launches[KERNEL_OF[sidx.kind]]}
+        mine = launches.get(KERNEL_OF.get(sidx.kind), 0)  # GAPPED has no kernel
+        notes[name] = {"launches": mine, "others": sum(launches.values()) - mine}
         if case.get("check_requests"):
             notes[name].update(received_requests_check(sidx, qs, ctx, case["cap_factor"]))
     np.savez(work / f"out{rank}.npz", **arrays)
@@ -928,3 +946,140 @@ def test_collective_modes_two_ranks_on_card(cuda, tmp_path, mode):
                 assert note["launches"] == 1 and note["others"] == 0, (case["name"], note)
                 if mode == "a2a":  # every slot of the (2, cap) requests, cap = half the batch
                     assert note["requests"] == len(qs) + 1, (case["name"], note)
+
+
+# -- GAPPED, the updatable kind: no kernel, tensor ops on the card ----------------------
+
+
+def fresh_keys(rng, table, n: int) -> np.ndarray:
+    """Up to ``n`` keys absent from the sorted ``table``: midpoints of
+    random gaps of two or more."""
+    i = rng.choice(len(table) - 1, min(n, len(table) - 1), replace=False)
+    gap = table[i + 1] - table[i]
+    i, gap = i[gap >= 2], gap[gap >= 2]
+    return np.unique(table[i] + gap // np.uint64(2))
+
+
+def packed_batch(index, live, extra: int) -> np.ndarray:
+    """Fresh keys packed into the widest key range of one leaf of a GAPPED
+    index (not its last), ``extra`` more than the leaf's free slots: the
+    leaf absorbs all or nothing, so the batch overflows into the delta."""
+    from repro_torch.core import keys
+
+    a = index.arrays
+    counts = a["counts"].cpu().numpy()
+    lo, hi = keys.decode(a["fences"]), keys.decode(a["route"])
+    width = np.where((counts > 0) & (hi != np.uint64(2**64 - 1)), hi - lo, 0)
+    leaf = int(np.argmax(width))
+    k = int(a["keys"].shape[1]) - int(counts[leaf]) + extra
+    step = (hi[leaf] - lo[leaf] - np.uint64(1)) // np.uint64(k + 1)
+    assert step >= 1, "no leaf range wide enough"
+    return np.setdiff1d(lo[leaf] + np.uint64(1) + np.arange(k, dtype=np.uint64) * step, live)
+
+
+def _same_leaves(a, b) -> bool:
+    x, y = a.to_numpy(), b.to_numpy()
+    return set(x) == set(y) and all(x[k].tobytes() == y[k].tobytes() for k in x)
+
+
+@pytest.mark.gpu
+def test_gapped_insert_and_compact_on_card(cuda):
+    """One table: after every insert batch (fresh keys, duplicates, a batch
+    packed into one leaf that overflows into the delta) and the
+    compaction, the card's leaves and reports equal the CPU's on the same
+    inputs, and ``xla``/``bbs``/``ref`` equal the CPU's ranks and
+    ``searchsorted`` over the live keys; ``kernel`` raises, no kernel of
+    the port launches."""
+    rng = np.random.default_rng(70)
+    table = _table(rng, "lognormal", 40000)
+    spec = tix.GappedSpec(leaf_cap=64, fill=0.75, delta_cap=256)
+    g, twin = tix.build(spec, table, device=cuda), tix.build(spec, table, device="cpu")
+    live = table
+    kernels.reset_launches()
+    for step in range(4):
+        if step == 3:
+            batch = packed_batch(twin, live, 16)
+        else:
+            batch = np.concatenate([fresh_keys(rng, table, 300 * 4**step), rng.choice(live, 50)])
+        g, rep = g.insert_batch(batch)
+        twin, rep_cpu = twin.insert_batch(batch)
+        assert dataclasses.astuple(rep) == dataclasses.astuple(rep_cpu)
+        assert _same_leaves(g, twin), step
+        live = np.union1d(live, batch)
+        qs = np.concatenate([_queries(rng, live), batch])
+        for backend in ("xla", "bbs", "ref"):
+            got = g.lookup(table, qs, backend=backend)
+            assert got.device == g.device
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          twin.lookup(table, qs, backend=backend).numpy())
+            np.testing.assert_array_equal(got.cpu().numpy(), true_ranks(live, qs), err_msg=backend)
+    assert rep.overflowed == len(batch) and int(g.arrays["delta_count"]) == len(batch)
+    g, twin = g.compact(), twin.compact()
+    assert _same_leaves(g, twin) and int(g.arrays["delta_count"]) == 0
+    np.testing.assert_array_equal(g.lookup(table, qs, backend="xla").cpu().numpy(),
+                                  true_ranks(live, qs))
+    with pytest.raises(ValueError, match="supports backends"):
+        g.lookup(table, qs)
+    torch.cuda.synchronize()
+    assert sum(kernels.launches().values()) == 0
+
+
+@pytest.mark.gpu
+def test_gapped_stack_on_card(cuda):
+    """``build_many`` over equal and ragged tables: every backend GAPPED
+    claims equals the CPU's stack and each table's ``searchsorted``."""
+    rng = np.random.default_rng(71)
+    for sizes in ((20000, 20000, 20000), (65536, 5000, 30001)):
+        tables = [_table(rng, k, n) for k, n in zip(("clustered", "bursty", "lognormal"), sizes)]
+        tables = [t[:min(sizes)] for t in tables] if len(set(sizes)) == 1 else tables
+        bm = tune.build_many("GAPPED", tables, device=cuda)
+        twin = tune.build_many("GAPPED", tables, device="cpu")
+        qs = _queries(rng, np.concatenate(tables))
+        for backend in ("xla", "bbs", "ref"):
+            got = bm.lookup(qs, backend=backend).cpu().numpy()
+            np.testing.assert_array_equal(got, twin.lookup(qs, backend=backend).numpy())
+            for i, t in enumerate(tables):
+                np.testing.assert_array_equal(got[i], true_ranks(t, qs), err_msg=backend)
+        with pytest.raises(ValueError, match="supports backends"):
+            bm.lookup(qs)
+
+
+@pytest.mark.gpu
+def test_gapped_tier_mutation_on_card(cuda, tmp_path):
+    """A 4-shard GAPPED tier: routed inserts, a batch packed into one leaf
+    of shard 2 (its delta populated) and ``compact_shard`` of shard 1 give
+    the CPU tier's leaves and vectors, every backend GAPPED claims equals
+    ``searchsorted`` over the live keys, and the tier survives ``save`` ->
+    ``load`` and ``load(path, shard=s)``."""
+    from repro_torch.core import keys
+    from repro_torch.dist import sharded_index as tsi
+
+    rng = np.random.default_rng(72)
+    table = _table(rng, "lognormal", 40000)
+    tiers = [tsi.ShardedIndex.build("GAPPED", table, 4, device=d) for d in (cuda, "cpu")]
+    fresh = fresh_keys(rng, table, 4000)
+    owners = tsi.route_owners(tiers[1].fences, keys.encode(fresh, "cpu")).numpy()
+    live = np.union1d(table, fresh)
+    packed = packed_batch(tiers[1].shard(2), live, 8)
+    live = np.union1d(live, packed)
+    for sidx in tiers:
+        for s in range(4):
+            tsi.insert_into_shard(sidx, s, fresh[owners == s])
+        _, rep = tsi.insert_into_shard(sidx, 2, packed)
+        assert rep.overflowed == len(packed)
+        tsi.compact_shard(sidx, 1)
+    gpu, cpu = tiers
+    assert _same_leaves(gpu.index, cpu.index)
+    for k in ("fences", "counts", "offsets", "lasts"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+    qs = np.concatenate([_queries(rng, live), packed, fresh])
+    gpu.save(tmp_path / "t.npz")
+    for backend in ("xla", "bbs", "ref"):
+        got = tsi.sharded_lookup(gpu, qs, backend=backend).cpu().numpy()
+        np.testing.assert_array_equal(got, true_ranks(live, qs), err_msg=backend)
+        back = tsi.ShardedIndex.load(tmp_path / "t.npz", device=cuda)
+        again = tsi.sharded_lookup(back, qs, backend=backend)
+        np.testing.assert_array_equal(again.cpu().numpy(), got)
+    for s in range(4):
+        one = tsi.ShardedIndex.load(tmp_path / "t.npz", device=cuda, shard=s)
+        assert torch.equal(one.lasts, gpu.lasts) and _same_leaves(one.shard(s), gpu.shard(s))
