@@ -15,7 +15,9 @@ kernel on them against its plain PyTorch twin and against
 ``torch.searchsorted``, bit for bit (predecessor ranks are integers: the
 tolerance is zero).  It drives the updatable GAPPED kind's write path
 (``Index.insert_batch``/``compact``, ``insert_into_shard``/``compact_shard``)
-on the same tables, tensor ops with no kernel.  Then it serves
+on the same tables, tensor ops with no kernel, and the device fits
+(``build_many(fit="vmap"/"fast"/"auto")``, ``build_grid``,
+``tune.device_refresh``) on the hand-written ``corridor_scan`` kernel.  Then it serves
 qwen2-0.5b at full width through ``DecodeEngine`` (the LM serving path,
 whose attention is the hand-written ``decode_attention`` kernel) and
 drives ``ops.embedding_bag``, holding both float kernels against their
@@ -114,6 +116,30 @@ Phases (any failure ends the run with a non-zero exit):
                on every shard, ``sharded_lookup(mode="ref", backend="xla")``
                == numpy, and the counts, offsets, fences and last keys equal
                to a tier built on the live keys;
+5e. fits     — the device fits on phase 5's tiers (each table in 4 shards of
+               2^22 keys): ``build_many(fit="vmap")`` of RMI, SY-RMI, PGM,
+               PGM_M and RS (PGM, PGM_M, RS leaves == phase 5's
+               ``fit="host"`` leaves bit for bit, one ``corridor_scan``
+               launch a batch; RMI/SY-RMI ``leaf_r`` == host, every key in
+               its window), ``fit="fast"`` of PGM, PGM_M, RS (segments and
+               knots beside the host's, the ``ok`` flags, the members that
+               fell back), ``fit="auto"`` of all ten kinds on amzn64's tier
+               (== vmap or host), each result's batched kernel ==
+               ``torch.searchsorted``; ``build_grid`` on amzn64's shard 0
+               (RMI/SY-RMI at SY-RMI's b x every root, PGM eps 16-128, RS eps
+               16/32: spec order, one corridor launch a scan kind, PGM/RS
+               leaves == host, ranks exact on each entry's kernel);
+               ``device_refresh`` of a PGM tier of amzn64 and an RS tier of
+               osm (shard 1 built without 2^16 of its keys, then refreshed
+               with them), ``fit="fast"`` and ``"scan"``, under
+               ``torch.cuda.set_sync_debug_mode("error")`` after the merged
+               row's copy (no host sync), ``"scan"`` == the host refresh bit
+               for bit, ``sharded_lookup(backend="kernel")`` == numpy, and a
+               row crossing the next fence refused with the tier
+               bit-identical; build seconds by fit (host: phase 5's),
+               refresh ms, and the corridor kernel's ms of each form (CUDA
+               events) against its twin (the blocked form at the fast fit's
+               shape, the exact form on each row's first 8,192 keys);
 6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
                (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128),
                (4,4,256), (8,8,8), ragged ``kv_len`` with 0, 1 and S, S not
@@ -152,6 +178,8 @@ Phases (any failure ends the run with a non-zero exit):
                ``rmi_search``, ``pgm_search``, ``kary_search``,
                ``rs_search`` and ``embedding_bag``.
 
+The ``corridor_scan`` entry of the kernels line times the fast fit's
+blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
 with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 8 on the CPU
@@ -1554,6 +1582,363 @@ def phase_mutation(dev, tables: dict, batches, tier_fresh: int) -> list:
 # -- the LM serving path's kernels (phases 6-8) ----------------------------------------
 
 
+# -- phase 5e: the device fits ------------------------------------------------------------
+
+#: f64 peak of one H100 SXM outside the tensor cores (NVIDIA data sheet):
+#: the rate of the corridor scan's f64 work
+F64_OPS_PER_S = 34e12
+#: f64 operations of one corridor step: two subtractions, the ε add and
+#: subtract, two divisions, a max, a min, a compare and four selects
+CORRIDOR_STEP_OPS = 13
+CORRIDOR_KERNEL = {
+    "name": "corridor_scan", "route": "cuda", "source": "src/repro_torch/csrc/corridor_scan.cu",
+    "replaces": "src/repro/core/cdf.py:121",
+    "also_replaces": "src/repro/core/cdf.py:170 (lax.scan of the corridor step; no Pallas kernel)",
+}
+FIT_KINDS = ("RMI", "SY-RMI", "PGM", "PGM_M", "RS")
+FAST_FIT_KINDS = ("PGM", "PGM_M", "RS")
+
+
+def same_leaves(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+
+
+def corridor_bound(rows: int, length: int, per_row_extra: int = 16) -> dict:
+    """The least time of one corridor launch: its f64 keys read once, one
+    flag byte written a step, ε and the count a row; the f64 operations of
+    every step at the f64 peak."""
+    n_bytes = rows * length * (8 + 1) + rows * per_row_extra
+    ops = rows * length * CORRIDOR_STEP_OPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F64_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": ops}
+
+
+def timed(dev, fn):
+    """``fn()`` and its host seconds around a synchronise."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tier_state(sidx) -> dict:
+    out = {f"leaf:{k}": v.clone() for k, v in sidx.index.arrays.items()}
+    out.update({k: getattr(sidx, k).clone() for k in ("tables", "fences", "counts", "offsets",
+                                                      "lasts")})
+    return out
+
+
+def restore_tier(sidx, state: dict) -> None:
+    for k, v in sidx.index.arrays.items():
+        v.copy_(state[f"leaf:{k}"])
+    for k in ("tables", "fences", "counts", "offsets", "lasts"):
+        getattr(sidx, k).copy_(state[k])
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def same_model(kind: str, a: dict, b: dict, row: int) -> bool:
+    """Two tier states hold the same model in shard ``row``: every leaf's
+    live prefix (the pad past it differs: the device program fills the
+    host build's sentinels, ``refresh_shard`` repeats the last entry) and
+    every other tensor of the tier, bit for bit."""
+    def live(state):
+        leaf = {k[5:]: v[row] for k, v in state.items() if k.startswith("leaf:")}
+        if kind == "PGM":
+            kv = int(leaf["sizes"].sum())
+            cut = {k: kv for k in ("keys", "slope", "pk_u0", "pk_slope")}
+            cut["rank0"] = kv + leaf["sizes"].numel()
+        else:
+            cut = {k: int(leaf["m_valid"]) for k in ("knot_keys", "knot_ranks", "rk_u0", "rk_slope")}
+        return {k: v[:cut[k]] if k in cut else v for k, v in leaf.items()}
+
+    rest = [k for k in a if not k.startswith("leaf:")]
+    others = [k for k in a if k.startswith("leaf:")]
+    return (same_state(live(a), live(b)) and all(torch.equal(a[k], b[k]) for k in rest)
+            and all(torch.equal(torch.cat([a[k][:row], a[k][row + 1:]]),
+                                torch.cat([b[k][:row], b[k][row + 1:]])) for k in others))
+
+
+def events_around(dev, fn):
+    """``fn()`` under ``no_host_sync``, and its device ms between two CUDA
+    events recorded around it (None off the card)."""
+    if dev.type != "cuda":
+        return fn(), None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with no_host_sync(dev):
+        start.record()
+        out = fn()
+        end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def no_host_sync(dev):
+    """Raise on any host sync inside (``torch.cuda.set_sync_debug_mode``)."""
+    if dev.type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def check_batched(what, bm, q_dev) -> None:
+    got = bm.lookup(q_dev, backend="kernel")
+    want = torch.searchsorted(bm.tables, q_dev, right=True) - 1
+    if not torch.equal(got, torch.minimum(want, bm.counts[:, None] - 1)):
+        fail(f"fits: {what} ranks differ from torch.searchsorted")
+
+
+def rmi_windows_hold(what, bm) -> None:
+    """Every key of every table lies in its own window (a window may start
+    one past the rank, as RMI's does in a gap)."""
+    for i, part in enumerate(bm.unstack()):
+        t = bm.tables[i]
+        lo, hi = part.intervals(t, t)
+        if not windows_hold(lo, hi, torch.arange(t.numel(), device=t.device)):
+            fail(f"fits: a window of {what} table {i} misses its key's rank")
+
+
+def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -> tuple:
+    """Phase 5e: ``build_many(fit="vmap"/"fast"/"auto")``, ``build_grid``
+    and ``device_refresh`` on phase 5's tiers (each table in 4 shards),
+    against phase 5's ``fit="host"`` leaves (``host``: (table, kind) ->
+    (statics, leaves, build seconds, each table's info)),
+    ``torch.searchsorted`` and the host builds; ``fit="auto"`` and
+    ``build_grid`` on the ``lead`` table's tier; then the corridor
+    kernel's times and its twin check."""
+    from repro_torch import index as tix
+    from repro_torch import kernels
+    from repro_torch import tune
+    from repro_torch.core import keys
+    from repro_torch.core.pgm import pgm_fit_fast
+    from repro_torch.core.radix_spline import rs_knots_fast
+    from repro_torch.data import make_queries
+    from repro_torch.dist import sharded_index as tsi
+    from repro_torch.kernels.corridor_scan import corridor_scan, corridor_scan_twin
+
+    rows, builds, refresh_rows, grid_rows = [], {}, [], []
+    host_info = {k: v[3] for k, v in host.items()}
+    tiers = {}
+    for ds, (table, _) in tables.items():
+        shards = np.split(table, 4)
+        qs = np.stack([make_queries(s, nq_shard, seed=1) for s in shards])
+        tiers[ds] = (shards, keys.encode(qs, dev))
+
+    kernels.reset_launches()
+    # -- build_many: vmap and fast on both tiers, auto (all ten kinds) on the first --
+    for ds, (shards, q_dev) in tiers.items():
+        for fit, kinds in (("vmap", FIT_KINDS), ("fast", FAST_FIT_KINDS),
+                           ("auto", KINDS if ds == lead else ())):
+            for kind in kinds:
+                before = kernels.launches()["corridor_scan"]
+                bm, build_s = timed(dev, lambda: tune.build_many(kind, shards, fit=fit, device=dev))
+                corridor = kernels.launches()["corridor_scan"] - before
+                static, want, host_s = host[(ds, kind)][:3]
+                have = bm.index.to_numpy()
+                if kind in ("RMI", "SY-RMI"):
+                    if not np.array_equal(have["leaf_r"], want["leaf_r"]) or \
+                            bm.index.static != static:
+                        fail(f"fits: {ds}/{kind} fit={fit} leaf_r or statics differ from host")
+                    rmi_windows_hold(f"{ds}/{kind}", bm)
+                    note = f"leaf_r == host, every key in its window, bit-equal to host: " \
+                           f"{same_leaves(have, want)}"
+                elif fit in ("vmap", "auto"):
+                    if not same_leaves(have, want) or bm.index.static != static:
+                        fail(f"fits: {ds}/{kind} fit={fit} leaves differ from fit='host'")
+                    note = "leaves == host, bit for bit"
+                else:  # fast: a valid fit, not the greedy's boundaries
+                    seg_key = "m" if kind == "RS" else "n_segments_l0"
+                    note = (f"{seg_key} {[m['info'][seg_key] for m in bm.meta]} (host "
+                            f"{[i[seg_key] for i in host_info[(ds, kind)]]})")
+                    if kind == "PGM_M":
+                        note += (f", eps {[m['info']['eps'] for m in bm.meta]} (host "
+                                 f"{[i['eps'] for i in host_info[(ds, kind)]]})")
+                    else:
+                        fast = pgm_fit_fast if kind == "PGM" else rs_knots_fast
+                        eps_t = torch.full((4,), float(tix.spec_for(kind).eps),
+                                           dtype=torch.float64, device=dev)
+                        _, ok = fast(keys.to_f64(bm.tables), eps_t)
+                        note += f", ok {ok.tolist()}, {int((~ok).sum())} fell back to the scan"
+                if dev.type == "cuda" and fit in ("vmap", "fast") and kind in ("PGM", "RS") \
+                        and corridor != 1:
+                    fail(f"fits: {ds}/{kind} fit={fit} took {corridor} corridor launches, not 1")
+                check_batched(f"{ds}/{kind} fit={fit}", bm, q_dev)
+                builds[(ds, kind, fit)] = build_s
+                builds.setdefault((ds, kind, "host"), host_s)
+                rows.append({"table": ds, "kind": kind, "fit": fit, "build_s": build_s,
+                             "host_build_s": host_s, "corridor_launches": corridor, "note": note})
+                log(f"[fits] {ds}/{kind} fit={fit}: build {build_s:.2f} s (host {host_s:.2f} s), "
+                    f"{corridor} corridor launches, exact vs searchsorted; {note}")
+
+    # -- build_grid on one shard: RMI/SY-RMI at one b x every root, PGM and RS eps grids --
+    shard = tiers[lead][0][0]
+    n = len(shard)
+    b = max(2, int(2.0 / 100.0 * n * 8 * 0.05))  # SY-RMI's default b at n keys
+    roots = ("linear", "cubic", "spline")
+    specs = [tix.RMISpec(b=b, root_type=r) for r in roots]
+    specs += [tix.SYRMISpec(winner_root=r) for r in roots]
+    specs += [tix.PGMSpec(eps=e) for e in (16, 32, 64, 128)]
+    specs += [tix.RSSpec(eps=e) for e in (16, 32)]
+    before = kernels.launches()["corridor_scan"]
+    built, grid_s = timed(dev, lambda: tune.build_grid(specs, shard, device=dev))
+    grid_corridor = kernels.launches()["corridor_scan"] - before
+    if dev.type == "cuda" and grid_corridor != 2:
+        fail(f"fits: build_grid took {grid_corridor} corridor launches, not one per scan kind")
+    t_dev = keys.encode(shard, dev)
+    q_dev = tiers[lead][1][0]
+    want_r = torch.searchsorted(t_dev, q_dev, right=True) - 1
+    for spec, idx in zip(specs, built):
+        if idx.kind != spec.kind:
+            fail(f"fits: build_grid lost the spec order at {spec}")
+        host_idx = tix.build(spec, shard, device=dev)
+        got = idx.lookup(t_dev, q_dev, backend="kernel")
+        misses = int((got != want_r).sum())
+        if spec.kind in ("PGM", "RS"):
+            if not same_leaves(idx.to_numpy(), host_idx.to_numpy()) or misses:
+                fail(f"fits: build_grid entry {spec}: leaves differ from its host build or "
+                     f"{misses} kernel ranks are wrong")
+        else:
+            # the kernel path of a cubic RMI at this b misses ranks on the
+            # host build too (ROADMAP queue 3): hold the entry to its host
+            # build's kernel ranks, and the xla backend to searchsorted
+            lo, hi = idx.intervals(t_dev, t_dev)
+            if not windows_hold(lo, hi, torch.arange(n, device=dev)) or \
+                    not np.array_equal(idx.to_numpy()["leaf_r"], host_idx.to_numpy()["leaf_r"]) or \
+                    not torch.equal(got, host_idx.lookup(t_dev, q_dev, backend="kernel")) or \
+                    not torch.equal(idx.lookup(t_dev, q_dev, backend="xla"), want_r):
+                fail(f"fits: build_grid entry {spec} differs from its host build")
+        grid_rows.append({"spec": spec.display_name(), "space_bytes": idx.space_bytes(),
+                          "kernel_misses": misses})
+        if misses:
+            log(f"[fits] build_grid {spec.display_name()}: the kernel misses {misses} of "
+                f"{q_dev.numel()} ranks, as its host build's kernel does (xla exact)")
+    log(f"[fits] build_grid of {len(specs)} specs on {lead} shard 0 ({n} keys): "
+        f"{grid_s:.2f} s, {grid_corridor} corridor launches (PGM, RS), RMI/SY-RMI at b = {b} in "
+        f"one leaf fit; spec order kept, every entry == its host build (PGM/RS leaves bit for "
+        f"bit, kernel ranks exact; RMI/SY-RMI leaf_r, windows, kernel ranks, xla exact)")
+
+    # -- device_refresh: shard 1 of a PGM tier (amzn64) and an RS tier (osm), each
+    # built without 2^16 of shard 1's keys, refreshed with them --
+    for ds, kind in zip(tables, ("PGM", "RS")):
+        table, qs = tables[ds]
+        quarter = len(table) // 4
+        rng = np.random.default_rng(2030)
+        held = np.sort(rng.choice(np.arange(quarter + 8, 2 * quarter - 8), len(table) >> 8,
+                                  replace=False))
+        base = np.delete(table, held)
+        bounds = [0, quarter, 2 * quarter - len(held), 3 * quarter - len(held), len(base)]
+        merged = table[quarter:2 * quarter]
+        q_dev = keys.encode(qs, dev)
+        eps = tix.spec_for(kind).eps
+        sidx = tsi.ShardedIndex.build(kind, base, 4, bounds=bounds, device=dev)
+        m = int(sidx.tables.shape[1])
+        old = tier_state(sidx)
+        host_idx = tix.build(kind, tsi.shard_build_table(kind, merged, m), device=dev)
+        tsi.refresh_shard(sidx, 1, host_idx, merged)
+        host_state = tier_state(sidx)
+        for fit in ("fast", "scan"):
+            restore_tier(sidx, old)
+            row_dev = keys.encode(merged, dev)  # the merged row's copy
+            (ok, refresh_ms), refresh_s = timed(dev, lambda: events_around(dev, lambda: (
+                tune.device_refresh(sidx, 1, row_dev, eps, fit=fit)[1])))
+            ok = bool(ok)
+            if fit == "scan" and not ok:
+                fail(f"fits: {ds}/{kind} device_refresh(fit='scan') refused the merged shard")
+            if fit == "scan" and not same_model(kind, tier_state(sidx), host_state, 1):
+                fail(f"fits: {ds}/{kind} device_refresh(fit='scan') differs from the host "
+                     "refresh of the merged shard")
+            got = tsi.sharded_lookup(sidx, q_dev, backend="kernel").cpu().numpy()
+            live = table if ok else base
+            if not np.array_equal(got, np.searchsorted(live, qs, side="right") - 1):
+                fail(f"fits: {ds}/{kind} fit={fit} lookups after the refresh are not exact")
+            restore_tier(sidx, old)
+            crossing = torch.cat([row_dev[1:], sidx.fences[2:3]])
+            bad_ok, _ = events_around(dev, lambda: tune.device_refresh(sidx, 1, crossing, eps,
+                                                                        fit=fit)[1])
+            if bool(bad_ok) or not same_state(tier_state(sidx), old):
+                fail(f"fits: {ds}/{kind} fit={fit}: a refused refresh changed the tier")
+            refresh_rows.append({"table": ds, "kind": kind, "fit": fit, "ok": ok,
+                                 "refresh_s": refresh_s, "refresh_ms": refresh_ms})
+            log(f"[fits] {ds}/{kind} device_refresh fit={fit}: ok {ok}, no host sync, "
+                f"{refresh_ms} ms (events; {refresh_s:.3f} s host clock); lookups exact on the "
+                f"{'merged' if ok else 'old'} keys; scan == host refresh; a crossing row refused, "
+                "tier bit-identical")
+        del sidx, old, host_state
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernels.launches()
+    log(f"[fits] device-fit path launches: {json.dumps(launches)}")
+
+    # -- the corridor kernel: forms, times, twin checks (not counted) --
+    shards = tiers[lead][0]
+    keys_f = keys.to_f64(keys.encode(np.stack(shards), dev))
+    n = keys_f.shape[1]
+    eps = torch.full((4,), 64.0, dtype=torch.float64, device=dev)
+    cases = []
+    for rec, length, form, chunk in (("pgm", n, "blocked", 256), ("rs", n - 1, "blocked", 256),
+                                     ("pgm", n, "exact", n), ("rs", n - 2, "exact", n - 2)):
+        got = corridor_scan(keys_f, eps, recurrence=rec, length=length, chunk=chunk)
+        ms = device_ms(lambda: corridor_scan(keys_f, eps, recurrence=rec, length=length,
+                                             chunk=chunk), dev,
+                       reps=20 if form == "blocked" else 1, warmup=1 if form == "blocked" else 0)
+        if form == "blocked":
+            want = corridor_scan_twin(keys_f, eps, recurrence=rec, length=length, chunk=chunk)
+            plain_ms = device_ms(lambda: corridor_scan_twin(keys_f, eps, recurrence=rec,
+                                                            length=length, chunk=chunk), dev,
+                                 reps=2, warmup=0)
+            checked = "the twin at the fast fit's shape"
+        else:  # the twin would take 2^22 dependent steps of eager ops: held on a prefix
+            pre = min(1 << 13, n - 2)
+            got = corridor_scan(keys_f[:, :pre + 2].contiguous(), eps, recurrence=rec,
+                                length=pre, chunk=pre)
+            want = corridor_scan_twin(keys_f[:, :pre + 2].contiguous(), eps, recurrence=rec,
+                                      length=pre, chunk=pre)
+            plain_ms = None
+            checked = f"the twin on each row's first {pre} keys"
+        err = int((got != want).sum())
+        if err:
+            fail(f"fits: corridor_scan {rec}/{form} differs from {checked} at {err} flags")
+        rows_n = 4 * -(-length // chunk)
+        case = {"case": f"{rec}-{form}", "rows": rows_n, "length": length, "ms": ms,
+                "plain_ms": plain_ms, "max_abs_err": err, "checked": checked,
+                "ns_per_step": None if ms is None else ms * 1e6 / min(length, chunk),
+                **corridor_bound(rows_n, min(length, chunk))}
+        cases.append(case)
+        log(f"[fits] corridor_scan {rec} {form} over 4 x {length} ({rows_n} rows): {ms} ms, twin "
+            f"{plain_ms} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}), "
+            f"{case['ns_per_step']} ns a step; == {checked}")
+    head = cases[0]
+    entry = {**CORRIDOR_KERNEL, "launches": launches["corridor_scan"],
+             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": head["ms"],
+             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+             "bound_by": head["bound_by"], "library_ms": None,
+             "path": "build_many(fit=vmap/fast/auto), build_grid, device_refresh (phase 5e)",
+             "headline_case": f"{lead} tier, {head['case']} (the fast fit's launch)",
+             "cases": cases}
+    summary = {f"{ds}/{kind}": {fit: builds.get((ds, kind, fit)) for fit in FITS_ORDER}
+               for ds in tiers for kind in KINDS if (ds, kind, "host") in builds}
+    log(f"[fits] build seconds by fit: {json.dumps(summary)}")
+    return {"rows": rows, "grid": grid_rows, "refresh": refresh_rows, "launches": launches,
+            "corridor": entry}
+
+
+FITS_ORDER = ("host", "vmap", "fast", "auto")
+
+
 def float_bound(n_bytes: int, n_ops: int) -> dict:
     """Least time for a float kernel call: bytes over the HBM rate against
     f32 operations over the non-tensor f32 rate (both kernels use the f32
@@ -2062,6 +2447,9 @@ def main(argv=None) -> int:
     log(f"[tier] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sharded_rows, sharded_launches, scale = phase_sharded(dev, tables, tier_built, parity_n)
+    # phase 5's fit="host" leaves, which phase 5e's device fits must equal
+    host_fits = {key: (bm.index.static, bm.index.to_numpy(), build_s,
+                       [m["info"] for m in bm.meta]) for key, (bm, build_s) in tier_built.items()}
     del tier_built
     log(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2072,6 +2460,10 @@ def main(argv=None) -> int:
     mutation_rows = phase_mutation(dev, tables, mutation_batches, tier_fresh)
     log(f"[mutation] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    fits = phase_device_fits(dev, tables, host_fits, shard_nq, "amzn64")
+    del host_fits
+    log(f"[fits] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     parity_errs = phase_float_parity(dev, 600)
     log(f"[float] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2081,9 +2473,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     att_rows, bag_rows, bag_launches = phase_times(dev, **times)
     log(f"[times] done in {time.perf_counter() - t0:.1f} s")
-    by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k]} for k in BATCHED}
+    by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k],
+                   "fits": fits["launches"][k]} for k in BATCHED}
     by_path.update({k: {"single": launches[k], "a2a": collective_launches["a2a"][k],
-                        "allgather": collective_launches["allgather"][k]} for k in SINGLE})
+                        "allgather": collective_launches["allgather"][k],
+                        "fits": fits["launches"][k]} for k in SINGLE})
     launches = {**{k: sum(paths.values()) for k, paths in by_path.items()},
                 "decode_attention": served["decode_attention_launches"],
                 "embedding_bag": bag_launches}
@@ -2096,6 +2490,8 @@ def main(argv=None) -> int:
                 st["max_abs_err"] for r in collective_ranks for name, st in r["stages"].items()
                 if KERNEL_OF[name.split("_", 1)[1]] == entry["name"]])
     line["kernels"] += serve_kernels_line(parity_errs, served, att_rows, bag_rows, bag_launches)
+    line["kernels"].append(fits["corridor"])
+    launches["corridor_scan"] = fits["corridor"]["launches"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -2104,11 +2500,12 @@ def main(argv=None) -> int:
                                         "collective_ranks": collective_ranks,
                                         "mutation_rows": mutation_rows, "serve": served,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
-                                        **line}, indent=1))
+                                        "fit_rows": fits["rows"], "grid_rows": fits["grid"],
+                                        "refresh_rows": fits["refresh"], **line}, indent=1))
     if dev.type != "cuda":
         log("[rehearsal] CPU rehearsal passed; no device result")
         return 0
-    if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS)) or any(
+    if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS, "corridor_scan")) or any(
             by_path[name][path] == 0 for name in SINGLE for path in ("a2a", "allgather")):
         fail(f"a kernel of a path never launched: {json.dumps(by_path)}")
     log(f"[device] nvidia-smi: {info['nvidia_smi']}")

@@ -5,9 +5,16 @@ first (key, rank) point and keeps the feasible slope cone; a new segment
 starts when the cone empties), recursing over segment first-keys until
 one segment remains.  ``build_pgm_bicriteria`` bisects ε for the
 smallest model that fits a byte budget.  Host numpy, operation for
-operation as the reference; the device scan fits wait for a later slice.
-The query side (:func:`pgm_window`, ``PGMModel.intervals``) runs on
-encoded key tensors.
+operation as the reference.  The query side (:func:`pgm_window`,
+``PGMModel.intervals``) runs on encoded key tensors.
+
+The device fits run on f64 key tensors, one table ``(n,)`` or a stack
+``(N, n)`` (one ε, and one live count, a row): :func:`pgm_segments_scan`
+(the exact greedy, one corridor-scan launch a stack, masks equal to
+:func:`pla_segments`'s starts) and :func:`pgm_fit_fast` (blocks of
+``FAST_CHUNK`` keys in one launch, then parity merge rounds and a
+verified-ε re-measure as tensor ops), with :func:`pgm_device_slopes` and
+:func:`pgm_verified_eps` over a start mask.
 """
 
 from __future__ import annotations
@@ -20,11 +27,29 @@ import numpy as np
 import torch
 
 from . import search
-from .cdf import ceil_log2
+from .cdf import (
+    _as_rows,
+    blocked_corridor_scan,
+    ceil_log2,
+    chunked_corridor_scan,
+    segment_count,
+    segment_ids,
+    segment_max,
+    segment_min,
+)
 from .keys import encode, to_f64
 from .search import KEY_FILL, take_fill
 
 _CHUNK = 4096
+
+#: block size of the reference's exact scan fit (its ``lax.scan`` streams
+#: the table in blocks of this many keys; the kernel walks a whole row, so
+#: it changes nothing here)
+SCAN_CHUNK = 128
+
+#: block size of the fast fit (:func:`pgm_fit_fast`): keys are fit
+#: greedily in blocks of this many, then the block boundaries are merged
+FAST_CHUNK = 256
 
 
 def pgm_window(q, keys, slope, rank0, off, off_r, sizes, eps, *, levels: int, n: int, steps: int):
@@ -105,6 +130,122 @@ def pla_segments(keys_f64: np.ndarray, eps: int):
     return np.asarray(starts, dtype=np.int64), np.asarray(slopes, dtype=np.float64)
 
 
+def pgm_segments_scan(keys_f64, eps, *, chunk: int = SCAN_CHUNK, count=None):
+    """The exact anchored-cone greedy ε-PLA on the device: a bool mask,
+    True exactly at the segment starts :func:`pla_segments` emits (the
+    kernel walks the same f64 cone, and min/max are exact).  ``count``
+    restricts the fit to a live prefix (a device tensor the host never
+    reads).  ``chunk`` is the reference's streaming block and changes
+    nothing here."""
+    keys, eps, count, one = _as_rows(keys_f64, eps, count)
+    mask = chunked_corridor_scan("pgm", keys, eps, keys.shape[-1], count=count)
+    return mask[0] if one else mask
+
+
+def _pgm_merge_round(keys, ranks, mask, eps, count=None):
+    """One parity merge round over a stack: every odd-id segment is
+    re-tested against its even left neighbour's anchor cone over the
+    union, and its boundary dropped where the merged cone is non-empty.
+    Elements at or past ``count`` contribute identity bounds."""
+    n = keys.shape[-1]
+    idx = torch.arange(n, device=keys.device)
+    seg, start = segment_ids(mask)
+    pair = seg // 2
+    a_pos = torch.gather(start, -1, 2 * pair)
+    xa = torch.gather(keys, -1, a_pos)
+    dy = ranks - a_pos.to(torch.float64)
+    dx = keys - xa
+    anchor = idx == a_pos
+    lo_b = torch.where(anchor, float("-inf"), (dy - eps) / dx)
+    hi_b = torch.where(anchor, float("inf"), (dy + eps) / dx)
+    if count is not None:
+        live = idx < count
+        lo_b = torch.where(live, lo_b, float("-inf"))
+        hi_b = torch.where(live, hi_b, float("inf"))
+    n_pairs = (n + 1) // 2  # pair ids are at most (n - 1) // 2
+    lo = segment_max(lo_b, pair, n_pairs)
+    hi = segment_min(hi_b, pair, n_pairs)
+    ok_pair = lo <= hi  # NaN bounds (colliding f64 keys) compare False: merge vetoed
+    drop = mask & ((seg % 2) == 1) & torch.gather(ok_pair, -1, pair)
+    return mask & ~drop
+
+
+def pgm_device_slopes(keys, mask, eps, count=None):
+    """:func:`segment_slopes` on the device, over a start mask: returns
+    ``(slopes, start, seg)`` at capacity ``n`` (entries past the live
+    segment count are unused), the start index of each id and each
+    element's id.  The min/max segment reductions are exact, so a mask of
+    the exact scan gives the host's slopes bit for bit."""
+    keys, eps, count, one = _as_rows(keys, eps, count)
+    mask = mask.reshape(keys.shape)
+    n = keys.shape[-1]
+    eps = eps[:, None]
+    idx = torch.arange(n, device=keys.device)
+    seg, start = segment_ids(mask)
+    a_pos = torch.gather(start, -1, seg)
+    dy = idx.to(torch.float64) - a_pos.to(torch.float64)
+    dx = keys - torch.gather(keys, -1, a_pos)
+    anchor = idx == a_pos
+    lo_b = torch.where(anchor, float("-inf"), (dy - eps) / dx)
+    hi_b = torch.where(anchor, float("inf"), (dy + eps) / dx)
+    ones = torch.ones(keys.shape, dtype=torch.int64, device=keys.device)
+    if count is not None:
+        live = idx < count[:, None]
+        lo_b = torch.where(live, lo_b, float("-inf"))
+        hi_b = torch.where(live, hi_b, float("inf"))
+        ones = torch.where(live, ones, 0)
+    lo = segment_max(lo_b, seg, n)
+    hi = segment_min(hi_b, seg, n)
+    length = segment_count(ones, seg, n)
+    zero = torch.zeros((), dtype=torch.float64, device=keys.device)
+    hi_f = torch.where(torch.isfinite(hi), hi, torch.maximum(lo, zero) + 1.0)
+    slopes = torch.maximum(0.5 * (torch.maximum(lo, zero) + torch.maximum(hi_f, zero)), zero)
+    slopes = torch.where(length == 1, 0.0, slopes)
+    if one:
+        return slopes[0], start[0], seg[0]
+    return slopes, start, seg
+
+
+def pgm_verified_eps(keys, mask, eps, count=None):
+    """Measured max |prediction - rank| of the PLA that ``mask`` induces
+    (one value a row).  NaN propagates and compares False against any
+    bound, so a degenerate fit fails ``measured <= eps``."""
+    keys, eps, count, one = _as_rows(keys, eps, count)
+    mask = mask.reshape(keys.shape)
+    n = keys.shape[-1]
+    slopes, start, seg = pgm_device_slopes(keys, mask, eps, count=count)
+    a_pos = torch.gather(start, -1, seg)
+    pred = a_pos.to(torch.float64) + torch.gather(slopes, -1, seg) * (
+        keys - torch.gather(keys, -1, a_pos))
+    idx = torch.arange(n, device=keys.device)
+    err = torch.abs(pred - idx.to(torch.float64))
+    if count is not None:
+        err = torch.where(idx < count[:, None], err, 0.0)
+    meas = torch.amax(err, dim=-1)
+    return meas[0] if one else meas
+
+
+def pgm_fit_fast(keys_f64, eps, *, chunk: int = FAST_CHUNK, rounds=None, count=None):
+    """O(log n)-depth ε-PLA fit (``fit="fast"``): the greedy inside blocks
+    of ``chunk`` keys (one kernel launch for every block of the stack,
+    each block re-anchored), parity merge rounds that drop the spurious
+    block boundaries, and a verified-ε re-measure.  A valid ε-PLA whose
+    boundaries are NOT the greedy's.  Returns ``(mask, ok)``; ``ok`` (a
+    device bool a row) is False when the measured error exceeds ``eps``
+    (f64 key collisions), and callers then fall back to the exact scan."""
+    keys, eps, count, one = _as_rows(keys_f64, eps, count)
+    n = keys.shape[-1]
+    ranks = torch.arange(n, dtype=torch.float64, device=keys.device)
+    mask = blocked_corridor_scan("pgm", keys, eps, n, chunk, count=count)
+    nblocks = -(-n // max(int(chunk), 1))
+    r = int(rounds) if rounds is not None else ceil_log2(max(nblocks, 2)) + 1
+    cnt = None if count is None else count[:, None]
+    for _ in range(r):
+        mask = _pgm_merge_round(keys, ranks, mask, eps[:, None], count=cnt)
+    ok = pgm_verified_eps(keys, mask, eps, count=count) <= eps
+    return (mask[0], ok[0]) if one else (mask, ok)
+
+
 def segment_slopes(keys_f64: np.ndarray, starts: np.ndarray, eps) -> np.ndarray:
     """Slopes for given segment ``starts`` — bit-identical to the ones
     :func:`pla_segments` pairs with them (min/max reductions are exact)."""
@@ -167,9 +308,12 @@ class PGMModel:
         return sum(self.level_sizes) * 24 + 16
 
 
-def build_pgm(table_np: np.ndarray, eps: int = 64) -> PGMModel:
+def build_pgm(table_np: np.ndarray, eps: int = 64, *, l0=None) -> PGMModel:
     """Recursive PGM build: each level is the ε-PLA of the level below's
-    segment first-keys, until one segment remains."""
+    segment first-keys, until one segment remains.  ``l0`` optionally
+    supplies the bottom level's ``(starts, slopes)`` (e.g. from a device
+    fit's mask and :func:`segment_slopes`); the upper levels always
+    recurse on the host."""
     t0 = time.perf_counter()
     n = len(table_np)
     eps = max(int(eps), 1)
@@ -178,7 +322,11 @@ def build_pgm(table_np: np.ndarray, eps: int = 64) -> PGMModel:
     cur_keys_u64 = table_np
     cur_keys = table_np.astype(np.float64)
     while True:
-        starts, slopes = pla_segments(cur_keys, eps)
+        if l0 is not None:
+            starts, slopes = l0
+            l0 = None
+        else:
+            starts, slopes = pla_segments(cur_keys, eps)
         # rank0 with sentinel: segment s covers [rank0[s], rank0[s+1])
         rank0 = np.concatenate([starts, [len(cur_keys)]]).astype(np.int64)
         level_keys.append(cur_keys_u64[starts])

@@ -6,9 +6,15 @@ the corridor cone; on violation the previous point becomes a knot and the
 cone restarts.  A radix table over the top ``r`` bits of ``key - kmin``
 narrows the knot search.  The error bound is re-measured over every key
 after the build, so the reported window is a guarantee under f64
-rounding.  Host numpy, operation for operation as the reference; the
-device scan fits wait for a later slice.  The query side
-(:func:`rs_window`, ``RSModel.intervals``) runs on encoded key tensors.
+rounding.  Host numpy, operation for operation as the reference.  The
+query side (:func:`rs_window`, ``RSModel.intervals``) runs on encoded key
+tensors.
+
+The device fits take f64 key tensors, one table or a stack ``(N, n)``:
+:func:`rs_knots_scan` (the exact corridor, one kernel launch a stack,
+masks equal to :func:`spline_knots`'s knots) and :func:`rs_knots_fast`
+(blocks re-anchored at every ``FAST_CHUNK``-th key, parity merge rounds
+over the knots and a chord re-measure, :func:`rs_verified_eps`).
 """
 
 from __future__ import annotations
@@ -20,8 +26,16 @@ import numpy as np
 import torch
 
 from . import search
-from .cdf import ceil_log2
+from .cdf import (
+    _as_rows,
+    blocked_corridor_scan,
+    ceil_log2,
+    chunked_corridor_scan,
+    segment_ids,
+    segment_max,
+)
 from .keys import encode, to_f64
+from .pgm import FAST_CHUNK, SCAN_CHUNK
 from .search import KEY_FILL, take_fill
 
 _CHUNK = 4096
@@ -98,6 +112,103 @@ def spline_knots(keys_f64: np.ndarray, eps: int) -> np.ndarray:
     return np.unique(np.asarray(knots, dtype=np.int64))
 
 
+def rs_knots_scan(keys_f64, eps, *, chunk: int = SCAN_CHUNK):
+    """The exact GreedySplineCorridor on the device: a bool knot mask,
+    True exactly at :func:`spline_knots`'s knots.  Interior point ``i``
+    (1 .. n-2) is seen from its left neighbour; a cone violation there
+    makes ``i - 1`` a knot, and the endpoints always are.  ``chunk`` is the
+    reference's streaming block and changes nothing here."""
+    keys, eps, _, one = _as_rows(keys_f64, eps)
+    n = keys.shape[-1]
+    if n <= 2:
+        mask = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    else:
+        flags = chunked_corridor_scan("rs", keys, eps, n - 2)
+        mask = torch.nn.functional.pad(flags, (0, 2))
+        mask[:, 0] = True
+        mask[:, n - 1] = True
+    return mask[0] if one else mask
+
+
+def _rs_merge_round(keys, kmask, eps):
+    """One parity merge round over a stack's knot masks: every odd-id knot
+    but the last is a removal candidate, dropped when the chord from its
+    left to its right neighbour knot stays within ``eps`` over every
+    element it spans: a segment max over the candidate ``kid | 1``, taken
+    over the dense pair ids ``kid // 2`` (the reference's ids are the odd
+    ``kid | 1``, up to ``n``)."""
+    n = keys.shape[-1]
+    idx = torch.arange(n, device=keys.device)
+    kid, kpos = segment_ids(kmask)
+    last = kid[:, n - 1:n]
+    g = kid | 1
+    p0 = torch.gather(kpos, -1, torch.clamp(g - 1, min=0))
+    p1 = torch.gather(kpos, -1, torch.clamp(g + 1, max=n - 1))
+    x0 = torch.gather(keys, -1, torch.clamp(p0, 0, n - 1))
+    x1 = torch.gather(keys, -1, torch.clamp(p1, 0, n - 1))
+    r0 = p0.to(torch.float64)
+    r1 = p1.to(torch.float64)
+    pred = r0 + (keys - x0) * (r1 - r0) / (x1 - x0)
+    err = torch.abs(pred - idx.to(torch.float64))
+    half = kid // 2
+    ok_g = segment_max(err, half, (n + 1) // 2) <= eps  # NaN (colliding f64 keys) compares False
+    drop = kmask & ((kid % 2) == 1) & (kid < last) & torch.gather(ok_g, -1, half)
+    return kmask & ~drop
+
+
+def rs_verified_eps(keys, kmask):
+    """Measured max |chord prediction - rank| of the spline that ``kmask``
+    induces (one value a row), by :func:`build_rs`'s clipped interpolation,
+    so the same knots give its ``eps_eff`` measure bit for bit."""
+    keys, _, _, one = _as_rows(keys, None)
+    kmask = kmask.reshape(keys.shape)
+    n = keys.shape[-1]
+    if n <= 2:
+        meas = torch.zeros(keys.shape[0], dtype=torch.float64, device=keys.device)
+        return meas[0] if one else meas
+    idx = torch.arange(n, device=keys.device)
+    kid, kpos = segment_ids(kmask)
+    last = kid[:, n - 1:n]
+    j = torch.minimum(kid, last - 1)
+    p0 = torch.gather(kpos, -1, j)
+    p1 = torch.gather(kpos, -1, j + 1)
+    x1 = torch.gather(keys, -1, torch.clamp(p0, 0, n - 1))
+    x2 = torch.gather(keys, -1, torch.clamp(p1, 0, n - 1))
+    t = torch.clamp((keys - x1) / torch.clamp(x2 - x1, min=1.0), 0.0, 1.0)
+    pred = p0.to(torch.float64) + t * (p1 - p0).to(torch.float64)
+    meas = torch.amax(torch.abs(pred - idx.to(torch.float64)), dim=-1)
+    return meas[0] if one else meas
+
+
+def rs_knots_fast(keys_f64, eps, *, chunk: int = FAST_CHUNK, rounds=None):
+    """O(log n)-depth GreedySplineCorridor fit (``fit="fast"``): blocks of
+    ``chunk`` points, each re-anchored at its first element (a forced
+    knot), in one kernel launch; parity merge rounds that drop the block
+    knots whose neighbour-to-neighbour chord stays within ``eps``; then a
+    chord re-measure.  Knots are NOT :func:`spline_knots`'s.  Returns
+    ``(mask, ok)`` (``ok`` a device bool a row, False when the measured
+    error exceeds ``eps``); :func:`build_rs` re-derives ``eps_eff`` from
+    the knots either way."""
+    keys, eps, _, one = _as_rows(keys_f64, eps)
+    n = keys.shape[-1]
+    if n <= 2:
+        mask = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+        ok = torch.ones(keys.shape[0], dtype=torch.bool, device=keys.device)
+        return (mask[0], ok[0]) if one else (mask, ok)
+    chunk = max(int(chunk), 2)
+    flags = blocked_corridor_scan("rs", keys, eps, n - 1, chunk)
+    # a flag at point i marks knot i - 1: the flag's own position
+    kmask = torch.nn.functional.pad(flags, (0, 1))
+    kmask = kmask | (torch.arange(n, device=keys.device) % chunk == 0)
+    kmask[:, n - 1] = True
+    nblocks = -(-n // chunk)
+    r = int(rounds) if rounds is not None else ceil_log2(max(nblocks, 2)) + 1
+    for _ in range(r):
+        kmask = _rs_merge_round(keys, kmask, eps[:, None])
+    ok = rs_verified_eps(keys, kmask) <= eps
+    return (kmask[0], ok[0]) if one else (kmask, ok)
+
+
 @dataclass
 class RSModel:
     eps: int
@@ -137,13 +248,17 @@ class RSModel:
         return self.m * 16 + ((1 << self.r_bits) + 1) * 8 + 16
 
 
-def build_rs(table_np: np.ndarray, eps: int = 32, r_bits: int = 12) -> RSModel:
+def build_rs(table_np: np.ndarray, eps: int = 32, r_bits: int = 12, *, knots=None) -> RSModel:
     """Single-pass RadixSpline build: knots, the radix table over the top
-    ``r_bits`` of ``key - kmin``, and the verified error bound."""
+    ``r_bits`` of ``key - kmin``, and the verified error bound.  ``knots``
+    optionally supplies the knot indices (e.g. a device fit's); the radix
+    table and the bound are always derived from them."""
     t0 = time.perf_counter()
     n = len(table_np)
     keys = table_np.astype(np.float64)
-    knots = spline_knots(keys, eps)
+    if knots is None:
+        knots = spline_knots(keys, eps)
+    knots = np.asarray(knots, dtype=np.int64)
     m = len(knots)
     knot_keys = table_np[knots]
     knot_ranks = knots.astype(np.int64)

@@ -7,6 +7,8 @@ leaf's rank range extended by one key on each side and leaf slopes are
 clamped >= 0, so the predicted window is a guarantee.  Host numpy,
 operation for operation as the reference; the query side
 (:func:`rmi_window`, ``RMIModel.intervals``) runs on encoded key tensors.
+:func:`rmi_leaf_fit` is the leaf stage on the device, over one table or
+a stack, and :func:`assemble_rmi` makes a model of its arrays.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from . import search
 from .atomic import poly_eval_np, poly_eval_torch, poly_fit
+from .cdf import segment_max, segment_sum
 from .keys import to_f64
 from .search import take_fill
 
@@ -95,6 +98,86 @@ def rmi_window(q, root_coef, leaf_slope, leaf_icept, leaf_eps, leaf_r, kmin, inv
     b_lo = torch.clamp(take_fill(leaf_r, leaf) - 1, min=0)
     b_hi = torch.clamp(take_fill(leaf_r, leaf + 1), max=n - 1)
     return search.clip(lo, b_lo, b_hi), search.clip(hi, b_lo, b_hi)
+
+
+def rmi_leaf_fit(u, root_coef, b: int):
+    """The leaf stage of :func:`build_rmi` on the device, over ``u`` (f64,
+    sorted, ``(n,)`` or a stack ``(N, n)``) and a fitted monotone root
+    (``(4,)`` or ``(N, 4)``): leaf assignment (``cummax`` against float
+    jitter), per-leaf least squares by segment sums, and the error bounds
+    over each leaf's rank range extended by one key each side.
+
+    The segments are consecutive (the leaf ids are monotone), so every sum
+    is a sorted-segment sum in element order (:func:`segment_sum`): two
+    builds of one table give the same leaves on the card, and on the CPU
+    the sums are ``np.bincount``'s.  Leaf floats may still differ from the
+    reference's by a few ulp, but each bound is measured against this
+    fit's own predictions, so windows stay guarantees and ranks exact.
+
+    Returns ``(slopes, icepts, eps, r)`` of shapes ``(b,)`` and ``(b + 1,)``
+    (a leading table axis for a stack)."""
+    one = u.dim() == 1
+    u = u.reshape(-1, u.shape[-1])
+    root_coef = root_coef.reshape(-1, 4).to(torch.float64)
+    n, dev = u.shape[-1], u.device
+    ranks = torch.arange(n, dtype=torch.float64, device=dev).expand(u.shape)
+    p = poly_eval_torch(root_coef[:, None, :], u)
+    leaf_of = torch.clamp(torch.floor(p * (b / n)), 0, b - 1).to(torch.int64)
+    seg = torch.cummax(leaf_of, dim=-1).values  # monotone against float jitter
+    targets = torch.arange(b + 1, device=dev).expand(u.shape[0], b + 1).contiguous()
+    r = torch.searchsorted(seg, targets, side="left")
+    lengths = r[:, 1:] - r[:, :-1]
+    cnt = lengths.to(torch.float64)
+    su = segment_sum(u, lengths)
+    sr = segment_sum(ranks, lengths)
+    suu = segment_sum(u * u, lengths)
+    sur = segment_sum(u * ranks, lengths)
+    var = cnt * suu - su * su
+    cov = cnt * sur - su * sr
+    nz = (cnt > 1) & (var > 1e-30)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    slopes = torch.where(nz, torch.maximum(cov / torch.where(nz, var, 1.0), zero), 0.0)
+    icepts = torch.where(nz, (sr - slopes * su) / torch.where(nz, cnt, 1.0), 0.0)
+    icepts = torch.where(cnt == 1, sr, icepts)
+    icepts = torch.where(cnt == 0, r[:, :-1].to(torch.float64), icepts)  # predict the range start
+    # per-leaf eps over the rank range extended by one key each side
+    pred = torch.gather(slopes, -1, seg) * u + torch.gather(icepts, -1, seg)
+    eps_core = segment_max(torch.abs(pred - ranks), seg, b, initial=0.0)
+    lo_idx = torch.clamp(r[:, :-1] - 1, 0, n - 1)
+    hi_idx = torch.clamp(r[:, 1:], 0, n - 1)
+
+    def err_at(i):
+        return torch.abs(slopes * torch.gather(u, -1, i) + icepts - torch.gather(ranks, -1, i))
+
+    eps_f = torch.maximum(eps_core, torch.maximum(err_at(lo_idx), err_at(hi_idx)))
+    eps = torch.ceil(torch.clamp(eps_f, max=float(1 << 40))).to(torch.int64) + 1
+    out = (slopes, icepts, eps, r)
+    return tuple(a[0] for a in out) if one else out
+
+
+def assemble_rmi(table_np: np.ndarray, root_type: str, root_coef: np.ndarray, kmin: np.float64,
+                 inv_span: np.float64, slopes: np.ndarray, icepts: np.ndarray, eps: np.ndarray,
+                 r: np.ndarray, build_time: float = 0.0) -> RMIModel:
+    """An :class:`RMIModel` of leaf-fit arrays (the batched path)."""
+    b = len(slopes)
+    width = np.diff(r)  # leaf rank-range widths (+3: one-ulp fence slack)
+    max_window = int(np.max(np.minimum(2 * eps + 3, width + 3))) if b else 1
+    return RMIModel(
+        root_type=root_type,
+        root_coef=np.asarray(root_coef),
+        b=b,
+        leaf_slope=np.asarray(slopes),
+        leaf_icept=np.asarray(icepts),
+        leaf_eps=np.asarray(eps),
+        leaf_r=np.asarray(r),
+        kmin=np.float64(kmin),
+        inv_span=np.float64(inv_span),
+        max_eps=int(eps.max()) if b else 0,
+        max_window_=max_window,
+        n=len(table_np),
+        build_time=build_time,
+        name=f"RMI[{root_type},b={b}]",
+    )
 
 
 def _fit_root(u: np.ndarray, ranks: np.ndarray, root_type: str) -> np.ndarray:

@@ -458,7 +458,10 @@ RS_IMPL = QueryImpl(
 
 
 def _build_rs_index(spec: RSSpec, table_np: np.ndarray):
-    m = build_rs(table_np, eps=spec.eps, r_bits=spec.r_bits)
+    return _rs_to_index(build_rs(table_np, eps=spec.eps, r_bits=spec.r_bits), table_np)
+
+
+def _rs_to_index(m, table_np: np.ndarray):
     karr, rksteps = rs_kernel_arrays(m, table_np)
     arrays = {
         "knot_keys": _pad_pow2(m.knot_keys, _MAXKEY),

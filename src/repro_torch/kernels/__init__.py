@@ -9,18 +9,21 @@ in the module's ``LAUNCHES`` and ``BATCHED_LAUNCHES``) and run the twin
 (``_kary_body``, ``_rmi_body``, ``_pgm_body``, ``_rs_body`` and their
 ``_batched_*_body``) on CPU tensors.  ``decode_attention`` (the LM
 serving path's attention, twin ``_decode_body``) and ``embedding_bag``
-(twin ``_bag_body``) have no batched variant and count ``LAUNCHES`` only.
+(twin ``_bag_body``) have no batched variant and count ``LAUNCHES`` only,
+as does ``corridor_scan`` (the device fits' sequential corridor
+recurrence, twin ``corridor_scan_twin``), which takes a stack of rows.
 The library is built from ``csrc/`` at first use
 (:mod:`repro_torch.kernels.cuda_lib`); nothing builds at import.
 """
 
 from . import (
-    cuda_lib, decode_attention, embedding_bag, kary_search, ops, pgm_search, ref, rmi_search,
-    rs_search,
+    corridor_scan, cuda_lib, decode_attention, embedding_bag, kary_search, ops, pgm_search, ref,
+    rmi_search, rs_search,
 )
 
 #: the kernel modules whose ``LAUNCHES`` count the main path's launches
-KERNEL_MODULES = (kary_search, rmi_search, pgm_search, rs_search, decode_attention, embedding_bag)
+KERNEL_MODULES = (kary_search, rmi_search, pgm_search, rs_search, decode_attention, embedding_bag,
+                  corridor_scan)
 
 
 def reset_launches() -> None:
@@ -42,5 +45,5 @@ def launches() -> dict:
     return out
 
 
-__all__ = ["cuda_lib", "decode_attention", "embedding_bag", "kary_search", "ops", "pgm_search",
+__all__ = ["corridor_scan", "cuda_lib", "decode_attention", "embedding_bag", "kary_search", "ops", "pgm_search",
            "ref", "rmi_search", "rs_search", "KERNEL_MODULES", "reset_launches", "launches"]

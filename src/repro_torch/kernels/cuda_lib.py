@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = (
     "kary_search.cu", "rmi_search.cu", "pgm_search.cu", "rs_search.cu",
-    "decode_attention.cu", "embedding_bag.cu",
+    "decode_attention.cu", "embedding_bag.cu", "corridor_scan.cu",
 )
 #: included by the search sources: part of the digest, not compiled on its own
 HEADERS = ("search_common.cuh",)
@@ -93,6 +93,8 @@ SIGNATURES = {
                                 _P),
     # table, V, D, ids, seg, w, n, num_bags, out, stream
     "embedding_bag_launch": (_P, _I, _I, _P, _P, _P, _L, _I, _P, _P),
+    # keys, stride, n_tables, length, chunk, mode (0 PGM, 1 RS), eps, count, out, stream
+    "corridor_scan_launch": (_P, _L, _I, _L, _L, _I, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.cdf import ceil_log2
+from repro_torch.core.keys import unit_f32
+from repro_torch.core.search import f64_to_i64
 from repro_torch.device import resolve_device
 
 from . import decode_attention as _attention
@@ -171,6 +173,62 @@ def rs_kernel_arrays(model, table_np: np.ndarray):
     steps = ceil_log2(min(2 * eps + 3, max(n, 2)))
     arrays = {"u0": u0, "slope": slope, "eps": eps, "kmin": kmin, "inv_span": inv_span}
     return arrays, steps
+
+
+def pgm_level_reencode_device(keys_l, slopes_l, start_l, nseg, child, child_count, kmin, span,
+                              inv_span):
+    """One level of :func:`pgm_kernel_arrays` as tensor ops: the level's
+    f32 anchors ``u0`` and slopes ``slope * span``, and the largest error of
+    the kernel's f32 prediction at each *live* child entry.  ``keys_l``
+    (encoded, max-key pads past the ``nseg`` live segments, so the exact
+    segment route stays right), ``slopes_l`` and ``start_l`` are
+    capacity rows; ``child`` holds ``child_count`` live entries; ``nseg``,
+    ``child_count``, ``kmin``, ``span`` and ``inv_span`` are 0-d tensors.
+    Returns ``(u0_l, slope_u, max_err)``."""
+    u0_l = unit_f32(keys_l, kmin, inv_span)
+    slope_u = (slopes_l * span).to(torch.float32)
+    s = torch.searchsorted(keys_l, child, right=True) - 1
+    s = torch.minimum(torch.clamp(s, min=0), torch.clamp(nseg - 1, min=0))
+    r0 = start_l[s].to(torch.float32)
+    du = torch.clamp(unit_f32(child, kmin, inv_span) - u0_l[s], min=0.0)
+    pred = r0 + slope_u[s] * du  # the kernel's f32 arithmetic
+    cap = child.shape[0]
+    idx = torch.arange(cap, device=child.device)
+    err = torch.abs(pred.to(torch.float64) - idx.to(torch.float64))
+    err = torch.where(idx < child_count, err, 0.0)
+    return u0_l, slope_u, torch.amax(err)
+
+
+def rs_kernel_arrays_device(knot_keys, knot_ranks, m_valid, table_row, kmin, span, inv_span):
+    """:func:`rs_kernel_arrays` as tensor ops over a capacity knot row with
+    ``m_valid`` live knots (encoded max-key keys and the last rank past
+    them); every key of ``table_row`` counts (a device refresh fits the
+    padded capacity table).  Returns ``(u0, slope, rk_eps)``, ``rk_eps`` the
+    widened int32 bound with the host's ``ceil(max_err) + 2`` margin."""
+    n = table_row.shape[0]
+    cap = knot_keys.shape[0]
+    dev = knot_keys.device
+    u0 = unit_f32(knot_keys, kmin, inv_span)
+    i = torch.arange(cap, device=dev)
+    nxt = torch.clamp(i + 1, max=cap - 1)
+    dy = (knot_ranks[nxt] - knot_ranks).to(torch.float32)
+    du = u0[nxt] - u0
+    valid_pair = (i + 1) < m_valid
+    # knot pairs that collide in f32 u predict y1 flat, as on the host
+    slope = torch.where(valid_pair & (du > 0), dy / torch.where(du > 0, du, 1.0), 0.0)
+    slope = slope.to(torch.float32)
+    j = torch.searchsorted(knot_keys, table_row, right=True) - 1
+    j = torch.minimum(torch.clamp(j, min=0), torch.clamp(m_valid - 2, min=0))
+    y1 = knot_ranks[j].to(torch.float32)
+    pred = y1 + slope[j] * torch.clamp(unit_f32(table_row, kmin, inv_span) - u0[j], min=0.0)
+    err = torch.abs(pred.to(torch.float64) - torch.arange(n, dtype=torch.float64, device=dev))
+    # boundary extension: each knot under its left segment's model
+    pred_b = knot_ranks.to(torch.float32) + slope * torch.clamp(du, min=0.0)
+    err_b = torch.abs(pred_b.to(torch.float64) - knot_ranks[nxt].to(torch.float64))
+    err_b = torch.where(valid_pair, err_b, 0.0)
+    max_err = torch.maximum(torch.amax(err), torch.amax(err_b))
+    rk_eps = f64_to_i64(torch.clamp(torch.ceil(max_err) + 2.0, max=float(n))).to(torch.int32)
+    return u0, slope, rk_eps
 
 
 # ---------------------------------------------------------------------------

@@ -194,9 +194,16 @@ def test_build_many_needs_the_card_unless_asked_and_rejects_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttune.build_many("PGM", tables)
+    # the device fits are ported (parity in test_torch_device_fit.py); what
+    # a kind has no fit for is refused
     for fit in ("vmap", "fast", "auto"):
-        with pytest.raises(ValueError, match="later slice"):
-            ttune.build_many("PGM", tables, fit=fit, device="cpu")
+        fitted = ttune.build_many("PGM", tables, fit=fit, device="cpu")
+        np.testing.assert_array_equal(fitted.lookup(tables[0]).numpy(),
+                                      np.stack([true_ranks(t, tables[0]) for t in tables]))
+    with pytest.raises(ValueError, match="fit='vmap' is not supported"):
+        ttune.build_many("BTREE", tables, fit="vmap", device="cpu")
+    with pytest.raises(ValueError, match="fit='fast' is not supported"):
+        ttune.build_many("RMI", tables, fit="fast", device="cpu")
     with pytest.raises(ValueError, match="unknown fit"):
         ttune.build_many("PGM", tables, fit="scan", device="cpu")
     tb = ttune.build_many("BTREE", tables, device="cpu")

@@ -1083,3 +1083,140 @@ def test_gapped_tier_mutation_on_card(cuda, tmp_path):
     for s in range(4):
         one = tsi.ShardedIndex.load(tmp_path / "t.npz", device=cuda, shard=s)
         assert torch.equal(one.lasts, gpu.lasts) and _same_leaves(one.shard(s), gpu.shard(s))
+
+
+# -- the device fits: the corridor-scan kernel and the programs around it ------------------
+
+
+def _corridor_rows(rng, n_tables: int, n: int, dev):
+    """``(n_tables, n)`` f64 key rows of three table shapes (the third
+    with f64 collisions: adjacent keys at 2^60), one ε and one live count
+    a row."""
+    rows = []
+    for i in range(n_tables):
+        if i % 3 == 2:
+            t = (np.uint64(1) << np.uint64(60)) + np.arange(n, dtype=np.uint64)
+        else:
+            t = _table(rng, ("uniform", "clustered")[i % 3], 2 * n)
+            t = t[np.linspace(0, len(t) - 1, n).astype(np.int64)]
+        rows.append(t)
+    from repro_torch.core import keys
+
+    stack = keys.to_f64(keys.encode(np.stack(rows), dev))
+    eps = torch.tensor([(4.0, 16.0, 64.0)[i % 3] for i in range(n_tables)], dtype=torch.float64,
+                       device=dev)
+    count = torch.tensor([(n, n // 3, 1)[i % 3] for i in range(n_tables)], device=dev)
+    return stack, eps, count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ("exact", "blocked", "block-of-7"))
+@pytest.mark.parametrize("recurrence", ("pgm", "rs"))
+def test_corridor_scan_matches_twin_on_card(cuda, recurrence, form):
+    from repro_torch.kernels.corridor_scan import corridor_scan, corridor_scan_twin
+
+    stack, eps, count = _corridor_rows(np.random.default_rng(80), 6, 4096, cuda)
+    length = 4096 if recurrence == "pgm" else 4095
+    chunk = {"exact": length, "blocked": 256, "block-of-7": 7}[form]
+    for cnt in ((None, count) if recurrence == "pgm" else (None,)):
+        kernels.reset_launches()
+        got = corridor_scan(stack, eps, recurrence=recurrence, length=length, chunk=chunk,
+                            count=cnt)
+        torch.cuda.synchronize()
+        assert kernels.launches()["corridor_scan"] == 1
+        want = corridor_scan_twin(stack, eps, recurrence=recurrence, length=length, chunk=chunk,
+                                  count=cnt)
+        assert got.dtype == torch.bool and torch.equal(got, want), (recurrence, form)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recurrence", ("pgm", "rs"))
+def test_corridor_scan_past_65535_rows_on_card(cuda, recurrence):
+    """2^17 block rows in one launch (the fast fit of a tier has 65,536),
+    against the twin."""
+    from repro_torch.kernels.corridor_scan import corridor_scan, corridor_scan_twin
+
+    stack, eps, _ = _corridor_rows(np.random.default_rng(81), 2, 1 << 18, cuda)
+    length = (1 << 18) - (recurrence == "rs")
+    got = corridor_scan(stack, eps, recurrence=recurrence, length=length, chunk=4)
+    want = corridor_scan_twin(stack, eps, recurrence=recurrence, length=length, chunk=4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,fit", [(k, "vmap") for k in ("RMI", "SY-RMI", "PGM", "PGM_M", "RS")]
+                         + [(k, "fast") for k in ("PGM", "PGM_M", "RS")])
+def test_device_fits_on_card(cuda, kind, fit):
+    """``build_many``'s device fits on the card give the CPU's leaves (RMI:
+    the host build's too, and two builds agree: the sorted-segment sums
+    are deterministic) and exact ranks; one corridor launch a batch for
+    PGM and RS (PGM_M: one a bisection step)."""
+    rng = np.random.default_rng(82)
+    tables = [_table(rng, k, 65536) for k in ("uniform", "clustered", "bursty")]
+    tables = [t[:min(len(t) for t in tables)] for t in tables]
+    kernels.reset_launches()
+    gpu = tune.build_many(kind, tables, fit=fit, device=cuda)
+    launches = kernels.launches()["corridor_scan"]
+    if kind in ("PGM", "RS"):
+        assert launches == 1
+    cpu = tune.build_many(kind, tables, fit=fit, device="cpu")
+    if kind in ("RMI", "SY-RMI"):
+        assert launches == 0
+        again = tune.build_many(kind, tables, fit=fit, device=cuda)
+        assert _same_leaves(gpu.index, again.index)
+        host = tune.build_many(kind, tables, device="cpu")
+        assert np.array_equal(gpu.index.to_numpy()["leaf_r"], host.index.to_numpy()["leaf_r"])
+    else:
+        assert _same_leaves(gpu.index, cpu.index)
+    qs = _queries(rng, np.concatenate(tables))
+    got = gpu.lookup(qs, backend="kernel").cpu().numpy()
+    for i, t in enumerate(tables):
+        np.testing.assert_array_equal(got[i], true_ranks(t, qs), err_msg=f"{kind}/{i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit", ("fast", "scan"))
+@pytest.mark.parametrize("kind", ("PGM", "RS"))
+def test_device_refresh_on_card(cuda, kind, fit):
+    """The refresh program runs under ``torch.cuda.set_sync_debug_mode
+    ("error")`` after the merged row's copy (no host sync), installs the
+    CPU program's leaves bit for bit, serves the merged keys exactly, and
+    a refused refresh (the row crosses the next fence) changes nothing."""
+    from repro_torch.core import keys
+    from repro_torch.dist import sharded_index as tsi
+
+    rng = np.random.default_rng(83)
+    table = generate("osm", 1 << 16)
+    held = rng.choice(np.arange((1 << 14) + 8, (1 << 15) - 8), 512, replace=False)
+    base = np.delete(table, held)
+    bounds = [0, 1 << 14, (1 << 15) - 512, (3 << 14) - 512, len(base)]
+    eps = 64 if kind == "PGM" else 32
+    tiers = [tsi.ShardedIndex.build(kind, base, 4, bounds=bounds, device=d) for d in (cuda, "cpu")]
+    merged = table[1 << 14:1 << 15]
+    row = keys.encode(merged, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, ok = tune.device_refresh(tiers[0], 1, row, eps, fit=fit)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _, ok_cpu = tune.device_refresh(tiers[1], 1, merged, eps, fit=fit)
+    assert bool(ok) == bool(ok_cpu)
+    if fit == "scan":
+        assert bool(ok)
+    assert _same_leaves(tiers[0].index, tiers[1].index)
+    for k in ("tables", "fences", "counts", "offsets", "lasts"):
+        assert torch.equal(getattr(tiers[0], k).cpu(), getattr(tiers[1], k)), k
+    live = table if bool(ok) else base
+    qs = _queries(rng, live)
+    got = tsi.sharded_lookup(tiers[0], qs, backend="kernel").cpu().numpy()
+    np.testing.assert_array_equal(got, true_ranks(live, qs))
+    before = {k: v.clone() for k, v in tiers[0].index.arrays.items()}
+    state = [getattr(tiers[0], k).clone() for k in ("tables", "fences", "counts", "offsets",
+                                                     "lasts")]
+    crossing = np.append(merged[1:], keys.decode(tiers[0].fences[2:3]))
+    _, ok = tune.device_refresh(tiers[0], 1, crossing, eps, fit=fit)
+    assert not bool(ok)
+    assert all(torch.equal(before[k], v) for k, v in tiers[0].index.arrays.items())
+    assert all(torch.equal(a, getattr(tiers[0], k)) for a, k in zip(
+        state, ("tables", "fences", "counts", "offsets", "lasts")))
