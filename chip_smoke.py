@@ -1590,6 +1590,22 @@ F64_OPS_PER_S = 34e12
 #: f64 operations of one corridor step: two subtractions, the ε add and
 #: subtract, two divisions, a max, a min, a compare and four selects
 CORRIDOR_STEP_OPS = 13
+#: SM clock the latency bound assumes: the H100 SXM's highest boost clock
+#: (NVIDIA data sheet), so no run is faster
+SM_CLOCK_HZ = 1.98e9
+#: cycles of one step's dependent chain, the carry of one step to the
+#: next's, at 8 cycles a dependent f64 add, multiply, fma or compare and
+#: 4 a select (the dependent-issue latencies Jia et al. 2018, "Dissecting
+#: the NVIDIA Volta GPU Architecture via Microbenchmarking", measured on
+#: Volta's full-rate FP64 pipe; none are published for the H100); an IEEE
+#: f64 division is the compiler's reciprocal estimate and 8 dependent
+#: fma/multiply steps, 72 cycles with the estimate counted at 8 (its least).
+#:   PGM: x - x0 (8), the division (72), max (compare 8, select 4), the
+#:        cone test (compare 8), the anchor selects (4): 104
+#:   RS:  xi - x0 (8), the slope division (72), the cone test (compare 8,
+#:        or 4), the anchor select (4), xi - x0' (8), the bound division
+#:        (72), max (compare 8, select 4), the select on the test (4): 192
+CORRIDOR_CHAIN_CYCLES = {"pgm": 104, "rs": 192}
 CORRIDOR_KERNEL = {
     "name": "corridor_scan", "route": "cuda", "source": "src/repro_torch/csrc/corridor_scan.cu",
     "replaces": "src/repro/core/cdf.py:121",
@@ -1597,6 +1613,21 @@ CORRIDOR_KERNEL = {
 }
 FIT_KINDS = ("RMI", "SY-RMI", "PGM", "PGM_M", "RS")
 FAST_FIT_KINDS = ("PGM", "PGM_M", "RS")
+#: fit="auto" on the lead tier: the kinds it leaves to the host build, and
+#: one it sends down the vmap path (the rest run the same vmap code above)
+AUTO_KINDS = ("L", "Q", "C", "KO", "BTREE", "PGM")
+#: device_refresh cases: (table, kind, the tier's shard cuts as quarters
+#: of the table, fits, whether fit="fast" must install).  Shard 1 lacks
+#: 2^16 of its keys and is refreshed with them.  On equal shards the fast
+#: fit's extra segments (amzn64 PGM) and knots (osm RS) outgrow the leaf
+#: rows; amzn64's RS fast fit has fewer knots than the greedy, and a PGM
+#: tier whose shard 0 holds 1.5 quarters has rows with room for it
+REFRESH_CASES = (
+    ("amzn64", "PGM", (0, 1, 2, 3, 4), ("fast", "scan"), False),
+    ("osm", "RS", (0, 1, 2, 3, 4), ("fast", "scan"), False),
+    ("amzn64", "RS", (0, 1, 2, 3, 4), ("fast",), True),
+    ("amzn64", "PGM", (0, 1.5, 2.5, 3.25, 4), ("fast",), True),
+)
 
 
 def same_leaves(a: dict, b: dict) -> bool:
@@ -1605,15 +1636,20 @@ def same_leaves(a: dict, b: dict) -> bool:
         for k in a)
 
 
-def corridor_bound(rows: int, length: int, per_row_extra: int = 16) -> dict:
-    """The least time of one corridor launch: its f64 keys read once, one
-    flag byte written a step, ε and the count a row; the f64 operations of
-    every step at the f64 peak."""
-    n_bytes = rows * length * (8 + 1) + rows * per_row_extra
-    ops = rows * length * CORRIDOR_STEP_OPS
+def corridor_bound(recurrence: str, n_tables: int, length: int, steps: int) -> dict:
+    """The least time of one corridor launch over ``n_tables`` rows of
+    ``length`` elements with no live count: each f64 key read once (RS
+    reads one past the last element), one flag byte written an element,
+    ε once a table; the f64 operations of every step at the f64 peak.
+    Beside it, the latency bound of a thread that walks ``steps``
+    dependent steps (``CORRIDOR_CHAIN_CYCLES``)."""
+    reach = length + (1 if recurrence == "rs" else 0)
+    n_bytes = n_tables * (reach * 8 + length + 8)
+    ops = n_tables * length * CORRIDOR_STEP_OPS
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F64_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": n_bytes, "bound_ops": ops}
+            "bound_bytes": n_bytes, "bound_ops": ops,
+            "latency_bound_ms": steps * CORRIDOR_CHAIN_CYCLES[recurrence] / SM_CLOCK_HZ * 1e3}
 
 
 def timed(dev, fn):
@@ -1738,11 +1774,14 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
         qs = np.stack([make_queries(s, nq_shard, seed=1) for s in shards])
         tiers[ds] = (shards, keys.encode(qs, dev))
 
+    t_phase = time.perf_counter()
     kernels.reset_launches()
-    # -- build_many: vmap and fast on both tiers, auto (all ten kinds) on the first --
+    # -- build_many: vmap on both tiers; fast on both (PGM_M's 16-step
+    # bisection on the lead only); auto on the lead --
     for ds, (shards, q_dev) in tiers.items():
-        for fit, kinds in (("vmap", FIT_KINDS), ("fast", FAST_FIT_KINDS),
-                           ("auto", KINDS if ds == lead else ())):
+        fast_kinds = FAST_FIT_KINDS if ds == lead else ("PGM", "RS")
+        for fit, kinds in (("vmap", FIT_KINDS), ("fast", fast_kinds),
+                           ("auto", AUTO_KINDS if ds == lead else ())):
             for kind in kinds:
                 before = kernels.launches()["corridor_scan"]
                 bm, build_s = timed(dev, lambda: tune.build_many(kind, shards, fit=fit, device=dev))
@@ -1783,6 +1822,8 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
                              "host_build_s": host_s, "corridor_launches": corridor, "note": note})
                 log(f"[fits] {ds}/{kind} fit={fit}: build {build_s:.2f} s (host {host_s:.2f} s), "
                     f"{corridor} corridor launches, exact vs searchsorted; {note}")
+
+    log(f"[fits] build_many done at {time.perf_counter() - t_phase:.1f} s")
 
     # -- build_grid on one shard: RMI/SY-RMI at one b x every root, PGM and RS eps grids --
     shard = tiers[lead][0][0]
@@ -1831,53 +1872,70 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
         f"one leaf fit; spec order kept, every entry == its host build (PGM/RS leaves bit for "
         f"bit, kernel ranks exact; RMI/SY-RMI leaf_r, windows, kernel ranks, xla exact)")
 
-    # -- device_refresh: shard 1 of a PGM tier (amzn64) and an RS tier (osm), each
-    # built without 2^16 of shard 1's keys, refreshed with them --
-    for ds, kind in zip(tables, ("PGM", "RS")):
+    log(f"[fits] build_grid done at {time.perf_counter() - t_phase:.1f} s")
+
+    # -- device_refresh (REFRESH_CASES): shard 1 built without 2^16 of its keys,
+    # refreshed with them --
+    for ds, kind, quarters, fits, must in REFRESH_CASES:
         table, qs = tables[ds]
-        quarter = len(table) // 4
+        cuts = [int(c * len(table) // 4) for c in quarters]
         rng = np.random.default_rng(2030)
-        held = np.sort(rng.choice(np.arange(quarter + 8, 2 * quarter - 8), len(table) >> 8,
+        held = np.sort(rng.choice(np.arange(cuts[1] + 8, cuts[2] - 8), len(table) >> 8,
                                   replace=False))
         base = np.delete(table, held)
-        bounds = [0, quarter, 2 * quarter - len(held), 3 * quarter - len(held), len(base)]
-        merged = table[quarter:2 * quarter]
+        bounds = [c - (len(held) if i >= 2 else 0) for i, c in enumerate(cuts)]
+        merged = table[cuts[1]:cuts[2]]
         q_dev = keys.encode(qs, dev)
         eps = tix.spec_for(kind).eps
         sidx = tsi.ShardedIndex.build(kind, base, 4, bounds=bounds, device=dev)
         m = int(sidx.tables.shape[1])
         old = tier_state(sidx)
-        host_idx = tix.build(kind, tsi.shard_build_table(kind, merged, m), device=dev)
-        tsi.refresh_shard(sidx, 1, host_idx, merged)
-        host_state = tier_state(sidx)
-        for fit in ("fast", "scan"):
+        host_state = None
+        if "scan" in fits:
+            host_idx = tix.build(kind, tsi.shard_build_table(kind, merged, m), device=dev)
+            tsi.refresh_shard(sidx, 1, host_idx, merged)
+            host_state = tier_state(sidx)
+        what = f"{ds}/{kind} (shards {'equal' if quarters[1] == 1 else quarters})"
+        for fit in fits:
             restore_tier(sidx, old)
             row_dev = keys.encode(merged, dev)  # the merged row's copy
+            checks = {}
             (ok, refresh_ms), refresh_s = timed(dev, lambda: events_around(dev, lambda: (
-                tune.device_refresh(sidx, 1, row_dev, eps, fit=fit)[1])))
+                tune.device_refresh(sidx, 1, row_dev, eps, fit=fit, checks=checks)[1])))
             ok = bool(ok)
-            if fit == "scan" and not ok:
-                fail(f"fits: {ds}/{kind} device_refresh(fit='scan') refused the merged shard")
+            failed = sorted(k for k, v in checks.items() if not bool(v))
+            if ok != (not failed):
+                fail(f"fits: {what} fit={fit}: ok {ok} disagrees with its checks {failed}")
+            if (fit == "scan" or must) and not ok:
+                fail(f"fits: {what} device_refresh(fit={fit!r}) refused the merged shard: "
+                     f"{failed} failed")
             if fit == "scan" and not same_model(kind, tier_state(sidx), host_state, 1):
-                fail(f"fits: {ds}/{kind} device_refresh(fit='scan') differs from the host "
-                     "refresh of the merged shard")
-            got = tsi.sharded_lookup(sidx, q_dev, backend="kernel").cpu().numpy()
-            live = table if ok else base
-            if not np.array_equal(got, np.searchsorted(live, qs, side="right") - 1):
-                fail(f"fits: {ds}/{kind} fit={fit} lookups after the refresh are not exact")
+                fail(f"fits: {what} device_refresh(fit='scan') differs from the host refresh "
+                     "of the merged shard")
+            live = keys.encode(table if ok else base, dev)
+            want = torch.searchsorted(live, q_dev, right=True) - 1
+            if not torch.equal(tsi.sharded_lookup(sidx, q_dev, backend="kernel"), want):
+                fail(f"fits: {what} fit={fit} lookups after the refresh are not exact")
+            del live, want
             restore_tier(sidx, old)
             crossing = torch.cat([row_dev[1:], sidx.fences[2:3]])
-            bad_ok, _ = events_around(dev, lambda: tune.device_refresh(sidx, 1, crossing, eps,
-                                                                        fit=fit)[1])
-            if bool(bad_ok) or not same_state(tier_state(sidx), old):
-                fail(f"fits: {ds}/{kind} fit={fit}: a refused refresh changed the tier")
-            refresh_rows.append({"table": ds, "kind": kind, "fit": fit, "ok": ok,
+            bad_checks = {}
+            bad_ok, _ = events_around(dev, lambda: tune.device_refresh(
+                sidx, 1, crossing, eps, fit=fit, checks=bad_checks)[1])
+            if bool(bad_ok) or bool(bad_checks["fences"]) or \
+                    not same_state(tier_state(sidx), old):
+                fail(f"fits: {what} fit={fit}: a crossing row was not refused on its fence, or "
+                     "the refusal changed the tier")
+            refresh_rows.append({"table": ds, "kind": kind, "shard_quarters": list(quarters),
+                                 "fit": fit, "ok": ok, "failed_checks": failed,
                                  "refresh_s": refresh_s, "refresh_ms": refresh_ms})
-            log(f"[fits] {ds}/{kind} device_refresh fit={fit}: ok {ok}, no host sync, "
-                f"{refresh_ms} ms (events; {refresh_s:.3f} s host clock); lookups exact on the "
-                f"{'merged' if ok else 'old'} keys; scan == host refresh; a crossing row refused, "
-                "tier bit-identical")
+            log(f"[fits] {what} device_refresh fit={fit}: ok {ok}"
+                f"{f' ({failed} failed)' if failed else ''}, no host sync, {refresh_ms} ms "
+                f"(events; {refresh_s:.3f} s host clock); lookups exact on the "
+                f"{'merged' if ok else 'old'} keys{'; scan == host refresh' if fit == 'scan' else ''}"
+                "; a crossing row refused on its fence, tier bit-identical")
         del sidx, old, host_state
+    log(f"[fits] device_refresh done at {time.perf_counter() - t_phase:.1f} s")
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = kernels.launches()
@@ -1902,7 +1960,7 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
                                  reps=2, warmup=0)
             checked = "the twin at the fast fit's shape"
         else:  # the twin would take 2^22 dependent steps of eager ops: held on a prefix
-            pre = min(1 << 13, n - 2)
+            pre = min(1 << 11, n - 2)
             got = corridor_scan(keys_f[:, :pre + 2].contiguous(), eps, recurrence=rec,
                                 length=pre, chunk=pre)
             want = corridor_scan_twin(keys_f[:, :pre + 2].contiguous(), eps, recurrence=rec,
@@ -1916,11 +1974,12 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
         case = {"case": f"{rec}-{form}", "rows": rows_n, "length": length, "ms": ms,
                 "plain_ms": plain_ms, "max_abs_err": err, "checked": checked,
                 "ns_per_step": None if ms is None else ms * 1e6 / min(length, chunk),
-                **corridor_bound(rows_n, min(length, chunk))}
+                **corridor_bound(rec, 4, length, min(length, chunk))}
         cases.append(case)
         log(f"[fits] corridor_scan {rec} {form} over 4 x {length} ({rows_n} rows): {ms} ms, twin "
-            f"{plain_ms} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}), "
-            f"{case['ns_per_step']} ns a step; == {checked}")
+            f"{plain_ms} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}), latency "
+            f"bound {case['latency_bound_ms']:.4f} ms, {case['ns_per_step']} ns a step; "
+            f"== {checked}")
     head = cases[0]
     entry = {**CORRIDOR_KERNEL, "launches": launches["corridor_scan"],
              "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": head["ms"],

@@ -43,8 +43,8 @@ from .search import KEY_FILL, take_fill
 _CHUNK = 4096
 
 #: block size of the reference's exact scan fit (its ``lax.scan`` streams
-#: the table in blocks of this many keys; the kernel walks a whole row, so
-#: it changes nothing here)
+#: the table in blocks of this many keys); the kernel walks a whole row,
+#: so the port's exact scans take no block size
 SCAN_CHUNK = 128
 
 #: block size of the fast fit (:func:`pgm_fit_fast`): keys are fit
@@ -130,13 +130,12 @@ def pla_segments(keys_f64: np.ndarray, eps: int):
     return np.asarray(starts, dtype=np.int64), np.asarray(slopes, dtype=np.float64)
 
 
-def pgm_segments_scan(keys_f64, eps, *, chunk: int = SCAN_CHUNK, count=None):
+def pgm_segments_scan(keys_f64, eps, *, count=None):
     """The exact anchored-cone greedy ε-PLA on the device: a bool mask,
     True exactly at the segment starts :func:`pla_segments` emits (the
     kernel walks the same f64 cone, and min/max are exact).  ``count``
     restricts the fit to a live prefix (a device tensor the host never
-    reads).  ``chunk`` is the reference's streaming block and changes
-    nothing here."""
+    reads)."""
     keys, eps, count, one = _as_rows(keys_f64, eps, count)
     mask = chunked_corridor_scan("pgm", keys, eps, keys.shape[-1], count=count)
     return mask[0] if one else mask
@@ -225,9 +224,9 @@ def pgm_verified_eps(keys, mask, eps, count=None):
     return meas[0] if one else meas
 
 
-def pgm_fit_fast(keys_f64, eps, *, chunk: int = FAST_CHUNK, rounds=None, count=None):
+def pgm_fit_fast(keys_f64, eps, *, count=None):
     """O(log n)-depth ε-PLA fit (``fit="fast"``): the greedy inside blocks
-    of ``chunk`` keys (one kernel launch for every block of the stack,
+    of ``FAST_CHUNK`` keys (one kernel launch for every block of the stack,
     each block re-anchored), parity merge rounds that drop the spurious
     block boundaries, and a verified-ε re-measure.  A valid ε-PLA whose
     boundaries are NOT the greedy's.  Returns ``(mask, ok)``; ``ok`` (a
@@ -236,14 +235,18 @@ def pgm_fit_fast(keys_f64, eps, *, chunk: int = FAST_CHUNK, rounds=None, count=N
     keys, eps, count, one = _as_rows(keys_f64, eps, count)
     n = keys.shape[-1]
     ranks = torch.arange(n, dtype=torch.float64, device=keys.device)
-    mask = blocked_corridor_scan("pgm", keys, eps, n, chunk, count=count)
-    nblocks = -(-n // max(int(chunk), 1))
-    r = int(rounds) if rounds is not None else ceil_log2(max(nblocks, 2)) + 1
+    mask = blocked_corridor_scan("pgm", keys, eps, n, FAST_CHUNK, count=count)
     cnt = None if count is None else count[:, None]
-    for _ in range(r):
+    for _ in range(_merge_rounds(n)):
         mask = _pgm_merge_round(keys, ranks, mask, eps[:, None], count=cnt)
     ok = pgm_verified_eps(keys, mask, eps, count=count) <= eps
     return (mask[0], ok[0]) if one else (mask, ok)
+
+
+def _merge_rounds(n: int) -> int:
+    """Parity merge rounds of a fast fit over ``n`` keys: enough to merge
+    all ``ceil(n / FAST_CHUNK)`` blocks into one, plus one."""
+    return ceil_log2(max(-(-n // FAST_CHUNK), 2)) + 1
 
 
 def segment_slopes(keys_f64: np.ndarray, starts: np.ndarray, eps) -> np.ndarray:

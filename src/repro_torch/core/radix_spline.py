@@ -35,7 +35,7 @@ from .cdf import (
     segment_max,
 )
 from .keys import encode, to_f64
-from .pgm import FAST_CHUNK, SCAN_CHUNK
+from .pgm import FAST_CHUNK, _merge_rounds
 from .search import KEY_FILL, take_fill
 
 _CHUNK = 4096
@@ -112,12 +112,11 @@ def spline_knots(keys_f64: np.ndarray, eps: int) -> np.ndarray:
     return np.unique(np.asarray(knots, dtype=np.int64))
 
 
-def rs_knots_scan(keys_f64, eps, *, chunk: int = SCAN_CHUNK):
+def rs_knots_scan(keys_f64, eps):
     """The exact GreedySplineCorridor on the device: a bool knot mask,
     True exactly at :func:`spline_knots`'s knots.  Interior point ``i``
     (1 .. n-2) is seen from its left neighbour; a cone violation there
-    makes ``i - 1`` a knot, and the endpoints always are.  ``chunk`` is the
-    reference's streaming block and changes nothing here."""
+    makes ``i - 1`` a knot, and the endpoints always are."""
     keys, eps, _, one = _as_rows(keys_f64, eps)
     n = keys.shape[-1]
     if n <= 2:
@@ -180,9 +179,9 @@ def rs_verified_eps(keys, kmask):
     return meas[0] if one else meas
 
 
-def rs_knots_fast(keys_f64, eps, *, chunk: int = FAST_CHUNK, rounds=None):
+def rs_knots_fast(keys_f64, eps):
     """O(log n)-depth GreedySplineCorridor fit (``fit="fast"``): blocks of
-    ``chunk`` points, each re-anchored at its first element (a forced
+    ``FAST_CHUNK`` points, each re-anchored at its first element (a forced
     knot), in one kernel launch; parity merge rounds that drop the block
     knots whose neighbour-to-neighbour chord stays within ``eps``; then a
     chord re-measure.  Knots are NOT :func:`spline_knots`'s.  Returns
@@ -195,15 +194,12 @@ def rs_knots_fast(keys_f64, eps, *, chunk: int = FAST_CHUNK, rounds=None):
         mask = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
         ok = torch.ones(keys.shape[0], dtype=torch.bool, device=keys.device)
         return (mask[0], ok[0]) if one else (mask, ok)
-    chunk = max(int(chunk), 2)
-    flags = blocked_corridor_scan("rs", keys, eps, n - 1, chunk)
+    flags = blocked_corridor_scan("rs", keys, eps, n - 1, FAST_CHUNK)
     # a flag at point i marks knot i - 1: the flag's own position
     kmask = torch.nn.functional.pad(flags, (0, 1))
-    kmask = kmask | (torch.arange(n, device=keys.device) % chunk == 0)
+    kmask = kmask | (torch.arange(n, device=keys.device) % FAST_CHUNK == 0)
     kmask[:, n - 1] = True
-    nblocks = -(-n // chunk)
-    r = int(rounds) if rounds is not None else ceil_log2(max(nblocks, 2)) + 1
-    for _ in range(r):
+    for _ in range(_merge_rounds(n)):
         kmask = _rs_merge_round(keys, kmask, eps[:, None])
     ok = rs_verified_eps(keys, kmask) <= eps
     return (kmask[0], ok[0]) if one else (kmask, ok)

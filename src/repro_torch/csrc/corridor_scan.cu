@@ -31,11 +31,18 @@
 // give dx = 0, and a NaN cone must stay NaN so the fit's verified-eps check
 // vetoes it.
 //
-// Bound on the H100: the dependent chain of a step (two f64 divisions, a
-// max, a min, a compare, the selects: the next step's anchor depends on this
-// step's flag), not the bytes.  One thread of the exact form walks 2^22 steps
-// in series; the loads do not depend on the carry, so they are issued eight
-// ahead of the chain.  The blocked form runs length / chunk rows in parallel.
+// Bound on the H100: a thread's serial steps, not the bytes.  One thread of
+// the exact form walks 2^22 steps in series; each takes two f64 divisions, a
+// max, a min, a compare and the selects (the next step's anchor depends on
+// this step's flag).  A probe that takes the divisions off that chain but
+// issues four a step runs 1.57x slower (corridor_bench.py --probe), so the
+// divisions a thread issues, more than the chain's latency, set the step.
+// The loads do not depend on the carry, so they are double buffered in
+// registers: the next kAhead keys are loaded before the chain walks the
+// current kAhead, and their memory latency passes under those steps (H100
+// 80GB HBM3 at 700 W, corridor_bench.py: a PGM step went from 207 to 162
+// ns; an RS step from 263 to 290 ns with 8 keys a buffer, to 267 with 16).
+// The blocked form runs length / chunk rows in parallel.
 // The plain PyTorch twin is corridor_scan_twin in kernels/corridor_scan.py.
 
 #include <cuda_runtime.h>
@@ -43,7 +50,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kAhead = 8;  // loads issued ahead of the dependent chain
+constexpr int kAhead = 16;  // keys a register buffer holds (two buffers)
 
 __device__ __forceinline__ double max_nan(double a, double b) {
   return (a > b || a != a) ? a : b;  // NaN in either operand gives NaN
@@ -108,28 +115,39 @@ __global__ void corridor_scan_kernel(const double* __restrict__ keys, long long 
     unsigned char* f = out + t * length;
     const double e = eps[t];
     long long j = j0;
+    // element j reads key j + lead (PGM: 0, RS: 1); the last key a row
+    // may read is j1 - 1 + lead, so the next buffer's loads clamp to it
+    const long long lead = mode == 0 ? 0 : 1;
+    const long long top = j1 - 1 + lead;
+    double x[kAhead], nx[kAhead];
+    if (j + kAhead <= j1) {
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a) x[a] = k[j + a + lead];
+    }
     if (mode == 0) {
       PgmCarry c{0.0, -1.0, 0.0, inf};
       for (; j + kAhead <= j1; j += kAhead) {
-        double x[kAhead];
 #pragma unroll
-        for (int a = 0; a < kAhead; ++a) x[a] = k[j + a];
+        for (int a = 0; a < kAhead; ++a) nx[a] = k[min(j + kAhead + a, top)];
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) f[j + a] = pgm_step(c, x[a], (double)(j + a), e);
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) x[a] = nx[a];
       }
       for (; j < j1; ++j) f[j] = pgm_step(c, k[j], (double)j, e);
     } else {
       RsCarry c{k[j0], (double)j0, -inf, inf};
       double xp = k[j0];
       for (; j + kAhead <= j1; j += kAhead) {
-        double x[kAhead];
 #pragma unroll
-        for (int a = 0; a < kAhead; ++a) x[a] = k[j + a + 1];
+        for (int a = 0; a < kAhead; ++a) nx[a] = k[min(j + kAhead + a + 1, top)];
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) {
           f[j + a] = rs_step(c, x[a], xp, (double)(j + a + 1), e);
           xp = x[a];
         }
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) x[a] = nx[a];
       }
       for (; j < j1; ++j) {
         const double xi = k[j + 1];

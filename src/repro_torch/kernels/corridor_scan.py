@@ -19,9 +19,9 @@ reference's f64 arithmetic, max/min propagating NaN as ``jnp.maximum``/
 a loop over the elements, vectorised over the rows: the CPU path and the
 yardstick of the kernel on the card.
 
-Bound on the H100: the dependent chain of a step (two f64 divisions, a
-max, a min, a compare and the selects), not the bytes: the exact form is
-``length`` such steps in series.
+Bound on the H100: a thread's serial steps, not the bytes: the exact
+form is ``length`` steps in series, each with two f64 divisions, a max,
+a min, a compare and the selects (``corridor_bench.py`` times it).
 """
 
 from __future__ import annotations

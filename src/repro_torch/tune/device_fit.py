@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.core import keys as keymod
 from repro_torch.core.cdf import bit_length_device, ceil_log2_device, segment_ids
-from repro_torch.core.pgm import FAST_CHUNK, pgm_device_slopes, pgm_fit_fast, pgm_segments_scan
+from repro_torch.core.pgm import pgm_device_slopes, pgm_fit_fast, pgm_segments_scan
 from repro_torch.core.radix_spline import rs_knots_fast, rs_knots_scan, rs_verified_eps
 from repro_torch.core.search import KEY_FILL, f64_to_i64
 from repro_torch.dist.sharded_index import ShardedIndex
@@ -107,17 +107,18 @@ def _merge_row(old: torch.Tensor, off: torch.Tensor, count: torch.Tensor,
     return torch.where(take, vals[torch.clamp(local, 0, vals.shape[0] - 1)].to(old.dtype), old)
 
 
-def _pgm_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
+def _pgm_device_arrays(tier, padded_tab, eps, fit: str):
     """Fit and assemble every stacked PGM leaf of one shard row on the
-    device.  Returns ``(arrays, ok)``: the tier's leaf shapes and dtypes,
-    and the validity (verified ε, a one-segment root within the tier's
-    levels, capacities, trip-count budget)."""
+    device.  Returns ``(arrays, checks)``: the tier's leaf shapes and
+    dtypes, and the validity terms by name (device bools: the fast fit's
+    verified ε, a one-segment root within the tier's levels, the leaf
+    rows' capacities, the descent's trip-count budget)."""
     m = padded_tab.shape[0]
     dev = padded_tab.device
     levels = tier.s("levels")
     K = int(tier.arrays["keys"].shape[1])
     R = int(tier.arrays["rank0"].shape[1])
-    ok = torch.ones((), dtype=torch.bool, device=dev)
+    fit_ok = torch.ones((), dtype=torch.bool, device=dev)
 
     cur_u = padded_tab
     cur_f = keymod.to_f64(padded_tab)
@@ -126,8 +127,8 @@ def _pgm_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
     lvls = []  # bottom-up: (keys, slopes, start, nseg, parent count)
     for _ in range(levels):
         if fit == "fast":
-            mask, fit_ok = pgm_fit_fast(cur_f, eps, chunk=chunk, count=cnt)
-            ok = ok & fit_ok
+            mask, level_ok = pgm_fit_fast(cur_f, eps, count=cnt)
+            fit_ok = fit_ok & level_ok
         else:
             mask = pgm_segments_scan(cur_f, eps, count=cnt)
         slopes, start, _ = pgm_device_slopes(cur_f, mask, eps, count=cnt)
@@ -136,14 +137,14 @@ def _pgm_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
         lvls.append((nxt_u, slopes, start, nseg, cnt))
         cur_u, cur_f, cnt = nxt_u, keymod.to_f64(nxt_u), nseg
     # the greedy must end in a one-segment root within the tier's levels
-    ok = ok & (cnt == 1)
+    checks = {"verified_eps": fit_ok, "one_root": cnt == 1}
     lvls.reverse()  # root first, the stacked order
 
     sizes = torch.stack([nseg for _, _, _, nseg, _ in lvls])
     zero = torch.zeros((1,), dtype=torch.int64, device=dev)
     off = torch.cat([zero, torch.cumsum(sizes, 0)])
     off_r = torch.cat([zero, torch.cumsum(sizes + 1, 0)])
-    ok = ok & (off[levels] <= K) & (off_r[levels] <= R)
+    checks["leaf_capacity"] = (off[levels] <= K) & (off_r[levels] <= R)
 
     kmin = keymod.to_f64(padded_tab[0])
     span = keymod.to_f64(padded_tab[m - 1]) - kmin
@@ -177,7 +178,7 @@ def _pgm_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
     pk_eps = f64_to_i64(torch.clamp(torch.ceil(max_err) + 2.0, max=float(m))).to(torch.int32)
     # the fused descent's trip count must fit the tier's bucketed static
     pk_window = torch.clamp(2 * (pk_eps.to(torch.int64) + 1) + 3, max=max(m, 2))
-    ok = ok & (ceil_log2_device(pk_window) <= tier.s("pksteps"))
+    checks["pksteps"] = ceil_log2_device(pk_window) <= tier.s("pksteps")
     # "epi" depends on eps and n only, both the tier row's
     arrays = {
         "keys": keys_flat,
@@ -193,12 +194,14 @@ def _pgm_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
         "pk_kmin": kmin,
         "pk_inv_span": inv_span,
     }
-    return arrays, ok
+    return arrays, checks
 
 
-def _rs_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
+def _rs_device_arrays(tier, padded_tab, eps, fit: str):
     """Fit and assemble every stacked RadixSpline leaf of one shard row on
-    the device.  Returns ``(arrays, ok)``."""
+    the device.  Returns ``(arrays, checks)``: the fast fit's verified ε,
+    the knot rows' capacity, the radix width, and the trip-count budgets
+    of the knot search, the table search and the kernel's knot window."""
     m = padded_tab.shape[0]
     dev = padded_tab.device
     r_bits = tier.s("r_bits")
@@ -206,13 +209,13 @@ def _rs_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
     keys_f = keymod.to_f64(padded_tab)
 
     if fit == "fast":
-        kmask, ok = rs_knots_fast(keys_f, eps, chunk=chunk)
+        kmask, fit_ok = rs_knots_fast(keys_f, eps)
     else:
         kmask = rs_knots_scan(keys_f, eps)
-        ok = torch.ones((), dtype=torch.bool, device=dev)
+        fit_ok = torch.ones((), dtype=torch.bool, device=dev)
     _, kpos = segment_ids(kmask)
     m_valid = kmask.sum()
-    ok = ok & (m_valid <= Kc)
+    checks = {"verified_eps": fit_ok, "leaf_capacity": m_valid <= Kc}
 
     # knot rows at the tier's capacity (Kc <= m: a spline has at most as
     # many knots as keys, and both are powers of two)
@@ -227,7 +230,7 @@ def _rs_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
     span_bits = torch.clamp(bit_length_device(span_u).to(torch.int64), min=1)
     # r_bits is structural: a shard whose span shrank below it cannot
     # install (the host build would lower r_bits: the restack cue)
-    ok = ok & (span_bits >= r_bits)
+    checks["r_bits"] = span_bits >= r_bits
     shift = torch.clamp(span_bits - r_bits, min=0)
 
     # radix table: a search over the capacity knot row; the max-key pads
@@ -252,10 +255,10 @@ def _rs_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
                                                       inv_span)
 
     # trip-count budgets against the tier's bucketed statics
-    ok = ok & (ceil_log2_device(m_valid) <= tier.s("ksteps"))
-    ok = ok & (ceil_log2_device(torch.clamp(2 * eps_eff + 3, max=max(m, 2))) <= tier.s("epi"))
+    checks["ksteps"] = ceil_log2_device(m_valid) <= tier.s("ksteps")
+    checks["epi"] = ceil_log2_device(torch.clamp(2 * eps_eff + 3, max=max(m, 2))) <= tier.s("epi")
     rk_window = torch.clamp(2 * rk_eps.to(torch.int64) + 3, max=max(m, 2))
-    ok = ok & (ceil_log2_device(rk_window) <= tier.s("rk_epi"))
+    checks["rk_epi"] = ceil_log2_device(rk_window) <= tier.s("rk_epi")
 
     arrays = {
         "knot_keys": kk,
@@ -271,25 +274,28 @@ def _rs_device_arrays(tier, padded_tab, eps, fit: str, chunk: int):
         "rk_kmin": kmin_f,
         "rk_inv_span": inv_span,
     }
-    return arrays, ok
+    return arrays, checks
 
 
 _KIND_DEVICE_ARRAYS = {"PGM": _pgm_device_arrays, "RS": _rs_device_arrays}
 
 
-def _refresh_program(sidx: ShardedIndex, shard: int, row, count, eps, fit: str, chunk: int):
+def _refresh_program(sidx: ShardedIndex, shard: int, row, count, eps, fit: str):
     """The device program: pad, fit, assemble, validate, install under
-    ``ok``.  Tensor ops only, no host sync; returns ``ok``."""
+    ``ok``.  Tensor ops only, no host sync; returns ``(ok, checks)``."""
     m = int(sidx.tables.shape[1])
     padded_tab = pad_sorted_table_device(row, count, m)
-    new, ok = _KIND_DEVICE_ARRAYS[sidx.kind](sidx.index, padded_tab, eps, fit, chunk)
+    new, checks = _KIND_DEVICE_ARRAYS[sidx.kind](sidx.index, padded_tab, eps, fit)
     # the fences, as refresh_shard checks them (the previous shard's last
     # live key from lasts)
     first, last = row[0], _at(row, count - 1)
+    fences = torch.ones((), dtype=torch.bool, device=row.device)
     if shard > 0:
-        ok = ok & (first > sidx.lasts[shard - 1])
+        fences = fences & (first > sidx.lasts[shard - 1])
     if shard + 1 < sidx.n_shards:
-        ok = ok & (last < sidx.fences[shard + 1])
+        fences = fences & (last < sidx.fences[shard + 1])
+    checks["fences"] = fences
+    ok = torch.stack(list(checks.values())).all()
     r = sidx._row(shard)
     for k, v in sidx.index.arrays.items():
         val = new[k].to(v.dtype)
@@ -301,11 +307,11 @@ def _refresh_program(sidx: ShardedIndex, shard: int, row, count, eps, fit: str, 
     for vec, val in ((sidx.fences, first), (sidx.counts, count), (sidx.lasts, last)):
         vec[shard:shard + 1].copy_(torch.where(ok, val.reshape(1), vec[shard:shard + 1]))
     sidx.offsets.copy_(torch.cumsum(sidx.counts, 0) - sidx.counts)
-    return ok
+    return ok, checks
 
 
 def device_refresh(sidx: ShardedIndex, shard: int, merged, eps, *, fit: str = "fast",
-                   chunk: int = FAST_CHUNK):
+                   checks: dict | None = None):
     """Rebuild one shard of a PGM or RS tier and install it, in place, as
     one device program.
 
@@ -319,10 +325,14 @@ def device_refresh(sidx: ShardedIndex, shard: int, merged, eps, *, fit: str = "f
     Returns ``(sidx, ok)`` with ``ok`` a device bool the caller may read
     later: when False every leaf, the table row, fences, counts, offsets
     and last keys kept their values, and the caller falls back to the host
-    refresh.  Raises ``ValueError`` on the host only where a restack is
-    needed anyway (a kind without a device refresh, more keys than the
-    table capacity), for an unknown fit, a capacity-1 tier, or a tier that
-    holds only some of its shards.  Example::
+    refresh.  A ``checks`` dict, when given, receives the terms whose
+    conjunction is ``ok``, by name (device bools: ``verified_eps``,
+    ``leaf_capacity``, ``fences``, the kind's level and trip-count
+    budgets), to tell which one refused.  Raises ``ValueError`` on the
+    host only where a restack is needed anyway (a kind without a device
+    refresh, more keys than the table capacity), for an unknown fit, a
+    capacity-1 tier, or a tier that holds only some of its shards.
+    Example::
 
         sidx, ok = device_refresh(sidx, 1, merged_keys, eps=64)
         if not bool(ok):  # read later, off the serving path
@@ -355,7 +365,10 @@ def device_refresh(sidx: ShardedIndex, shard: int, merged, eps, *, fit: str = "f
         row = keymod.encode(row_np, dev)
     count = torch.full((), n_new, dtype=torch.int64, device=dev)
     eps_t = torch.full((), float(eps), dtype=torch.float64, device=dev)
-    return sidx, _refresh_program(sidx, shard, row, count, eps_t, fit, int(chunk))
+    ok, terms = _refresh_program(sidx, shard, row, count, eps_t, fit)
+    if checks is not None:
+        checks.update(terms)
+    return sidx, ok
 
 
 __all__ = ["DEVICE_FITS", "DEVICE_REFRESH_KINDS", "device_refresh", "pad_sorted_table_device"]

@@ -515,8 +515,10 @@ def test_device_refresh_matches_reference(kind, fit, tmp_path):
     drift, merged = _merged(ref)
     eps = _SPECS[kind]["eps"]
     kernels.reset_launches()
-    same, ok = ttune.device_refresh(port, 1, merged, eps, fit=fit)
+    checks = {}
+    same, ok = ttune.device_refresh(port, 1, merged, eps, fit=fit, checks=checks)
     assert same is port and ok.dtype == torch.bool and ok.dim() == 0
+    assert bool(ok) == all(bool(v) for v in checks.values())
     assert kernels.launches()["corridor_scan"] == 0  # the CPU runs the twin
     ref2, ref_ok = rdf.device_refresh(ref, 1, merged, eps=eps, fit=fit)
     assert bool(ok) == bool(ref_ok)
@@ -571,6 +573,69 @@ def test_device_refresh_scan_equals_the_host_refresh(kind, fit, tmp_path):
         after = _tier_state(port)
         for k, v in before.items():
             assert v.tobytes() == after[k].tobytes(), k
+
+
+@pytest.mark.parametrize("kind", ("PGM", "RS"))
+def test_device_refresh_names_the_term_that_refuses(kind, tmp_path):
+    """``checks`` tells which term vetoed a refresh: a merged row that
+    crosses the next fence fails ``fences`` alone, and one whose model
+    outgrows the tier's leaf rows fails ``leaf_capacity`` (the reference
+    refuses both too); either way the tier is left as it was."""
+    _, ref, port = _tiers(kind, tmp_path)
+    _, merged = _merged(ref)
+    eps = _SPECS[kind]["eps"]
+    crossing = np.append(merged, keys.decode(port.fences)[2])
+    # clusters of 80 keys 2^12 apart (distinct in f64) behind random gaps:
+    # each a rank step past 2ε, so segments and knots outgrow the rows
+    # sized for osm's shard
+    lo, hi = int(merged[0]), int(merged[-1])
+    step = np.arange(80, dtype=np.uint64) << np.uint64(12)
+    starts = np.unique(np.random.default_rng(3).integers(lo, hi - (80 << 12),
+                                                         len(merged) // 80, dtype=np.uint64))
+    assert np.diff(starts).min() > (80 << 12)
+    clustered = (starts[:, None] + step).reshape(-1)
+    cap = port.index.arrays["keys" if kind == "PGM" else "knot_keys"].shape[1]
+    built = tix.build(tix.spec_for(kind, **_SPECS[kind]), clustered, device="cpu")
+    assert built.to_numpy()["m_valid" if kind == "RS" else "sizes"].sum() > cap
+    for fit in ("fast", "scan"):
+        for row, want in ((crossing, {"fences"}), (clustered, {"leaf_capacity"})):
+            before = _tier_state(port)
+            checks = {}
+            _, ok = ttune.device_refresh(port, 1, row, eps, fit=fit, checks=checks)
+            failed = {k for k, v in checks.items() if not bool(v)}
+            assert want <= failed and not bool(ok), (fit, failed)
+            if row is crossing and fit == "scan":
+                assert failed == want
+            ref, ref_ok = rdf.device_refresh(ref, 1, row, eps=eps, fit=fit)  # donates ref
+            assert not bool(ref_ok)
+            for k, v in _tier_state(port).items():
+                assert v.tobytes() == before[k].tobytes(), k
+
+
+@pytest.mark.parametrize("kind", ("PGM", "RS"))
+def test_device_refresh_fast_installs_where_the_rows_have_room(kind, tmp_path):
+    """On a tier whose shard 0 holds 1.5 times shard 1's keys, the leaf rows
+    have room for the fast fit's extra segments and knots: the fast refresh
+    of shard 1 installs (every check passes, as in the reference), its
+    leaves equal the reference's, and the tier serves the merged keys."""
+    table = distributions.generate("osm", 8000, seed=0)
+    held = np.sort(np.random.default_rng(4).choice(np.arange(3008, 4992), 40, replace=False))
+    base = np.delete(table, held)
+    ref = rsi.ShardedIndex.build(rix.spec_for(kind, **_SPECS[kind]), base, n_shards=4,
+                                 bounds=[0, 3000, 4960, 6460, 7960])
+    ref.save(str(tmp_path / "tier.npz"))
+    port = tsi.ShardedIndex.load(str(tmp_path / "tier.npz"), device="cpu")
+    merged, eps = table[3000:5000], _SPECS[kind]["eps"]
+    checks = {}
+    _, ok = ttune.device_refresh(port, 1, merged, eps, fit="fast", checks=checks)
+    assert bool(ok) and all(bool(v) for v in checks.values()), checks
+    ref2, ref_ok = rdf.device_refresh(ref, 1, merged, eps=eps, fit="fast")
+    assert bool(ref_ok)
+    _assert_leaves({k: np.asarray(v) for k, v in ref2.index.arrays.items()},
+                   port.index.to_numpy(), kind)
+    qs = np.sort(np.random.default_rng(5).choice(table, 512))
+    np.testing.assert_array_equal(tsi.sharded_lookup(port, qs, backend="kernel").numpy(),
+                                  true_ranks(table, qs))
 
 
 def test_device_refresh_host_side_rejections(tmp_path):

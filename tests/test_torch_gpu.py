@@ -1220,3 +1220,38 @@ def test_device_refresh_on_card(cuda, kind, fit):
     assert all(torch.equal(before[k], v) for k, v in tiers[0].index.arrays.items())
     assert all(torch.equal(a, getattr(tiers[0], k)) for a, k in zip(
         state, ("tables", "fences", "counts", "offsets", "lasts")))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("PGM", "RS"))
+def test_device_refresh_fast_installs_on_card(cuda, kind):
+    """A tier whose shard 0 holds 1.5 times shard 1's keys has leaf rows
+    with room for the fast fit: the fast refresh installs on the card
+    under the sync debug mode, every check passes, the leaves equal the
+    CPU program's and the tier serves the merged keys exactly."""
+    from repro_torch.core import keys
+    from repro_torch.dist import sharded_index as tsi
+
+    rng = np.random.default_rng(84)
+    table = generate("osm", 1 << 16)
+    q = 1 << 14
+    held = rng.choice(np.arange(3 * q // 2 + 8, 5 * q // 2 - 8), 512, replace=False)
+    base = np.delete(table, held)
+    bounds = [0, 3 * q // 2, 5 * q // 2 - 512, 13 * q // 4 - 512, len(base)]
+    eps = 64 if kind == "PGM" else 32
+    tiers = [tsi.ShardedIndex.build(kind, base, 4, bounds=bounds, device=d) for d in (cuda, "cpu")]
+    merged = table[3 * q // 2:5 * q // 2]
+    row = keys.encode(merged, cuda)
+    checks = {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, ok = tune.device_refresh(tiers[0], 1, row, eps, fit="fast", checks=checks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(ok) and all(bool(v) for v in checks.values()), checks
+    _, ok_cpu = tune.device_refresh(tiers[1], 1, merged, eps, fit="fast")
+    assert bool(ok_cpu) and _same_leaves(tiers[0].index, tiers[1].index)
+    qs = _queries(rng, table)
+    got = tsi.sharded_lookup(tiers[0], qs, backend="kernel").cpu().numpy()
+    np.testing.assert_array_equal(got, true_ranks(table, qs))
