@@ -59,7 +59,8 @@ Phases (any failure ends the run with a non-zero exit):
                lookup each; launch counts of the batched path (one per
                tier and kind), bit-exactness against the batched twin and
                batched ``torch.searchsorted``, ``unstack()`` against
-               per-shard builds, times, bounds and the phase-4 plan lines;
+               fresh builds of the first and last shard, times, bounds
+               and the phase-4 plan lines;
                and a locality probe:
                the single-table model-free kernel over the whole table
                with the tier's queries in shard order and shuffled;
@@ -71,7 +72,7 @@ Phases (any failure ends the run with a non-zero exit):
                three backends); then at
                phase 5's scale (4 shards of 2^22 keys) with phase 4's
                2^22 queries over the whole table, SY-RMI, PGM_M, RS and
-               KO on both tables, ``backend="kernel"``: one batched
+               KO on amzn64 (osm's repeat is cut), ``backend="kernel"``: one batched
                launch a call (counted), exact against
                ``torch.searchsorted``; the batched kernel on the tier's own
                ``(4, 2^22)`` operands (every query to every shard, three in
@@ -116,15 +117,15 @@ Phases (any failure ends the run with a non-zero exit):
                on every shard, ``sharded_lookup(mode="ref", backend="xla")``
                == numpy, and the counts, offsets, fences and last keys equal
                to a tier built on the live keys;
-5e. fits     — the device fits on phase 5's tiers (each table in 4 shards of
-               2^22 keys): ``build_many(fit="vmap")`` of RMI, SY-RMI, PGM,
-               PGM_M and RS (PGM, PGM_M, RS leaves == phase 5's
+5e. fits     — the device fits on phase 5's amzn64 tier (4 shards of
+               2^22 keys; osm's repeat is cut): ``build_many(fit="vmap")``
+               of RMI, SY-RMI, PGM, PGM_M and RS (PGM, PGM_M, RS leaves == phase 5's
                ``fit="host"`` leaves bit for bit, one ``corridor_scan``
                launch a batch; RMI/SY-RMI ``leaf_r`` == host, every key in
-               its window), ``fit="fast"`` of PGM, PGM_M, RS (segments and
+               its window), ``fit="fast"`` of PGM, PGM_M and RS (segments and
                knots beside the host's, the ``ok`` flags, the members that
-               fell back), ``fit="auto"`` of all ten kinds on amzn64's tier
-               (== vmap or host), each result's batched kernel ==
+               fell back), ``fit="auto"`` of L and PGM on amzn64's tier
+               (== host, == vmap), each result's batched kernel ==
                ``torch.searchsorted``; ``build_grid`` on amzn64's shard 0
                (RMI/SY-RMI at SY-RMI's b x every root, PGM eps 16-128, RS eps
                16/32: spec order, one corridor launch a scan kind, PGM/RS
@@ -140,6 +141,26 @@ Phases (any failure ends the run with a non-zero exit):
                refresh ms, and the corridor kernel's ms of each form (CUDA
                events) against its twin (the blocked form at the fast fit's
                shape, the exact form on each row's first 8,192 keys);
+5f. tuner    — the paper's tuning procedure on the search kernels (the
+               reference's ``tune.pareto``, ``tune.mining``, ``tune.rebuild``):
+               ``tune.sweep`` of ``candidate_grid`` on phase 4's amzn64 table
+               (2^24 keys, 2^22 queries, ``fit="auto"``, ``kernel``; 24
+               candidates, every one exact), each candidate's space and ns a
+               query beside ``torch.searchsorted``'s, the strictly monotone
+               frontier, the picks at 0.05/0.7/2/10% within budget and the
+               report's round trip; ``mine_sy_rmi`` over both tables (UB,
+               votes, winner) and the mined 2% SY-RMI exact on ``kernel`` and
+               ``xla`` (a cubic winner's kernel misses are logged: ROADMAP
+               queue 3); a ``TunedTier`` lifecycle on amzn64 in 4 shards
+               (every 64th key held out): a PGM refresh through the device
+               arm, an SY-RMI refresh through the host arm, what telemetry
+               costs (``sharded_lookup`` on and off, ``timed_lookup``'s
+               phases, search launches equal), a retune over SY-RMI/PGM/RS
+               within 2%, a rebalance under 90% skew, GAPPED inserts, a
+               cluster into the delta and a compaction; after every step
+               the ranks == numpy and ``metrics()`` == a host model; the
+               registry written to ``build/obs_5f.jsonl`` and dumped with
+               ``python -m repro_torch.obs dump``;
 6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
                (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128),
                (4,4,256), (8,8,8), ragged ``kv_len`` with 0, 1 and S, S not
@@ -792,6 +813,11 @@ def log_intervals(prefix: str, row: dict) -> None:
         f"{row['bbs_lookup_ms']}, kernel {row['lookup_ms']}; intervals {row['intervals_ms']}")
 
 
+#: the shards whose unstacked index phase 5 holds against a fresh build
+#: of the shard (the others repeat the same stacking at the same shapes)
+UNSTACK_CHECKED = (0, -1)
+
+
 def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
     """The batched path on a tier: each table split into ``n_shards``
     contiguous shards, ``nq_shard`` queries sampled from each shard."""
@@ -836,7 +862,9 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
         if err != 0 or not exact:
             fail(f"tier: {ds}/{kind} batched kernel vs twin max |err| {err}, equal to ref: {exact}")
         t0 = time.perf_counter()
-        for i, part in enumerate(bm.unstack()):
+        parts = bm.unstack()
+        for i in UNSTACK_CHECKED:  # the first and last shard: a fresh build of each
+            part = parts[i]
             fresh = tix.build(kind, shards[i], device=dev)
             want, have = fresh.to_numpy(), part.to_numpy()
             same = part.static == fresh.static and set(want) == set(have) and all(
@@ -862,7 +890,8 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
         row["plan"] = search_plan(kind, bm.index, bm.tables.shape[1], args, kwargs)
         rows.append(row)
         log_row(f"[tier] {ds}/{kind}", row)
-        log(f"[tier] {ds}/{kind}: unstack() == per-shard build for all {len(shards)} shards "
+        log(f"[tier] {ds}/{kind}: unstack() == per-shard build for shards "
+            f"{[i % len(shards) for i in UNSTACK_CHECKED]} of {len(shards)} "
             f"(checked in {unstack_s:.1f} s)")
     return rows, launches, locality_probe(dev, tables, tiers), built
 
@@ -1366,6 +1395,17 @@ def fresh_keys(rng, table: np.ndarray, n: int) -> np.ndarray:
     return np.unique(table[i] + gap // np.uint64(2))
 
 
+def not_in(keys, table: np.ndarray) -> np.ndarray:
+    """The sorted distinct ``keys`` that the sorted ``table`` does not hold:
+    ``np.setdiff1d`` without its ``np.unique`` of the whole table (see
+    ``repro_torch.core.cdf.sorted_unique``)."""
+    from repro_torch.core.cdf import sorted_unique
+
+    k = sorted_unique(keys)
+    i = np.minimum(np.searchsorted(table, k), len(table) - 1)
+    return k[table[i] != k]
+
+
 def packed_batch(index, live: np.ndarray, extra: int) -> np.ndarray:
     """Fresh keys packed into the widest key range of one leaf of a GAPPED
     index (not its last), ``extra`` more than the leaf's free slots: the
@@ -1383,7 +1423,7 @@ def packed_batch(index, live: np.ndarray, extra: int) -> np.ndarray:
     step = (hi[leaf] - lo[leaf] - np.uint64(1)) // np.uint64(k + 1)
     if step < 1:
         fail(f"mutation: no leaf range wide enough for {k} keys")
-    batch = np.setdiff1d(lo[leaf] + np.uint64(1) + np.arange(k, dtype=np.uint64) * step, live)
+    batch = not_in(lo[leaf] + np.uint64(1) + np.arange(k, dtype=np.uint64) * step, live)
     if len(batch) <= k - extra:
         fail("mutation: the packed batch fits the leaf's gaps")
     return batch
@@ -1612,10 +1652,14 @@ CORRIDOR_KERNEL = {
     "also_replaces": "src/repro/core/cdf.py:170 (lax.scan of the corridor step; no Pallas kernel)",
 }
 FIT_KINDS = ("RMI", "SY-RMI", "PGM", "PGM_M", "RS")
+#: fit="fast" on the lead tier (osm's repeat is cut): PGM_M's fast
+#: bisection runs nowhere else on the card (the sweep's fit="auto" takes
+#: the vmap fit)
 FAST_FIT_KINDS = ("PGM", "PGM_M", "RS")
-#: fit="auto" on the lead tier: the kinds it leaves to the host build, and
-#: one it sends down the vmap path (the rest run the same vmap code above)
-AUTO_KINDS = ("L", "Q", "C", "KO", "BTREE", "PGM")
+#: fit="auto" on the lead tier: one kind it leaves to the host build and
+#: one it sends down the vmap path (the other host kinds would repeat
+#: phase 5's host builds; the CPU tests hold auto == host for each)
+AUTO_KINDS = ("L", "PGM")
 #: device_refresh cases: (table, kind, the tier's shard cuts as quarters
 #: of the table, fits, whether fit="fast" must install).  Shard 1 lacks
 #: 2^16 of its keys and is refreshed with them.  On equal shards the fast
@@ -1776,12 +1820,12 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
 
     t_phase = time.perf_counter()
     kernels.reset_launches()
-    # -- build_many: vmap on both tiers; fast on both (PGM_M's 16-step
-    # bisection on the lead only); auto on the lead --
+    # -- build_many on the lead tier: vmap, fast, auto (the other tier's
+    # repeat of the same fits is cut; its RS tier is refreshed below) --
     for ds, (shards, q_dev) in tiers.items():
-        fast_kinds = FAST_FIT_KINDS if ds == lead else ("PGM", "RS")
-        for fit, kinds in (("vmap", FIT_KINDS), ("fast", fast_kinds),
-                           ("auto", AUTO_KINDS if ds == lead else ())):
+        if ds != lead:
+            continue
+        for fit, kinds in (("vmap", FIT_KINDS), ("fast", FAST_FIT_KINDS), ("auto", AUTO_KINDS)):
             for kind in kinds:
                 before = kernels.launches()["corridor_scan"]
                 bm, build_s = timed(dev, lambda: tune.build_many(kind, shards, fit=fit, device=dev))
@@ -1993,6 +2037,431 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
     log(f"[fits] build seconds by fit: {json.dumps(summary)}")
     return {"rows": rows, "grid": grid_rows, "refresh": refresh_rows, "launches": launches,
             "corridor": entry}
+
+
+# -- phase 5f: the tuner ---------------------------------------------------------------------
+
+#: the kernels phase 5f's main path must launch (sweep, mining, the tiers'
+#: lookups, build_grid's and device_refresh's corridor scans)
+TUNER_KERNELS = ("rmi_search", "pgm_search", "rs_search", "kary_search", "batched_rmi_search",
+                 "batched_pgm_search", "corridor_scan")
+#: the space budgets (% of the table) of the frontier's picks
+BUDGET_PCTS = (0.05, 0.7, 2.0, 10.0)
+#: the kinds of the retune's grid (PGM_M's bisection is swept in 5f-a already)
+RETUNE_KINDS = ("SY-RMI", "PGM", "RS")
+
+
+class SearchSorted:
+    """``torch.searchsorted`` behind the ``lookup`` of an index, so the
+    sweep's timing (best of ``reps`` wall times, a sync after each call)
+    times the paper's yardstick the same way."""
+
+    def lookup(self, table, queries, backend=None):
+        return torch.searchsorted(table, queries, right=True) - 1
+
+
+def tier_queries(rng, shards, n: int, hot: float = 0.0) -> np.ndarray:
+    """``n`` queries a shard sampled from the shards' keys; with ``hot`` > 0
+    that share of all of them from shard 0 instead."""
+    total = n * len(shards)
+    if hot <= 0:
+        qs = np.concatenate([rng.choice(s, n) for s in shards])
+    else:
+        n_hot = int(hot * total)
+        qs = np.concatenate([rng.choice(shards[0], n_hot),
+                             rng.choice(np.concatenate(shards), total - n_hot)])
+    return np.sort(qs).astype(np.uint64)  # sorted: numpy's check walks the table once
+
+
+class TierModel:
+    """The host model of a ``TunedTier``'s counters: what ``metrics()``
+    must equal after every step."""
+
+    FIELDS = ("lookups", "ingested", "absorbed", "overflowed", "duplicates", "shard_compactions",
+              "shard_refreshes", "retunes", "forced_restacks", "pending")
+
+    def __init__(self, n_shards: int):
+        self.c = {f: 0 for f in self.FIELDS}
+        self.c.update(rebalances=0, rebalance_moved_keys=0)
+        self.routing = {"lookups": 0, "queries": 0, "dropped": 0, "routed_max": 0,
+                        "routed_even": 0.0, "imbalance_last": 0.0, "imbalance_peak": 0.0}
+        self.n_shards = n_shards
+
+    def lookup(self, fences: np.ndarray, queries: np.ndarray) -> None:
+        hist = np.bincount(np.searchsorted(fences[1:], queries, side="right"),
+                           minlength=self.n_shards)
+        even = len(queries) / self.n_shards
+        r = self.routing
+        r["lookups"] += 1
+        r["queries"] += len(queries)
+        r["routed_max"] += int(hist.max())
+        r["routed_even"] += even
+        r["imbalance_last"] = float(hist.max() / even)
+        r["imbalance_peak"] = max(r["imbalance_peak"], r["imbalance_last"])
+        self.c["lookups"] += 1
+
+    def check(self, what: str, tier) -> dict:
+        m = tier.metrics()
+        got = {k: m[k] for k in self.c}
+        routing = {k: m["routing"][k] for k in self.routing}
+        if got != self.c or routing != self.routing:
+            fail(f"tuner: {what}: metrics {got} {routing} != host model {self.c} {self.routing}")
+        return m
+
+
+def check_tier_ranks(what: str, tier, queries: np.ndarray, served: np.ndarray) -> None:
+    got = tier.lookup(queries).cpu().numpy()
+    want = np.searchsorted(served, queries, side="right") - 1
+    if not np.array_equal(got, want):
+        fail(f"tuner: {what}: {int((got != want).sum())} of {len(queries)} ranks differ "
+             "from numpy on the live keys")
+
+
+def served_keys(tier) -> np.ndarray:
+    """The keys a tier answers from: its shards' live keys."""
+    return np.concatenate([tier._shard_keys(s) for s in range(tier.sidx.n_shards)])
+
+
+def restore_launches(saved: dict) -> None:
+    """Set every kernel's launch count back to ``saved`` (probes that
+    measure a path do not count as its launches)."""
+    from repro_torch import kernels
+
+    for mod in kernels.KERNEL_MODULES:
+        name = mod.__name__.rsplit(".", 1)[-1]
+        mod.LAUNCHES = saved[name]
+        if hasattr(mod, "BATCHED_LAUNCHES"):
+            mod.BATCHED_LAUNCHES = saved[f"batched_{name}"]
+
+
+def telemetry_cost(dev, tier, model, qs: np.ndarray, reps: int = 20) -> dict:
+    """5f-d: ``sharded_lookup`` on the tier with telemetry off and on (ms a
+    call, CUDA events; launches of each), and ``timed_lookup``'s host and
+    device phases over ``reps`` calls of ``tier.lookup`` (a private
+    registry; ``model`` follows the tier's counters).  The probes' launches
+    are not the path's: the counts are restored after them."""
+    from repro_torch import kernels, obs
+    from repro_torch.core import keys
+    from repro_torch.dist import sharded_index as tsi
+
+    saved = kernels.launches()
+    sidx, q_dev = tier.sidx, keys.encode(qs, dev)
+    counts = {}
+    for flag in (False, True):
+        kernels.reset_launches()
+        tsi.sharded_lookup(sidx, q_dev, backend="kernel", telemetry=flag)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts[flag] = kernels.launches()
+    if counts[True] != counts[False] or (dev.type == "cuda" and sum(counts[False].values()) != 1):
+        fail(f"tuner: telemetry changed the launches: off {counts[False]}, on {counts[True]}")
+    off_ms = device_ms(lambda: tsi.sharded_lookup(sidx, q_dev, backend="kernel"), dev)
+    on_ms = device_ms(lambda: tsi.sharded_lookup(sidx, q_dev, backend="kernel", telemetry=True),
+                      dev)
+    reg = obs.Registry()
+    fences = keys.decode(sidx.fences)
+    for _ in range(reps):
+        obs.timed_lookup(tier, q_dev, tier="5f", registry=reg)
+        model.lookup(fences, qs)
+    snap = reg.snapshot()
+    lab = dict(kind=tier.spec.kind, backend=tier.policy.backend, tier="5f")
+    host = obs.find_sample(snap, "lookup_latency_us", **lab, phase="host")
+    devp = obs.find_sample(snap, "lookup_latency_us", **lab, phase="device")
+    restore_launches(saved)
+    row = {"off_ms": off_ms, "on_ms": on_ms,
+           "added_ms": None if off_ms is None else on_ms - off_ms,
+           "launches_off": counts[False], "launches_on": counts[True],
+           "timed_lookup_host_us": host["sum"] / host["count"],
+           "timed_lookup_device_us": devp["sum"] / devp["count"],
+           "timed_lookup_device_p50_us": obs.hist_quantile(devp, 0.5), "reps": reps}
+    log(f"[tuner] telemetry on {tier.spec.display_name()}, {len(qs)} queries: off {off_ms} ms, "
+        f"on {on_ms} ms (CUDA events, 20 calls); search launches off == on "
+        f"({sum(counts[False].values())}); timed_lookup over {reps} calls: host "
+        f"{row['timed_lookup_host_us']:.1f} us, device {row['timed_lookup_device_us']:.1f} us "
+        f"(mean; device p50 ~{row['timed_lookup_device_p50_us']:.1f} us)")
+    return row
+
+
+def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
+    """Phase 5f: the paper's tuning procedure on the search kernels, at
+    phase 4's size.  5f-a the frontier (``sweep`` over ``candidate_grid``
+    on ``kernel``, every candidate exact, budget picks, the report's round
+    trip), 5f-b SY-RMI mining on both tables and the mined SY-RMI at 2%,
+    5f-c a ``TunedTier``'s lifecycle on ``lead`` split in 4 shards (the
+    device and the host refresh, GAPPED absorb/overflow/compact, a retune,
+    a rebalance; ranks == numpy and ``metrics()`` == a host model after
+    every step), 5f-d what telemetry costs."""
+    from repro_torch import index as tix
+    from repro_torch import kernels, obs
+    from repro_torch import tune
+    from repro_torch.core import keys
+    from repro_torch.tune.pareto import _time_lookup
+
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+
+    # -- 5f-a: the frontier ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    table = tables[lead][0]
+    n = len(table)
+    cands = tune.sweep(table, n_queries=nq, reps=3, fit="auto", check_exact=True, device=dev)
+    want_specs = [s for s in tune.candidate_grid(n) if "kernel" in tix.impls.query_impl(
+        s.kind).backends]
+    if [c.spec for c in cands] != want_specs:
+        fail("tuner: the sweep's candidates are not candidate_grid's kernel kinds")
+    bad = [c.spec.display_name() for c in cands if not c.exact]
+    if bad:
+        fail(f"tuner: sweep candidates not exact on kernel: {bad}")
+    q_np = np.random.default_rng(0).choice(table, size=min(nq, max(16, n)))
+    t_dev, q_dev = keys.encode(table, dev), keys.encode(q_np, dev)
+    ss_ns = _time_lookup(SearchSorted(), t_dev, q_dev, "kernel", 3) / len(q_np) * 1e9
+    rows = []
+    for c in cands:
+        row = {"kind": c.kind, "spec": c.spec.display_name(), "space_bytes": c.space_bytes,
+               "space_pct": c.space_pct_of(n), "ns_per_query": c.ns_per_query,
+               "build_s": c.build_s, "exact": c.exact}
+        rows.append(row)
+        log(f"[tuner] {row['spec']}: space {row['space_pct']:.5f}% ({c.space_bytes} B), "
+            f"{c.ns_per_query:.4f} ns a query, build {c.build_s:.3f} s, exact")
+    log(f"[tuner] torch.searchsorted on the same {len(q_np)} queries: {ss_ns:.4f} ns a query")
+    front = tune.pareto_frontier(cands)
+    spaces, times = [c.space_bytes for c in front], [c.ns_per_query for c in front]
+    if spaces != sorted(set(spaces)) or any(a <= b for a, b in zip(times, times[1:])):
+        fail(f"tuner: the frontier is not strictly monotone: {spaces} {times}")
+    log(f"[tuner] frontier: {[c.spec.display_name() for c in front]}")
+    picks = {}
+    for pct in BUDGET_PCTS:
+        best = tune.best_candidate_for_budget(cands, n, pct)
+        if best is None or best.space_bytes > pct / 100.0 * n * 8:
+            fail(f"tuner: budget {pct}%: pick {best} does not fit")
+        picks[pct] = best.spec.display_name()
+        log(f"[tuner] budget {pct}%: {best.spec.display_name()} ({best.space_pct_of(n):.5f}%, "
+            f"{best.ns_per_query:.4f} ns a query)")
+    report = json.loads(json.dumps(tune.frontier_report(table, cands, front)))
+    if tune.report_specs(report) != [c.spec for c in front] or \
+            tune.report_specs(report, "candidates") != [c.spec for c in cands]:
+        fail("tuner: frontier_report does not round-trip through report_specs")
+    out.update(frontier=rows, frontier_specs=[c.spec.display_name() for c in front],
+               picks=picks, searchsorted_ns=ss_ns)
+    del cands, front
+    out["seconds"]["5f-a"] = time.perf_counter() - t0
+    log(f"[tuner] 5f-a frontier done in {out['seconds']['5f-a']:.1f} s")
+
+    # -- 5f-b: SY-RMI mining -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    mined = tune.mine_sy_rmi([tables[ds][0] for ds in tables], device=dev)
+    grid = tune.cdfshop_grid(n)
+    votes = [grid[int(np.argmin(t))].root_type for t in mined.sweep_times]
+    log(f"[tuner] mining: UB {mined.ub!r}, votes {dict(zip(tables, votes))}, winner "
+        f"{mined.winner_root}, {mined.mining_time:.1f} s")
+    mining = {"ub": mined.ub, "votes": dict(zip(tables, votes)), "winner": mined.winner_root,
+              "mining_s": mined.mining_time, "tables": {}}
+    spec = tix.SYRMISpec(space_pct=2.0, ub=mined.ub, winner_root=mined.winner_root)
+    for ds, (tab, qs) in tables.items():
+        idx = tix.build(spec, tab, device=dev)
+        td, qd = keys.encode(tab, dev), keys.encode(qs, dev)
+        want = torch.searchsorted(td, qd, right=True) - 1
+        miss = {be: int((idx.lookup(td, qd, backend=be) != want).sum()) for be in ("kernel",
+                                                                                  "xla")}
+        pct = 100.0 * idx.space_bytes() / (8 * len(tab))
+        log(f"[tuner] mined {spec.display_name()} on {ds}: b {idx.info['b']}, space {pct:.4f}%, "
+            f"misses kernel {miss['kernel']} xla {miss['xla']} of {len(qs)}")
+        if miss["xla"] or (miss["kernel"] and spec.winner_root != "cubic"):
+            fail(f"tuner: the mined SY-RMI on {ds} misses ranks: {miss}")
+        if miss["kernel"]:
+            log(f"[tuner] {ds}: the cubic root's kernel misses (ROADMAP queue 3), xla exact")
+        mining["tables"][ds] = {"b": idx.info["b"], "space_pct": pct, "misses": miss}
+        del idx
+    out["mining"] = mining
+    out["seconds"]["5f-b"] = time.perf_counter() - t0
+    log(f"[tuner] 5f-b mining done in {out['seconds']['5f-b']:.1f} s")
+
+    # -- 5f-c: a TunedTier's lifecycle on lead's 4 x n/4 tier ------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    held = np.arange(1, n, 64)  # every 64th key out: room in every shard's padded row
+    base = np.delete(table, held)
+    lifecycle = []
+
+    def step(what, tier, model, queries=None, seconds=None):
+        served = served_keys(tier)
+        if queries is None:
+            queries = tier_queries(rng, np.array_split(served, 4), nq_shard)
+        model.lookup(keys.decode(tier.sidx.fences), queries)
+        check_tier_ranks(what, tier, queries, served)
+        m = model.check(what, tier)
+        lifecycle.append({"step": what, "spec": m["spec"], "n_keys": m["n_keys"],
+                          "seconds": seconds, **{k: m[k] for k in model.c}})
+        log(f"[tuner] {what}: {m['spec']}, {m['n_keys']} keys, "
+            f"{json.dumps({k: m[k] for k in model.c})}, ranks == numpy"
+            + ("" if seconds is None else f", {seconds:.2f} s")
+            + f" (at {time.perf_counter() - t0:.1f} s)")
+        return m
+
+    # PGM with the device refresh (scan): shard 1's held keys back in
+    policy = tune.RebuildPolicy(shard_refresh_frac=0.01, retune_frac=10.0, device_refresh=True,
+                                device_fit="scan")
+    tier = tune.TunedTier(base, 4, policy, spec=tix.PGMSpec(eps=64), name="5f_pgm", device=dev)
+    model = TierModel(4)
+    step("PGM tier built", tier, model)
+    fresh = table[held]
+    owners = tier._owners(fresh)
+    back = fresh[owners == 1]
+    ok0 = obs.metric("device_refreshes").value(kind="PGM", outcome="ok")
+    fb0 = obs.metric("device_refreshes").value(kind="PGM", outcome="fallback")
+    _, secs = timed(dev, lambda: tier.insert_batch(back))
+    ok = obs.metric("device_refreshes").value(kind="PGM", outcome="ok") - ok0
+    fb = obs.metric("device_refreshes").value(kind="PGM", outcome="fallback") - fb0
+    model.c["ingested"] += len(back)
+    model.c["shard_refreshes"] += 1
+    if ok + fb != 1:
+        fail(f"tuner: PGM refresh counted {ok} ok and {fb} fallback device outcomes, not one")
+    log(f"[tuner] PGM refresh of {len(back)} keys into shard 1: device_refreshes ok {ok:.0f} "
+        f"fallback {fb:.0f}")
+    step("PGM refresh (device arm)", tier, model, seconds=secs)
+    out["device_refresh_outcome"] = "ok" if ok else "fallback"
+    del tier
+
+    # SY-RMI at 2% through the host refresh
+    policy = tune.RebuildPolicy(shard_refresh_frac=0.01, retune_frac=10.0)
+    tier = tune.TunedTier(base, 4, policy, spec=tix.SYRMISpec(space_pct=2.0), name="5f_syrmi",
+                          device=dev)
+    model = TierModel(4)
+    step("SY-RMI tier built", tier, model)
+    _, secs = timed(dev, lambda: tier.insert_batch(back))
+    model.c["ingested"] += len(back)
+    model.c["shard_refreshes"] += 1  # a forced restack instead fails the model's check
+    step("SY-RMI refresh (host arm)", tier, model, seconds=secs)
+
+    # 5f-d: what telemetry costs, on the SY-RMI tier
+    t_d = time.perf_counter()
+    out["telemetry"] = telemetry_cost(dev, tier, model, tier_queries(rng, np.array_split(
+        served_keys(tier), 4), nq_shard))
+    out["seconds"]["5f-d"] = time.perf_counter() - t_d
+    model.check("after the telemetry probes", tier)
+
+    # a retune: 2% of the table in fresh keys, over SY-RMI, PGM and RS
+    tier.policy = tune.RebuildPolicy(retune_frac=0.02, kinds=RETUNE_KINDS)
+    extra = not_in(rng.integers(int(table[0]), int(table[-1]), int(0.03 * n), dtype=np.uint64),
+                   table)
+    news = np.concatenate([fresh[owners != 1], extra])
+    _, secs = timed(dev, lambda: tier.insert_batch(news))
+    model.c["ingested"] += len(news)
+    model.c["retunes"] += 1
+    m = step("retune", tier, model, seconds=secs)
+    merged = served_keys(tier)
+    rebuilt = tix.build(tier.spec, merged, device="cpu")
+    if rebuilt.space_bytes() > 0.02 * 8 * len(merged) or m["retunes"] != 1:
+        fail(f"tuner: the retune picked {tier.spec.display_name()} with "
+             f"{rebuilt.space_bytes()} B > 2% of {len(merged)} keys")
+    out["retune"] = {"spec": tier.spec.display_name(), "seconds": secs,
+                     "space_pct": 100.0 * rebuilt.space_bytes() / (8 * len(merged))}
+    log(f"[tuner] retune picked {out['retune']['spec']} ({out['retune']['space_pct']:.4f}% of "
+        f"{len(merged)} keys) in {secs:.1f} s")
+    del rebuilt
+
+    # a rebalance: 90% of the queries in shard 0's key range
+    tier.policy = tune.RebuildPolicy(retune_frac=10.0, kinds=RETUNE_KINDS, rebalance_imbalance=1.5)
+    shards = [merged[int(c0):int(c0 + c)] for c0, c in zip(
+        tier.sidx.offsets.cpu().numpy(), tier.sidx.counts.cpu().numpy())]
+    imb_before, secs = None, 0.0
+    width = int(tier.sidx.tables.shape[1])  # the stacked row's capacity before the rebalance
+    for i in range(9):
+        qs = tier_queries(rng, shards, nq_shard, hot=0.9)
+        fences = keys.decode(tier.sidx.fences)
+        model.lookup(fences, qs)
+        before = tier.metrics()
+        got, dt = timed(dev, lambda: tier.lookup(qs))
+        if tier.metrics()["rebalances"] != before["rebalances"]:
+            secs = dt
+            new_counts = tier.sidx.counts.cpu().numpy()
+            # a new shard wider than the stacked row cannot be refreshed in
+            # place: the tier must restack at the new bounds, and only then
+            if new_counts.max() > width:
+                model.c["forced_restacks"] += 1
+            log(f"[tuner] rebalance: new shard counts {new_counts.tolist()} against rows of "
+                f"{width} keys: {'a forced restack' if new_counts.max() > width else 'in place'}")
+            old_own = np.clip(np.searchsorted(fences, merged, side="right") - 1, 0, 3)
+            new_own = np.repeat(np.arange(4), new_counts)
+            model.c["rebalances"] += 1
+            model.c["rebalance_moved_keys"] += int((old_own != new_own).sum())
+            imb_before = model.routing["imbalance_last"]
+        want = torch.searchsorted(keys.encode(merged, dev), keys.encode(qs, dev), right=True) - 1
+        if not torch.equal(got, want):
+            fail(f"tuner: rebalance lookup {i} differs from torch.searchsorted")
+    # the same skew against the new fences
+    m = step("rebalance", tier, model, queries=tier_queries(rng, shards, nq_shard, hot=0.9),
+             seconds=secs)
+    if m["rebalances"] != 1 or m["rebalance_moved_keys"] <= 0 or imb_before is None:
+        fail(f"tuner: expected one rebalance moving keys, got {m['rebalances']} / "
+             f"{m['rebalance_moved_keys']}")
+    imb_after = m["routing"]["imbalance_last"]
+    if not imb_after < imb_before:
+        fail(f"tuner: imbalance {imb_before} did not fall after the rebalance ({imb_after})")
+    log(f"[tuner] rebalance moved {m['rebalance_moved_keys']} keys; imbalance "
+        f"{imb_before:.4f} -> {imb_after:.4f}; counts {tier.sidx.counts.tolist()}")
+    out["rebalance"] = {"moved": m["rebalance_moved_keys"], "imbalance_before": imb_before,
+                        "imbalance_after": imb_after, "seconds": secs,
+                        "counts": tier.sidx.counts.tolist()}
+    del tier
+
+    # GAPPED on xla: inserts absorbed, a cluster into the delta, a compaction
+    policy = tune.RebuildPolicy(retune_frac=10.0, backend="xla")
+    tier = tune.TunedTier(base, 4, policy, spec=tix.GappedSpec(), name="5f_gapped", device=dev)
+    model = TierModel(4)
+    step("GAPPED tier built", tier, model)
+    snap0 = obs.snapshot(prefix="mutation_")
+    lo = int(np.searchsorted(base, table[held[100]]))
+    cluster = not_in(rng.integers(int(base[lo]) + 1, int(base[lo + 64]), 700, dtype=np.uint64),
+                     table)
+    for what, batch in (("GAPPED insert (spread)", fresh[: 1 << 16]),
+                        ("GAPPED insert (a cluster in one leaf)", cluster)):
+        _, secs = timed(dev, lambda: tier.insert_batch(batch))
+        d = obs.diff(snap0, obs.snapshot(prefix="mutation_"))
+        snap0 = obs.snapshot(prefix="mutation_")
+        model.c["ingested"] += len(batch)
+        for f in ("absorbed", "overflowed", "duplicates"):
+            model.c[f] += int(obs.sample_value(d, f"mutation_{f}", kind="GAPPED"))
+        model.c["shard_compactions"] += int(obs.sample_value(d, "mutation_compactions",
+                                                             kind="GAPPED"))
+        step(what, tier, model, seconds=secs)
+    m = tier.metrics()
+    if not (m["absorbed"] > 0 and m["overflowed"] > 0 and m["shard_compactions"] >= 1):
+        fail(f"tuner: GAPPED lifecycle did not absorb, overflow and compact: {m}")
+    out["gapped"] = {k: m[k] for k in ("absorbed", "overflowed", "shard_compactions",
+                                       "forced_restacks")}
+    del tier
+    out["lifecycle"] = lifecycle
+    out["seconds"]["5f-c"] = time.perf_counter() - t0 - out["seconds"]["5f-d"]
+    log(f"[tuner] 5f-c lifecycle done in {out['seconds']['5f-c']:.1f} s")
+
+    # the main path's launches (the telemetry probes restored theirs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = kernels.launches()
+    log(f"[tuner] phase 5f path launches: {json.dumps(out['launches'])}")
+    if dev.type == "cuda" and any(out["launches"][k] == 0 for k in TUNER_KERNELS):
+        fail(f"tuner: a kernel of the tuner's path never launched: {out['launches']}")
+    # the registry, written and dumped through the CLI
+    path = ROOT / "build" / "obs_5f.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(obs.to_jsonl(obs.snapshot()))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dump = subprocess.run([sys.executable, "-m", "repro_torch.obs", "dump", str(path)],
+                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    if dump.returncode != 0 or "route_queries" not in dump.stdout:
+        fail(f"tuner: python -m repro_torch.obs dump failed: {dump.stderr[-2000:]}")
+    lines = dump.stdout.splitlines()
+    log(f"[tuner] python -m repro_torch.obs dump {path.relative_to(ROOT)}: {len(lines)} lines")
+    for line in lines:
+        if line.startswith(("tier_", "device_refreshes", "rebalance_", "fit_", "mutation_",
+                            "route_imbalance", "lookup_latency")):
+            log(f"[tuner]   {line}")
+    out["seconds"]["5f"] = time.perf_counter() - t_phase
+    log(f"[tuner] phase 5f done in {out['seconds']['5f']:.1f} s: "
+        f"{json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})}")
+    return out
 
 
 FITS_ORDER = ("host", "vmap", "fast", "auto")
@@ -2505,14 +2974,16 @@ def main(argv=None) -> int:
     tier_rows, tier_launches, locality, tier_built = phase_tier(dev, tables, 4, shard_nq)
     log(f"[tier] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sharded_rows, sharded_launches, scale = phase_sharded(dev, tables, tier_built, parity_n)
+    # phases 5b-5c at scale on the lead table (osm's repeat of them is cut)
+    lead_tables = {"amzn64": tables["amzn64"]}
+    sharded_rows, sharded_launches, scale = phase_sharded(dev, lead_tables, tier_built, parity_n)
     # phase 5's fit="host" leaves, which phase 5e's device fits must equal
     host_fits = {key: (bm.index.static, bm.index.to_numpy(), build_s,
                        [m["info"] for m in bm.meta]) for key, (bm, build_s) in tier_built.items()}
     del tier_built
     log(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    collective_launches, collective_ranks = phase_collective(dev, tables, scale, parity_n)
+    collective_launches, collective_ranks = phase_collective(dev, lead_tables, scale, parity_n)
     del scale
     log(f"[collective] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2522,6 +2993,9 @@ def main(argv=None) -> int:
     fits = phase_device_fits(dev, tables, host_fits, shard_nq, "amzn64")
     del host_fits
     log(f"[fits] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tuner = phase_tuner(dev, tables, full_nq, shard_nq, "amzn64")
+    log(f"[tuner] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     parity_errs = phase_float_parity(dev, 600)
     log(f"[float] done in {time.perf_counter() - t0:.1f} s")
@@ -2533,10 +3007,11 @@ def main(argv=None) -> int:
     att_rows, bag_rows, bag_launches = phase_times(dev, **times)
     log(f"[times] done in {time.perf_counter() - t0:.1f} s")
     by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k],
-                   "fits": fits["launches"][k]} for k in BATCHED}
+                   "fits": fits["launches"][k], "tuner": tuner["launches"][k]} for k in BATCHED}
     by_path.update({k: {"single": launches[k], "a2a": collective_launches["a2a"][k],
                         "allgather": collective_launches["allgather"][k],
-                        "fits": fits["launches"][k]} for k in SINGLE})
+                        "fits": fits["launches"][k], "tuner": tuner["launches"][k]}
+                    for k in SINGLE})
     launches = {**{k: sum(paths.values()) for k, paths in by_path.items()},
                 "decode_attention": served["decode_attention_launches"],
                 "embedding_bag": bag_launches}
@@ -2549,8 +3024,13 @@ def main(argv=None) -> int:
                 st["max_abs_err"] for r in collective_ranks for name, st in r["stages"].items()
                 if KERNEL_OF[name.split("_", 1)[1]] == entry["name"]])
     line["kernels"] += serve_kernels_line(parity_errs, served, att_rows, bag_rows, bag_launches)
-    line["kernels"].append(fits["corridor"])
-    launches["corridor_scan"] = fits["corridor"]["launches"]
+    corridor = fits["corridor"]
+    corridor["launches_by_path"] = {"fits": corridor["launches"],
+                                    "tuner": tuner["launches"]["corridor_scan"]}
+    corridor["launches"] = sum(corridor["launches_by_path"].values())
+    corridor["path"] += "; build_grid(fit=auto) in tune.sweep, TunedTier device refresh (phase 5f)"
+    line["kernels"].append(corridor)
+    launches["corridor_scan"] = corridor["launches"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -2560,7 +3040,8 @@ def main(argv=None) -> int:
                                         "mutation_rows": mutation_rows, "serve": served,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
                                         "fit_rows": fits["rows"], "grid_rows": fits["grid"],
-                                        "refresh_rows": fits["refresh"], **line}, indent=1))
+                                        "refresh_rows": fits["refresh"], "tuner": tuner,
+                                        **line}, indent=1))
     if dev.type != "cuda":
         log("[rehearsal] CPU rehearsal passed; no device result")
         return 0

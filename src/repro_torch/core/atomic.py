@@ -10,11 +10,12 @@ encoded key tensors.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.obs.timing import stopwatch
 
 from . import search
 from .keys import to_f64
@@ -119,7 +120,7 @@ class AtomicModel:
 
 
 def build_atomic(table_np: np.ndarray, degree: int = 1) -> AtomicModel:
-    t0 = time.perf_counter()
+    sw = stopwatch()
     n = len(table_np)
     kmin, kmax = table_np[0], table_np[-1]
     span = np.float64(kmax - kmin)
@@ -141,6 +142,6 @@ def build_atomic(table_np: np.ndarray, degree: int = 1) -> AtomicModel:
         inv_span=np.float64(inv_span),
         eps=int(min(eps, 1 << 40)),  # never clip to n: the window needs the true bound
         n=n,
-        build_time=time.perf_counter() - t0,
+        build_time=sw.elapsed,
         name={1: "L", 2: "Q", 3: "C"}[degree],
     )

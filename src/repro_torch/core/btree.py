@@ -10,11 +10,12 @@ model-free search, as the reference's ``backend="pallas"`` does.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.obs.timing import stopwatch
 
 from . import search
 from .keys import encode
@@ -78,7 +79,7 @@ class BTreeModel:
 
 
 def build_btree(table_np: np.ndarray, fanout: int = 16) -> BTreeModel:
-    t0 = time.perf_counter()
+    sw = stopwatch()
     n = len(table_np)
     f = max(2, fanout)
     maxk = np.iinfo(np.uint64).max
@@ -103,6 +104,6 @@ def build_btree(table_np: np.ndarray, fanout: int = 16) -> BTreeModel:
         levels=levels,
         valid=valid,
         n=n,
-        build_time=time.perf_counter() - t0,
+        build_time=sw.elapsed,
         name=f"BTree[f={f}]",
     )

@@ -9,11 +9,12 @@ tensors.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.obs.timing import stopwatch
 
 from . import search
 from .atomic import poly_eval_torch, poly_exact_eps, poly_fit
@@ -85,7 +86,7 @@ def _bounded_bbs(table, q, lo, hi):
 
 def build_ko(table_np: np.ndarray, k: int = 15) -> KOModel:
     """Fit L/Q/C per segment, keep the best (smallest exact eps)."""
-    t0 = time.perf_counter()
+    sw = stopwatch()
     n = len(table_np)
     k = max(1, min(k, n))
     seg_start = (np.arange(k + 1, dtype=np.int64) * n) // k
@@ -133,6 +134,6 @@ def build_ko(table_np: np.ndarray, k: int = 15) -> KOModel:
         max_eps=int(epss.max()),
         max_width=int(np.max(np.diff(seg_start))),
         n=n,
-        build_time=time.perf_counter() - t0,
+        build_time=sw.elapsed,
         name=f"{k}O",
     )

@@ -19,12 +19,13 @@ verified-ε re-measure as tensor ops), with :func:`pgm_device_slopes` and
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List
 
 import numpy as np
 import torch
+
+from repro_torch.obs.timing import stopwatch
 
 from . import search
 from .cdf import (
@@ -317,7 +318,7 @@ def build_pgm(table_np: np.ndarray, eps: int = 64, *, l0=None) -> PGMModel:
     supplies the bottom level's ``(starts, slopes)`` (e.g. from a device
     fit's mask and :func:`segment_slopes`); the upper levels always
     recurse on the host."""
-    t0 = time.perf_counter()
+    sw = stopwatch()
     n = len(table_np)
     eps = max(int(eps), 1)
 
@@ -354,7 +355,7 @@ def build_pgm(table_np: np.ndarray, eps: int = 64, *, l0=None) -> PGMModel:
         level_sizes=level_sizes,
         n=n,
         n_segments_l0=level_sizes[-1],
-        build_time=time.perf_counter() - t0,
+        build_time=sw.elapsed,
         name=f"PGM[eps={eps}]",
     )
 

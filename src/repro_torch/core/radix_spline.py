@@ -19,11 +19,12 @@ over the knots and a chord re-measure, :func:`rs_verified_eps`).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.obs.timing import stopwatch
 
 from . import search
 from .cdf import (
@@ -249,7 +250,7 @@ def build_rs(table_np: np.ndarray, eps: int = 32, r_bits: int = 12, *, knots=Non
     ``r_bits`` of ``key - kmin``, and the verified error bound.  ``knots``
     optionally supplies the knot indices (e.g. a device fit's); the radix
     table and the bound are always derived from them."""
-    t0 = time.perf_counter()
+    sw = stopwatch()
     n = len(table_np)
     keys = table_np.astype(np.float64)
     if knots is None:
@@ -288,6 +289,6 @@ def build_rs(table_np: np.ndarray, eps: int = 32, r_bits: int = 12, *, knots=Non
         r_bits=r_bits,
         n=n,
         m=m,
-        build_time=time.perf_counter() - t0,
+        build_time=sw.elapsed,
         name=f"RS[eps={eps},r={r_bits}]",
     )

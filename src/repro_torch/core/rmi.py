@@ -13,11 +13,12 @@ a stack, and :func:`assemble_rmi` makes a model of its arrays.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.obs.timing import stopwatch
 
 from . import search
 from .atomic import poly_eval_np, poly_eval_torch, poly_fit
@@ -217,7 +218,7 @@ def fit_root(table_np: np.ndarray, root_type: str) -> tuple:
 
 
 def build_rmi(table_np: np.ndarray, b: int = 1024, root_type: str = "linear") -> RMIModel:
-    t0 = time.perf_counter()
+    sw = stopwatch()
     n = len(table_np)
     b = max(2, min(b, n))
     kmin, kmax = table_np[0], table_np[-1]
@@ -282,6 +283,6 @@ def build_rmi(table_np: np.ndarray, b: int = 1024, root_type: str = "linear") ->
         max_eps=int(eps.max()),
         max_window_=max_window,
         n=n,
-        build_time=time.perf_counter() - t0,
+        build_time=sw.elapsed,
         name=f"RMI[{root_type},b={b}]",
     )

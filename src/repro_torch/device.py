@@ -14,3 +14,12 @@ def resolve_device(device) -> torch.device:
             raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def wait_for(t: torch.Tensor) -> torch.Tensor:
+    """Wait until ``t``'s card has finished the work queued so far, if
+    ``t`` lies on one (a wall-clock timing then covers the device work);
+    returns ``t``."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return t

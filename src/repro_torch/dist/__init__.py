@@ -7,7 +7,8 @@ on ``torch.distributed``; ``sharded_index`` stacks same-spec per-shard
 indexes leaf-wise and answers a tier in one process (``mode="ref"``) or
 one shard a rank (``"a2a"``, ``"allgather"``), and refreshes and
 rebalances its shards in place; an updatable (GAPPED) tier also takes
-key batches into a shard and compacts it in place."""
+key batches into a shard and compacts it in place.  A telemetry-on
+lookup records the tier's routing counters (``tier_metrics``)."""
 
 from . import collectives, sharded_index, sharding
 from .sharded_index import (
@@ -18,9 +19,12 @@ from .sharded_index import (
     insert_into_shard,
     rebalance_shards,
     refresh_shard,
+    reset_tier_metrics,
     shard_build_table,
+    shard_query_weights,
     sharded_lookup,
     stack_indexes,
+    tier_metrics,
     weighted_quantile_bounds,
 )
 from .sharding import ShardingCtx, single_device_ctx
@@ -38,8 +42,11 @@ __all__ = [
     "insert_into_shard",
     "rebalance_shards",
     "refresh_shard",
+    "reset_tier_metrics",
     "shard_build_table",
+    "shard_query_weights",
     "sharded_lookup",
     "stack_indexes",
+    "tier_metrics",
     "weighted_quantile_bounds",
 ]

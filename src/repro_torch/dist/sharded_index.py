@@ -47,7 +47,16 @@ through it.  A tier of the updatable GAPPED kind also takes writes:
 check, keeping the counts, offsets, fences and last keys live.  GAPPED
 shards are built on their raw tables (the kind owns its keys, so a pad
 key must never become live) and stack with inert zero-count leaves.
-The reference's tier telemetry waits for the observability port.
+
+``sharded_lookup(..., telemetry=True)`` also records routing-imbalance
+and drop-rate counters into the :mod:`repro_torch.obs` registry
+(``route_*``, tier ``"all"`` plus an optional per-tier label, and a
+caller-owned ``telemetry_sink`` dict): one owner histogram on the
+device (:func:`route_owners` and a ``bincount``) and one copy of it,
+with the count of drops, to the host.  It adds no search-kernel launch.
+:func:`tier_metrics` is the aggregate view and
+:func:`shard_query_weights` the per-shard counts that a tuned tier
+rebalances from.  With telemetry off nothing imports ``repro_torch.obs``.
 """
 
 from __future__ import annotations
@@ -71,6 +80,151 @@ from . import collectives
 #: (``mode="a2a"``); distinct from :data:`NO_PRED`, the below-the-first-key
 #: rank.  The other modes never drop a query.
 DROPPED = -2
+
+# ---------------------------------------------------------------------------
+# Tier telemetry: routing imbalance + drop-rate counters.
+#
+# The counters live in the repro_torch.obs registry (``route_*`` metrics,
+# labeled by tier: "all" is the process-wide aggregate); everything below
+# is a thin view in the reference's shapes.  obs is imported lazily inside
+# the telemetry functions only: the telemetry-off lookup path never pulls
+# repro_torch.obs in at call time.
+# ---------------------------------------------------------------------------
+
+#: the tier label the global aggregate view reads
+_ALL_TIERS = "all"
+
+
+def _fresh_tier_metrics() -> dict:
+    """A zeroed caller-owned ``telemetry_sink`` dict."""
+    return {
+        "lookups": 0,
+        "queries": 0,
+        "dropped": 0,
+        "routed_max": 0,  # busiest shard's queries, summed over lookups
+        "routed_even": 0.0,  # perfectly even per-shard load, summed
+        "imbalance_last": 0.0,
+        "imbalance_peak": 0.0,
+    }
+
+
+def reset_tier_metrics() -> None:
+    """Zero the registry-backed ``route_*`` counters (every tier label,
+    including the per-:class:`~repro_torch.tune.rebuild.TunedTier` ones).
+
+    Caller-owned ``telemetry_sink`` dicts are **not** reset: the caller
+    owns that dict's lifetime (zero it, or take a fresh
+    :func:`_fresh_tier_metrics`)."""
+    from repro_torch import obs
+
+    obs.reset(prefix="route_")
+
+
+def derived_tier_metrics(counters: dict) -> dict:
+    """Raw routing counters + the derived rates (drop rate, mean
+    imbalance), shared by the global view and per-tier sinks.  Missing
+    keys count as zero, so an empty snapshot yields 0.0 rates."""
+    m = {**_fresh_tier_metrics(), **counters}
+    m["drop_rate"] = m["dropped"] / m["queries"] if m["queries"] else 0.0
+    m["imbalance_mean"] = m["routed_max"] / m["routed_even"] if m["routed_even"] else 0.0
+    return m
+
+
+def _tier_counters_from_obs(tier: str) -> dict:
+    """One tier label's ``route_*`` registry samples in the counter-dict
+    shape of :func:`_fresh_tier_metrics`."""
+    from repro_torch import obs
+
+    snap = obs.snapshot(prefix="route_")
+
+    def v(name):
+        return obs.sample_value(snap, name, tier=tier)
+
+    return {
+        "lookups": int(v("route_lookups")),
+        "queries": int(v("route_queries")),
+        "dropped": int(v("route_dropped")),
+        "routed_max": int(v("route_max")),
+        "routed_even": v("route_even"),
+        "imbalance_last": v("route_imbalance_last"),
+        "imbalance_peak": v("route_imbalance_peak"),
+    }
+
+
+def tier_metrics() -> dict:
+    """Routing-imbalance and drop-rate counters across every telemetry-on
+    :func:`sharded_lookup` in the process since the last reset.
+
+    ``imbalance_*`` is the busiest shard's load over the perfectly even
+    load (1.0 = uniform routing; ``n_shards`` = fully skewed);
+    ``drop_rate`` is the fraction of queries returned as :data:`DROPPED`.
+    A caller serving several tiers passes a ``telemetry_label`` (a
+    per-tier ``route_*`` labelset) or its own ``telemetry_sink``; this
+    view aggregates all of them (``obs.snapshot(prefix="route_")`` shows
+    the same counters with labels)."""
+    return derived_tier_metrics(_tier_counters_from_obs(_ALL_TIERS))
+
+
+def _owner_histogram(fences, queries, n_shards: int):
+    """Queries owned by each shard, ``(n_shards,)`` int64 on the queries'
+    device: :func:`route_owners` and one ``bincount``."""
+    owners = route_owners(fences, queries)
+    return torch.bincount(owners.long(), minlength=n_shards)
+
+
+def _record_tier_metrics(sidx: "ShardedIndex", queries, out, sink: dict | None = None,
+                         label: str | None = None) -> None:
+    from repro_torch import obs
+
+    hist = _owner_histogram(sidx.fences, queries, sidx.n_shards)
+    # one copy to the host: the histogram and the count of drops
+    host = torch.cat([hist, (out == DROPPED).sum().reshape(1)]).cpu().numpy()
+    hist, dropped = host[:-1], int(host[-1])
+    b = int(hist.sum())
+    even = b / sidx.n_shards
+    imb = float(hist.max() / even) if even > 0 else 0.0
+    tiers = [_ALL_TIERS] if label is None else [_ALL_TIERS, str(label)]
+    for t in tiers:
+        obs.metric("route_lookups").inc(tier=t)
+        obs.metric("route_queries").inc(b, tier=t)
+        obs.metric("route_dropped").inc(dropped, tier=t)
+        obs.metric("route_max").inc(int(hist.max()), tier=t)
+        obs.metric("route_even").inc(even, tier=t)
+        obs.metric("route_imbalance_last").set(imb, tier=t)
+        obs.metric("route_imbalance_peak").max(imb, tier=t)
+    if label is not None:
+        # per-owner-shard counts, labeled tiers only (the "all" view would
+        # mix tiers of different shard counts): the density estimate
+        # weighted_quantile_bounds rebalances from
+        shard_q = obs.metric("route_shard_queries")
+        for s, c in enumerate(hist):
+            if c:
+                shard_q.inc(int(c), tier=str(label), shard=s)
+    if sink is not None:
+        sink["lookups"] += 1
+        sink["queries"] += b
+        sink["dropped"] += dropped
+        sink["routed_max"] += int(hist.max())
+        sink["routed_even"] += even
+        sink["imbalance_last"] = imb
+        sink["imbalance_peak"] = max(sink["imbalance_peak"], imb)
+
+
+def shard_query_weights(tier: str, n_shards: int) -> np.ndarray:
+    """Observed per-owner-shard query counts of one labeled tier, read
+    back from the ``route_shard_queries`` registry counter (zeros where a
+    shard never owned a query): what
+    :meth:`repro_torch.tune.rebuild.TunedTier.maybe_rebalance` windows to
+    detect sustained drift."""
+    from repro_torch import obs
+
+    snap = obs.snapshot(prefix="route_shard_queries")
+    return np.asarray(
+        [obs.sample_value(snap, "route_shard_queries", tier=str(tier), shard=s)
+         for s in range(n_shards)],
+        dtype=np.float64,
+    )
+
 
 #: the key the a2a path pads a ragged batch and fills empty request slots
 #: with: the reference's uint64 ``0``, encoded
@@ -574,7 +728,8 @@ TIER_BACKENDS = BACKENDS
 
 
 def sharded_lookup(sidx: ShardedIndex, queries, ctx=None, *, backend: str = "kernel",
-                   mode: str = "auto", cap_factor: float = 2.0, telemetry: bool = False):
+                   mode: str = "auto", cap_factor: float = 2.0, telemetry: bool = False,
+                   telemetry_sink: dict | None = None, telemetry_label: str | None = None):
     """Predecessor ranks (int64, global) of a flat ``(B,)`` query batch
     (uint64 numpy or encoded int64) against the whole tier: equal to
     ``Index.lookup`` on the concatenated table, but the over-capacity
@@ -600,8 +755,15 @@ def sharded_lookup(sidx: ShardedIndex, queries, ctx=None, *, backend: str = "ker
     ``"kernel"`` for GAPPED, which raises).  ``"kernel"``: one launch
     of the kind's batched kernel for every shard in ``ref`` mode, one
     launch of its single-table kernel a rank in ``a2a`` and ``allgather``.
-    ``telemetry`` raises ``ValueError``: it comes with the observability
-    port.  Example::
+
+    ``telemetry=True`` also records the call's routing-imbalance and
+    drop-rate counters into the :mod:`repro_torch.obs` registry
+    (:func:`tier_metrics` is the aggregate view): one owner histogram on
+    the device and one copy of it to the host, no search-kernel launch.
+    ``telemetry_label`` attributes the same counters to a per-tier
+    ``route_*`` labelset (and ``route_shard_queries``); the ``tier="all"``
+    aggregate always updates.  ``telemetry_sink`` (a dict shaped as
+    :func:`_fresh_tier_metrics`) receives the same updates.  Example::
 
         sidx = ShardedIndex.build("PGM", table, n_shards=4, eps=64)
         ranks = sharded_lookup(sidx, queries, backend="kernel")
@@ -614,8 +776,6 @@ def sharded_lookup(sidx: ShardedIndex, queries, ctx=None, *, backend: str = "ker
     if backend not in TIER_BACKENDS:
         raise ValueError(f"unknown tier backend {backend!r}; choose from {TIER_BACKENDS}")
     check_backend(sidx.kind, backend)
-    if telemetry:
-        raise ValueError("tier telemetry comes with the observability slice of the port")
     queries = keymod.as_keys(queries, sidx.device)
     if queries.dim() != 1:
         raise ValueError("sharded_lookup expects a flat (B,) query vector")
@@ -631,18 +791,21 @@ def sharded_lookup(sidx: ShardedIndex, queries, ctx=None, *, backend: str = "ker
             f"({n_shards}); use mode='ref' or 'auto'"
         )
     if mode == "ref":
-        return _lookup_vmapped(sidx, queries, backend)
-    if mode == "allgather":
-        return _lookup_allgather(sidx, queries, ctx, axes, backend)
-    group, me = ctx.axes_group(axes)
-    b = queries.shape[0]
-    pad = (-b) % n_shards
-    if pad:
-        queries = torch.cat([queries, queries.new_full((pad,), PAD_KEY)])
-    b_loc = queries.shape[0] // n_shards
-    cap = collectives.exchange_capacity(b_loc, n_shards, cap_factor)
-    part = _lookup_a2a(sidx, queries[me * b_loc:(me + 1) * b_loc], group, me, backend, cap)
-    return _gather_slices(part, group, n_shards)[:b]
+        out = _lookup_vmapped(sidx, queries, backend)
+    elif mode == "allgather":
+        out = _lookup_allgather(sidx, queries, ctx, axes, backend)
+    else:
+        group, me = ctx.axes_group(axes)
+        b = queries.shape[0]
+        pad = (-b) % n_shards
+        padded = torch.cat([queries, queries.new_full((pad,), PAD_KEY)]) if pad else queries
+        b_loc = padded.shape[0] // n_shards
+        cap = collectives.exchange_capacity(b_loc, n_shards, cap_factor)
+        part = _lookup_a2a(sidx, padded[me * b_loc:(me + 1) * b_loc], group, me, backend, cap)
+        out = _gather_slices(part, group, n_shards)[:b]
+    if telemetry:
+        _record_tier_metrics(sidx, queries, out, telemetry_sink, telemetry_label)
+    return out
 
 
 # ---------------------------------------------------------------------------

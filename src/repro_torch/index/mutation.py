@@ -19,9 +19,10 @@ One lifecycle, behind two :class:`~repro_torch.index.Index` methods::
 Static kinds raise ``TypeError`` from both methods: updatability is a
 per-kind capability registered with :func:`register_mutator`, as query
 implementations are registered per kind.  Both methods are pure: the
-input index is left as it was.  The reference also counts every report
-into its ``mutation_*`` metrics; the port records nothing until it has
-an observability layer.
+input index is left as it was.  Every report is counted into the
+``mutation_*`` metrics of :mod:`repro_torch.obs` (labeled by kind), and
+every completed ``compact`` into ``mutation_compactions``: host floats,
+no launch.
 """
 
 from __future__ import annotations
@@ -95,11 +96,31 @@ def _mutator(index) -> Mutator:
     return m
 
 
+def _record_report(kind: str, report: InsertReport) -> None:
+    """Aggregate an InsertReport into the ``mutation_*`` registry counters
+    (labeled by kind).  Host-side only: no launch."""
+    from repro_torch import obs
+
+    obs.metric("mutation_requested").inc(report.requested, kind=kind)
+    obs.metric("mutation_absorbed").inc(report.absorbed, kind=kind)
+    obs.metric("mutation_overflowed").inc(report.overflowed, kind=kind)
+    obs.metric("mutation_duplicates").inc(report.duplicates, kind=kind)
+    if report.compacted:
+        obs.metric("mutation_compactions").inc(kind=kind)
+
+
 def insert_batch(index, keys, *, auto_compact: bool = True):
-    """Dispatch ``insert_batch`` to the kind's registered mutator."""
-    return _mutator(index).insert_batch(index, keys, auto_compact=auto_compact)
+    """Dispatch ``insert_batch`` to the kind's registered mutator and count
+    its report."""
+    new, report = _mutator(index).insert_batch(index, keys, auto_compact=auto_compact)
+    _record_report(index.kind, report)
+    return new, report
 
 
 def compact(index):
-    """Dispatch ``compact`` to the kind's registered mutator."""
-    return _mutator(index).compact(index)
+    """Dispatch ``compact`` to the kind's registered mutator and count it."""
+    out = _mutator(index).compact(index)
+    from repro_torch import obs
+
+    obs.metric("mutation_compactions").inc(kind=index.kind)
+    return out

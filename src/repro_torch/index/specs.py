@@ -19,11 +19,16 @@ class IndexSpec:
         params = ",".join(f"{f.name}={getattr(self, f.name)}" for f in dataclasses.fields(self))
         return f"{self.kind}[{params}]" if params else self.kind
 
+    def params(self) -> dict:
+        """The spec's fields (what ``registry.spec_for`` rebuilds it from)."""
+        return dataclasses.asdict(self)
+
     @classmethod
     def default_grid(cls, n_keys: int) -> tuple:
         """The kind's default candidate specs for a table of ``n_keys``:
-        the sweep grid of the Pareto tuner (a later slice).  The base grid
-        is the kind's default configuration."""
+        the sweep grid of the Pareto tuner (:mod:`repro_torch.tune.pareto`),
+        so a registered kind enrols itself.  The base grid is the kind's
+        default configuration."""
         return (cls(),)
 
 

@@ -36,14 +36,13 @@ stored as a live key.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from repro_torch.core import keys as keymod
 from repro_torch.core import search
 from repro_torch.core.search import KEY_FILL, f64_to_i64, take_clip
+from repro_torch.obs.timing import stopwatch
 
 from . import impls, mutation
 from .impls import _MAXKEY, QueryImpl, _bucket_steps, _pow2ceil, _scalar
@@ -192,7 +191,7 @@ GAPPED_IMPL = QueryImpl(
 
 
 def _build_gapped_index(spec: GappedSpec, table_np: np.ndarray):
-    t0 = time.perf_counter()
+    sw = stopwatch()
     table = np.asarray(table_np, dtype=np.uint64)
     n = int(table.shape[0])
     if n == 0:
@@ -247,7 +246,7 @@ def _build_gapped_index(spec: GappedSpec, table_np: np.ndarray):
     static = (("epi", _bucket_steps(max(cap, dcap))), ("ksteps", _bucket_steps(L)))
     info = {
         "name": f"GAPPED(cap={cap},fill={spec.fill},delta={dcap})",
-        "build_time": time.perf_counter() - t0,
+        "build_time": sw.elapsed,
         "n": n,
         "n_leaves": L,
         "leaf_cap": cap,

@@ -14,8 +14,10 @@ at one position, the largest of the slots' positions.
 
 The compute copy of the weights (the reference's per-step ``astype``) is
 made once, here.  One card, no sharding context.  The reference's
-``repro.obs`` publishing, index telemetry and ``tier=`` wait for their
-slices.
+``serve_*`` publishing into the metrics registry (ported as
+:mod:`repro_torch.obs`) and its ``tier=`` hook (a
+:class:`~repro_torch.tune.TunedTier` driven from the engine's ticks) wait
+for the port of the serving layer's hot-key cache.
 """
 
 from __future__ import annotations

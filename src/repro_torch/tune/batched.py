@@ -37,13 +37,13 @@ updatable GAPPED kind stacks too (tables of fewer leaves padded with
 inert zero-count leaves) and answers on ``"xla"``, ``"bbs"`` and
 ``"ref"`` only; ``"kernel"`` raises for it.
 
-The reference counts the ``fit_fast_fallbacks`` metric; the port's
-observability layer is a later slice.
+Every member the fast fit hands back to the exact scan counts in the
+``fit_fast_fallbacks`` metric of :mod:`repro_torch.obs` (labeled
+``"PGM"`` or ``"RS"``, as the reference labels them).
 """
 
 from __future__ import annotations
 
-import time
 from functools import partial
 
 import numpy as np
@@ -71,6 +71,8 @@ from repro_torch.dist.sharded_index import (
 from repro_torch.index import impls, registry
 from repro_torch.index.index import BACKENDS, Index, check_backend, lookup_impl, resolve_device
 from repro_torch.index.specs import IndexSpec
+from repro_torch.obs import metric
+from repro_torch.obs.timing import stopwatch
 
 #: fit strategies (see the module docstring)
 FITS = ("host", "vmap", "fast", "auto")
@@ -141,7 +143,7 @@ def _vmap_fit_rmi(specs: list, tables: list, dev) -> list:
     fit for the batch, host assembly of each model (the kernel's f32
     re-encoding included).  Every member must resolve to one branching
     factor and one table length."""
-    t0 = time.perf_counter()
+    sw = stopwatch()
     _check_same_length(tables)
     plans = [_rmi_plan(spec, len(t)) for spec, t in zip(specs, tables)]
     bs = {b for b, _ in plans}
@@ -154,7 +156,7 @@ def _vmap_fit_rmi(specs: list, tables: list, dev) -> list:
     inv_span = np.asarray([iv for _, _, iv in roots], dtype=np.float64)
     u = _normalize_many(tables, kmin, inv_span, dev)
     slopes, icepts, eps, r = _leaf_fit_many(u, torch.from_numpy(root_coefs).to(dev), b)
-    per_model_s = (time.perf_counter() - t0) / len(tables)  # the batch's time, shared
+    per_model_s = sw.elapsed / len(tables)  # the batch's time, shared
     out = []
     for i, (spec, t, (_, root_type)) in enumerate(zip(specs, tables, plans)):
         m = assemble_rmi(t, root_type, root_coefs[i], kmin[i], inv_span[i], slopes[i], icepts[i],
@@ -175,7 +177,7 @@ def _masks_rs_scan(keys, eps_np):
     return rs_knots_scan(keys, torch.from_numpy(eps_np).to(keys.device)).cpu().numpy()
 
 
-def _fast_masks(keys, eps_np, fast_fit, scan_masks):
+def _fast_masks(keys, eps_np, fast_fit, scan_masks, kind: str):
     """The fast fit's masks with the verified-ε fallback: the members whose
     re-measure failed (``ok`` False) are re-fit with the exact scan, decided
     on the host after the fast launch, so the fast pass never runs the
@@ -184,16 +186,17 @@ def _fast_masks(keys, eps_np, fast_fit, scan_masks):
     masks, oks = masks.cpu().numpy(), oks.cpu().numpy()
     if not oks.all():
         bad = np.flatnonzero(~oks)
+        metric("fit_fast_fallbacks").inc(len(bad), kind=kind)
         masks[bad] = scan_masks(keys[torch.from_numpy(bad).to(keys.device)], eps_np[bad])
     return masks
 
 
 def _masks_pgm_fast(keys, eps_np):
-    return _fast_masks(keys, eps_np, pgm_fit_fast, _masks_pgm_scan)
+    return _fast_masks(keys, eps_np, pgm_fit_fast, _masks_pgm_scan, "PGM")
 
 
 def _masks_rs_fast(keys, eps_np):
-    return _fast_masks(keys, eps_np, rs_knots_fast, _masks_rs_scan)
+    return _fast_masks(keys, eps_np, rs_knots_fast, _masks_rs_scan, "RS")
 
 
 def _pgm_model_from_mask(table, eps: int, mask):

@@ -1255,3 +1255,138 @@ def test_device_refresh_fast_installs_on_card(cuda, kind):
     qs = _queries(rng, table)
     got = tsi.sharded_lookup(tiers[0], qs, backend="kernel").cpu().numpy()
     np.testing.assert_array_equal(got, true_ranks(table, qs))
+
+
+# ---------------------------------------------------------------------------
+# The tuner and the tier's telemetry on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_sweep_on_card(cuda):
+    """Every candidate of the 2^16-key grid is exact on ``kernel`` and the
+    frontier is strictly monotone; every budget pick fits its budget."""
+    table = generate("amzn64", 1 << 16)
+    cands = tune.sweep(table, n_queries=1 << 14, reps=2, check_exact=True, device=cuda)
+    assert [c.spec.display_name() for c in cands] == [
+        s.display_name() for s in tune.candidate_grid(len(table)) if s.kind != "GAPPED"]
+    assert all(c.exact for c in cands), [c.spec.display_name() for c in cands if not c.exact]
+    front = tune.pareto_frontier(cands)
+    spaces, times = [c.space_bytes for c in front], [c.ns_per_query for c in front]
+    assert spaces == sorted(set(spaces)) and all(a > b for a, b in zip(times, times[1:]))
+    for pct in (0.05, 0.7, 2.0, 10.0):
+        best = tune.best_candidate_for_budget(cands, len(table), pct)
+        assert best is not None and best.space_bytes <= pct / 100.0 * len(table) * 8
+
+
+@pytest.mark.gpu
+def test_tuned_tier_device_refresh_on_card(cuda):
+    """A PGM tier's refresh through the device arm (``scan``) installs on
+    the card, counts one ``ok`` outcome and serves the merged keys exactly."""
+    from repro_torch import obs
+
+    rng = np.random.default_rng(85)
+    table = generate("osm", 1 << 16)
+    held = rng.choice(np.arange((1 << 14) + 8, (1 << 15) - 8), 400, replace=False)
+    base = np.delete(table, held)
+    tier = tune.TunedTier(base, 4, tune.RebuildPolicy(shard_refresh_frac=0.005, retune_frac=10.0,
+                                                      device_refresh=True, device_fit="scan"),
+                          spec=tix.PGMSpec(eps=64), name="gpu_device_refresh", device=cuda)
+    before = obs.metric("device_refreshes").value(kind="PGM", outcome="ok")
+    fresh = np.sort(table[held])
+    owners = tier._owners(fresh)
+    s = int(np.bincount(owners).argmax())
+    room = int(tier.sidx.tables.shape[1]) - int(tier.sidx.counts[s])
+    batch = fresh[owners == s][:room]  # past 0.005 of the shard, within its padded row
+    assert len(batch) >= 0.005 * int(tier.sidx.counts[s])
+    tier.insert_batch(batch)
+    live = np.union1d(base, batch)
+    assert obs.metric("device_refreshes").value(kind="PGM", outcome="ok") - before == 1
+    assert tier.counters.shard_refreshes == 1 and tier.counters.pending == 0
+    qs = _queries(rng, live)
+    np.testing.assert_array_equal(tier.lookup(qs).cpu().numpy(), true_ranks(live, qs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("SY-RMI", "PGM", "RS", "KO"))
+def test_telemetry_adds_no_search_launch_on_card(cuda, kind):
+    """A telemetry-on ``sharded_lookup`` launches the kind's batched kernel
+    once, as a telemetry-off call does, gives the same ranks, and its
+    counters equal a host model of the owner histogram."""
+    from repro_torch.dist import sharded_index as tsi
+
+    rng = np.random.default_rng(86)
+    table = generate("amzn64", 1 << 16)
+    sidx = tsi.ShardedIndex.build(kind, table, 4, device=cuda)
+    qs = np.concatenate([rng.choice(table[: 1 << 14], 3000), rng.choice(table, 1000)])
+    kernels.reset_launches()
+    off = tsi.sharded_lookup(sidx, qs, backend="kernel").cpu().numpy()
+    off_launches = kernels.launches()
+    kernels.reset_launches()
+    tsi.reset_tier_metrics()
+    sink = tsi._fresh_tier_metrics()
+    on = tsi.sharded_lookup(sidx, qs, backend="kernel", telemetry=True, telemetry_sink=sink,
+                            telemetry_label="gpu_telemetry").cpu().numpy()
+    assert kernels.launches() == off_launches
+    assert sum(off_launches.values()) == 1
+    np.testing.assert_array_equal(on, off)
+    fences = np.asarray([table[i * (1 << 14)] for i in range(4)], dtype=np.uint64)
+    hist = np.bincount(np.searchsorted(fences[1:], qs, side="right"), minlength=4)
+    even = len(qs) / 4
+    want = {"lookups": 1, "queries": len(qs), "dropped": 0, "routed_max": int(hist.max()),
+            "routed_even": even, "imbalance_last": hist.max() / even,
+            "imbalance_peak": hist.max() / even}
+    assert sink == want
+    assert tsi._tier_counters_from_obs("gpu_telemetry") == want
+    np.testing.assert_array_equal(tsi.shard_query_weights("gpu_telemetry", 4), hist)
+
+
+#: cycles the stream spins before the timed lookup (~20 ms on an H100)
+SLEEP_CYCLES = 40_000_000
+
+
+class _SpinThenLookup:
+    """An index whose lookup first holds its stream (``torch.cuda._sleep``)
+    and brackets the whole call in CUDA events: the card's time of each
+    call, against which ``timed_lookup``'s phases are held."""
+
+    kind = "SY-RMI"
+
+    def __init__(self, idx):
+        self.idx, self.events = idx, []
+
+    def lookup(self, *args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        out = self.idx.lookup(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+
+@pytest.mark.gpu
+def test_timed_lookup_device_phase_on_card(cuda):
+    """``timed_lookup`` on the card: the host phase ends while the card is
+    still busy, and the device phase (after the sync) covers the card's
+    time of the call, measured with CUDA events; one labelset each."""
+    from repro_torch import obs
+    from repro_torch.core import keys
+
+    table = generate("amzn64", 1 << 20)
+    qs = np.random.default_rng(87).choice(table, 1 << 20)
+    idx = tix.build(tix.SYRMISpec(), table, device=cuda)
+    t_dev, q_dev = keys.encode(table, cuda), keys.encode(qs, cuda)
+    idx.lookup(t_dev, q_dev)  # the first call's preparation is not timed
+    torch.cuda.synchronize(cuda)
+    target, reg = _SpinThenLookup(idx), obs.Registry()
+    for _ in range(3):
+        out = obs.timed_lookup(target, t_dev, q_dev, tier="gpu", registry=reg)
+    np.testing.assert_array_equal(out.cpu().numpy(), true_ranks(table, qs))
+    card_us = sum(a.elapsed_time(b) for a, b in target.events) * 1e3
+    snap = reg.snapshot()
+    lab = dict(kind="SY-RMI", backend="kernel", tier="gpu")
+    host = obs.find_sample(snap, "lookup_latency_us", **lab, phase="host")
+    dev = obs.find_sample(snap, "lookup_latency_us", **lab, phase="device")
+    assert host["count"] == dev["count"] == 3
+    assert 0.0 < host["sum"] < card_us <= dev["sum"]

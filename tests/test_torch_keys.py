@@ -76,6 +76,20 @@ def test_generate_and_make_queries_match_reference(name):
     )
 
 
+@pytest.mark.parametrize("n", (0, 1, 2, 3, 1000, 1 << 16))
+def test_sorted_unique_equals_np_unique(n):
+    from repro_torch.core.cdf import as_table, sorted_unique
+
+    rng = np.random.default_rng(n)
+    for vals in (rng.integers(0, max(n // 3, 1), n).astype(np.uint64),
+                 np.concatenate([EDGES, EDGES])[: n + 2], rng.normal(size=n)):
+        got = sorted_unique(vals)
+        assert got.dtype == vals.dtype
+        np.testing.assert_array_equal(got, np.unique(vals))
+    np.testing.assert_array_equal(as_table(np.concatenate([EDGES[::-1], EDGES])),
+                                  np.unique(EDGES))
+
+
 def test_tiers_match_reference():
     assert ttables.TIERS == rtables.TIERS
 

@@ -180,7 +180,8 @@ def test_kernel_tier_is_one_batched_call_and_later_modes_raise(monkeypatch):
     launch of the kind's batched kernel on the card (on the CPU its twin
     runs and nothing launches); the collective modes without a context
     whose ``tp`` extent equals the shard count raise the reference's mesh
-    error, and telemetry names the later slice."""
+    error, and a telemetry-on call answers the same with no second call of
+    the lookup body."""
     table = _table(53)
     sidx = tsi.ShardedIndex.build("SY-RMI", table, 4, device="cpu")
     calls = []
@@ -209,13 +210,15 @@ def test_kernel_tier_is_one_batched_call_and_later_modes_raise(monkeypatch):
     for kwargs, msg in (({"mode": "a2a"}, r"mesh tp extent \(1\) to equal n_shards \(4\)"),
                         ({"mode": "allgather"}, r"mesh tp extent \(1\)"),
                         ({"ctx": TwoWay(), "mode": "a2a"}, r"mesh tp extent \(2\)"),
-                        ({"telemetry": True}, "observability"),
                         ({"mode": "bogus"}, "unknown mode"),
                         ({"backend": "pallas"}, "unknown tier backend")):
         with pytest.raises(ValueError, match=msg):
             tsi.sharded_lookup(sidx, qs, **kwargs)
     with pytest.raises(ValueError, match=r"mesh tp extent \(1\)"):
         rsi.sharded_lookup(rsi.ShardedIndex.build("SY-RMI", table, 4), qs, mode="a2a")
+    calls.clear()
+    np.testing.assert_array_equal(tsi.sharded_lookup(sidx, qs, telemetry=True).numpy(), got)
+    assert len(calls) == 1
     # with a context of another extent, "auto" stays the one-process sweep
     np.testing.assert_array_equal(tsi.sharded_lookup(sidx, qs, TwoWay()).numpy(), got)
     with pytest.raises(ValueError, match="flat"):
