@@ -17,11 +17,14 @@ tolerance is zero).  It drives the updatable GAPPED kind's write path
 (``Index.insert_batch``/``compact``, ``insert_into_shard``/``compact_shard``)
 on the same tables, tensor ops with no kernel, and the device fits
 (``build_many(fit="vmap"/"fast"/"auto")``, ``build_grid``,
-``tune.device_refresh``) on the hand-written ``corridor_scan`` kernel.  Then it serves
-qwen2-0.5b at full width through ``DecodeEngine`` (the LM serving path,
-whose attention is the hand-written ``decode_attention`` kernel) and
-drives ``ops.embedding_bag``, holding both float kernels against their
-twins within the tolerances stated below.
+``tune.device_refresh``) on the hand-written ``corridor_scan`` kernel, the
+tuner, and the serving layer's hot-key cache (in front of an SY-RMI tier
+on the batched kernel) and paged KV pool.  Then it serves qwen2-0.5b and
+the MoE moonshot-v1-16b-a3b at full width through ``DecodeEngine`` (the
+LM serving path, whose attention is the hand-written ``decode_attention``
+kernel; moonshot's ticks drive the hot-key cache's tier) and drives
+``ops.embedding_bag``, holding both float kernels against their twins
+within the tolerances stated below.
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -161,9 +164,26 @@ Phases (any failure ends the run with a non-zero exit):
                the ranks == numpy and ``metrics()`` == a host model; the
                registry written to ``build/obs_5f.jsonl`` and dumped with
                ``python -m repro_torch.obs dump``;
+5g. hotcache — ``HotKeyCache(tier, capacity=4096)`` on the card: a 4-shard
+               SY-RMI ``TunedTier`` (registry default, ``kernel``) of phase
+               4's amzn64 table with every 64th key held out; the
+               concentrated-Zipf traffic of ``benchmarks/serve_slo.py``'s cache
+               A/B leg (a 1.15, a 2,048-rank hot span, 3 phases that shift
+               it) at 8 batches a phase of 2^16 queries, the same batches
+               cache-off (the bare tier) and cache-on (primed per phase as
+               ``serve_slo.py`` does), every batch == ``torch.searchsorted``;
+               hits, misses, rebuilds, ms a batch (host clock, CUDA
+               events); then 2^16 held-out keys of shard 1 inserted (a shard
+               refresh): ``hotcache_stale`` counts, the rebuild follows, the
+               answers stay exact;
+5h. paged    — ``PagedPool`` with its store on the card: 8 sequences of
+               32,768 positions in pages of 16, grown in turns;
+               ``position_lookup`` of every position (the PGM over the page
+               starts) == ``pos // 16`` arithmetic, before and after a
+               release and a re-allocation; ``MemoryError`` when exhausted;
 6. float parity — ``decode_attention`` in f32 and bf16 over (Hq, Hkv, D) in
                (4,4,16), (8,2,32), (16,1,64), (14,2,64), (32,8,128),
-               (4,4,256), (8,8,8), ragged ``kv_len`` with 0, 1 and S, S not
+               (16,16,128), (4,4,256), (8,8,8), ragged ``kv_len`` with 0, 1 and S, S not
                a tile multiple, and the split's edges (shares cut at a
                tile - 1, + 0, + 1, rows shorter than ``n_split`` tiles,
                lengths past S, at the planned split and at 1, 2, 5 and 16
@@ -185,6 +205,21 @@ Phases (any failure ends the run with a non-zero exit):
                (``SERVE_ATOL``/``SERVE_RTOL``); ms a tick, tokens/s, and
                the kernel's share of a step at the last and the first
                ticks' positions (CUDA events);
+7b. moe      — moonshot-v1-16b-a3b at its published widths and all 48
+               layers (64 experts top 6 + 2 shared, 16/16 heads of 128),
+               bf16 weights drawn on the card a layer at a time, in a
+               ``DecodeEngine`` of 8 slots x 2,048 positions whose ``tier``
+               is phase 5g's hot-key cache: 16 requests of 3-10 prompt
+               tokens, 16 new tokens each; every request finishes, logits
+               finite, ``decode_attention`` launched n_layers x steps at
+               group 1; the first 4 ticks re-run in place with
+               ``backend="ref"`` on the experts the kernel pass routed to
+               (``SERVE_ATOL``/``SERVE_RTOL``), and once more routing on
+               their own (swaps and error logged as a diagnostic); ms a
+               tick, tokens/s, a step's ms beside its byte bound for the
+               experts it routed to (and for all 64, what the capacity
+               dispatch reads), attention's and one layer's
+               ``moe_ffn`` share of a step, the kernel at the path's shape;
 8. kernel times — ``decode_attention`` at qwen2's ``decode_32k`` cell and at
                ``benchmarks/kernel_roofline.py``'s shape, ``ops.embedding_bag``
                (its path) at that benchmark's shape and on a 2 GiB table:
@@ -204,14 +239,15 @@ blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
 with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 8 on the CPU
-twins at a tiny size, phase 7 on the reduced qwen2-0.5b (no device result
-is printed).
+twins at a tiny size, phases 7 and 7b on the reduced qwen2-0.5b and
+moonshot (no device result is printed).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -231,6 +267,15 @@ SCALAR_OPS_PER_S = 67e12
 SECTOR_BYTES = 32
 
 KINDS = ("L", "Q", "C", "KO", "RMI", "SY-RMI", "PGM", "PGM_M", "RS", "BTREE")
+#: the kinds phases 4 and 5 repeat on the tables after the first: L, Q, C
+#: and BTREE search with KO's model-free kernel, at the same probes a query
+#: and table sectors on every table, so KO alone repeats that kernel
+REPEAT_KINDS = ("KO", "RMI", "SY-RMI", "PGM", "PGM_M", "RS")
+
+
+def kinds_of_table(i: int) -> tuple:
+    """The kinds phases 4 and 5 build on their ``i``-th table."""
+    return KINDS if i == 0 else REPEAT_KINDS
 #: the updatable kind: no kernel (the reference has no Pallas path for it),
 #: so ``backend="kernel"`` raises; it answers on these three backends
 GAPPED_BACKENDS = ("xla", "bbs", "ref")
@@ -289,7 +334,7 @@ SERVE_KERNELS = {
     "decode_attention": {
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:85",
-        "path": "DecodeEngine -> decode_step (phase 7)",
+        "path": "DecodeEngine -> decode_step (phase 7: qwen2-0.5b; phase 7b: moonshot MoE)",
     },
     "embedding_bag": {
         "source": "src/repro_torch/csrc/embedding_bag.cu",
@@ -695,11 +740,12 @@ def log_row(prefix: str, row: dict) -> None:
             f"(W = {plan['sweep_width']})")
 
 
-def check_launches(launches: dict, kernels_of: dict, n_tables: int, path: str) -> None:
-    """Each kind of the path launched its kernel once a table, and no
-    other kernel launched."""
+def check_launches(launches: dict, kernels_of: dict, kinds_per_table, path: str) -> None:
+    """Each kind of the path launched its kernel once a table it was
+    built on (``kinds_per_table``: the kinds of each table), and no other
+    kernel launched."""
     for name in KERNELS:
-        want = n_tables * sum(1 for k in KINDS if kernels_of.get(k) == name)
+        want = sum(1 for kinds in kinds_per_table for k in kinds if kernels_of.get(k) == name)
         if launches[name] != want:
             fail(f"{name} launched {launches[name]} times on the {path} path, expected {want}")
 
@@ -722,11 +768,11 @@ def phase_full(dev, n: int, nq: int, datasets) -> tuple:
     # -- the single-table path: build every kind, answer the queries (counted) --
     kernels.reset_launches()
     built, answers = {}, {}
-    for ds, (table, qs) in tables.items():
+    for i, (ds, (table, qs)) in enumerate(tables.items()):
         t_dev, q_dev = keys.encode(table, dev), keys.encode(qs, dev)
         # RS first: its greedy spline restarts a chunk at every knot, so its
         # host build time is the one to watch
-        for kind in ("RS",) + tuple(k for k in KINDS if k != "RS"):
+        for kind in ("RS",) + tuple(k for k in kinds_of_table(i) if k != "RS"):
             t0 = time.perf_counter()
             idx = tix.build(kind, table, device=dev)
             build_s = time.perf_counter() - t0
@@ -739,7 +785,8 @@ def phase_full(dev, n: int, nq: int, datasets) -> tuple:
     launches = kernels.launches()
     log(f"[full] single-table path launches: {json.dumps(launches)}")
     if dev.type == "cuda":
-        check_launches(launches, KERNEL_OF, len(tables), "single-table")
+        check_launches(launches, KERNEL_OF, [kinds_of_table(i) for i in range(len(tables))],
+                       "single-table")
 
     # -- check and measure each (table, kind) --
     rows, numpy_ranks = [], {}
@@ -837,8 +884,8 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
     # -- the batched path: build every kind over the tier, one lookup each (counted) --
     kernels.reset_launches()
     built, answers = {}, {}
-    for ds, (shards, q_dev) in tiers.items():
-        for kind in KINDS:
+    for i, (ds, (shards, q_dev)) in enumerate(tiers.items()):
+        for kind in kinds_of_table(i):
             t0 = time.perf_counter()
             bm = tune.build_many(kind, shards, device=dev)
             built[(ds, kind)] = (bm, time.perf_counter() - t0)
@@ -848,7 +895,8 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
     launches = kernels.launches()
     log(f"[tier] batched path launches: {json.dumps(launches)}")
     if dev.type == "cuda":
-        check_launches(launches, BATCHED_KERNEL_OF, len(tiers), "batched")
+        check_launches(launches, BATCHED_KERNEL_OF, [kinds_of_table(i) for i in range(len(tiers))],
+                       "batched")
 
     rows = []
     for (ds, kind), (bm, build_s) in built.items():
@@ -975,8 +1023,8 @@ def phase_sharded(dev, tables: dict, tier_built: dict, parity_n: int) -> tuple:
     launches = kernels.launches()
     log(f"[sharded] sharded path launches: {json.dumps(launches)}")
     if dev.type == "cuda":
-        check_launches(launches, {k: BATCHED_KERNEL_OF[k] for k in SHARDED_KINDS}, len(tables),
-                       "sharded")
+        check_launches(launches, {k: BATCHED_KERNEL_OF[k] for k in SHARDED_KINDS},
+                       [SHARDED_KINDS] * len(tables), "sharded")
 
     rows = []
     for (ds, kind), (sidx, build_s) in built.items():
@@ -1615,7 +1663,7 @@ def phase_mutation(dev, tables: dict, batches, tier_fresh: int) -> list:
         torch.cuda.synchronize()
     launches = kernels.launches()
     log(f"[mutation] GAPPED path launches: {json.dumps(launches)}")
-    check_launches(launches, {}, 0, "GAPPED")
+    check_launches(launches, {}, [], "GAPPED")
     return rows
 
 
@@ -2464,6 +2512,227 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
     return out
 
 
+#: the concentrated-Zipf traffic of ``benchmarks/serve_slo.py``'s cache A/B
+#: leg: Zipf a, the hot window of ranks (inside the cache), the phases that
+#: shift it, and the cache's capacity
+ZIPF_A = 1.15
+HOT_SPAN = 2048
+SLO_PHASES = 3
+CACHE_CAP = 4096
+
+
+def hot_queries(rng, table: np.ndarray, phase: int, n: int) -> np.ndarray:
+    """``n`` queries inside the phase's ``HOT_SPAN``-rank hot window, Zipf
+    over its ranks (``serve_slo.py:_hot_queries``)."""
+    t = len(table)
+    return table[(phase * t // SLO_PHASES + (rng.zipf(ZIPF_A, size=n) - 1) % HOT_SPAN) % t]
+
+
+def hot_span(table: np.ndarray, phase: int) -> np.ndarray:
+    t = len(table)
+    return table[(phase * t // SLO_PHASES + np.arange(HOT_SPAN)) % t]
+
+
+def timed_call(dev, fn) -> tuple:
+    """``fn()`` with its host ms (around a synchronise) and its ms between
+    two CUDA events (None off the card)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), 1e3 * (time.perf_counter() - t0), None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0), start.elapsed_time(end)
+
+
+def phase_hotcache(dev, table: np.ndarray, *, batch: int, batches: int, n_insert: int) -> tuple:
+    """Phase 5g: the learned hot-key cache on the card.  A 4-shard SY-RMI
+    ``TunedTier`` (registry default spec, ``kernel``) of ``table`` with every
+    64th key held out; the same concentrated-Zipf batches (3 phases of
+    ``batches``) through the bare tier and through ``HotKeyCache(tier,
+    capacity=CACHE_CAP)``, primed per phase as ``serve_slo.py`` primes it;
+    every batch == ``torch.searchsorted``.  Then ``n_insert`` held-out keys
+    of shard 1 inserted (a shard refresh): the cache counts the stale epoch,
+    rebuilds, and stays exact.  Returns the rows and the cache, which
+    phase 7b's engine takes as its tier."""
+    from repro_torch import index as tix
+    from repro_torch import kernels, tune
+    from repro_torch.core import keys
+    from repro_torch.serve import HotKeyCache
+
+    t_phase = time.perf_counter()
+    n = len(table)
+    held = np.arange(1, n, 64)
+    base = np.delete(table, held)
+    policy = tune.RebuildPolicy(shard_refresh_frac=0.01, retune_frac=10.0)
+    tier, build_s = timed(dev, lambda: tune.TunedTier(base, 4, policy, spec=tix.SYRMISpec(),
+                                                       name="5g", device=dev))
+    cache = HotKeyCache(tier, capacity=CACHE_CAP)
+    rng = np.random.default_rng(7)
+    warm = hot_queries(rng, base, 0, batch)
+    traffic = [[hot_queries(rng, base, p, batch) for _ in range(batches)]
+               for p in range(SLO_PHASES)]
+    prime_batches = [hot_queries(rng, base, p, batch) for p in range(SLO_PHASES)]
+    t_dev = keys.encode(base, dev)
+
+    def check(what, served, qs, got) -> None:
+        q_dev = keys.encode(qs, dev)
+        want = torch.searchsorted(served, q_dev, right=True) - 1
+        if not torch.equal(got.to(want.device), want):
+            fail(f"hotcache: {what}: {int((got != want).sum())} of {len(qs)} ranks differ "
+                 "from torch.searchsorted")
+
+    def counters() -> dict:
+        return cache.metrics()["hotcache"]
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    legs = {}
+    for label, target in (("off", tier), ("on", cache)):
+        check(f"{label} warm-up", t_dev, warm, target.lookup(warm))  # untimed
+        host, events, c0 = [], [], None
+        for phase in range(SLO_PHASES):
+            if target is cache:
+                # the sketch follows the shifting hot set: the phase's span at
+                # serve_slo.py's weight (4 x its batches of 1,024 queries) scaled
+                # to this batch, so the once-decayed prime still outweighs the
+                # earlier phases' counts; one batch; a rebuild
+                cache.sketch.update(hot_span(base, phase), weight=4.0 * batches * batch / 1024)
+                cache.sketch.update(prime_batches[phase])
+                cache.rebuild()
+            if c0 is None:
+                c0 = counters()
+            for i, qs in enumerate(traffic[phase]):
+                got, h_ms, e_ms = timed_call(dev, lambda q=qs: target.lookup(q))
+                check(f"cache-{label} phase {phase} batch {i}", t_dev, qs, got)
+                host.append(h_ms)
+                events.append(e_ms)
+        c1 = counters()
+        legs[label] = {
+            "batches": len(host), "batch": batch,
+            "host_ms_mean": float(np.mean(host)), "host_ms_median": float(np.median(host)),
+            "events_ms_mean": None if events[0] is None else float(np.mean(events)),
+            "events_ms_median": None if events[0] is None else float(np.median(events)),
+            "hits": c1["hits"] - c0["hits"], "misses": c1["misses"] - c0["misses"],
+            "rebuilds": c1["rebuilds"]}
+        row = legs[label]
+        log(f"[hotcache] cache-{label}: {row['batches']} batches of {batch} concentrated-Zipf "
+            f"queries (a {ZIPF_A}, {HOT_SPAN}-rank hot span, {SLO_PHASES} phases), all == "
+            f"searchsorted; ms a batch host {row['host_ms_mean']:.4f} mean / "
+            f"{row['host_ms_median']:.4f} median, CUDA events {row['events_ms_mean']} mean / "
+            f"{row['events_ms_median']} median"
+            + (f"; hits {row['hits']}, misses {row['misses']}, rebuilds {row['rebuilds']}"
+               if label == "on" else ""))
+    served = legs["on"]["hits"] + legs["on"]["misses"]
+    if served != SLO_PHASES * batches * batch or legs["on"]["hits"] == 0:
+        fail(f"hotcache: the timed batches counted {legs['on']['hits']} hits and "
+             f"{legs['on']['misses']} misses, not {SLO_PHASES * batches * batch} lookups")
+
+    # the mutation leg: held-out keys of shard 1 back in (a shard refresh)
+    fresh = table[held]
+    back = fresh[tier._owners(fresh) == 1][:n_insert]
+    c0, epoch0 = counters(), tier.epoch
+    _, insert_s = timed(dev, lambda: cache.insert_batch(back))
+    m = tier.metrics()
+    if m["shard_refreshes"] + m["forced_restacks"] != 1 or m["pending"] != 0:
+        fail(f"hotcache: inserting {len(back)} keys into shard 1 did not refresh it once: {m}")
+    if not cache.stale():
+        fail("hotcache: the insert left the cache fresh")
+    merged = keys.encode(np.union1d(base, back), dev)
+    for i, qs in enumerate(traffic[-1][:2] + [np.sort(back), rng.choice(back, batch)]):
+        got, h_ms, e_ms = timed_call(dev, lambda q=qs: cache.lookup(q))
+        check(f"after the insert, batch {i}", merged, qs, got)
+        if i == 0:
+            stale_ms = (h_ms, e_ms)
+    c1 = counters()
+    if c1["stale_detected"] - c0["stale_detected"] != 1 or c1["rebuilds"] - c0["rebuilds"] != 1:
+        fail(f"hotcache: after the insert the cache counted {c1['stale_detected']} stale epochs "
+             f"and {c1['rebuilds']} rebuilds (before: {c0['stale_detected']}, {c0['rebuilds']})")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernels.launches()
+    out = {"n_keys": int(len(base)), "build_s": build_s, "spec": tier.spec.display_name(),
+           "legs": legs, "insert": {"keys": int(len(back)), "seconds": insert_s,
+                                    "epochs": tier.epoch - epoch0, "stale_lookup_host_ms":
+                                    stale_ms[0], "stale_lookup_events_ms": stale_ms[1]},
+           "hotcache": c1, "space_bytes": cache.space_bytes(), "launches": launches}
+    log(f"[hotcache] mutation: {len(back)} held-out keys into shard 1 in {insert_s:.2f} s "
+        f"(epoch +{tier.epoch - epoch0}, {m['shard_refreshes']} refresh, "
+        f"{m['forced_restacks']} forced restack); the next lookup counted hotcache_stale, "
+        f"rebuilt ({stale_ms[0]:.2f} ms host, {stale_ms[1]} ms events) and 4 batches stayed == "
+        f"searchsorted on the merged keys; counters {json.dumps(c1)}; residency "
+        f"{cache.space_bytes()} B")
+    log(f"[hotcache] {tier.spec.display_name()} tier of {len(base)} keys built in {build_s:.1f} s; "
+        f"phase 5g path launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"done in {time.perf_counter() - t_phase:.1f} s")
+    if dev.type == "cuda" and launches["batched_rmi_search"] == 0:
+        fail("hotcache: the SY-RMI tier never launched batched_rmi_search")
+    return out, cache
+
+
+def phase_paged_pool(dev, *, seqs: int, positions: int, page: int) -> dict:
+    """Phase 5h: ``PagedPool`` with its store on the device: ``seqs``
+    sequences of ``positions`` positions in pages of ``page``, grown in
+    turns (a sequence's page ids are not contiguous); ``position_lookup``
+    of every position (the PGM over the page starts, eps 4) == ``pos //
+    page`` arithmetic; a release and a re-allocation that takes the freed
+    pages; ``MemoryError`` on an exhausted pool."""
+    from repro_torch.serve import PagedPool
+
+    t_phase = time.perf_counter()
+    per = positions // page
+    pool = PagedPool(n_pages=seqs * per, n_layers=1, page_size=page, n_kv=2, head_dim=64,
+                     device=dev)
+    for s in range(seqs):
+        pool.add_sequence(s)
+    for part in (1, 2, 4):  # in turns: the sequences' pages interleave
+        for s in range(seqs):
+            pool.ensure_capacity(s, positions * part // 4)
+    pos = np.arange(positions)
+    pos_dev = torch.from_numpy(pos).to(dev)
+
+    def check(s: int) -> tuple:
+        (pages, offsets), first_ms, _ = timed_call(dev, lambda: pool.position_lookup(s, pos))
+        _, again_ms, events_ms = timed_call(dev, lambda: pool.position_lookup(s, pos))
+        want = torch.as_tensor(np.asarray(pool.seq_pages[s]), device=dev)[pos_dev // page]
+        if not (torch.equal(pages, want) and torch.equal(offsets, pos_dev % page)):
+            fail(f"paged pool: sequence {s}: position_lookup != pos // {page} arithmetic")
+        return first_ms, again_ms, events_ms
+
+    times = [check(s) for s in range(seqs)]
+    old = list(pool.seq_pages[3])
+    pool.release(3)
+    pool.add_sequence(seqs)
+    pool.ensure_capacity(seqs, positions)
+    if sorted(pool.seq_pages[seqs]) != sorted(old):
+        fail("paged pool: the re-allocated sequence did not take the released pages")
+    times.append(check(seqs))
+    try:
+        pool.ensure_capacity(seqs, positions + 1)
+        fail("paged pool: an exhausted pool allocated a page")
+    except MemoryError:
+        pass
+    out = {"seqs": seqs, "positions": positions, "page": page, "pages": seqs * per,
+           "utilization": pool.utilization(),
+           "store_bytes": 2 * pool.k.numel() * pool.k.element_size(),
+           "first_lookup_host_ms": float(np.mean([t[0] for t in times])),
+           "lookup_host_ms": float(np.mean([t[1] for t in times])),
+           "lookup_events_ms": None if times[0][2] is None else float(np.mean([t[2] for t in times])),
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[paged] {seqs} sequences x {positions} positions in pages of {page} ({per} pages a "
+        f"sequence, store {out['store_bytes'] / 2**20:.0f} MiB on {dev.type}): position_lookup of "
+        f"every position == pos // {page} before and after a release and a re-allocation; "
+        f"MemoryError when exhausted; {positions} positions: {out['first_lookup_host_ms']:.3f} ms "
+        f"host with the PGM build, {out['lookup_host_ms']:.3f} ms host / "
+        f"{out['lookup_events_ms']} ms CUDA events cached (means); done in {out['seconds']:.1f} s")
+    return out
+
+
 FITS_ORDER = ("host", "vmap", "fast", "auto")
 
 
@@ -2543,7 +2812,7 @@ def phase_float_parity(dev, s: int) -> dict:
     splits = (None, 1, 2, 5, MAX_SPLIT)
     for dtype in (torch.float32, torch.bfloat16):
         for hq, hkv, d in ((4, 4, 16), (8, 2, 32), (16, 1, 64), (14, 2, 64), (32, 8, 128),
-                           (4, 4, 256), (8, 8, 8)):
+                           (16, 16, 128), (4, 4, 256), (8, 8, 8)):
             q, k, v = attention_inputs(dev, 6, hq, hkv, d, s, dtype, seed=hq * d)
             kv_len = torch.tensor([0, 1, 256, 257, s, s // 2 + 3], dtype=torch.int32, device=dev)
             got = decode_attention(q, k, v, kv_len)
@@ -2739,10 +3008,246 @@ def phase_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_request
             f"without the host's enqueue) x {cfg.n_layers} layers = share "
             f"{row.get('kernel_share_of_step')} of a step (CUDA events); kernel == twin at the "
             f"path's shapes (max |err| {err:.3g})")
-    del eng
+    return out
+
+
+def free_device(dev) -> None:
+    """Collect what a finished phase dropped (an engine whose step a spy
+    wrapped sits in a reference cycle) and hand the cached blocks back to
+    the card."""
+    gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def moe_step_bytes(cfg, slots: int, kv_len: int, experts: int | None = None) -> int:
+    """Bytes a decode step must read at least, in bf16: every layer's
+    attention, router, norm and shared-expert weights, the weights of
+    ``experts`` routed (layer, expert) pairs, the embedding rows and the
+    K/V rows up to ``kv_len``.  ``experts=None`` counts all
+    ``n_layers x n_experts``: what the capacity dispatch reads, since it
+    multiplies every expert's slots, routed or empty."""
+    d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_layers
+    if experts is None:
+        experts = n * cfg.n_experts
+    attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * d
+    layer = attn + d * cfg.n_experts + cfg.n_shared * 3 * d * cfg.d_ff_expert + 2 * d
+    weights = n * layer + experts * 3 * d * cfg.d_ff_expert + cfg.vocab * d + d + slots * d
+    cache = n * slots * kv_len * cfg.n_kv_heads * hd * 2
+    return 2 * (weights + cache)
+
+
+def phase_moe_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_requests: int,
+                    max_new: int, ref_ticks: int, tier) -> dict:
+    """Phase 7b: MoE serving at full width.  ``arch`` with bf16 weights drawn
+    on the card a layer at a time, served by ``DecodeEngine`` with ``tier``
+    (phase 5g's hot-key cache) driven by the ticks: every request finishes,
+    logits finite, ``decode_attention`` launched n_layers x steps at group 1;
+    the first ``ref_ticks`` ticks re-run on the reference math in place (the
+    kernel's K/V rows put back after) twice: on the experts the kernel pass
+    routed to, within ``SERVE_ATOL``/``SERVE_RTOL``, and routing on its own,
+    with the swaps and the error logged; ms a tick, tokens/s, attention's
+    share of a step, one layer's ``moe_ffn``, and the step's byte bound for
+    the experts it routed to and for all of them."""
+    from dataclasses import replace
+
+    from repro_torch import configs, kernels
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve import DecodeEngine, Request
+
+    cfg = replace(configs.get(arch, reduced=reduced).config, param_dtype="bfloat16")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed(dev, lambda: transformer.init(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    eng = DecodeEngine(params, cfg, batch_slots=slots, max_seq=max_seq, tier=tier)
+    del params  # bf16 already: the engine's compute copy is the same tensors
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_tensors(eng.params))
+    cache_bytes = sum(c.numel() * c.element_size() for c in eng.cache.values())
+    log(f"[moe] {arch}{' (reduced)' if reduced else ''}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, {cfg.n_experts} experts top "
+        f"{cfg.top_k} + {cfg.n_shared} shared of {cfg.d_ff_expert}, vocab {cfg.vocab}, "
+        f"{cfg.params_count} params drawn as bf16 in {init_s:.1f} s ({weight_bytes / 1e9:.2f} GB); "
+        f"{slots} slots x {max_seq} positions, cache {cache_bytes / 1e9:.2f} GB; capacity "
+        f"{moe.capacity_of(slots, cfg)} a expert at {slots} tokens")
+
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(3, 11)).astype(np.int32),
+                    max_new_tokens=max_new) for i in range(n_requests)]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    checked, ref_s = [], 0.0
+    routes = []  # the top-k experts of every moe_ffn call, in call order
+    replay = []  # the kernel pass's experts, handed back in call order
+    top_k = moe._top_k
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        routes.append(idx)
+        return vals, idx
+
+    def replaying(probs, k):
+        idx = replay.pop(0)
+        return probs.gather(-1, idx), idx
+
+    def routed(hook, fn):
+        moe._top_k = hook
+        out = fn()
+        moe._top_k = top_k
+        return out
+
+    decode = eng._decode
+
+    def on_decode(params, cache, tokens, pos_per_slot):
+        nonlocal finite, ref_s
+        check = len(checked) < ref_ticks
+        routes.clear()
+        logits, cache = routed(recording if check else top_k,
+                               lambda: decode(params, cache, tokens, pos_per_slot))
+        finite = finite & torch.isfinite(logits).all()
+        if not check:
+            return logits, cache
+        t0 = time.perf_counter()
+        pos = int(np.max(pos_per_slot))
+        at = min(pos, max_seq - 1)
+        mine = {kv: c[:, :, at].clone() for kv, c in cache.items()}
+        kernel_routes = list(routes)
+        # the reference math on the kernel pass's experts: the same pairs
+        # drop, so what differs is the attention's arithmetic alone
+        replay[:] = kernel_routes
+        want, _ = routed(replaying, lambda: transformer.decode_step(
+            params, cache, tokens, pos, cfg, backend="ref"))
+        if replay or len(kernel_routes) != cfg.n_layers:
+            fail(f"moe: the kernel pass routed {len(kernel_routes)} layers and the reference "
+                 f"re-run took {len(kernel_routes) - len(replay)}, not {cfg.n_layers}")
+        # a diagnostic: the reference math routing on its own
+        routes.clear()
+        free, _ = routed(recording, lambda: transformer.decode_step(
+            params, cache, tokens, pos, cfg, backend="ref"))
+        for kv, rows in mine.items():  # the kernel's K/V rows back for the next ticks
+            cache[kv][:, :, at] = rows
+        swapped = [int((a.sort(dim=1).values != b.sort(dim=1).values).any(dim=1).sum())
+                   for a, b in zip(kernel_routes, routes)]
+        diff, free_diff = (logits - want).abs(), (logits - free).abs()
+        if bool((diff > SERVE_ATOL + SERVE_RTOL * want.abs()).any()):
+            fail(f"moe: tick at pos {pos}: kernel logits vs ref on the same experts, max |err| "
+                 f"{float(diff.max())}")
+        checked.append({"pos": pos, "max_abs_err": float(diff.max()),
+                        "mean_abs_err": float(diff.mean()),
+                        "argmax_agree": int((logits.argmax(1) == want.argmax(1)).sum()),
+                        "unforced_max_abs_err": float(free_diff.max()),
+                        "unforced_mean_abs_err": float(free_diff.mean()),
+                        "unforced_argmax_agree": int((logits.argmax(1) == free.argmax(1)).sum()),
+                        "routing_swaps": sum(swapped), "routed_tokens": len(routes) * slots,
+                        "first_swap_layer": next((i for i, n in enumerate(swapped) if n), None)})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ref_s += time.perf_counter() - t0
+        return logits, cache
+
+    eng._decode = on_decode
+    for r in reqs:
+        eng.submit(r)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    tick_s = []
+    t_run = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        queued, ref_before = len(eng.queue), ref_s
+        t0 = time.perf_counter()
+        eng.tick()
+        if len(eng.queue) == queued:  # a tick without admissions (prefill steps)
+            tick_s.append(time.perf_counter() - t0 - (ref_s - ref_before))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run - ref_s
+    launches = kernels.launches()["decode_attention"]
+    del eng._decode, decode  # the engine's own method again
+    steps = sum(len(r.prompt) for r in reqs) + eng.ticks
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    if not all(r.done and len(r.out_tokens) == max_new for r in reqs):
+        fail(f"moe: not every request finished with {max_new} tokens: "
+             f"{[len(r.out_tokens) for r in reqs]}")
+    if not bool(finite):
+        fail("moe: a logit was not finite")
+    if dev.type == "cuda" and launches != cfg.n_layers * steps:
+        fail(f"moe: decode_attention launched {launches} times, expected {cfg.n_layers} x {steps}")
+    m = eng.metrics()
+    if m["requests_finished"] != len(reqs) or "hotcache" not in m["tier"]:
+        fail(f"moe: the engine's metrics are off: {json.dumps({k: m[k] for k in m if k != 'tier'})}")
+    out = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers, "slots": slots,
+           "max_seq": max_seq, "requests": len(reqs), "new_tokens": tokens,
+           "prefill_steps": steps - eng.ticks, "ticks": eng.ticks,
+           "decode_attention_launches": launches, "run_s": run_s, "tokens_per_s": tokens / run_s,
+           "tick_ms": 1e3 * float(np.mean(tick_s)), "init_s": init_s,
+           "weight_bytes": weight_bytes, "cache_bytes": cache_bytes, "ref_checks": checked,
+           "serve_metrics": {k: m[k] for k in ("ticks", "tokens_decoded", "requests_finished")}}
+    log(f"[moe] {len(reqs)} requests, {tokens} tokens ({steps - eng.ticks} prefill steps, "
+        f"{eng.ticks} ticks) in {run_s:.2f} s without the re-checks: {out['tokens_per_s']:.2f} "
+        f"tokens/s (host clock), {out['tick_ms']:.2f} ms a tick without admissions; "
+        f"decode_attention launches {launches} = {cfg.n_layers} x {steps}; the tier's ticks: "
+        f"{json.dumps(m['tier']['hotcache'])}")
+    for c in checked:
+        log(f"[moe] tick at pos {c['pos']} re-run with backend='ref' on the kernel pass's "
+            f"experts: logits max |err| {c['max_abs_err']:.4g}, mean {c['mean_abs_err']:.4g} "
+            f"(atol {SERVE_ATOL}, rtol {SERVE_RTOL}); argmax agrees on {c['argmax_agree']}/{slots} "
+            f"rows. Routing on its own (diagnostic): max |err| {c['unforced_max_abs_err']:.4g}, "
+            f"mean {c['unforced_mean_abs_err']:.4g}, argmax agrees on "
+            f"{c['unforced_argmax_agree']}/{slots}; {c['routing_swaps']} of {c['routed_tokens']} "
+            f"(layer, token) routings differ, the first in layer {c['first_swap_layer']}")
+
+    # times at the path's shapes: a step, the attention at group 1, one layer's MoE
+    pos = int(np.max(eng.slot_pos))
+    kv_len = torch.full((slots,), pos + 1, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # a token a slot drawn at random, so the step routes as served traffic does
+    toks = torch.randint(0, cfg.vocab, (slots, 1), generator=gen, device=dev, dtype=torch.int32)
+    q = torch.randn((slots, cfg.n_heads, cfg.head_dim), generator=gen, device=dev).to(
+        eng.cache["k"].dtype)
+    k0, v0 = eng.cache["k"][0], eng.cache["v"][0]
+    x = torch.randn((slots, cfg.d_model), generator=gen, device=dev).to(eng.cache["k"].dtype)
+    lp = {k: w[0] for k, w in eng.params["layers"]["moe"].items()}
+    step_ms = device_ms(lambda: transformer.decode_step(eng.params, eng.cache, toks, pos, cfg),
+                        dev, reps=5, warmup=1)
+    att_ms = device_ms(lambda: decode_attention(q, k0, v0, kv_len), dev)
+    moe_ms = device_ms(lambda: moe.moe_ffn(x, lp, cfg), dev)
+    # the timed step's routing: the (layer, expert) pairs it needs weights of
+    routes.clear()
+    routed(recording, lambda: transformer.decode_step(eng.params, eng.cache, toks, pos, cfg))
+    experts = sum(int(torch.unique(idx).numel()) for idx in routes)
+    step_bytes = moe_step_bytes(cfg, slots, pos + 1, experts)
+    all_bytes = moe_step_bytes(cfg, slots, pos + 1)
+    out.update(pos=pos, step_ms=step_ms, attention_ms=att_ms, moe_ffn_ms=moe_ms,
+               routed_experts=experts, routed_experts_per_layer=experts / cfg.n_layers,
+               step_bound_bytes=step_bytes, step_bound_ms=1e3 * step_bytes / HBM_BYTES_PER_S,
+               all_experts_bound_bytes=all_bytes,
+               all_experts_bound_ms=1e3 * all_bytes / HBM_BYTES_PER_S,
+               attention_share=None if step_ms is None else cfg.n_layers * att_ms / step_ms,
+               moe_share=None if step_ms is None else cfg.n_layers * moe_ms / step_ms)
+    row = time_attention(dev, f"moe 7b B{slots} {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} "
+                              f"S{max_seq} {str(q.dtype)[6:]}, kv_len {pos + 1} (group 1)",
+                         q, k0, v0, kv_len)
+    out["attention_row"] = row
+    out["max_abs_err"] = row["max_abs_err"]
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[moe] at pos {pos}: decode_step {step_ms} ms (byte bound {out['step_bound_ms']:.2f} ms: "
+        f"{step_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12} TB/s for the "
+        f"{out['routed_experts_per_layer']:.2f} experts a layer it routed to; "
+        f"{out['all_experts_bound_ms']:.2f} ms for all {cfg.n_experts}, what the capacity dispatch "
+        f"reads); decode_attention {att_ms} ms "
+        f"x {cfg.n_layers} = share {out['attention_share']}; moe_ffn of one layer {moe_ms} ms x "
+        f"{cfg.n_layers} = share {out['moe_share']} (CUDA events); peak memory "
+        f"{out.get('peak_gb')} GB")
     return out
+
+
+def tree_tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    return [tree]
 
 
 def time_attention(dev, label, q, k, v, kv_len) -> dict:
@@ -2883,19 +3388,22 @@ def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
     return att_rows, bag_rows, bag_launches
 
 
-def serve_kernels_line(parity_errs, serve, att_rows, bag_rows, bag_launches) -> list:
+def serve_kernels_line(parity_errs, serve, moe_served, att_rows, bag_rows, bag_launches) -> list:
     """The kernels-line entries of the two float kernels: the headline case
     is qwen2's decode_32k cell and the 2 GiB bag; every case is listed."""
     out = []
-    for name, rows, launches, extra_err in (
-        ("decode_attention", att_rows, serve["decode_attention_launches"], serve["max_abs_err"]),
-        ("embedding_bag", bag_rows, bag_launches, 0.0),
+    att_paths = {"serve": serve["decode_attention_launches"],
+                 "moe_serve": moe_served["decode_attention_launches"]}
+    for name, rows, paths, extra_err in (
+        ("decode_attention", att_rows, att_paths,
+         max(serve["max_abs_err"], moe_served["max_abs_err"])),
+        ("embedding_bag", bag_rows, {"ops": bag_launches}, 0.0),
     ):
         head = rows[0] if name == "decode_attention" else rows[-1]
         spec = SERVE_KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
-            "launches": launches,
+            "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": max([parity_errs[name], extra_err] + [r["max_abs_err"] for r in rows]),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -2941,6 +3449,9 @@ def main(argv=None) -> int:
         parity_n, full_n, full_nq, shard_nq = 4096, 1 << 14, 1 << 12, 1 << 10
         mutation_batches, tier_fresh = (1 << 4, 1 << 6, 1 << 8), 1 << 8
         serve = {"reduced": True, "max_seq": 128, "long_prompt": 40}
+        hotcache = {"batch": 1 << 10, "batches": 2, "n_insert": 1 << 8}
+        pool = {"seqs": 8, "positions": 512, "page": 16}
+        moe_serve = {"reduced": True, "max_seq": 64}
         times = {"att_a": (4, 14, 2, 64, 512), "att_b": (2, 32, 8, 128, 256),
                  "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 14, 128, 1 << 14, 1 << 10)}
     else:
@@ -2955,6 +3466,13 @@ def main(argv=None) -> int:
         # max_seq: the sequence length of the decode_32k shape cell
         # long_prompt: ~716 positions (45 tiles of 16) for the first ticks
         serve = {"reduced": False, "max_seq": 32768, "long_prompt": 700}
+        # phase 5g: serve_slo.py's cache A/B traffic at 2^16 queries a batch
+        # (its 1,024 is the CPU smoke shape); 5h: 8 sequences of decode_32k's
+        # 32,768 positions; 7b: moonshot at its published widths, a 2,048-
+        # position cache (6.4 GB beside 57.8 GB of bf16 weights)
+        hotcache = {"batch": 1 << 16, "batches": 8, "n_insert": 1 << 16}
+        pool = {"seqs": 8, "positions": 32768, "page": 16}
+        moe_serve = {"reduced": False, "max_seq": 2048}
         # decode_attention: qwen2-0.5b's decode_32k cell (B 128) and
         # benchmarks/kernel_roofline.py's flash-decode shape; embedding_bag:
         # that benchmark's shape and a 2 GiB table (beyond L2), 2^16 bags of 16
@@ -2997,23 +3515,39 @@ def main(argv=None) -> int:
     tuner = phase_tuner(dev, tables, full_nq, shard_nq, "amzn64")
     log(f"[tuner] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    hot, hot_cache = phase_hotcache(dev, tables["amzn64"][0], **hotcache)
+    log(f"[hotcache] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paged = phase_paged_pool(dev, **pool)
+    log(f"[paged] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     parity_errs = phase_float_parity(dev, 600)
     log(f"[float] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     served = phase_serve(dev, "qwen2-0.5b", slots=8, n_requests=16, max_new=16, ref_ticks=4,
                          **serve)
+    free_device(dev)
     log(f"[serve] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    moe_served = phase_moe_serve(dev, "moonshot-v1-16b-a3b", slots=8, n_requests=16, max_new=16,
+                                 ref_ticks=4, tier=hot_cache, **moe_serve)
+    del hot_cache
+    free_device(dev)
+    log(f"[moe] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     att_rows, bag_rows, bag_launches = phase_times(dev, **times)
+    att_rows.append(moe_served["attention_row"])
     log(f"[times] done in {time.perf_counter() - t0:.1f} s")
     by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k],
-                   "fits": fits["launches"][k], "tuner": tuner["launches"][k]} for k in BATCHED}
+                   "fits": fits["launches"][k], "tuner": tuner["launches"][k],
+                   "hotcache": hot["launches"][k]} for k in BATCHED}
     by_path.update({k: {"single": launches[k], "a2a": collective_launches["a2a"][k],
                         "allgather": collective_launches["allgather"][k],
                         "fits": fits["launches"][k], "tuner": tuner["launches"][k]}
                     for k in SINGLE})
     launches = {**{k: sum(paths.values()) for k, paths in by_path.items()},
-                "decode_attention": served["decode_attention_launches"],
+                "decode_attention": (served["decode_attention_launches"]
+                                     + moe_served["decode_attention_launches"]),
                 "embedding_bag": bag_launches}
     line = kernels_line(rows + tier_rows, launches, "amzn64")
     for entry in line["kernels"]:
@@ -3023,7 +3557,8 @@ def main(argv=None) -> int:
                 r["max_abs_err"] for r in sharded_rows if r["kernel"] == entry["name"]] + [
                 st["max_abs_err"] for r in collective_ranks for name, st in r["stages"].items()
                 if KERNEL_OF[name.split("_", 1)[1]] == entry["name"]])
-    line["kernels"] += serve_kernels_line(parity_errs, served, att_rows, bag_rows, bag_launches)
+    line["kernels"] += serve_kernels_line(parity_errs, served, moe_served, att_rows, bag_rows,
+                                          bag_launches)
     corridor = fits["corridor"]
     corridor["launches_by_path"] = {"fits": corridor["launches"],
                                     "tuner": tuner["launches"]["corridor_scan"]}
@@ -3038,6 +3573,8 @@ def main(argv=None) -> int:
                                         "sharded_rows": sharded_rows, "locality": locality,
                                         "collective_ranks": collective_ranks,
                                         "mutation_rows": mutation_rows, "serve": served,
+                                        "hotcache": hot, "paged_pool": paged,
+                                        "moe_serve": moe_served,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
                                         "fit_rows": fits["rows"], "grid_rows": fits["grid"],
                                         "refresh_rows": fits["refresh"], "tuner": tuner,
@@ -3046,7 +3583,8 @@ def main(argv=None) -> int:
         log("[rehearsal] CPU rehearsal passed; no device result")
         return 0
     if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS, "corridor_scan")) or any(
-            by_path[name][path] == 0 for name in SINGLE for path in ("a2a", "allgather")):
+            by_path[name][path] == 0 for name in SINGLE for path in ("a2a", "allgather")) or (
+            by_path["batched_rmi_search"]["hotcache"] == 0):
         fail(f"a kernel of a path never launched: {json.dumps(by_path)}")
     log(f"[device] nvidia-smi: {info['nvidia_smi']}")
     print(json.dumps(line), flush=True)

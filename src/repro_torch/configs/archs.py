@@ -5,8 +5,8 @@
   moonshot-v1-16b-a3b (MoE 64e top-6), qwen3-moe-235b-a22b (128e top-8)
 
 Each also has a ``reduced`` variant (same topology, tiny dims) for the
-CPU tests.  The MoE configs are registered, but the port's decoder
-serves dense models only until ``models/moe.py`` is ported.
+CPU tests.  The decoder serves all five; the MoE configs route each
+layer's FFN through ``models/moe.py``.
 """
 
 from __future__ import annotations

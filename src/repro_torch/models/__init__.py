@@ -1,6 +1,7 @@
-"""Models (counterpart of ``repro.models``): the dense decoder-only LM's
-serving side (``transformer``) over the shared ``layers``."""
+"""Models (counterpart of ``repro.models``): the decoder-only LM's serving
+side (``transformer``, dense and MoE) over the shared ``layers`` and the
+one-card MoE block (``moe``)."""
 
-from . import layers, transformer
+from . import layers, moe, transformer
 
-__all__ = ["layers", "transformer"]
+__all__ = ["layers", "moe", "transformer"]

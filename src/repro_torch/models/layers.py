@@ -27,11 +27,19 @@ def dtype_of(name: str) -> torch.dtype:
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
     """Normal weights of std ``1/sqrt(fan_in)`` (fan_in = ``shape[-2]``)
-    drawn in f32 on ``gen``'s device."""
+    drawn in f32 on ``gen``'s device.  A stack (three axes or more) is
+    drawn one leading slice at a time into its ``dtype`` storage, so the
+    f32 draw never holds more than one layer."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * std).to(dtype)
+    if len(shape) < 3:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        return (w * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        w = torch.randn(shape[1:], generator=gen, dtype=torch.float32, device=gen.device)
+        out[i] = w * std
+    return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype, std: float = 0.02):

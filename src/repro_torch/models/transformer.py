@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense GQA, serving side (counterpart of
-``repro.models.transformer``).
+"""Decoder-only LM (dense GQA and MoE variants), serving side (counterpart
+of ``repro.models.transformer``).
 
 Parameters are a plain dict that mirrors the reference's pytree: the
 per-layer leaves are stacked on a leading layer axis, and every weight
@@ -14,8 +14,10 @@ Entry points:
   params_from_numpy(np_params, cfg)               -> params
 
 Each runs on the card unless given a CPU generator or ``device="cpu"``.
-``forward`` and ``loss_fn`` wait for the training slice; a config with
-``moe=True`` raises until ``models/moe.py`` is ported.
+A config with ``moe=True`` routes each layer's FFN through
+:func:`repro_torch.models.moe.moe_ffn` (plus the shared expert's SwiGLU
+when ``n_shared`` is set).  ``forward`` and ``loss_fn`` wait for the
+prefill and training slices.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from .moe import moe_ffn
 
 
 @dataclass(frozen=True)
@@ -47,6 +50,7 @@ class LMConfig:
     top_k: int = 0
     n_shared: int = 0
     d_ff_expert: int = 0
+    capacity_factor: float = 1.25
     # numerics
     rope_theta: float = 1e4
     dtype: str = "bfloat16"
@@ -76,17 +80,13 @@ class LMConfig:
         return self.n_layers * per_layer + 2 * self.vocab * d + d
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers wait for the port of models/moe.py")
-
-
 def init(gen: torch.Generator, cfg: LMConfig):
     """Random parameters drawn from ``gen`` on its device (a CUDA generator
     for the card, ``torch.Generator()`` for the CPU).  The reference's
     ``jax.random`` draws cannot be reproduced; carry its weights across
-    with :func:`params_from_numpy` instead."""
-    _dense_only(cfg)
+    with :func:`params_from_numpy` instead.  Each stacked tensor is drawn
+    a layer at a time into its ``param_dtype`` storage, so a bf16 model
+    at full width never holds an f32 copy of a whole stack."""
     pd = L.dtype_of(cfg.param_dtype)
     d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_layers
     dev = gen.device
@@ -102,9 +102,21 @@ def init(gen: torch.Generator, cfg: LMConfig):
         layers["bq"] = torch.zeros((n, cfg.n_heads * hd), dtype=pd, device=dev)
         layers["bk"] = torch.zeros((n, cfg.n_kv_heads * hd), dtype=pd, device=dev)
         layers["bv"] = torch.zeros((n, cfg.n_kv_heads * hd), dtype=pd, device=dev)
-    layers["wg"] = L.dense_init(gen, (n, d, cfg.d_ff), pd)
-    layers["wu"] = L.dense_init(gen, (n, d, cfg.d_ff), pd)
-    layers["wd"] = L.dense_init(gen, (n, cfg.d_ff, d), pd)
+    if cfg.moe:
+        e, ffe = cfg.n_experts, cfg.d_ff_expert
+        layers["moe"] = {
+            "router": L.dense_init(gen, (n, d, e), pd),
+            "wg": L.dense_init(gen, (n, e, d, ffe), pd),
+            "wu": L.dense_init(gen, (n, e, d, ffe), pd),
+            "wd": L.dense_init(gen, (n, e, ffe, d), pd),
+        }
+        ff = cfg.n_shared * ffe  # the shared expert, when there is one
+    else:
+        ff = cfg.d_ff
+    if ff:
+        layers["wg"] = L.dense_init(gen, (n, d, ff), pd)
+        layers["wu"] = L.dense_init(gen, (n, d, ff), pd)
+        layers["wd"] = L.dense_init(gen, (n, ff, d), pd)
     return {
         "embed": L.embed_init(gen, (cfg.vocab, d), pd),
         "layers": layers,
@@ -116,8 +128,8 @@ def init(gen: torch.Generator, cfg: LMConfig):
 def params_from_numpy(np_params, cfg: LMConfig, device=None):
     """The reference's parameter pytree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, repro_params)``) as tensors on ``device``
-    (the card when None), in the same layout and dtype."""
-    _dense_only(cfg)
+    (the card when None), in the same layout and dtype; the nested
+    ``layers["moe"]`` dict of an MoE config comes across as a dict."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -157,8 +169,8 @@ def decode_step(params, cache, tokens, pos: int, cfg: LMConfig, *, backend: str 
     write position is clamped into ``[0, max_seq - 1]``; attention covers
     positions ``< pos + 1``.  ``backend`` picks the attention: the
     hand-written kernel (``"kernel"``) or the reference's plain math
-    (``"ref"``)."""
-    _dense_only(cfg)
+    (``"ref"``).  An MoE layer's FFN is :func:`~repro_torch.models.moe.moe_ffn`
+    over the ``B`` rows, plus the shared expert where ``n_shared`` is set."""
     pos = int(pos)
     dt = L.dtype_of(cfg.dtype)
     lay = params["layers"]
@@ -185,7 +197,14 @@ def decode_step(params, cache, tokens, pos: int, cfg: LMConfig, *, backend: str 
         cache["v"][i, :, at] = v
         o = L.decode_attention(q, cache["k"][i], cache["v"][i], kv_len, backend=backend)
         x = x + o.reshape(b, hq * hd) @ lay["wo"][i].to(dt)
-        x = x + L.swiglu(L.rms_norm(x, lay["ln2"][i]), lay["wg"][i], lay["wu"][i], lay["wd"][i])
+        h2 = L.rms_norm(x, lay["ln2"][i])
+        if cfg.moe:
+            y = moe_ffn(h2, {k: w[i] for k, w in lay["moe"].items()}, cfg)
+            if cfg.n_shared:
+                y = y + L.swiglu(h2, lay["wg"][i], lay["wu"][i], lay["wd"][i])
+        else:
+            y = L.swiglu(h2, lay["wg"][i], lay["wu"][i], lay["wd"][i])
+        x = x + y
     x = L.rms_norm(x, params["ln_f"])
     logits = (x @ params["head"].to(dt)).float()
     return logits, cache

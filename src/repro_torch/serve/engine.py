@@ -13,15 +13,23 @@ every slot's K/V row at the prompt positions; and a tick runs every slot
 at one position, the largest of the slots' positions.
 
 The compute copy of the weights (the reference's per-step ``astype``) is
-made once, here.  One card, no sharding context.  The reference's
-``serve_*`` publishing into the metrics registry (ported as
-:mod:`repro_torch.obs`) and its ``tier=`` hook (a
-:class:`~repro_torch.tune.TunedTier` driven from the engine's ticks) wait
-for the port of the serving layer's hot-key cache.
+made once, here.  One card, no sharding context.
+
+Built with a ``tier`` (a :class:`~repro_torch.tune.TunedTier`, or a
+:class:`~repro_torch.serve.hotcache.HotKeyCache` in front of one),
+``tick()`` drives the tier's drift policy between decode steps:
+``maybe_compact()``, and ``maybe_rebalance()`` where the tier has it.
+:meth:`DecodeEngine.metrics` publishes the serving counters into the
+:mod:`repro_torch.obs` registry (``serve_*``, labelled by engine) and
+renders them, the sharded tier's routing counters
+(``repro_torch.dist.tier_metrics()``) and the tier's own counters from
+the registry.  The hot loop keeps plain int attributes: a tick of an
+engine without a tier never imports ``repro_torch.obs``.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -30,6 +38,8 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
+
+_ENGINE_IDS = itertools.count()
 
 
 @dataclass
@@ -44,12 +54,11 @@ class Request:
 class DecodeEngine:
     """Serve ``cfg`` with ``params`` on their device (the card for
     :func:`~repro_torch.models.transformer.init` with a CUDA generator),
-    attention on the hand-written kernel."""
+    attention on the hand-written kernel; ``tier`` is an optional
+    self-re-tuning index tier whose policy the ticks drive."""
 
     def __init__(self, params, cfg, *, batch_slots: int = 8, max_seq: int = 512,
                  tier=None):
-        if tier is not None:
-            raise NotImplementedError("tier= waits for the port of repro.tune.rebuild")
         self.cfg = cfg
         self.device = params["embed"].device
         self.params = transformer.cast_params(params, L.dtype_of(cfg.dtype))
@@ -59,29 +68,57 @@ class DecodeEngine:
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_pos = np.zeros(batch_slots, dtype=np.int32)
         self.queue: List[Request] = []
-        self._decode = self._decode_impl
-        self._prefill_tok = self._prefill_one
         self.ticks = 0
         self.tokens_decoded = 0
         self.requests_finished = 0
+        #: repro_torch.obs label: unique per engine, so several engines in
+        #: one process keep separate serve_* labelsets
+        self.name = f"engine{next(_ENGINE_IDS)}"
+        self.tier = tier
 
     def metrics(self) -> dict:
-        """The serving counters, as plain ints."""
-        return {
-            "ticks": int(self.ticks),
-            "tokens_decoded": int(self.tokens_decoded),
-            "requests_finished": int(self.requests_finished),
-            "queued": len(self.queue),
-            "live_slots": sum(r is not None for r in self.slot_req),
-        }
+        """Serving counters + the index substrate's telemetry.
 
-    # -- device fns --------------------------------------------------------
-    def _decode_impl(self, params, cache, tokens, pos_per_slot):
+        Publishes the plain int attributes into the ``repro_torch.obs``
+        registry (``serve_*``, labelled by engine) and renders the result
+        from one registry snapshot, with the reference's keys.
+        ``index_traces`` is 0 and ``index_trace_counts`` is ``{}``: they
+        count the reference's jitted lookup traces, and the port has no
+        traces (its kernels count launches instead).  ``tier_routing`` is
+        :func:`repro_torch.dist.tier_metrics`; ``tier`` the tier's own
+        :meth:`metrics`, when the engine has one."""
+        from repro_torch import obs
+        from repro_torch.dist import tier_metrics
+
+        lbl = dict(engine=self.name)
+        obs.metric("serve_ticks").set_value(self.ticks, **lbl)
+        obs.metric("serve_tokens_decoded").set_value(self.tokens_decoded, **lbl)
+        obs.metric("serve_requests_finished").set_value(self.requests_finished, **lbl)
+        obs.metric("serve_queued").set(len(self.queue), **lbl)
+        obs.metric("serve_live_slots").set(sum(r is not None for r in self.slot_req), **lbl)
+        snap = obs.snapshot()
+        out = {
+            "ticks": int(obs.sample_value(snap, "serve_ticks", **lbl)),
+            "tokens_decoded": int(obs.sample_value(snap, "serve_tokens_decoded", **lbl)),
+            "requests_finished": int(obs.sample_value(snap, "serve_requests_finished", **lbl)),
+            "queued": int(obs.sample_value(snap, "serve_queued", **lbl)),
+            "live_slots": int(obs.sample_value(snap, "serve_live_slots", **lbl)),
+            "index_traces": 0,
+            "index_trace_counts": {},
+            "tier_routing": tier_metrics(),
+        }
+        if self.tier is not None:
+            out["tier"] = self.tier.metrics()
+        return out
+
+    # -- device fns (methods, not bound methods kept on the instance: an
+    # engine holds no reference cycle, so dropping it frees its cache) -----
+    def _decode(self, params, cache, tokens, pos_per_slot):
         """One token for every slot, all at the largest slot position."""
         pos = int(np.max(pos_per_slot))
         return transformer.decode_step(params, cache, tokens, pos, self.cfg)
 
-    def _prefill_one(self, params, cache, tokens, pos):
+    def _prefill_tok(self, params, cache, tokens, pos):
         return transformer.decode_step(params, cache, tokens, pos, self.cfg)
 
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
@@ -109,7 +146,15 @@ class DecodeEngine:
                 req.out_tokens.append(nxt)
 
     def tick(self):
-        """One continuous-batching step: admit, decode, retire."""
+        """One continuous-batching step: admit, decode, retire (and let the
+        tier, if any, act on accumulated drift first)."""
+        if self.tier is not None:
+            self.tier.maybe_compact()
+            # skew-aware fence rebalancing: a no-op unless the tier's
+            # policy enables it (rebalance_imbalance > 0)
+            mr = getattr(self.tier, "maybe_rebalance", None)
+            if mr is not None:
+                mr()
         self._admit()
         live = [s for s in range(self.b) if self.slot_req[s] is not None]
         if not live:

@@ -438,10 +438,10 @@ def _attention_inputs(rng, b, hq, hkv, d, s, dtype, dev):
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
 @pytest.mark.parametrize("hq,hkv,d", ((4, 4, 16), (8, 2, 32), (16, 1, 64), (14, 2, 64),
                                       (32, 8, 128), (28, 4, 128)))
-def test_decode_attention_kernel_matches_twin_on_card(cuda, hq, hkv, d, dtype):
+def test_decode_attention_kernel_matches_twin_on_card(cuda, monkeypatch, hq, hkv, d, dtype):
     """Groups 1, 4, 7 and 16, head dims 16 to 128; ragged lengths with 0, 1,
     a tile edge, S, and S not a multiple of the 256-position tile."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     rng = np.random.default_rng(41)
     s = 600
     q, k, v = _attention_inputs(rng, 6, hq, hkv, d, s, dtype, cuda)
@@ -469,7 +469,7 @@ def test_decode_attention_split_edges_on_card(cuda, monkeypatch, hq, hkv, d, dty
     7, 4, 16 and 1, head dims 8 to 256 (tiles 8 to 64).  A given n_split
     replaces ``split_plan``'s (the wrapper's tile kept).  Two calls in a row
     check that the combining blocks leave the ticket counters at 0."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     rng = np.random.default_rng(46)
     s = 700
     tile, _ = split_plan(9, hkv, d, s, torch.tensor([], dtype=dtype).element_size(), 132)
@@ -628,12 +628,12 @@ def _tiny_lm(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-def test_decode_step_kernel_matches_ref_on_card(cuda, dtype):
+def test_decode_step_kernel_matches_ref_on_card(cuda, monkeypatch, dtype):
     """A 2-layer reduced qwen2-0.5b: the kernel's logits against the
     reference math (``backend="ref"``) over 6 positions, from equal caches.
     bf16: the reference math rounds logits and softmax weights to bf16,
     the kernel does not (0.1 absolute, 0.05 relative on logits ~4)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = _tiny_lm(dtype)
     params = transformer.cast_params(
         transformer.init(torch.Generator(device=cuda).manual_seed(0), cfg),
@@ -1390,3 +1390,123 @@ def test_timed_lookup_device_phase_on_card(cuda):
     dev = obs.find_sample(snap, "lookup_latency_us", **lab, phase="device")
     assert host["count"] == dev["count"] == 3
     assert 0.0 < host["sum"] < card_us <= dev["sum"]
+
+
+# -- the serving layer: the hot-key cache, MoE decode, group-1 attention ---------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("uniform", "flip"))
+def test_hotcache_probe_on_card_equals_cpu(cuda, case):
+    """The probe's ``(hit, rank)`` on the card equal the CPU's: one uint64 ->
+    f64 conversion, a product and a sum with no fused multiply-add, then
+    integer search."""
+    from repro_torch.core import keys
+    from repro_torch.serve import hotcache
+
+    rng = np.random.default_rng(90)
+    if case == "uniform":
+        hot = as_table(rng.integers(1, 2**61, 3000, dtype=np.uint64))
+    else:  # both sides of 2^63
+        hot = as_table(np.uint64(2**63) + rng.integers(-2**40, 2**40, 3000).astype(np.int64)
+                       .astype(np.uint64))
+    cap = 4096
+    padded = np.full(cap, np.iinfo(np.uint64).max, np.uint64)
+    padded[: len(hot)] = hot
+    ranks = np.arange(cap, dtype=np.int64) * 5 - 1
+    q = np.concatenate([hot, hot + np.uint64(1), hot - np.uint64(1),
+                        rng.integers(0, 2**64 - 1, 5000, dtype=np.uint64)])
+    model = hotcache._fit(hot, cap)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        hit, rank = hotcache._probe(keys.encode(padded, dev), torch.from_numpy(ranks).to(dev),
+                                    hotcache._model_tensors(model, dev), len(hot),
+                                    keys.encode(q, dev), steps=12)
+        out.append((hit.cpu().numpy(), rank.cpu().numpy()))
+    np.testing.assert_array_equal(out[1][0], out[0][0])
+    np.testing.assert_array_equal(out[1][1], out[0][1])
+    np.testing.assert_array_equal(out[1][0], np.isin(q, hot))
+
+
+@pytest.mark.gpu
+def test_hotcache_over_kernel_tier_stays_exact_on_card(cuda):
+    """A 4-shard SY-RMI tier on ``kernel`` behind a ``HotKeyCache``: hits,
+    misses through the batched kernel, an insert (buffered, then a shard
+    refresh), the stale rebuild through the batched kernel; every answer
+    equals ``searchsorted`` on the live keys."""
+    from repro_torch.serve import HotKeyCache
+
+    rng = np.random.default_rng(91)
+    full = generate("amzn64", 1 << 16)
+    held = full[1::64]
+    base = np.setdiff1d(full, held)
+    tier = tune.TunedTier(base, 4, tune.RebuildPolicy(shard_refresh_frac=0.001, retune_frac=10.0),
+                          spec=tix.SYRMISpec(), name="gpu_hotcache", device=cuda)
+    cache = HotKeyCache(tier, capacity=1024)
+    hot = base[(1 << 13) + np.arange(512)]
+    cache.sketch.update(hot, weight=8.0)
+    kernels.reset_launches()
+    cache.rebuild()
+    assert kernels.launches()["batched_rmi_search"] == 1 and cache.n_hot == 512
+    live = base
+    for step in range(3):
+        qs = np.concatenate([rng.choice(hot, 3000), rng.choice(live, 1000),
+                             rng.integers(0, 2**64 - 1, 96, dtype=np.uint64)])
+        got = cache.lookup(qs)
+        assert got.is_cuda
+        np.testing.assert_array_equal(got.cpu().numpy(), true_ranks(live, qs))
+        if step == 0:
+            cache.insert_batch(held)
+            live = full
+            assert tier.counters.shard_refreshes + tier.counters.forced_restacks >= 1
+            assert cache.stale()
+    m = cache.metrics()["hotcache"]
+    assert m["stale_detected"] == 1 and m["rebuilds"] == 2 and m["hits"] >= 6000
+
+
+def _tiny_moe(arch):
+    return dataclasses.replace(configs.get(arch, reduced=True).config, dtype="float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b"))
+def test_moe_decode_step_kernel_matches_ref_on_card(cuda, monkeypatch, arch):
+    """A 2-layer reduced MoE model in f32: the kernel's logits against the
+    reference math over 6 positions from equal caches (2e-5)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = _tiny_moe(arch)
+    params = transformer.init(torch.Generator(device=cuda).manual_seed(2), cfg)
+    caches = [transformer.init_cache(cfg, 8, 40, device=cuda) for _ in range(2)]
+    rng = np.random.default_rng(92)
+    kernels.reset_launches()
+    for pos in range(6):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1)).astype(np.int32)).to(cuda)
+        got, caches[0] = transformer.decode_step(params, caches[0], tok, pos, cfg, backend="kernel")
+        want, caches[1] = transformer.decode_step(params, caches[1], tok, pos, cfg, backend="ref")
+        caches[1] = {kv: c.clone() for kv, c in caches[0].items()}
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=2e-5)
+    assert kernels.launches()["decode_attention"] == 6 * cfg.n_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_decode_attention_group_one_on_card(cuda, dtype):
+    """moonshot-v1-16b-a3b's attention: 16 query heads on 16 KV heads
+    (group 1), head dim 128, 8 rows of a 2,048-position cache.  bf16 takes
+    the tensor-core kernel (16-position tiles); the split plan gives the
+    128 (row, KV head) pairs 16 shares."""
+    rng = np.random.default_rng(93)
+    q, k, v = _attention_inputs(rng, 8, 16, 16, 128, 2048, dtype, cuda)
+    kv_len = torch.tensor([1, 15, 16, 17, 300, 1024, 2047, 2048], dtype=torch.int32, device=cuda)
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tile, n_split = split_plan(8, 16, 128, 2048, q.element_size(), sm)
+    assert tile == (att.MMA_TILE if dtype == torch.bfloat16 else 16)
+    assert n_split == min(att.MAX_SPLIT, -(-att.BLOCKS_PER_SM * sm // 128))
+    kernels.reset_launches()
+    got = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert kernels.launches()["decode_attention"] == 1
+    atol, rtol = ATT_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               _decode_body(q, k, v, kv_len).float().cpu().numpy(),
+                               rtol=rtol, atol=atol)

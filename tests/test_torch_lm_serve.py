@@ -209,9 +209,12 @@ def test_engine_greedy_tokens_match_reference():
     assert len(margins) == sum(len(r.out_tokens) for r in tr)
     assert min(margins) > F32_TOL
     m = eng.metrics()
-    assert m == {"ticks": ref_eng.ticks, "tokens_decoded": ref_eng.tokens_decoded,
-                 "requests_finished": 6, "queued": 0, "live_slots": 0}
-    assert all(type(v) is int for v in m.values())
+    counters = {k: m[k] for k in ("ticks", "tokens_decoded", "requests_finished", "queued",
+                                  "live_slots")}
+    assert counters == {"ticks": ref_eng.ticks, "tokens_decoded": ref_eng.tokens_decoded,
+                        "requests_finished": 6, "queued": 0, "live_slots": 0}
+    assert all(type(v) is int for v in counters.values())
+    assert set(m) == set(ref_eng.metrics())  # the reference's keys, serve_* and telemetry
 
 
 def test_engine_attends_through_the_kernel_wrapper(monkeypatch):
@@ -274,13 +277,33 @@ def test_prefill_clobbers_live_slots_on_both_engines():
 
 
 def test_unported_options_raise_and_entry_points_default_to_the_card():
+    """``tier=`` and MoE configs, which raised before the serving slice, now
+    serve: a tier's policy runs before each tick's admissions and its
+    counters ride along in ``metrics()``; an MoE ``init`` draws the nested
+    ``moe`` dict.  The entry points still default to the card."""
     cfg_r, cfg_t = _cfgs()
     _, tp = _params(cfg_r, cfg_t)
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(tp, cfg_t, tier=object())
+    calls = []
+
+    class Tier:
+        def maybe_compact(self):
+            calls.append("compact")
+
+        def maybe_rebalance(self):
+            calls.append("rebalance")
+
+        def metrics(self):
+            return {"lookups": len(calls)}
+
+    eng = DecodeEngine(tp, cfg_t, batch_slots=2, max_seq=8, tier=Tier())
+    eng.submit(Request(rid=0, prompt=np.array([1], np.int32), max_new_tokens=2))
+    assert eng.tick() and calls == ["compact", "rebalance"]
+    assert eng.metrics()["tier"] == {"lookups": 2}
     moe = tconfigs.get("qwen3-moe-235b-a22b", reduced=True).config
-    with pytest.raises(NotImplementedError):
-        tt.init(torch.Generator(), moe)
+    p = tt.init(torch.Generator(), moe)
+    assert p["layers"]["moe"]["wg"].shape == (moe.n_layers, moe.n_experts, moe.d_model,
+                                              moe.d_ff_expert)
+    assert "wg" not in p["layers"]  # no shared expert
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tt.init_cache(cfg_t, 2, 8)
