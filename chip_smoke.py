@@ -22,9 +22,12 @@ tuner, and the serving layer's hot-key cache (in front of an SY-RMI tier
 on the batched kernel) and paged KV pool.  Then it serves qwen2-0.5b and
 the MoE moonshot-v1-16b-a3b at full width through ``DecodeEngine`` (the
 LM serving path, whose attention is the hand-written ``decode_attention``
-kernel; moonshot's ticks drive the hot-key cache's tier) and drives
-``ops.embedding_bag``, holding both float kernels against their twins
-within the tolerances stated below.
+kernel; moonshot's ticks drive the hot-key cache's tier), runs the
+remaining serving cells of ``launch.steps`` (qwen2-0.5b's prefill; DIN,
+wide & deep and SASRec scoring and retrieval) and the learned-keyed
+embedding (raw ids to rows through ``rmi_search`` and
+``batched_rmi_search``), and drives ``ops.embedding_bag``, holding both
+float kernels against their twins within the tolerances stated below.
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -220,6 +223,39 @@ Phases (any failure ends the run with a non-zero exit):
                experts it routed to (and for all 64, what the capacity
                dispatch reads), attention's and one layer's
                ``moe_ffn`` share of a step, the kernel at the path's shape;
+7c. prefill  — qwen2-0.5b's ``prefill_32k`` cell at its published widths
+               (bf16), 2 sequences (cut from 32) of 32,768 tokens from
+               ``make_inputs``: ``build_step``'s ``forward`` and the last
+               position's logits (finite), ms by CUDA events and tokens/s;
+               first, at 256 tokens, those logits against a ``decode_step``
+               chain over the same tokens (the ``decode_attention`` kernel)
+               within ``SERVE_ATOL``/``SERVE_RTOL``; one layer's plain
+               ``causal_attention`` at the cell's shape beside
+               ``scaled_dot_product_attention(is_causal=True)`` (library
+               figure, unused);
+7d. recsys   — DIN, wide & deep and SASRec at published widths (f32, seeded
+               weights) on ``serve_p99``, ``serve_bulk`` and
+               ``retrieval_cand`` (``make_inputs``, seed 0): finite; the
+               card == the CPU on the same weights (all of ``serve_p99``, the
+               first 4,096 rows or candidates of the others; ``RECSYS_TOL``);
+               retrieval's first 1,024 candidates == ``score_fn`` on the same
+               pairs for SASRec and wide & deep (DIN's gap logged: ROADMAP
+               queue 3); ms a batch, rows/s (CUDA events), peak memory;
+               DLRM-MLPerf's 96.1 GB table waits for four cards;
+7e. lke      — ``LearnedKeyedEmbedding`` over DIN's 10,000,000-item
+               vocabulary as seeded raw 64-bit ids, dim 18, 2^22 ids a batch
+               (three quarters present): ``lookup(backend="kernel")`` on one
+               index (one ``rmi_search`` launch) and a 4-shard tier (one
+               ``batched_rmi_search`` launch), counted as the ``lke`` path;
+               ranks == ``"ref"`` == numpy ``searchsorted``, each vector its
+               row (OOV where absent), the kernel == its twin on the path's
+               operands; build s, ``translate``/``lookup`` ms (CUDA events);
+               then wide & deep's mega-table over 4 gloo ranks on the card
+               (``flat_dp``, a row shard a rank): ``sharded_lookup`` of
+               ``serve_p99``'s ids in ``"a2a"`` at 4.0 and ``"allreduce"`` ==
+               the one-rank gather, at 2.0 (and on a skewed batch) zeros
+               exactly on the host model's drop set, ``score_fn`` on the
+               shards == one rank (drops zeroed for ``"a2a"``);
 8. kernel times — ``decode_attention`` at qwen2's ``decode_32k`` cell and at
                ``benchmarks/kernel_roofline.py``'s shape, ``ops.embedding_bag``
                (its path) at that benchmark's shape and on a 2 GiB table:
@@ -239,8 +275,8 @@ blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
 with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 8 on the CPU
-twins at a tiny size, phases 7 and 7b on the reduced qwen2-0.5b and
-moonshot (no device result is printed).
+twins at a tiny size, phases 7-7e on the reduced configs (no device
+result is printed).
 """
 
 from __future__ import annotations
@@ -3244,6 +3280,479 @@ def phase_moe_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_req
     return out
 
 
+# -- phases 7c-7e: the prefill cell, the recsys scorers, the learned-keyed embedding -----
+
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the rate of
+#: the prefill attention's bound
+BF16_OPS_PER_S = 989e12
+#: the recsys scorers, card against CPU: the CPU tests' f32 tolerance
+RECSYS_TOL = 2e-5
+#: the recsys archs phase 7d serves at published widths; DLRM-MLPerf's
+#: 96.1 GB mega-table needs four cards (ROADMAP queue 1, item 13.6)
+RECSYS_ARCHS = ("din", "wide-deep", "sasrec")
+#: rows of ``serve_bulk`` (and candidates of ``retrieval_cand``) held
+#: against the CPU; retrieval's candidates held against ``score_fn``
+RECSYS_CHECK_ROWS, RETRIEVAL_PAIRS = 4096, 1024
+
+
+def cpu_copy(tree):
+    """A nest of dicts and lists of tensors, copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cpu_copy(v) for v in tree]
+    return tree.cpu()
+
+
+def peak_gb(dev):
+    return torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+
+
+def reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_prefill(dev, arch, *, reduced: bool, batch: int, seq: int, check_tokens: int) -> dict:
+    """Phase 7c: the ``prefill`` cell (``launch.steps.build_step``:
+    ``transformer.forward``, then the last position's logits) at full
+    width, ``batch`` sequences of ``seq`` tokens from ``make_inputs``.
+    First, at ``check_tokens`` tokens, its last logits against a
+    ``decode_step`` chain over the same tokens (the ``decode_attention``
+    kernel) within ``SERVE_ATOL``/``SERVE_RTOL``; then the cell timed by
+    CUDA events, its logits finite; then one layer's plain
+    ``causal_attention`` at the cell's shape beside
+    ``scaled_dot_product_attention(is_causal=True)`` (a library figure,
+    unused by the port)."""
+    from repro_torch import configs, kernels
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, transformer
+
+    spec = configs.get(arch, reduced=reduced)
+    cfg = spec.config
+    dt = layers.dtype_of(cfg.dtype)
+    params = transformer.cast_params(
+        transformer.init(torch.Generator(device=dev).manual_seed(0), cfg), dt)
+    free_device(dev)  # the f32 draw
+    out = {"arch": arch, "reduced": reduced, "batch": batch, "seq": seq, "q_chunk": cfg.q_chunk}
+
+    # the cross-check: prefill against a decode_step chain over the same tokens
+    cell = ShapeCell("prefill_check", "prefill", {"seq_len": check_tokens, "global_batch": batch})
+    toks = steps.make_inputs(spec, cell, np.random.default_rng(1), device=dev)
+    got = steps.build_step(spec, cell).fn(params, toks)
+    cache = transformer.init_cache(cfg, batch, check_tokens, device=dev)
+    kernels.reset_launches()
+    for pos in range(check_tokens):
+        want, cache = transformer.decode_step(params, cache, toks["tokens"][:, pos:pos + 1], pos,
+                                              cfg)
+    chain_launches = kernels.launches()["decode_attention"]
+    del cache
+    diff = (got - want).abs()
+    if bool((diff > SERVE_ATOL + SERVE_RTOL * want.abs()).any()) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"prefill: last logits vs the decode_step chain over {check_tokens} tokens, max "
+             f"|err| {float(diff.max())}")
+    if dev.type == "cuda" and chain_launches != check_tokens * cfg.n_layers:
+        fail(f"prefill: the decode chain launched decode_attention {chain_launches} times")
+    out.update(check_tokens=check_tokens, check_max_abs_err=float(diff.max()),
+               check_argmax_agree=f"{int((got.argmax(1) == want.argmax(1)).sum())}/{batch}")
+    log(f"[prefill] {arch}: last logits of a {check_tokens}-token prefill vs a decode_step chain "
+        f"over the same tokens ({chain_launches} decode_attention launches): max |err| "
+        f"{out['check_max_abs_err']:.4g} (atol {SERVE_ATOL}, rtol {SERVE_RTOL}), argmax agrees on "
+        f"{out['check_argmax_agree']} rows")
+
+    # the cell at its sequence length, cut to ``batch`` sequences
+    cell = ShapeCell("prefill_32k", "prefill", {"seq_len": seq, "global_batch": batch})
+    toks = steps.make_inputs(spec, cell, np.random.default_rng(0), device=dev)
+    step = steps.build_step(spec, cell).fn
+    reset_peak(dev)
+    logits, host_ms, ms = timed_call(dev, lambda: step(params, toks))
+    if tuple(logits.shape) != (batch, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"prefill: logits of shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    out.update(ms=ms, host_ms=host_ms, peak_gb=peak_gb(dev),
+               tokens_per_s=None if ms is None else batch * seq / (ms / 1e3))
+    log(f"[prefill] {arch} at its widths ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.dtype}), {batch} x {seq} "
+        f"tokens, q_chunk {cfg.q_chunk}: {ms} ms by CUDA events ({host_ms:.1f} ms host clock), "
+        f"{out['tokens_per_s']} tokens/s, peak {out['peak_gb']} GB; last logits finite, "
+        f"shape {tuple(logits.shape)}")
+
+    # one layer's attention at the cell's shape: the plain version and the library's
+    gen = torch.Generator(device=dev).manual_seed(2)
+    hd = cfg.head_dim
+    q = torch.randn((batch, seq, cfg.n_heads, hd), generator=gen, device=dev).to(dt)
+    k, v = (torch.randn((batch, seq, cfg.n_kv_heads, hd), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    lib = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True).transpose(1, 2)
+    plain = layers.causal_attention(q, k, v, q_chunk=cfg.q_chunk)
+    flops = 4 * batch * cfg.n_heads * hd * seq * (seq + 1) // 2  # QK and PV, the causal half
+    n_bytes = 4 * q.numel() * q.element_size() + 4 * k.numel() * k.element_size()
+    t_ops, t_bytes = flops / BF16_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    out["attention"] = {
+        "shape": [batch, seq, cfg.n_heads, cfg.n_kv_heads, hd],
+        "plain_ms": device_ms(lambda: layers.causal_attention(q, k, v, q_chunk=cfg.q_chunk), dev,
+                              reps=2, warmup=1),
+        "library_ms": device_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True), dev,
+                                reps=5, warmup=1),
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_max_abs_err": float((plain.float() - lib.float()).abs().max()),
+    }
+    a = out["attention"]
+    log(f"[prefill] one layer's causal_attention at ({batch}, {seq}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, {hd}) {cfg.dtype}: plain {a['plain_ms']} ms, "
+        f"scaled_dot_product_attention(is_causal=True) {a['library_ms']} ms (library figure, "
+        f"unused), bound {a['bound_ms']:.4f} ms ({a['bound_by']}: the causal half's "
+        f"{flops / 1e12:.2f} TFLOP at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s); plain vs library "
+        f"max |diff| {a['library_max_abs_err']:.4g} (bf16 rounding at other places)")
+    return out
+
+
+def retrieval_pairs(cfg, batch, n: int) -> dict:
+    """The score batch of the first ``n`` candidates of a retrieval batch:
+    the user side repeated, the item the candidate."""
+    c = batch["candidates"][:n].long()
+    if cfg.kind == "sasrec":
+        return {"seq": batch["seq"].expand(n, -1), "target": c}
+    sparse = batch["sparse"].long().expand(n, -1).clone()
+    sparse[:, 0] = c
+    out = {"sparse": sparse}
+    if cfg.kind == "din":
+        out["hist"] = batch["hist"].expand(n, -1)
+    if cfg.kind == "dlrm":
+        out["dense"] = batch["dense"].expand(n, -1)
+    return out
+
+
+def phase_recsys(dev, archs, *, reduced: bool, check_rows: int, pairs: int) -> list:
+    """Phase 7d: each arch's ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` cells (``launch.steps``, ``make_inputs`` seed 0)
+    with seeded f32 weights at published widths: outputs finite; the card
+    against the CPU on the same weights (all of ``serve_p99``, the first
+    ``check_rows`` rows or candidates of the others); retrieval's first
+    ``pairs`` candidates against ``score_fn`` on the same pairs (equal for
+    SASRec and wide & deep; DIN's gap logged, ROADMAP queue 3); ms a batch
+    and rows/s by CUDA events, peak memory."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+
+    rows = []
+    for arch in archs:
+        spec = configs.get(arch, reduced=reduced)
+        cfg = spec.config
+        params, init_s = timed(dev, lambda: recsys.init(
+            torch.Generator(device=dev).manual_seed(0), cfg))
+        on_cpu = cpu_copy(params)
+        table_gb = params["embed"].numel() * params["embed"].element_size() / 1e9
+        log(f"[recsys] {arch}: mega-table {tuple(params['embed'].shape)} f32 ({table_gb:.2f} GB), "
+            f"drawn in {init_s:.2f} s")
+        for cell in spec.shapes:
+            if cell.kind not in ("serve", "retrieval"):
+                continue
+            fn = steps.build_step(spec, cell).fn
+            batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=dev)
+            n = cell.dims.get("n_candidates", cell.dims["batch"])
+            reset_peak(dev)
+            got = fn(params, batch)
+            peak = peak_gb(dev)
+            if tuple(got.shape) != (n,) or not bool(torch.isfinite(got).all()):
+                fail(f"recsys: {arch}/{cell.name} gave shape {tuple(got.shape)}, finite "
+                     f"{bool(torch.isfinite(got).all())}")
+            # the card against the CPU on the first rows
+            m = min(n, check_rows)
+            key = "candidates" if cell.kind == "retrieval" else None
+            part = ({**batch, key: batch[key][:m]} if key
+                    else {k: v[:m] for k, v in batch.items()})
+            want = fn(on_cpu, {k: v.cpu() for k, v in part.items()})
+            err = max_err(got[:m].cpu(), want, RECSYS_TOL, RECSYS_TOL,
+                          f"recsys {arch}/{cell.name} card vs CPU")
+            row = {"arch": arch, "cell": cell.name, "rows": n, "checked_rows": m,
+                   "cpu_max_abs_err": err, "peak_gb": peak,
+                   "ms": device_ms(lambda: fn(params, batch), dev,
+                                   reps=20 if n <= 4096 else 3, warmup=1)}
+            row["rows_per_s"] = None if row["ms"] is None else n / (row["ms"] / 1e3)
+            if cell.kind == "retrieval":
+                k = min(pairs, n)
+                scored = recsys.score_fn(params, retrieval_pairs(cfg, batch, k), cfg)
+                gap = float((got[:k] - scored).abs().max())
+                row["retrieval_vs_score_max_abs_diff"] = gap
+                if cfg.kind != "din" and bool(
+                        ((got[:k] - scored).abs() > RECSYS_TOL + RECSYS_TOL * scored.abs()).any()):
+                    fail(f"recsys: {arch} retrieval != score_fn on its first {k} candidates "
+                         f"(max |diff| {gap})")
+            rows.append(row)
+            log(f"[recsys] {arch}/{cell.name}: {n} rows, {row['ms']} ms a batch, "
+                f"{row['rows_per_s']} rows/s (CUDA events), peak {peak} GB; finite; the first {m} "
+                f"== CPU (max |err| {err:.3g}, tol {RECSYS_TOL})"
+                + (f"; the first {min(pairs, n)} candidates vs score_fn on the same pairs: max "
+                   f"|diff| {row['retrieval_vs_score_max_abs_diff']:.4g}"
+                   + (" (DIN's profile-row read, ROADMAP queue 3: a diagnostic)"
+                      if cfg.kind == "din" else "") if cell.kind == "retrieval" else ""))
+            del got, want, batch
+        del params, on_cpu
+        free_device(dev)
+    return rows
+
+
+def phase_lke(dev, *, n_keys: int, dim: int, n_queries: int) -> dict:
+    """Phase 7e: ``LearnedKeyedEmbedding`` over ``n_keys`` sorted unique
+    64-bit raw ids (seed 0) with a ``(n_keys + 1, dim)`` table; a batch of
+    ``n_queries`` raw ids, three quarters present keys and a quarter
+    absent.  One index (``lookup(backend="kernel")``: one ``rmi_search``
+    launch, counted) and a 4-shard tier (one ``batched_rmi_search``
+    launch, counted): ranks == ``"ref"`` == numpy ``searchsorted`` bit for
+    bit, each vector its key's row and the OOV row exactly where the id
+    is absent; the kernel against its twin on the path's operands; build
+    seconds, ``translate`` and ``lookup`` ms (CUDA events)."""
+    from repro_torch import index as tix
+    from repro_torch import kernels
+    from repro_torch.core import keys as keymod
+    from repro_torch.core.cdf import sorted_unique
+    from repro_torch.models.embedding import LearnedKeyedEmbedding
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    raw = sorted_unique(rng.integers(0, 2**64 - 1, n_keys, dtype=np.uint64))
+    while len(raw) < n_keys:  # a collision of 64-bit draws: top up
+        raw = sorted_unique(np.concatenate([raw, rng.integers(0, 2**64 - 1, n_keys - len(raw),
+                                                             dtype=np.uint64)]))
+    n_present = 3 * n_queries // 4
+    absent = not_in(rng.integers(0, 2**64 - 1, n_queries, dtype=np.uint64), raw)
+    queries = np.concatenate([rng.choice(raw, n_present),
+                              rng.permutation(absent)[:n_queries - n_present]])
+    order = rng.permutation(len(queries))
+    queries, present = queries[order], (np.arange(len(queries)) < n_present)[order]
+    want = np.searchsorted(raw, queries, side="right").astype(np.int64) - 1
+    log(f"[lke] {n_keys} raw ids, {len(queries)} queries ({n_present} present) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    q_dev = keymod.encode(queries, dev)
+    present_dev = torch.from_numpy(present).to(dev)
+    out = {"n_keys": n_keys, "dim": dim, "n_queries": len(queries), "present": n_present,
+           "launches": {}, "rows": []}
+    for n_shards, name in ((1, "rmi_search"), (4, "batched_rmi_search")):
+        lke, build_s = timed(dev, lambda: LearnedKeyedEmbedding.build(
+            raw, dim, seed=0, n_shards=n_shards, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        vecs = lke.lookup(q_dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = kernels.launches()
+        out["launches"][name] = launches[name]
+        if dev.type == "cuda" and (launches[name] != 1 or sum(launches.values()) != 1):
+            fail(f"lke: {n_shards} shard(s) launched {json.dumps(launches)}, expected one {name}")
+        ranks = lke.translate(q_dev)
+        if not (np.array_equal(ranks.cpu().numpy(), want)
+                and torch.equal(ranks, lke.translate(q_dev, backend="ref"))):
+            fail(f"lke: {n_shards} shard(s): kernel ranks != ref or numpy searchsorted")
+        row = torch.where(present_dev, torch.clamp(ranks, min=0), lke.table.shape[0] - 1)
+        if not torch.equal(vecs, lke.table[row]) or not torch.equal(
+                vecs, lke.lookup(q_dev, backend="ref")):
+            fail(f"lke: {n_shards} shard(s): vectors != the table's rows (OOV where absent)")
+        # the kernel against its twin on the operands the path gives it
+        if n_shards == 1:
+            impl = tix.impls.query_impl(lke.index.kind)
+            args, kwargs = impl.operands(lke.index, lke.keys, q_dev)
+            raw_k, twin = impl.search(*args, **kwargs), impl.plain(*args, **kwargs)
+        else:
+            sidx = lke.sharded
+            impl = tix.impls.query_impl(sidx.kind)
+            bq = q_dev[None, :].expand(n_shards, q_dev.numel())
+            args, kwargs = impl.batched_operands(sidx.index, sidx.tables, bq)
+            raw_k, twin = impl.batched_search(*args, **kwargs), impl.batched_plain(*args, **kwargs)
+        err = int((raw_k.long() - twin.long()).abs().max())
+        if err:
+            fail(f"lke: {name} vs its twin on the path's operands, max |err| {err}")
+        del raw_k, twin
+        r = {"n_shards": n_shards, "kernel": name, "build_s": build_s, "max_abs_err": err,
+             "translate_ms": device_ms(lambda: lke.translate(q_dev), dev),
+             "lookup_ms": device_ms(lambda: lke.lookup(q_dev), dev),
+             "ref_translate_ms": device_ms(lambda: lke.translate(q_dev, backend="ref"), dev,
+                                           reps=3, warmup=1),
+             "searchsorted_ms": device_ms(lambda: torch.searchsorted(lke.keys, q_dev, right=True),
+                                          dev)}
+        out["rows"].append(r)
+        log(f"[lke] {n_shards} shard(s), RMI b {max(2, n_keys // 128)}: built in {build_s:.1f} s; "
+            f"lookup launched {json.dumps({k: v for k, v in launches.items() if v})}; ranks == "
+            f"ref == numpy, vectors == rows (OOV on {len(queries) - n_present} absent ids); "
+            f"{name} == twin on the path's operands; translate {r['translate_ms']} ms, lookup "
+            f"{r['lookup_ms']} ms, ref translate {r['ref_translate_ms']} ms, "
+            f"torch.searchsorted {r['searchsorted_ms']} ms (CUDA events)")
+        del lke, vecs, ranks, row
+        free_device(dev)
+    return out
+
+
+def phase_embedding_ranks(dev, arch, *, reduced: bool) -> dict:
+    """Phase 7e, the row-sharded mega-table on ranks: ``arch``'s table at
+    published widths (seeded f32), spread over ``RANKS`` spawned ranks on
+    the one card in a gloo group (``flat_dp``: each rank exchanges a
+    quarter of the batch), each holding its contiguous row shard.
+    ``models.embedding.sharded_lookup`` on ``serve_p99``'s ids in
+    ``"a2a"`` at ``cap_factor=4.0`` and in ``"allreduce"`` == the one-rank
+    gather bit for bit; at 2.0 (the recsys lookups' capacity) on the same
+    ids and on a skewed batch (every id in the last shard), zero vectors
+    exactly on the host model's drop set and the gathered row elsewhere;
+    ``score_fn`` on each rank's shard == one rank (``"allreduce"``) and ==
+    one rank with the host model's drops zeroed (``"a2a"``), within
+    ``RECSYS_TOL``; ms a call by mode (CUDA events between barriers)."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import configs
+    from repro_torch.dist import collectives
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+
+    work = ROOT / "build" / "embedding_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    spec = configs.get(arch, reduced=reduced)
+    cfg = spec.config
+    if cfg.total_rows % RANKS:
+        fail(f"ranks: {arch}'s {cfg.total_rows} rows do not split over {RANKS} ranks")
+    rows_per = cfg.total_rows // RANKS
+    cell = next(c for c in spec.shapes if c.name == "serve_p99")
+    batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=dev)
+    params = recsys.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    ids = batch["sparse"].long() + torch.from_numpy(recsys.field_offsets(cfg)).to(dev)[None, :]
+    rng = np.random.default_rng(3)
+    skew = torch.from_numpy(rng.integers((RANKS - 1) * rows_per, RANKS * rows_per,
+                                         tuple(ids.shape))).to(dev)
+    np.savez(work / "inputs.npz", ids=ids.cpu().numpy(), skew=skew.cpu().numpy(),
+             sparse=batch["sparse"].cpu().numpy())
+    # the host model of the exchange at 2.0: each rank's quarter of the batch
+    cap = collectives.exchange_capacity(ids.numel() // RANKS, RANKS, 2.0)
+    dropped = {k: host_drop_model(np.clip(x.cpu().numpy().reshape(-1) // rows_per, 0, RANKS - 1),
+                                  RANKS, cap).reshape(tuple(ids.shape))
+               for k, x in (("ids", ids), ("skew", skew))}
+    gathered = {"ids": params["embed"][ids].cpu().numpy(),
+                "skew": params["embed"][skew].cpu().numpy()}
+    score = {"allreduce": recsys.score_fn(params, batch, cfg).cpu().numpy()}
+    # one rank with the host model's drops zeroed: both of the score's
+    # lookups (the deep table and the wide column) read the same ids
+    keep = torch.from_numpy(~dropped["ids"]).to(dev)
+    lookup = recsys.sharded_lookup
+    recsys.sharded_lookup = lambda table, x, ctx=None, **kw: lookup(table, x) * keep[..., None].to(
+        table.dtype)
+    try:
+        score["a2a"] = recsys.score_fn(params, batch, cfg).cpu().numpy()
+    finally:
+        recsys.sharded_lookup = lookup
+    del params, batch, keep
+    free_device(dev)
+    (work / "job.json").write_text(json.dumps({"device": dev.type, "arch": arch,
+                                               "reduced": reduced}))
+    t0 = time.perf_counter()
+    procs = mp.start_processes(embedding_rank, args=(RANKS, str(work)), nprocs=RANKS, join=False,
+                               start_method="spawn")
+    deadline = time.monotonic() + 300
+    try:
+        while not procs.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                fail(f"phase 7e: the {RANKS} ranks ran past 300 s")
+    finally:
+        for proc in procs.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(5)
+    ranks_s = time.perf_counter() - t0
+    out = {"arch": arch, "rows": cfg.total_rows, "batch": int(ids.shape[0]),
+           "fields": int(ids.shape[1]), "ranks_s": ranks_s, "cap_at_2": cap,
+           "dropped_at_2": {k: int(v.sum()) for k, v in dropped.items()}, "times": []}
+    for r in range(RANKS):
+        with np.load(work / f"emb_rank{r}.npz") as z:
+            got = {k: z[k] for k in z.files}
+        for mode in ("a2a", "allreduce"):
+            if not np.array_equal(got[mode], gathered["ids"]):
+                fail(f"ranks: rank {r} {mode} != the one-rank gather")
+            diff = np.abs(got[f"score_{mode}"] - score[mode])
+            if not np.all(diff <= RECSYS_TOL + RECSYS_TOL * np.abs(score[mode])):
+                fail(f"ranks: rank {r} score_fn ({mode}) != one rank, max |err| {diff.max()}")
+        for k in ("ids", "skew"):
+            s, d = got[f"{k}_at_2"], dropped[k]
+            if not (np.all(s[d] == 0) and np.array_equal(s[~d], gathered[k][~d])):
+                fail(f"ranks: rank {r} {k} a2a at 2.0: zeros off the host model's drop set")
+        out["times"].append(json.loads((work / f"emb_rank{r}.json").read_text()))
+    for t in out["times"]:
+        log(f"[ranks] rank {t['rank']}: " + ", ".join(
+            f"{k} {v[0]} ms ({v[1]:.3f} host ms)" for k, v in t["times"].items()))
+    n = dropped["ids"].size
+    log(f"[ranks] {arch}'s mega-table ({cfg.total_rows} x {cfg.embed_dim}) over {RANKS} gloo "
+        f"ranks on one {dev.type} device, {rows_per} rows a rank: serve_p99's ({ids.shape[0]}, "
+        f"{ids.shape[1]}) ids in a2a@4.0 and allreduce == the one-rank gather on every rank; at "
+        f"2.0 (cap {cap}) the exchange drops {out['dropped_at_2']['ids']} of serve_p99's {n} ids "
+        f"(the fields' rows pile into the last shards) and {out['dropped_at_2']['skew']} of the "
+        f"skewed batch's, exactly on the host model's sets; score_fn on the shards == one rank "
+        f"(allreduce) and == one rank with those drops zeroed (a2a); {ranks_s:.1f} s")
+    return out
+
+
+def embedding_rank(rank: int, world: int, work_dir: str) -> None:
+    """One rank of phase 7e's sharded table (spawned; joins the gloo group,
+    runs, leaves).  Any failure raises, which fails the parent's join."""
+    import torch.distributed as dist
+
+    work = Path(work_dir)
+    job = json.loads((work / "job.json").read_text())
+    if job["device"] == "cuda":
+        job["device"] = "cuda:0"
+        torch.cuda.set_device(0)
+    else:  # the CPU rehearsal: the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{work / 'pg_init'}", rank=rank,
+                            world_size=world)
+    try:
+        result = embedding_rank_body(rank, world, work, job)
+    finally:
+        dist.destroy_process_group()
+    (work / f"emb_rank{rank}.json").write_text(json.dumps(result))
+
+
+def embedding_rank_body(rank: int, world: int, work: Path, job: dict) -> dict:
+    from dataclasses import replace
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import configs
+    from repro_torch.dist import ShardingCtx
+    from repro_torch.models import embedding, recsys
+
+    dev = torch.device(job["device"])
+    ctx = ShardingCtx(mesh=DeviceMesh(dev.type, torch.arange(world).reshape(1, world),
+                                      mesh_dim_names=("data", "model")), profile="flat_dp")
+    cfg = configs.get(job["arch"], reduced=job["reduced"]).config
+    # every rank draws the seeded weights, then keeps its row shard
+    mine = recsys.local_params(recsys.init(torch.Generator(device=dev).manual_seed(0), cfg, ctx),
+                               ctx)
+    mine = {k: (v.clone() if k in ("embed", "wide") else v) for k, v in mine.items()}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with np.load(work / "inputs.npz") as z:
+        data = {k: torch.from_numpy(z[k]).to(dev) for k in z.files}
+    group = ctx.group("row")
+    arrays, times = {}, {}
+    for name, ids, mode, cap in (("a2a", "ids", "a2a", 4.0), ("allreduce", "ids", "allreduce", 2.0),
+                                 ("ids_at_2", "ids", "a2a", 2.0), ("skew_at_2", "skew", "a2a", 2.0)):
+        out, dev_ms, host_ms = _rank_ms(lambda: embedding.sharded_lookup(
+            mine["embed"], data[ids], ctx, mode=mode, cap_factor=cap), dev, group)
+        arrays[name], times[name] = out.cpu().numpy(), (dev_ms, host_ms)
+    for mode in ("a2a", "allreduce"):
+        c = replace(cfg, lookup_mode=mode)
+        out, dev_ms, host_ms = _rank_ms(lambda: recsys.score_fn(
+            mine, {"sparse": data["sparse"]}, c, ctx), dev, group)
+        arrays[f"score_{mode}"], times[f"score_{mode}"] = out.cpu().numpy(), (dev_ms, host_ms)
+    np.savez(work / f"emb_rank{rank}.npz", **arrays)
+    return {"rank": rank, "times": times}
+
+
 def tree_tensors(tree) -> list:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in tree_tensors(v)]
@@ -3452,6 +3961,9 @@ def main(argv=None) -> int:
         hotcache = {"batch": 1 << 10, "batches": 2, "n_insert": 1 << 8}
         pool = {"seqs": 8, "positions": 512, "page": 16}
         moe_serve = {"reduced": True, "max_seq": 64}
+        prefill = {"reduced": True, "batch": 2, "seq": 128, "check_tokens": 32}
+        recsys = {"reduced": True, "check_rows": 64, "pairs": 64}
+        lke = {"n_keys": 1 << 14, "dim": 18, "n_queries": 1 << 12}
         times = {"att_a": (4, 14, 2, 64, 512), "att_b": (2, 32, 8, 128, 256),
                  "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 14, 128, 1 << 14, 1 << 10)}
     else:
@@ -3473,6 +3985,12 @@ def main(argv=None) -> int:
         hotcache = {"batch": 1 << 16, "batches": 8, "n_insert": 1 << 16}
         pool = {"seqs": 8, "positions": 32768, "page": 16}
         moe_serve = {"reduced": False, "max_seq": 2048}
+        # 7c: prefill_32k's 32,768 tokens, 2 sequences (cut from 32); 7d: the
+        # recsys cells at published widths; 7e: DIN's 10,000,000-item
+        # vocabulary as raw 64-bit ids, 2^22 ids a batch
+        prefill = {"reduced": False, "batch": 2, "seq": 32768, "check_tokens": 256}
+        recsys = {"reduced": False, "check_rows": RECSYS_CHECK_ROWS, "pairs": RETRIEVAL_PAIRS}
+        lke = {"n_keys": 10_000_000, "dim": 18, "n_queries": 1 << 22}
         # decode_attention: qwen2-0.5b's decode_32k cell (B 128) and
         # benchmarks/kernel_roofline.py's flash-decode shape; embedding_bag:
         # that benchmark's shape and a 2 GiB table (beyond L2), 2^16 bags of 16
@@ -3535,6 +4053,17 @@ def main(argv=None) -> int:
     free_device(dev)
     log(f"[moe] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    prefilled = phase_prefill(dev, "qwen2-0.5b", **prefill)
+    free_device(dev)
+    log(f"[prefill] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scored = phase_recsys(dev, RECSYS_ARCHS, **recsys)
+    log(f"[recsys] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    keyed = phase_lke(dev, **lke)
+    ranked = phase_embedding_ranks(dev, "wide-deep", reduced=recsys["reduced"])
+    log(f"[lke] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     att_rows, bag_rows, bag_launches = phase_times(dev, **times)
     att_rows.append(moe_served["attention_row"])
     log(f"[times] done in {time.perf_counter() - t0:.1f} s")
@@ -3545,6 +4074,8 @@ def main(argv=None) -> int:
                         "allgather": collective_launches["allgather"][k],
                         "fits": fits["launches"][k], "tuner": tuner["launches"][k]}
                     for k in SINGLE})
+    for k, n in keyed["launches"].items():  # the learned-keyed embedding (phase 7e)
+        by_path[k]["lke"] = n
     launches = {**{k: sum(paths.values()) for k, paths in by_path.items()},
                 "decode_attention": (served["decode_attention_launches"]
                                      + moe_served["decode_attention_launches"]),
@@ -3556,7 +4087,8 @@ def main(argv=None) -> int:
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [
                 r["max_abs_err"] for r in sharded_rows if r["kernel"] == entry["name"]] + [
                 st["max_abs_err"] for r in collective_ranks for name, st in r["stages"].items()
-                if KERNEL_OF[name.split("_", 1)[1]] == entry["name"]])
+                if KERNEL_OF[name.split("_", 1)[1]] == entry["name"]] + [
+                r["max_abs_err"] for r in keyed["rows"] if r["kernel"] == entry["name"]])
     line["kernels"] += serve_kernels_line(parity_errs, served, moe_served, att_rows, bag_rows,
                                           bag_launches)
     corridor = fits["corridor"]
@@ -3574,7 +4106,9 @@ def main(argv=None) -> int:
                                         "collective_ranks": collective_ranks,
                                         "mutation_rows": mutation_rows, "serve": served,
                                         "hotcache": hot, "paged_pool": paged,
-                                        "moe_serve": moe_served,
+                                        "moe_serve": moe_served, "prefill": prefilled,
+                                        "recsys": scored, "lke": keyed,
+                                        "embedding_ranks": ranked,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
                                         "fit_rows": fits["rows"], "grid_rows": fits["grid"],
                                         "refresh_rows": fits["refresh"], "tuner": tuner,
@@ -3584,7 +4118,8 @@ def main(argv=None) -> int:
         return 0
     if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS, "corridor_scan")) or any(
             by_path[name][path] == 0 for name in SINGLE for path in ("a2a", "allgather")) or (
-            by_path["batched_rmi_search"]["hotcache"] == 0):
+            by_path["batched_rmi_search"]["hotcache"] == 0) or any(
+            by_path[name]["lke"] == 0 for name in ("rmi_search", "batched_rmi_search")):
         fail(f"a kernel of a path never launched: {json.dumps(by_path)}")
     log(f"[device] nvidia-smi: {info['nvidia_smi']}")
     print(json.dumps(line), flush=True)

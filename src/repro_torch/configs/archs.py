@@ -1,21 +1,24 @@
-"""The assigned LM architectures, exact published configs (counterpart of
-``repro.configs.archs``, LM family only):
+"""The assigned LM and recsys architectures, exact published configs
+(counterpart of ``repro.configs.archs``; DimeNet waits for its slice):
 
-  granite-3-8b, minitron-8b, qwen2-0.5b,
-  moonshot-v1-16b-a3b (MoE 64e top-6), qwen3-moe-235b-a22b (128e top-8)
+  LM:     granite-3-8b, minitron-8b, qwen2-0.5b,
+          moonshot-v1-16b-a3b (MoE 64e top-6), qwen3-moe-235b-a22b (128e top-8)
+  RecSys: dlrm-mlperf, din, wide-deep, sasrec
 
 Each also has a ``reduced`` variant (same topology, tiny dims) for the
-CPU tests.  The decoder serves all five; the MoE configs route each
-layer's FFN through ``models/moe.py``.
+CPU tests.  The decoder serves all five LMs (the MoE configs route each
+layer's FFN through ``models/moe.py``); ``models/recsys.py`` scores the
+four recsys archs.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
 
+from repro_torch.models.recsys import CRITEO_VOCABS, RecsysConfig
 from repro_torch.models.transformer import LMConfig
 
-from .base import LM_SHAPES, ArchSpec, ShapeCell, register
+from .base import LM_SHAPES, RECSYS_SHAPES, ArchSpec, ShapeCell, register
 
 GRANITE_3_8B = LMConfig(
     name="granite-3-8b", n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
@@ -55,6 +58,7 @@ def _lm_reduced(cfg: LMConfig) -> LMConfig:
         top_k=min(2, cfg.top_k) if cfg.moe else 0,
         d_ff_expert=32 if cfg.moe else 0,
         n_shared=min(1, cfg.n_shared),
+        q_chunk=64,
     )
 
 
@@ -78,3 +82,56 @@ def _lm_spec(cfg):
 
 for _cfg in (GRANITE_3_8B, MINITRON_8B, QWEN2_05B, MOONSHOT_16B_A3B, QWEN3_MOE_235B):
     register(_cfg.name, *_lm_spec(_cfg))
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+DLRM_MLPERF = RecsysConfig(
+    name="dlrm-mlperf", kind="dlrm", embed_dim=128, vocab_sizes=CRITEO_VOCABS,
+    n_dense=13, bot_mlp=(512, 256, 128), top_mlp=(1024, 1024, 512, 256, 1),
+    interaction="dot",
+)
+DIN = RecsysConfig(
+    name="din", kind="din", embed_dim=18, vocab_sizes=(10_000_000, 1_000_000),
+    attn_mlp=(80, 40), top_mlp=(200, 80), seq_len=100, interaction="target-attn",
+)
+WIDE_DEEP = RecsysConfig(
+    name="wide-deep", kind="wide_deep", embed_dim=32,
+    vocab_sizes=tuple([1_000_000] * 5 + [100_000] * 10 + [10_000] * 10 + [1_000] * 15),
+    top_mlp=(1024, 512, 256), interaction="concat",
+)
+SASREC = RecsysConfig(
+    name="sasrec", kind="sasrec", embed_dim=50, vocab_sizes=(1_000_000,),
+    n_blocks=2, n_heads=1, seq_len=50, interaction="self-attn-seq",
+)
+
+
+def _recsys_spec(cfg):
+    def full():
+        return ArchSpec(cfg.name, "recsys", cfg, RECSYS_SHAPES)
+
+    def reduced():
+        r = replace(
+            cfg,
+            vocab_sizes=tuple(min(v, 1000) for v in cfg.vocab_sizes),
+            embed_dim=min(cfg.embed_dim, 16),
+            bot_mlp=(tuple(min(x, 32) for x in cfg.bot_mlp[:-1]) + (min(cfg.embed_dim, 16),))
+            if cfg.bot_mlp else (),
+            top_mlp=tuple(min(x, 32) for x in cfg.top_mlp),
+            attn_mlp=tuple(min(x, 16) for x in cfg.attn_mlp),
+            seq_len=min(cfg.seq_len, 12) if cfg.seq_len else 0,
+        )
+        shapes = (
+            ShapeCell("train_batch", "train", {"batch": 64}),
+            ShapeCell("serve_p99", "serve", {"batch": 16}),
+            ShapeCell("serve_bulk", "serve", {"batch": 128}),
+            ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 512}),
+        )
+        return ArchSpec(cfg.name, "recsys", r, shapes)
+
+    return full, reduced
+
+
+for _cfg in (DLRM_MLPERF, DIN, WIDE_DEEP, SASREC):
+    register(_cfg.name, *_recsys_spec(_cfg))

@@ -32,7 +32,7 @@ _REGISTRY: Dict[str, Callable[[], ArchSpec]] = {}
 _REDUCED: Dict[str, Callable[[], ArchSpec]] = {}
 
 #: the reference's archs whose family is not ported yet
-UNPORTED = ("dimenet", "dlrm-mlperf", "din", "wide-deep", "sasrec")
+UNPORTED = ("dimenet",)
 
 
 def register(arch_id: str, spec_fn, reduced_fn):
@@ -62,4 +62,11 @@ LM_SHAPES = (
         "decode",
         {"seq_len": 524288, "global_batch": 1, "seq_shard": True},
     ),
+)
+
+RECSYS_SHAPES = (
+    ShapeCell("train_batch", "train", {"batch": 65536}),
+    ShapeCell("serve_p99", "serve", {"batch": 512}),
+    ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+    ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
 )

@@ -1,0 +1,123 @@
+"""Per-(arch x shape-cell) serving steps (counterpart of
+``repro.launch.steps``).
+
+For a cell this module gives:
+  * ``make_inputs(spec, cell, rng)`` — the cell's batch, from the same
+    numpy draws as the reference's ``concrete_inputs`` (one seed gives
+    both packages identical batches), as tensors on the card unless
+    ``device`` says otherwise;
+  * ``build_step(spec, cell, ctx)`` — the cell's serving function and
+    its config.
+
+Kinds: ``prefill`` a full-sequence forward that returns the last
+position's logits; ``decode`` one token against a KV cache; ``serve``
+and ``retrieval`` the recsys scorers.  The reference's ``train`` and
+``graph_train`` cells, its sharding pytrees and its abstract inputs wait
+for the training and launch slices (ROADMAP queue 1, items 13.3 and 13.6).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import recsys, transformer
+
+#: the cell kinds this module serves
+SERVING_KINDS = ("prefill", "decode", "serve", "retrieval")
+
+
+def _not_ported(spec, cell):
+    return NotImplementedError(
+        f"{spec.arch_id}/{cell.name}: {cell.kind!r} cells wait for the training slice "
+        f"(ROADMAP queue 1, item 13.3); the port serves {SERVING_KINDS}")
+
+
+def _lm_inputs(cfg, cell, rng):
+    b, s = cell.dims["global_batch"], cell.dims["seq_len"]
+    shape = (b, s) if cell.kind == "prefill" else (b, 1)
+    return {"tokens": rng.integers(0, cfg.vocab, size=shape).astype(np.int32)}
+
+
+def _recsys_inputs(cfg, cell, rng):
+    """The reference's ``_recsys_inputs`` draws, in its key order."""
+    b = cell.dims["batch"]
+    shp = {"sparse": ((b, cfg.n_sparse), np.int32)}
+    if cfg.kind == "dlrm":
+        shp["dense"] = ((b, cfg.n_dense), np.float32)
+    if cfg.kind == "din":
+        shp["hist"] = ((b, cfg.seq_len), np.int32)
+    if cfg.kind == "sasrec":
+        shp = {"seq": ((b, cfg.seq_len), np.int32), "target": ((b,), np.int32)}
+    if cell.kind == "retrieval":
+        shp["candidates"] = ((cell.dims["n_candidates"],), np.int32)
+    out = {}
+    for k, (sh, dt) in shp.items():
+        if dt == np.int32 and k == "sparse":
+            cols = [rng.integers(0, v, size=(sh[0], 1)) for v in cfg.vocab_sizes]
+            out[k] = np.concatenate(cols, 1).astype(np.int32)
+        elif dt == np.int32:
+            out[k] = rng.integers(0, cfg.vocab_sizes[0], size=sh).astype(np.int32)
+        else:
+            out[k] = rng.normal(0, 1, sh).astype(np.float32)
+    return out
+
+
+def make_inputs(spec, cell, rng=None, *, device=None) -> dict:
+    """The batch of a serving cell as tensors on ``device`` (default: the
+    card), drawn from ``rng`` (default ``np.random.default_rng(0)``) as
+    the reference draws it."""
+    if cell.kind not in SERVING_KINDS:
+        raise _not_ported(spec, cell)
+    rng = rng or np.random.default_rng(0)
+    dev = resolve_device(device)
+    if spec.family == "lm":
+        arrays = _lm_inputs(spec.config, cell, rng)
+    elif spec.family == "recsys":
+        arrays = _recsys_inputs(spec.config, cell, rng)
+    else:
+        raise _not_ported(spec, cell)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+@dataclass
+class StepBundle:
+    """A serving cell's function and config.  ``fn`` takes ``(params,
+    batch)``; a ``decode`` cell's takes ``(params, cache, batch, pos)``."""
+
+    fn: object
+    cfg: object
+    kind: str
+
+
+def build_step(spec, cell, ctx=None) -> StepBundle:
+    """The serving function of ``cell`` on ``spec``'s config: ``prefill``
+    runs ``transformer.forward`` and returns ``h[:, -1] @ head`` in f32;
+    ``decode`` is ``transformer.decode_step``; ``serve`` and
+    ``retrieval`` are ``recsys.score_fn`` and ``recsys.retrieval_fn``
+    (under ``ctx``, on each rank's row shard).  ``train`` and
+    ``graph_train`` raise ``NotImplementedError``."""
+    cfg = spec.config
+    if cell.kind not in SERVING_KINDS:
+        raise _not_ported(spec, cell)
+    if spec.family == "lm" and cell.kind == "prefill":
+        def fn(params, batch):
+            # the full-sequence forward; only the last position's logits
+            # leave the step, the (B, S, V) logits are never made
+            h = transformer.forward(params, batch["tokens"], cfg)
+            return (h[:, -1] @ params["head"].to(h.dtype)).float()
+    elif spec.family == "lm" and cell.kind == "decode":
+        def fn(params, cache, batch, pos):
+            return transformer.decode_step(params, cache, batch["tokens"], pos, cfg)
+    elif spec.family == "recsys" and cell.kind == "serve":
+        def fn(params, batch):
+            return recsys.score_fn(params, batch, cfg, ctx)
+    elif spec.family == "recsys" and cell.kind == "retrieval":
+        def fn(params, batch):
+            return recsys.retrieval_fn(params, batch, cfg, ctx)
+    else:
+        raise ValueError((spec.family, cell.kind))
+    return StepBundle(fn=fn, cfg=cfg, kind=cell.kind)

@@ -1,7 +1,9 @@
-"""Models (counterpart of ``repro.models``): the decoder-only LM's serving
-side (``transformer``, dense and MoE) over the shared ``layers`` and the
-one-card MoE block (``moe``)."""
+"""Models (counterpart of ``repro.models``): the decoder-only LM
+(``transformer``, dense and MoE: prefill and decode) over the shared
+``layers`` and the one-card MoE block (``moe``); the recsys scorers
+(``recsys``) over the embedding substrate (``embedding``: the mega-table
+lookup and the learned-keyed embedding)."""
 
-from . import layers, moe, transformer
+from . import embedding, layers, moe, recsys, transformer
 
-__all__ = ["layers", "moe", "transformer"]
+__all__ = ["embedding", "layers", "moe", "recsys", "transformer"]

@@ -3,8 +3,7 @@
 everywhere, and every initialiser draws from an explicit
 ``torch.Generator`` on the device it is given.
 
-``causal_attention`` and ``cross_entropy`` wait for the prefill and
-training slices.
+``cross_entropy`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -78,6 +77,38 @@ def swiglu(x, wg, wu, wd):
     g = x @ wg.to(x.dtype)
     u = x @ wu.to(x.dtype)
     return (torch.nn.functional.silu(g) * u) @ wd.to(x.dtype)
+
+
+def causal_attention(q, k, v, *, q_chunk: int = 1024):
+    """Causal GQA attention over a whole sequence, ``q_chunk`` query rows at
+    a time, so the live logits are ``(B, Hq, q_chunk, S)``: the reference's
+    plain path (``repro.models.layers.causal_attention``, outside any
+    kernel).  q: (B, S, Hq, hd); k/v: (B, S, Hkv, hd) -> (B, S, Hq, hd).
+
+    As the reference: when ``q_chunk`` does not divide S the whole
+    sequence is one chunk; logits in the working dtype scaled by
+    ``1/sqrt(hd)``, masked with the dtype's lowest value, softmax in f32
+    cast back, then the PV product.  Every chunk reads every key (the
+    masked ones included), as the reference's does."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+    q_chunk = min(q_chunk, s)
+    if s % q_chunk != 0:
+        q_chunk = s
+    q5 = q.reshape(b, s // q_chunk, q_chunk, hkv, group, hd)
+    kpos = torch.arange(s, device=q.device)
+    lowest = torch.finfo(q.dtype).min
+    out = torch.empty((b, s // q_chunk, q_chunk, hkv, group, hd), dtype=q.dtype, device=q.device)
+    for ci in range(s // q_chunk):
+        logits = torch.einsum("bqkgd,bskd->bkgqs", q5[:, ci], k) * scale
+        qpos = ci * q_chunk + torch.arange(q_chunk, device=q.device)
+        logits.masked_fill_(kpos[None, :] > qpos[:, None], lowest)
+        w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        del logits
+        out[:, ci] = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return out.reshape(b, s, hq, hd)
 
 
 def decode_attention_plain(q, k_cache, v_cache, kv_len):

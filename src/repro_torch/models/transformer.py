@@ -9,6 +9,7 @@ weights across unchanged.
 
 Entry points:
   init(gen, cfg)                                  -> params
+  forward(params, tokens, cfg)                    -> final hidden states
   init_cache(cfg, batch, max_seq)                 -> KV cache dict
   decode_step(params, cache, tokens, pos, cfg)    -> (logits, cache)
   params_from_numpy(np_params, cfg)               -> params
@@ -16,8 +17,7 @@ Entry points:
 Each runs on the card unless given a CPU generator or ``device="cpu"``.
 A config with ``moe=True`` routes each layer's FFN through
 :func:`repro_torch.models.moe.moe_ffn` (plus the shared expert's SwiGLU
-when ``n_shared`` is set).  ``forward`` and ``loss_fn`` wait for the
-prefill and training slices.
+when ``n_shared`` is set).  ``loss_fn`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -51,10 +51,11 @@ class LMConfig:
     n_shared: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
-    # numerics
+    # numerics / scheduling
     rope_theta: float = 1e4
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    q_chunk: int = 1024
 
     @property
     def params_count(self) -> int:
@@ -146,6 +147,51 @@ def cast_params(params, dtype: torch.dtype):
     if isinstance(params, dict):
         return {k: cast_params(v, dtype) for k, v in params.items()}
     return params.to(dtype)
+
+
+def _layer_body(x, lp, cfg: LMConfig, cos, sin):
+    """One layer over the whole sequence: x (B, S, d) in the compute dtype;
+    ``lp`` one layer's leaves.  The reference casts the ``w*``/``b*``
+    leaves to the compute dtype up front (its MoE leaves inside
+    ``moe_ffn``)."""
+    b, s, d = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dt = x.dtype
+    lp = {k: (v.to(dt) if k.startswith(("w", "b")) else v) for k, v in lp.items()}
+    h = L.rms_norm(x, lp["ln1"])
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = L.apply_rope(q.reshape(b, s, hq, hd), cos, sin)
+    k = L.apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
+    o = L.causal_attention(q, k, v.reshape(b, s, hkv, hd), q_chunk=cfg.q_chunk)
+    x = x + o.reshape(b, s, hq * hd) @ lp["wo"]
+    h = L.rms_norm(x, lp["ln2"])
+    if cfg.moe:
+        y = moe_ffn(h.reshape(b * s, d), lp["moe"], cfg).reshape(b, s, d)
+        if cfg.n_shared:
+            y = y + L.swiglu(h, lp["wg"], lp["wu"], lp["wd"])
+    else:
+        y = L.swiglu(h, lp["wg"], lp["wu"], lp["wd"])
+    return x + y
+
+
+def forward(params, tokens, cfg: LMConfig):
+    """tokens (B, S) int -> final hidden states (B, S, d) in the compute
+    dtype: the reference's full-sequence pass (embed, the layers with RoPE
+    over positions ``0..S-1`` and :func:`~repro_torch.models.layers.causal_attention`
+    in chunks of ``cfg.q_chunk`` query rows, ``ln_f``).  An MoE layer runs
+    :func:`~repro_torch.models.moe.moe_ffn` over the ``B * S`` rows, its
+    capacity set by that count, plus the shared expert."""
+    dt = L.dtype_of(cfg.dtype)
+    lay = params["layers"]
+    dev = params["embed"].device
+    x = params["embed"][tokens.long()].to(dt)
+    cos, sin = L.rope_tables(tokens.shape[1], cfg.head_dim, cfg.rope_theta, device=dev)
+    for i in range(cfg.n_layers):
+        lp = {k: ({e: w[i] for e, w in v.items()} if k == "moe" else v[i]) for k, v in lay.items()}
+        x = _layer_body(x, lp, cfg, cos, sin)
+    return L.rms_norm(x, params["ln_f"])
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None):

@@ -912,6 +912,39 @@ def replay_cases(rank: int, world: int, work_dir: str, device: str) -> None:
     (work / f"out{rank}.json").write_text(json.dumps(notes))
 
 
+def embedding_rank_cases(rank: int, world: int, work_dir: str, device: str) -> None:
+    """One rank of the mega-table lookup cases (``work_dir/emb_cases.json``):
+    each case builds or reuses its mesh's :class:`ShardingCtx` and either
+    runs ``models.embedding.sharded_lookup`` on this rank's row shard of a
+    saved table (``lookup``) or scores a batch with ``recsys.score_fn`` on
+    this rank's shard of saved parameters (``score``).  Writes
+    ``emb_out{rank}.npz``: every case's ``(B, ...)`` answer."""
+    from repro_torch.models import embedding, recsys
+
+    work, dev = Path(work_dir), torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    spec = json.loads((work / "emb_cases.json").read_text())
+    with np.load(work / spec["arrays"]) as z:
+        data = {k: torch.from_numpy(z[k]).to(dev) for k in z.files}
+    ctxs, out = {}, {}
+    for case in spec["cases"]:
+        ctx = _case_ctx(ctxs, case, world, dev)
+        if "score" in case:
+            s = case["score"]
+            cfg = dataclasses.replace(configs.get(s["arch"], reduced=True).config,
+                                      lookup_mode=case["mode"])
+            params = torch.load(work / s["params"], map_location=dev, weights_only=True)
+            batch = {k: data[v] for k, v in s["batch"].items()}
+            got = recsys.score_fn(recsys.local_params(params, ctx), batch, cfg, ctx)
+        else:
+            table = embedding.local_rows(data[case["table"]], ctx)
+            got = embedding.sharded_lookup(table, data[case["ids"]], ctx, mode=case["mode"],
+                                           cap_factor=case["cap_factor"])
+        out[case["name"]] = got.cpu().numpy()
+    np.savez(work / f"emb_out{rank}.npz", **out)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ("a2a", "allgather"))
 def test_collective_modes_two_ranks_on_card(cuda, tmp_path, mode):
@@ -1510,3 +1543,89 @@ def test_decode_attention_group_one_on_card(cuda, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                _decode_body(q, k, v, kv_len).float().cpu().numpy(),
                                rtol=rtol, atol=atol)
+
+
+# -- the serving cells of the recsys and prefill slice ------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", (1, 4))
+def test_learned_keyed_embedding_kernel_on_card(cuda, n_shards):
+    """``LearnedKeyedEmbedding.lookup(backend="kernel")`` on the card: one
+    ``rmi_search`` launch (one index) or one ``batched_rmi_search`` launch
+    (a 4-shard tier), nothing else; ranks equal ``"ref"`` and
+    ``torch.searchsorted``, each vector its key's row, absent ids the OOV
+    row."""
+    from repro_torch.core import keys as keymod
+    from repro_torch.models.embedding import LearnedKeyedEmbedding
+
+    rng = np.random.default_rng(120)
+    raw = rng.integers(0, 2**64 - 1, 200_000, dtype=np.uint64)
+    lke = LearnedKeyedEmbedding.build(raw, 18, n_shards=n_shards, device=cuda)
+    keys = keymod.decode(lke.keys)
+    queries = np.concatenate([rng.choice(keys, 30000), rng.integers(0, 2**64 - 1, 10000,
+                                                                     dtype=np.uint64)])
+    kernels.reset_launches()
+    got = lke.lookup(queries)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    name = "rmi_search" if n_shards == 1 else "batched_rmi_search"
+    assert launches[name] == 1 and sum(launches.values()) == 1, launches
+    ranks = lke.translate(queries, backend="kernel")
+    want = torch.searchsorted(lke.keys, keymod.encode(queries, cuda), right=True) - 1
+    assert torch.equal(ranks, want) and torch.equal(ranks, lke.translate(queries, backend="ref"))
+    assert torch.equal(got, lke.lookup(queries, backend="ref"))
+    present = torch.from_numpy(np.isin(queries, keys)).to(cuda)
+    row = torch.where(present, torch.clamp(want, min=0), lke.table.shape[0] - 1)
+    assert torch.equal(got, lke.table[row])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("dlrm-mlperf", "din", "wide-deep", "sasrec"))
+def test_recsys_cells_on_card_equal_cpu(cuda, monkeypatch, arch):
+    """The reduced recsys archs' ``serve_bulk`` and ``retrieval_cand``
+    cells on the card against the CPU, the same weights copied across,
+    TF32 off (f32: 2e-5)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = configs.get(arch, reduced=True)
+    params = recsys.init(torch.Generator().manual_seed(6), spec.config)
+    on_card = recsys.params_from_numpy(
+        {k: ([{n: w.numpy() for n, w in d.items()} for d in v] if isinstance(v, list)
+             else v.numpy()) for k, v in params.items()}, device=cuda)
+    for cell in spec.shapes:
+        if cell.kind not in ("serve", "retrieval"):
+            continue
+        step = steps.build_step(spec, cell).fn
+        batch = steps.make_inputs(spec, cell, np.random.default_rng(6), device="cpu")
+        want = step(params, batch)
+        got = step(on_card, {k: v.to(cuda) for k, v in batch.items()})
+        assert got.device.type == "cuda" and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-5, rtol=2e-5,
+                                   err_msg=cell.name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_prefill_matches_decode_chain_on_card(cuda, monkeypatch, dtype):
+    """The reduced qwen2-0.5b's prefill (``forward``, last position's
+    logits through the head) against a ``decode_step`` chain over the same
+    40 tokens, whose attention is the ``decode_attention`` kernel (40 x
+    n_layers launches).  f32: 2e-5; bf16: 0.1 absolute, 0.05 relative
+    (the two paths round to bf16 at different places)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(_tiny_lm(dtype), q_chunk=16)
+    params = transformer.cast_params(
+        transformer.init(torch.Generator(device=cuda).manual_seed(3), cfg), getattr(torch, dtype))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (3, 48))).to(cuda)
+    h = transformer.forward(params, toks, cfg)
+    want = (h[:, -1] @ params["head"]).float()
+    cache = transformer.init_cache(cfg, 3, 64, device=cuda)
+    kernels.reset_launches()
+    for pos in range(48):
+        got, cache = transformer.decode_step(params, cache, toks[:, pos:pos + 1], pos, cfg)
+    assert kernels.launches()["decode_attention"] == 48 * cfg.n_layers
+    tol = (2e-5, 2e-5) if dtype == "float32" else (0.1, 0.05)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol[0], rtol=tol[1])
