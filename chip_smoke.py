@@ -28,6 +28,10 @@ wide & deep and SASRec scoring and retrieval) and the learned-keyed
 embedding (raw ids to rows through ``rmi_search`` and
 ``batched_rmi_search``), and drives ``ops.embedding_bag``, holding both
 float kernels against their twins within the tolerances stated below.
+Last it trains: qwen2-0.5b and three recsys models at published widths
+through ``launch.steps``' ``train`` cells and ``train.loop`` (no kernel
+of the port lies on the training path), a checkpoint round trip, and the
+token pipeline's learned lookup.
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -47,7 +51,8 @@ Phases (any failure ends the run with a non-zero exit):
                ``"kernel"`` refused;
 4. full size — ``amzn64`` and ``osm`` at the L4 tier (2^24 keys, larger
                than the 50 MB L2) with 2^22 queries sampled from the table;
-               all 10 kinds built with the registry defaults; launch counts
+               all 10 kinds built with the registry defaults on amzn64,
+               SY-RMI and RS on osm (``REPEAT_KINDS``); launch counts
                of the single-table path, bit-exactness, kernel / lookup /
                twin / ``torch.searchsorted`` times (CUDA events), the bound
                and probes a query; for the model-free kinds the trips from
@@ -154,14 +159,14 @@ Phases (any failure ends the run with a non-zero exit):
                candidates, every one exact), each candidate's space and ns a
                query beside ``torch.searchsorted``'s, the strictly monotone
                frontier, the picks at 0.05/0.7/2/10% within budget and the
-               report's round trip; ``mine_sy_rmi`` over both tables (UB,
-               votes, winner) and the mined 2% SY-RMI exact on ``kernel`` and
-               ``xla`` (a cubic winner's kernel misses are logged: ROADMAP
+               report's round trip; ``mine_sy_rmi`` over amzn64 (UB,
+               vote, winner; osm's repeat is cut) and the mined 2% SY-RMI
+               exact on both tables on ``kernel`` and ``xla`` (a cubic winner's kernel misses are logged: ROADMAP
                queue 3); a ``TunedTier`` lifecycle on amzn64 in 4 shards
                (every 64th key held out): a PGM refresh through the device
                arm, an SY-RMI refresh through the host arm, what telemetry
                costs (``sharded_lookup`` on and off, ``timed_lookup``'s
-               phases, search launches equal), a retune over SY-RMI/PGM/RS
+               phases, search launches equal), a retune over SY-RMI/RS
                within 2%, a rebalance under 90% skew, GAPPED inserts, a
                cluster into the delta and a compaction; after every step
                the ranks == numpy and ``metrics()`` == a host model; the
@@ -172,7 +177,7 @@ Phases (any failure ends the run with a non-zero exit):
                4's amzn64 table with every 64th key held out; the
                concentrated-Zipf traffic of ``benchmarks/serve_slo.py``'s cache
                A/B leg (a 1.15, a 2,048-rank hot span, 3 phases that shift
-               it) at 8 batches a phase of 2^16 queries, the same batches
+               it) at 4 batches a phase of 2^16 queries, the same batches
                cache-off (the bare tier) and cache-on (primed per phase as
                ``serve_slo.py`` does), every batch == ``torch.searchsorted``;
                hits, misses, rebuilds, ms a batch (host clock, CUDA
@@ -268,15 +273,35 @@ Phases (any failure ends the run with a non-zero exit):
                through ``split_plan``), and the
                ``-Xptxas -v`` registers of ``decode_attention``,
                ``rmi_search``, ``pgm_search``, ``kary_search``,
-               ``rs_search`` and ``embedding_bag``.
+               ``rs_search`` and ``embedding_bag``;
+9. train     — 9a: qwen2-0.5b's ``train_4k`` cell at published widths (24
+               layers, d 896, vocab 151,936, f32 master weights, bf16
+               compute, remat, ``xent_chunk`` 512) through
+               ``launch.steps.build_step`` and ``train.loop.run``: 8
+               sequences of 4,096 tokens a step (cut from 256) from
+               ``TokenBatcher`` over a seeded ``synth_corpus``, 2
+               microbatches, AdamW, ``warmup_cosine(warmup=2)``, clip 1.0,
+               6 steps; every loss finite, the last below the first; ms a
+               step, tokens/s, peak GB, each step's loss and ``grad_norm``,
+               6·N·tokens over 989 TFLOP/s beside the step; first, at 2
+               layers and 256 tokens in f32, one step on the card == the
+               CPU (``TRAIN_RTOL``, ``TRAIN_GRAD_RTOL``); 9b: DIN, wide &
+               deep and SASRec's ``train_batch`` (65,536 rows) at published
+               widths, 3 AdamW steps on one batch (losses finite and
+               falling), one more under int8 gradient compression, card ==
+               CPU on the reduced configs; ms a step, rows/s, peak GB; 9c:
+               SASRec's train state saved (async), restored onto the card
+               bit-equal, the next step's loss == the uninterrupted one's;
+               9d: ``synth_corpus`` of 200,000 documents, ``doc_of`` of
+               2^22 offsets on the card == ``torch.searchsorted``.
 
 The ``corridor_scan`` entry of the kernels line times the fast fit's
 blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
-with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 8 on the CPU
-twins at a tiny size, phases 7-7e on the reduced configs (no device
-result is printed).
+with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 9 on the CPU
+twins at a tiny size, phases 7-7e and 9 on the reduced configs (no
+device result is printed).
 """
 
 from __future__ import annotations
@@ -303,10 +328,12 @@ SCALAR_OPS_PER_S = 67e12
 SECTOR_BYTES = 32
 
 KINDS = ("L", "Q", "C", "KO", "RMI", "SY-RMI", "PGM", "PGM_M", "RS", "BTREE")
-#: the kinds phases 4 and 5 repeat on the tables after the first: L, Q, C
-#: and BTREE search with KO's model-free kernel, at the same probes a query
-#: and table sectors on every table, so KO alone repeats that kernel
-REPEAT_KINDS = ("KO", "RMI", "SY-RMI", "PGM", "PGM_M", "RS")
+#: the kinds phases 4 and 5 repeat on the tables after the first: SY-RMI
+#: (the paper's headline) and RS, the kinds whose osm rows PERF.md's kernel
+#: table keeps.  L, Q, C, BTREE and KO search with the model-free kernel at
+#: the same probes a query and table sectors on every table; the others
+#: are cut for the run's time limit
+REPEAT_KINDS = ("SY-RMI", "RS")
 
 
 def kinds_of_table(i: int) -> tuple:
@@ -2131,8 +2158,9 @@ TUNER_KERNELS = ("rmi_search", "pgm_search", "rs_search", "kary_search", "batche
                  "batched_pgm_search", "corridor_scan")
 #: the space budgets (% of the table) of the frontier's picks
 BUDGET_PCTS = (0.05, 0.7, 2.0, 10.0)
-#: the kinds of the retune's grid (PGM_M's bisection is swept in 5f-a already)
-RETUNE_KINDS = ("SY-RMI", "PGM", "RS")
+#: the kinds of the retune's grid (PGM_M's bisection is swept in 5f-a
+#: already; PGM's candidates are cut for the run's time limit)
+RETUNE_KINDS = ("SY-RMI", "RS")
 
 
 class SearchSorted:
@@ -2270,7 +2298,8 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
     """Phase 5f: the paper's tuning procedure on the search kernels, at
     phase 4's size.  5f-a the frontier (``sweep`` over ``candidate_grid``
     on ``kernel``, every candidate exact, budget picks, the report's round
-    trip), 5f-b SY-RMI mining on both tables and the mined SY-RMI at 2%,
+    trip), 5f-b SY-RMI mining on ``lead`` and the mined SY-RMI at 2% on
+    both tables,
     5f-c a ``TunedTier``'s lifecycle on ``lead`` split in 4 shards (the
     device and the host refresh, GAPPED absorb/overflow/compact, a retune,
     a rebalance; ranks == numpy and ``metrics()`` == a host model after
@@ -2334,12 +2363,14 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
 
     # -- 5f-b: SY-RMI mining -----------------------------------------------------------------
     t0 = time.perf_counter()
-    mined = tune.mine_sy_rmi([tables[ds][0] for ds in tables], device=dev)
+    # mined on the lead table alone (the second table's mining is cut for
+    # the run's time limit); the mined spec is checked on both
+    mined = tune.mine_sy_rmi([tables[lead][0]], device=dev)
     grid = tune.cdfshop_grid(n)
-    votes = [grid[int(np.argmin(t))].root_type for t in mined.sweep_times]
-    log(f"[tuner] mining: UB {mined.ub!r}, votes {dict(zip(tables, votes))}, winner "
+    votes = {lead: grid[int(np.argmin(mined.sweep_times[0]))].root_type}
+    log(f"[tuner] mining: UB {mined.ub!r}, votes {votes}, winner "
         f"{mined.winner_root}, {mined.mining_time:.1f} s")
-    mining = {"ub": mined.ub, "votes": dict(zip(tables, votes)), "winner": mined.winner_root,
+    mining = {"ub": mined.ub, "votes": votes, "winner": mined.winner_root,
               "mining_s": mined.mining_time, "tables": {}}
     spec = tix.SYRMISpec(space_pct=2.0, ub=mined.ub, winner_root=mined.winner_root)
     for ds, (tab, qs) in tables.items():
@@ -2425,7 +2456,7 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
     out["seconds"]["5f-d"] = time.perf_counter() - t_d
     model.check("after the telemetry probes", tier)
 
-    # a retune: 2% of the table in fresh keys, over SY-RMI, PGM and RS
+    # a retune: 2% of the table in fresh keys, over SY-RMI and RS
     tier.policy = tune.RebuildPolicy(retune_frac=0.02, kinds=RETUNE_KINDS)
     extra = not_in(rng.integers(int(table[0]), int(table[-1]), int(0.03 * n), dtype=np.uint64),
                    table)
@@ -3087,7 +3118,7 @@ def phase_moe_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_req
     the experts it routed to and for all of them."""
     from dataclasses import replace
 
-    from repro_torch import configs, kernels
+    from repro_torch import configs, kernels, tree
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.models import moe, transformer
     from repro_torch.serve import DecodeEngine, Request
@@ -3100,7 +3131,7 @@ def phase_moe_serve(dev, arch, *, reduced: bool, slots: int, max_seq: int, n_req
         torch.Generator(device=dev).manual_seed(0), cfg))
     eng = DecodeEngine(params, cfg, batch_slots=slots, max_seq=max_seq, tier=tier)
     del params  # bf16 already: the engine's compute copy is the same tensors
-    weight_bytes = sum(t.numel() * t.element_size() for t in tree_tensors(eng.params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(eng.params))
     cache_bytes = sum(c.numel() * c.element_size() for c in eng.cache.values())
     log(f"[moe] {arch}{' (reduced)' if reduced else ''}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, {cfg.n_experts} experts top "
@@ -3295,15 +3326,6 @@ RECSYS_ARCHS = ("din", "wide-deep", "sasrec")
 RECSYS_CHECK_ROWS, RETRIEVAL_PAIRS = 4096, 1024
 
 
-def cpu_copy(tree):
-    """A nest of dicts and lists of tensors, copied to the CPU."""
-    if isinstance(tree, dict):
-        return {k: cpu_copy(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [cpu_copy(v) for v in tree]
-    return tree.cpu()
-
-
 def peak_gb(dev):
     return torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
 
@@ -3437,7 +3459,7 @@ def phase_recsys(dev, archs, *, reduced: bool, check_rows: int, pairs: int) -> l
     ``pairs`` candidates against ``score_fn`` on the same pairs (equal for
     SASRec and wide & deep; DIN's gap logged, ROADMAP queue 3); ms a batch
     and rows/s by CUDA events, peak memory."""
-    from repro_torch import configs
+    from repro_torch import configs, tree
     from repro_torch.launch import steps
     from repro_torch.models import recsys
 
@@ -3447,7 +3469,7 @@ def phase_recsys(dev, archs, *, reduced: bool, check_rows: int, pairs: int) -> l
         cfg = spec.config
         params, init_s = timed(dev, lambda: recsys.init(
             torch.Generator(device=dev).manual_seed(0), cfg))
-        on_cpu = cpu_copy(params)
+        on_cpu = tree.tree_map(lambda t: t.cpu(), params)
         table_gb = params["embed"].numel() * params["embed"].element_size() / 1e9
         log(f"[recsys] {arch}: mega-table {tuple(params['embed'].shape)} f32 ({table_gb:.2f} GB), "
             f"drawn in {init_s:.2f} s")
@@ -3555,34 +3577,40 @@ def phase_lke(dev, *, n_keys: int, dim: int, n_queries: int) -> dict:
         if not torch.equal(vecs, lke.table[row]) or not torch.equal(
                 vecs, lke.lookup(q_dev, backend="ref")):
             fail(f"lke: {n_shards} shard(s): vectors != the table's rows (OOV where absent)")
-        # the kernel against its twin on the operands the path gives it
+        # the kernel against its twin on the operands the path gives it, and
+        # both timed there beside the bound (the method of phases 4-5)
         if n_shards == 1:
             impl = tix.impls.query_impl(lke.index.kind)
             args, kwargs = impl.operands(lke.index, lke.keys, q_dev)
-            raw_k, twin = impl.search(*args, **kwargs), impl.plain(*args, **kwargs)
+            search, plain, table = impl.search, impl.plain, lke.keys
         else:
             sidx = lke.sharded
             impl = tix.impls.query_impl(sidx.kind)
             bq = q_dev[None, :].expand(n_shards, q_dev.numel())
             args, kwargs = impl.batched_operands(sidx.index, sidx.tables, bq)
-            raw_k, twin = impl.batched_search(*args, **kwargs), impl.batched_plain(*args, **kwargs)
+            search, plain, table = impl.batched_search, impl.batched_plain, sidx.tables
+        raw_k, twin = search(*args, **kwargs), plain(*args, **kwargs)
         err = int((raw_k.long() - twin.long()).abs().max())
         if err:
             fail(f"lke: {name} vs its twin on the path's operands, max |err| {err}")
         del raw_k, twin
-        r = {"n_shards": n_shards, "kernel": name, "build_s": build_s, "max_abs_err": err,
-             "translate_ms": device_ms(lambda: lke.translate(q_dev), dev),
+        m = measure(dev, search, plain, args, kwargs, table, n_shards * q_dev.numel(),
+                    lambda: lke.translate(q_dev),
+                    lambda: torch.searchsorted(lke.keys, q_dev, right=True))
+        r = {"n_shards": n_shards, "kernel": name, "build_s": build_s, "max_abs_err": err, **m,
+             "translate_ms": m["lookup_ms"], "searchsorted_ms": m["library_ms"],
              "lookup_ms": device_ms(lambda: lke.lookup(q_dev), dev),
              "ref_translate_ms": device_ms(lambda: lke.translate(q_dev, backend="ref"), dev,
-                                           reps=3, warmup=1),
-             "searchsorted_ms": device_ms(lambda: torch.searchsorted(lke.keys, q_dev, right=True),
-                                          dev)}
+                                           reps=3, warmup=1)}
         out["rows"].append(r)
         log(f"[lke] {n_shards} shard(s), RMI b {max(2, n_keys // 128)}: built in {build_s:.1f} s; "
             f"lookup launched {json.dumps({k: v for k, v in launches.items() if v})}; ranks == "
             f"ref == numpy, vectors == rows (OOV on {len(queries) - n_present} absent ids); "
-            f"{name} == twin on the path's operands; translate {r['translate_ms']} ms, lookup "
-            f"{r['lookup_ms']} ms, ref translate {r['ref_translate_ms']} ms, "
+            f"{name} == twin on the path's operands; {name} {r['ms']} ms, its twin "
+            f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}: "
+            f"{r['bound_bytes']} B, {r['table_sectors']} table sectors, "
+            f"{r['probes_per_query']:.2f} probes a query); translate {r['translate_ms']} ms, "
+            f"lookup {r['lookup_ms']} ms, ref translate {r['ref_translate_ms']} ms, "
             f"torch.searchsorted {r['searchsorted_ms']} ms (CUDA events)")
         del lke, vecs, ranks, row
         free_device(dev)
@@ -3753,10 +3781,303 @@ def embedding_rank_body(rank: int, world: int, work: Path, job: dict) -> dict:
     return {"rank": rank, "times": times}
 
 
-def tree_tensors(tree) -> list:
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in tree_tensors(v)]
-    return [tree]
+# -- phase 9: training -------------------------------------------------------------------------
+
+#: phase 9's card-vs-CPU checks: losses and gradient norms within TRAIN_RTOL;
+#: AdamW's first moment after one step (``0.1 *`` the clipped gradients)
+#: within TRAIN_GRAD_RTOL of each leaf's largest magnitude (f32 compute, no
+#: TF32: the sums run in other orders); the parameters within 2 lr, and
+#: within 1e-2 lr on all but 0.1% of the elements (a gradient sign may
+#: differ where it is ~0, which moves AdamW's step by up to 2 lr)
+TRAIN_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+#: the archs phase 9b trains at published widths (DLRM-MLPerf's 96.1 GB
+#: table waits for four cards, ROADMAP queue 1, item 13.6)
+TRAIN_RECSYS_ARCHS = ("din", "wide-deep", "sasrec")
+
+
+def train_step_check(dev, bundle, state, batch, lr: float, what: str) -> dict:
+    """One step of ``bundle.fn`` from the same ``state`` and ``batch`` on
+    the card and on the CPU (the CPU copies made here): loss, grad norm,
+    first moment and parameters within the tolerances above."""
+    from repro_torch import tree
+
+    cpu_state = tree.tree_map(lambda t: t.cpu(), state)
+    got_s, got_m = bundle.fn(state, batch)
+    want_s, want_m = bundle.fn(cpu_state, {k: v.cpu() for k, v in batch.items()})
+    out = {}
+    for k in ("loss", "grad_norm"):
+        g, w = float(got_m[k]), float(want_m[k])
+        if not np.isfinite(g) or abs(g - w) > TRAIN_RTOL * abs(w):
+            fail(f"train check {what}: {k} {g} on the card vs {w} on the CPU")
+        out[f"{k}_rel_err"] = abs(g - w) / max(abs(w), 1e-30)
+    m_used, p_err = 0.0, 0.0
+    for path, g, w in zip(*tree.flatten_with_paths(got_s["opt"]["m"]),
+                          tree.leaves(want_s["opt"]["m"])):
+        # 1e-9 absolute where a gradient is zero in exact arithmetic (DIN's
+        # last attention bias: the softmax is shift-invariant)
+        allowed = max(TRAIN_GRAD_RTOL * float(w.abs().max()), 1e-9)
+        err = float((g.cpu() - w).abs().max())
+        if err > allowed:
+            fail(f"train check {what}: first moment {path} off by {err} (allowed {allowed})")
+        m_used = max(m_used, err / allowed)
+    for path, g, w in zip(*tree.flatten_with_paths(got_s["params"]), tree.leaves(want_s["params"])):
+        diff = (g.cpu() - w).abs()
+        if float(diff.max()) > 2 * lr or float((diff > 1e-2 * lr).float().mean()) > 1e-3:
+            fail(f"train check {what}: parameters {path} off by {float(diff.max())} (lr {lr})")
+        p_err = max(p_err, float(diff.max()))
+    out.update(grad_tol_used=m_used, param_max_abs_err=p_err)
+    return out
+
+
+def phase_train_lm(dev, arch, *, reduced: bool, batch: int, microbatches: int, steps_n: int,
+                   check_tokens: int) -> dict:
+    """Phase 9a: ``arch``'s ``train`` cell at its published widths (f32
+    master weights, the config's compute dtype, remat, the chunked loss)
+    through ``launch.steps.build_step`` and ``train.loop.run``: ``batch``
+    sequences of the cell's length a step from ``data.TokenBatcher`` over a
+    seeded ``synth_corpus`` of the model's vocabulary, ``microbatches``
+    microbatches, AdamW, ``warmup_cosine(warmup=2)``, clip 1.0.  Every loss
+    finite, the last below the first.  First, a check at 2 layers and
+    ``check_tokens`` tokens in f32: one step on the card == the CPU."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.data import TokenBatcher, synth_corpus
+    from repro_torch.launch import steps
+    from repro_torch.train import TrainConfig, init_train_state, loop
+
+    spec = configs.get(arch, reduced=reduced)
+    cfg = spec.config
+    cell = next(c for c in spec.shapes if c.kind == "train")
+    seq = cell.dims["seq_len"]
+    corpus, corpus_s = timed(dev, lambda: synth_corpus(vocab_size=cfg.vocab, n_docs=2000,
+                                                       mean_len=512, seed=0, device=dev))
+    out = {"arch": arch, "reduced": reduced, "batch": batch, "seq": seq,
+           "microbatches": microbatches, "corpus_tokens": len(corpus.tokens),
+           "corpus_s": corpus_s}
+
+    # the check: 2 layers at full width, f32 compute, one step card == CPU
+    small = replace(spec, config=replace(cfg, n_layers=min(2, cfg.n_layers), dtype="float32"))
+    tcfg = TrainConfig(total_steps=steps_n, warmup=2)
+    bundle = steps.build_step(small, cell, tcfg=tcfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(1), bundle.init_fn, tcfg)
+    check_batch = TokenBatcher(corpus, 1, check_tokens, seed=1).batch_at(0)
+    out["check"], check_s = timed(dev, lambda: train_step_check(
+        dev, bundle, state, check_batch, tcfg.lr, f"{arch} 2 layers"))
+    del state, bundle
+    free_device(dev)
+    log(f"[train] {arch} at 2 layers, {check_tokens} tokens, f32: one step on the card == the "
+        f"CPU (loss rel err {out['check']['loss_rel_err']:.3g}, grad_norm "
+        f"{out['check']['grad_norm_rel_err']:.3g}, first moment at {out['check']['grad_tol_used']:.3g}"
+        f" of its tolerance, params {out['check']['param_max_abs_err']:.3g}) in {check_s:.1f} s")
+
+    tcfg = TrainConfig(total_steps=steps_n, warmup=2, microbatches=microbatches)
+    bundle = steps.build_step(spec, cell, tcfg=tcfg)
+    state, init_s = timed(dev, lambda: init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                                        bundle.init_fn, tcfg))
+    batcher = TokenBatcher(corpus, batch, seq, seed=0)
+    metrics, step_s = [], []
+
+    def step_fn(st, b):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = bundle.fn(st, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+        step_s.append(time.perf_counter() - t0)
+        return st, m
+
+    reset_peak(dev)
+    state, report = loop.run(step_fn, state, batcher.batch_at,
+                             loop.LoopConfig(total_steps=steps_n, log_every=0), log=log)
+    peak = peak_gb(dev)
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or report.steps_run != steps_n:
+        fail(f"train: {arch} losses {losses} (finite, the last below the first)")
+    tokens = batch * seq
+    steady = step_s[1:] if len(step_s) > 1 else step_s
+    ms = 1e3 * float(np.mean(steady))
+    flops = 6 * cfg.params_count * tokens
+    out.update(init_s=init_s, peak_gb=peak, losses=losses,
+               grad_norms=[m["grad_norm"] for m in metrics],
+               lr_scales=[m["lr_scale"] for m in metrics], step_ms=[1e3 * s for s in step_s],
+               ms=ms, tokens_per_s=tokens / (ms / 1e3), params=cfg.params_count,
+               six_n_t_tflop=flops / 1e12,
+               bf16_peak_share=(flops / BF16_OPS_PER_S) / (ms / 1e3) if dev.type == "cuda"
+               else None)
+    log(f"[train] {arch} at its widths ({cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.params_count:,} f32 parameters, {cfg.dtype} compute, remat {cfg.remat}, xent_chunk "
+        f"{cfg.xent_chunk}): {batch} x {seq} tokens a step in {microbatches} microbatches, "
+        f"AdamW, warmup_cosine(warmup=2), clip 1.0; corpus {len(corpus.tokens):,} tokens "
+        f"({corpus_s:.1f} s), init {init_s:.1f} s")
+    for i, m in enumerate(metrics):
+        log(f"[train]   step {i + 1}: loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, "
+            f"lr_scale {m['lr_scale']:.4f}, {1e3 * step_s[i]:.1f} ms (host clock around a sync)")
+    log(f"[train] {arch}: {ms:.1f} ms a step (mean of steps 2-{steps_n}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {peak} GB; 6·N·tokens "
+        f"{out['six_n_t_tflop']:.1f} TFLOP a step = {flops / BF16_OPS_PER_S * 1e3:.1f} ms at "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s beside {ms:.1f} ms: "
+        f"{out['bf16_peak_share']} of the bf16 peak")
+    del state, bundle, corpus
+    free_device(dev)
+    return out
+
+
+def phase_train_recsys(dev, archs, *, reduced: bool, steps_n: int) -> list:
+    """Phase 9b: each arch's ``train_batch`` cell at published widths (f32,
+    seeded weights): ``steps_n`` AdamW steps (lr 1e-3, ``warmup_cosine``
+    with warmup 1) on one repeated batch from ``make_inputs`` (seed 0),
+    every loss finite and below the one before; then one further step
+    under ``grad_compression="int8"``.  First, card == CPU on the reduced
+    config.  Returns each arch's row and the SASRec state for 9c."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch import tree
+    from repro_torch.train import TrainConfig, init_train_state
+
+    rows = []
+    kept = None
+    for arch in archs:
+        row = {"arch": arch}
+        tcfg = TrainConfig(lr=1e-3, warmup=1, total_steps=steps_n)
+        small = configs.get(arch, reduced=True)
+        cell = next(c for c in small.shapes if c.kind == "train")
+        bundle = steps.build_step(small, cell, tcfg=tcfg)
+        state = init_train_state(torch.Generator(device=dev).manual_seed(1), bundle.init_fn, tcfg)
+        batch = steps.make_inputs(small, cell, np.random.default_rng(1), device=dev)
+        row["check"] = train_step_check(dev, bundle, state, batch, tcfg.lr, f"{arch} reduced")
+
+        spec = configs.get(arch, reduced=reduced)
+        cell = next(c for c in spec.shapes if c.kind == "train")
+        bundle = steps.build_step(spec, cell, tcfg=tcfg)
+        state, init_s = timed(dev, lambda: init_train_state(
+            torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg))
+        batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=dev)
+        n = cell.dims["batch"]
+        reset_peak(dev)
+        losses, ms = [], []
+        for _ in range(steps_n):
+            (state, m), _, dev_ms = timed_call(dev, lambda: bundle.fn(state, batch))
+            losses.append(float(m["loss"]))
+            ms.append(dev_ms)
+        peak = peak_gb(dev)
+        if not all(np.isfinite(losses)) or not all(b < a for a, b in zip(losses, losses[1:])):
+            fail(f"train: {arch} losses {losses} (finite and falling)")
+        # one further step with int8 gradient compression (zeroed error buffers)
+        ctcfg = TrainConfig(lr=1e-3, warmup=1, total_steps=steps_n, grad_compression="int8")
+        cbundle = steps.build_step(spec, cell, tcfg=ctcfg)
+        cstate = {**state, "comp_err": tree.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), state["params"])}
+        (cstate, cm), _, c_ms = timed_call(dev, lambda: cbundle.fn(cstate, batch))
+        closs = float(cm["loss"])
+        errs = tree.leaves(cstate["comp_err"])
+        if not np.isfinite(closs) or not all(bool(torch.isfinite(e).all()) for e in errs):
+            fail(f"train: {arch} int8 step loss {closs}, error buffers finite "
+                 f"{[bool(torch.isfinite(e).all()) for e in errs]}")
+        step_ms = None if ms[0] is None else float(np.mean(ms[1:] if len(ms) > 1 else ms))
+        row.update(rows=n, init_s=init_s, losses=losses, step_ms=ms, ms=step_ms,
+                   rows_per_s=None if step_ms is None else n / (step_ms / 1e3), peak_gb=peak,
+                   int8_loss=closs, int8_ms=c_ms,
+                   params=sum(t.numel() for t in tree.leaves(state["params"])))
+        log(f"[train] {arch}/{cell.name} at its widths ({row['params']:,} f32 parameters): reduced "
+            f"card == CPU (loss rel err {row['check']['loss_rel_err']:.3g}, first moment at "
+            f"{row['check']['grad_tol_used']:.3g} of its tolerance); {n} rows, losses "
+            f"{', '.join(f'{l:.5f}' for l in losses)} (falling), {step_ms} ms a step (CUDA "
+            f"events, steps 2-{steps_n}; first {ms[0]}), {row['rows_per_s']} rows/s, peak "
+            f"{peak} GB; one int8-compressed step: loss {closs:.5f}, {c_ms} ms")
+        rows.append(row)
+        if arch == "sasrec":
+            kept = (spec, cell, tcfg, state, batch)
+        del state, cstate, batch, bundle, cbundle
+        free_device(dev)
+    return rows, kept
+
+
+def phase_train_checkpoint(dev, kept, work: Path) -> dict:
+    """Phase 9c: SASRec's train state from 9b saved with
+    ``checkpoint.save`` (async) under ``work``, restored onto the card
+    into a zeroed template: every leaf bit-equal to the saved one; one
+    further step from the restored state against one from the saved
+    state (loss within ``TRAIN_RTOL``: CUDA's scatter-adds sum in no fixed
+    order)."""
+    import shutil
+
+    from repro_torch.launch import steps
+    from repro_torch import tree
+    from repro_torch.train import checkpoint
+
+    spec, cell, tcfg, state, batch = kept
+    shutil.rmtree(work, ignore_errors=True)
+    gb = sum(t.numel() * t.element_size() for t in tree.leaves(state)) / 1e9
+    handle, copy_s = timed(dev, lambda: checkpoint.save(work, state, 3))
+    _, join_s = timed(dev, handle.join)
+    template = tree.tree_map(torch.zeros_like, state)
+    (restored, step), restore_s = timed(dev, lambda: checkpoint.restore(work, template))
+    same = all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(tree.leaves(restored), tree.leaves(state)))
+    if step != 3 or not same:
+        fail(f"train checkpoint: restored step {step}, bit-equal {same}")
+    fn = steps.build_step(spec, cell, tcfg=tcfg).fn
+    want = float(fn(state, batch)[1]["loss"])
+    got = float(fn(restored, batch)[1]["loss"])
+    if not abs(got - want) <= TRAIN_RTOL * abs(want):
+        fail(f"train checkpoint: the step after the restore gives loss {got}, the saved state {want}")
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"gb": gb, "host_copy_s": copy_s, "write_s": join_s, "restore_s": restore_s,
+           "loss_after": got, "loss_uninterrupted": want, "leaves": len(tree.leaves(state))}
+    log(f"[train] checkpoint of SASRec's train state ({gb:.3f} GB, {out['leaves']} leaves): host "
+        f"copy {copy_s:.2f} s, async write joined after {join_s:.2f} s, restore onto the card "
+        f"{restore_s:.2f} s, bit-equal; the next step's loss {got:.6f} vs {want:.6f} uninterrupted")
+    return out
+
+
+def phase_train_data(dev, *, n_docs: int, n_offsets: int, vocab: int) -> dict:
+    """Phase 9d: ``synth_corpus`` of ``n_docs`` documents (mean length
+    512) and ``doc_of`` of ``n_offsets`` seeded offsets on the card (the
+    port's ``PGMModel.predecessor`` over the flipped keys): ranks ==
+    ``torch.searchsorted(right=True) - 1`` on the same keys; ms by CUDA
+    events."""
+    from repro_torch.data import synth_corpus
+
+    corpus, build_s = timed(dev, lambda: synth_corpus(vocab_size=vocab, n_docs=n_docs,
+                                                      mean_len=512, seed=0, device=dev))
+    offsets = torch.from_numpy(np.random.default_rng(2).integers(
+        0, len(corpus.tokens), n_offsets)).to(dev)
+    got, host_ms, ms = timed_call(dev, lambda: corpus.doc_of(offsets))
+    want, s_host_ms, s_ms = timed_call(dev, lambda: torch.searchsorted(
+        corpus.table, offsets ^ (-(1 << 63)), right=True) - 1)
+    if not torch.equal(got, want):
+        fail(f"train data: doc_of differs from searchsorted on {int((got != want).sum())} offsets")
+    out = {"docs": n_docs, "tokens": len(corpus.tokens), "offsets": n_offsets, "build_s": build_s,
+           "doc_of_ms": device_ms(lambda: corpus.doc_of(offsets), dev, reps=5, warmup=1),
+           "searchsorted_ms": device_ms(lambda: torch.searchsorted(
+               corpus.table, offsets ^ (-(1 << 63)), right=True), dev, reps=5, warmup=1),
+           "pgm_levels": len(corpus.pgm.level_sizes), "pgm_segments": corpus.pgm.n_segments_l0}
+    log(f"[train] synth_corpus of {n_docs:,} documents ({out['tokens']:,} tokens, PGM eps 16: "
+        f"{out['pgm_segments']} segments, {out['pgm_levels']} levels) in {build_s:.1f} s; doc_of "
+        f"{n_offsets:,} offsets: {out['doc_of_ms']} ms (CUDA events), == searchsorted "
+        f"({out['searchsorted_ms']} ms)")
+    return out
+
+
+def phase_train(dev, *, lm: dict, recsys: dict, data: dict) -> dict:
+    """Phase 9: training (9a the LM, 9b the recsys models, 9c a checkpoint
+    round trip, 9d the token pipeline's learned lookup).  No kernel of the
+    port runs here; the launch counts are read to show it."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = {"lm": phase_train_lm(dev, "qwen2-0.5b", **lm)}
+    out["recsys"], kept = phase_train_recsys(dev, TRAIN_RECSYS_ARCHS, **recsys)
+    out["checkpoint"] = phase_train_checkpoint(dev, kept, ROOT / "build" / "train_ckpt")
+    del kept
+    free_device(dev)
+    out["data"] = phase_train_data(dev, **data)
+    out["launches"] = {k: v for k, v in kernels.launches().items() if v}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase 9 done in {out['seconds']:.1f} s; kernel launches {out['launches']}")
+    return out
 
 
 def time_attention(dev, label, q, k, v, kv_len) -> dict:
@@ -3947,7 +4268,7 @@ def kernels_line(rows, launches, headline_table: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-8 on the CPU twins at a tiny size (no device result)")
+                    help="run phases 3-9 on the CPU twins at a tiny size (no device result)")
     ap.add_argument("--out", type=Path, default=None, help="also write every row as JSON here")
     args = ap.parse_args(argv)
 
@@ -3966,6 +4287,10 @@ def main(argv=None) -> int:
         lke = {"n_keys": 1 << 14, "dim": 18, "n_queries": 1 << 12}
         times = {"att_a": (4, 14, 2, 64, 512), "att_b": (2, 32, 8, 128, 256),
                  "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 14, 128, 1 << 14, 1 << 10)}
+        train = {"lm": {"reduced": True, "batch": 8, "microbatches": 2, "steps_n": 6,
+                        "check_tokens": 32},
+                 "recsys": {"reduced": True, "steps_n": 3},
+                 "data": {"n_docs": 2000, "n_offsets": 1 << 12, "vocab": 256}}
     else:
         info = phase_device()
         dev = torch.device("cuda")
@@ -3979,10 +4304,11 @@ def main(argv=None) -> int:
         # long_prompt: ~716 positions (45 tiles of 16) for the first ticks
         serve = {"reduced": False, "max_seq": 32768, "long_prompt": 700}
         # phase 5g: serve_slo.py's cache A/B traffic at 2^16 queries a batch
-        # (its 1,024 is the CPU smoke shape); 5h: 8 sequences of decode_32k's
+        # (its 1,024 is the CPU smoke shape), 4 batches a phase (8 before
+        # PR 24: cut for the run's time limit); 5h: 8 sequences of decode_32k's
         # 32,768 positions; 7b: moonshot at its published widths, a 2,048-
         # position cache (6.4 GB beside 57.8 GB of bf16 weights)
-        hotcache = {"batch": 1 << 16, "batches": 8, "n_insert": 1 << 16}
+        hotcache = {"batch": 1 << 16, "batches": 4, "n_insert": 1 << 16}
         pool = {"seqs": 8, "positions": 32768, "page": 16}
         moe_serve = {"reduced": False, "max_seq": 2048}
         # 7c: prefill_32k's 32,768 tokens, 2 sequences (cut from 32); 7d: the
@@ -3996,6 +4322,15 @@ def main(argv=None) -> int:
         # that benchmark's shape and a 2 GiB table (beyond L2), 2^16 bags of 16
         times = {"att_a": (128, 14, 2, 64, 32768), "att_b": (8, 32, 8, 128, 32768),
                  "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 22, 128, 1 << 20, 1 << 16)}
+        # 9a: qwen2-0.5b's train_4k at its widths, 8 sequences of 4,096 tokens
+        # a step (cut from 256) in 2 microbatches, 6 steps, checked at 2
+        # layers and 256 tokens; 9b: the recsys train_batch (65,536 rows) at
+        # published widths, 3 steps; 9d: 200,000 documents (~1.4e8 tokens),
+        # 2^22 offsets
+        train = {"lm": {"reduced": False, "batch": 8, "microbatches": 2, "steps_n": 6,
+                        "check_tokens": 256},
+                 "recsys": {"reduced": False, "steps_n": 3},
+                 "data": {"n_docs": 200_000, "n_offsets": 1 << 22, "vocab": 151936}}
     # f32 matrix products in full f32 (no TF32) in the twins and the reference math
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4067,6 +4402,8 @@ def main(argv=None) -> int:
     att_rows, bag_rows, bag_launches = phase_times(dev, **times)
     att_rows.append(moe_served["attention_row"])
     log(f"[times] done in {time.perf_counter() - t0:.1f} s")
+    free_device(dev)
+    trained = phase_train(dev, **train)
     by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k],
                    "fits": fits["launches"][k], "tuner": tuner["launches"][k],
                    "hotcache": hot["launches"][k]} for k in BATCHED}
@@ -4108,7 +4445,7 @@ def main(argv=None) -> int:
                                         "hotcache": hot, "paged_pool": paged,
                                         "moe_serve": moe_served, "prefill": prefilled,
                                         "recsys": scored, "lke": keyed,
-                                        "embedding_ranks": ranked,
+                                        "embedding_ranks": ranked, "train": trained,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
                                         "fit_rows": fits["rows"], "grid_rows": fits["grid"],
                                         "refresh_rows": fits["refresh"], "tuner": tuner,

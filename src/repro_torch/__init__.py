@@ -24,10 +24,14 @@ has a counterpart there:
   architecture configs, the dense decoder's ``decode_step`` (its
   attention is the hand-written decode-attention kernel) and the
   continuous-batching :class:`~repro_torch.serve.DecodeEngine`.
+* ``train`` and ``tree`` — training (optimizers, the train step,
+  checkpoints, the loop) over nests of tensors walked in
+  ``jax.tree_util``'s order.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
-from . import configs, core, data, dist, index, kernels, models, serve, tune
+from . import configs, core, data, dist, index, kernels, models, serve, train, tree, tune
 
-__all__ = ["configs", "core", "data", "dist", "index", "kernels", "models", "serve", "tune"]
+__all__ = ["configs", "core", "data", "dist", "index", "kernels", "models", "serve", "train",
+           "tree", "tune"]

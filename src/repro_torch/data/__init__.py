@@ -1,8 +1,10 @@
-"""Seeded synthetic datasets, table tiers and query sampling (counterpart
-of ``repro.data``)."""
+"""Seeded synthetic datasets, table tiers and query sampling, the LM
+token pipeline and the graph sampler (counterpart of ``repro.data``)."""
 
-from . import distributions, tables
+from . import distributions, pipeline, sampler, tables
 from .distributions import DATASETS, generate
+from .pipeline import PackedCorpus, TokenBatcher, synth_corpus
+from .sampler import CSRGraph, sample_neighbors, synth_powerlaw_graph
 from .tables import (
     TIERS,
     BenchTable,
@@ -13,6 +15,7 @@ from .tables import (
     subsample_preserving_cdf,
 )
 
-__all__ = ["distributions", "tables", "DATASETS", "TIERS", "BenchTable", "generate",
-           "kl_divergence", "ks_statistic", "make_bench_tables", "make_queries",
-           "subsample_preserving_cdf"]
+__all__ = ["distributions", "pipeline", "sampler", "tables", "DATASETS", "TIERS", "BenchTable",
+           "CSRGraph", "PackedCorpus", "TokenBatcher", "generate", "kl_divergence",
+           "ks_statistic", "make_bench_tables", "make_queries", "sample_neighbors",
+           "subsample_preserving_cdf", "synth_corpus", "synth_powerlaw_graph"]

@@ -12,15 +12,20 @@
   :class:`~repro_torch.dist.sharding.ShardingCtx`, a no-op when there
   are no dims, so step code stays mesh-shape agnostic.
 
-The reference's ``OVERLAP_XLA_FLAGS`` and its error-feedback gradient
-compression belong to the training port (ROADMAP queue 1, items 13.3
-and 13.6).
+* Error-feedback gradient compression (:func:`compressed_grad_leaf`,
+  :func:`apply_grad_compression`): each leaf sent as bf16 or as int8 with
+  one f32 scale, the rounding error carried to the next step.
+
+The reference's ``OVERLAP_XLA_FLAGS`` waits for the launch slice
+(ROADMAP queue 1, item 13.6).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import tree
 
 # ---------------------------------------------------------------------------
 # Owner-exchange bucketing (the all_to_all request-matrix pattern)
@@ -116,14 +121,54 @@ def pmean_if_mapped(x, axes, ctx=None):
     return psum_if_mapped(x, axes, ctx) / dist.get_world_size(ctx.axes_group(axes)[0])
 
 
-def psum_tree(tree, axes, ctx=None):
+def psum_tree(t, axes, ctx=None):
     """:func:`psum_if_mapped` of every tensor leaf of a nest of dicts,
     lists and tuples (a gradient all-reduce)."""
     axes = tuple(axes or ())
     if not axes:
-        return tree
-    if isinstance(tree, dict):
-        return {k: psum_tree(v, axes, ctx) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(psum_tree(v, axes, ctx) for v in tree)
-    return psum_if_mapped(tree, axes, ctx)
+        return t
+    return tree.tree_map(lambda leaf: psum_if_mapped(leaf, axes, ctx), t)
+
+
+# ---------------------------------------------------------------------------
+# Error-feedback gradient compression
+# ---------------------------------------------------------------------------
+
+METHODS = ("bf16", "int8")
+
+
+def compressed_grad_leaf(g, err, method: str):
+    """Compress one gradient leaf with error feedback.
+
+    Returns ``(g_hat, new_err)``: ``g_hat`` the decompressed (wire-format)
+    gradient in f32 and ``new_err = (g + err) - g_hat``, carried to the
+    next step, so the accumulated compressed gradients track the
+    accumulated true ones within one step's rounding.  ``bf16`` rounds to
+    nearest even; ``int8`` scales by ``max(max|x|, 1e-30) / 127`` and
+    rounds half to even (``torch.round``, as ``jnp.round``).
+
+    Bit-equal to the reference as XLA compiles it: XLA folds ``/ 127.0``
+    into a product with the f32 reciprocal, and fuses ``x - g_hat`` into
+    one multiply-subtract against the unrounded ``round(x / scale) *
+    scale``.  The port takes the same scale and forms that residual
+    exactly in f64 (a 7-bit integer times an f32 fits in 53 bits) before
+    its one rounding to f32."""
+    x = g.to(torch.float32) + err
+    if method == "bf16":
+        g_hat = x.to(torch.bfloat16).to(torch.float32)
+        return g_hat, x - g_hat
+    if method == "int8":
+        scale = torch.clamp(torch.max(torch.abs(x)), min=1e-30) * (1.0 / 127.0)
+        k = torch.round(x / scale)
+        return k * scale, (x.double() - k.double() * scale.double()).to(torch.float32)
+    raise ValueError(f"unknown grad compression {method!r}; choose from {METHODS}")
+
+
+def apply_grad_compression(grads, errs, method: str):
+    """:func:`compressed_grad_leaf` leaf by leaf over a nest of dicts,
+    lists and tuples and the matching nest of errors.  Returns
+    ``(grads_hat, new_errs)``, both in ``grads``' structure."""
+    pairs = [compressed_grad_leaf(g, e, method)
+             for g, e in zip(tree.leaves(grads), tree.flatten_up_to(grads, errs))]
+    return (tree.unflatten(grads, [p[0] for p in pairs]),
+            tree.unflatten(grads, [p[1] for p in pairs]))

@@ -1,6 +1,7 @@
 """Launch side (counterpart of ``repro.launch``): ``steps`` builds each
-serving cell's inputs and step function.  The reference's dry run, HLO
-analysis, mesh helpers and training launcher wait for their slices."""
+cell's inputs and step function; ``python -m repro_torch.launch.train``
+trains an architecture through the fault-tolerant loop.  The reference's
+dry run, HLO analysis and mesh helpers wait for the launch slice."""
 
 from . import steps
 

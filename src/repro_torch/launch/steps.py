@@ -1,19 +1,21 @@
-"""Per-(arch x shape-cell) serving steps (counterpart of
-``repro.launch.steps``).
+"""Per-(arch x shape-cell) steps (counterpart of ``repro.launch.steps``).
 
 For a cell this module gives:
   * ``make_inputs(spec, cell, rng)`` — the cell's batch, from the same
     numpy draws as the reference's ``concrete_inputs`` (one seed gives
     both packages identical batches), as tensors on the card unless
     ``device`` says otherwise;
-  * ``build_step(spec, cell, ctx)`` — the cell's serving function and
-    its config.
+  * ``build_step(spec, cell, ctx, tcfg)`` — the cell's step function and
+    its config (a ``train`` cell's also its ``init_fn``).
 
-Kinds: ``prefill`` a full-sequence forward that returns the last
-position's logits; ``decode`` one token against a KV cache; ``serve``
-and ``retrieval`` the recsys scorers.  The reference's ``train`` and
-``graph_train`` cells, its sharding pytrees and its abstract inputs wait
-for the training and launch slices (ROADMAP queue 1, items 13.3 and 13.6).
+Kinds: ``train`` a full optimizer step (:func:`repro_torch.train.make_train_step`
+over the family's ``loss_fn``); ``prefill`` a full-sequence forward that
+returns the last position's logits; ``decode`` one token against a KV
+cache; ``serve`` and ``retrieval`` the recsys scorers.  DimeNet's
+``graph_train`` cells wait for the DimeNet slice (ROADMAP queue 1, item
+13.5); the reference's sharding pytrees (``state_shardings``,
+``fit_sharding``) and its abstract inputs wait for the launch slice
+(item 13.6).
 """
 
 from __future__ import annotations
@@ -25,21 +27,25 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import recsys, transformer
+from repro_torch.train import TrainConfig, make_train_step
 
-#: the cell kinds this module serves
-SERVING_KINDS = ("prefill", "decode", "serve", "retrieval")
+#: the cell kinds this module builds
+KINDS = ("train", "prefill", "decode", "serve", "retrieval")
 
 
 def _not_ported(spec, cell):
     return NotImplementedError(
-        f"{spec.arch_id}/{cell.name}: {cell.kind!r} cells wait for the training slice "
-        f"(ROADMAP queue 1, item 13.3); the port serves {SERVING_KINDS}")
+        f"{spec.arch_id}/{cell.name}: {cell.kind!r} cells wait for the DimeNet slice "
+        f"(ROADMAP queue 1, item 13.5); the port builds {KINDS}")
 
 
 def _lm_inputs(cfg, cell, rng):
     b, s = cell.dims["global_batch"], cell.dims["seq_len"]
-    shape = (b, s) if cell.kind == "prefill" else (b, 1)
-    return {"tokens": rng.integers(0, cfg.vocab, size=shape).astype(np.int32)}
+    if cell.kind == "train":
+        names, shape = ("tokens", "labels"), (b, s)
+    else:
+        names, shape = ("tokens",), ((b, s) if cell.kind == "prefill" else (b, 1))
+    return {k: rng.integers(0, cfg.vocab, size=shape).astype(np.int32) for k in names}
 
 
 def _recsys_inputs(cfg, cell, rng):
@@ -52,6 +58,8 @@ def _recsys_inputs(cfg, cell, rng):
         shp["hist"] = ((b, cfg.seq_len), np.int32)
     if cfg.kind == "sasrec":
         shp = {"seq": ((b, cfg.seq_len), np.int32), "target": ((b,), np.int32)}
+    if cell.kind == "train":
+        shp["label"] = ((b,), np.float32)
     if cell.kind == "retrieval":
         shp["candidates"] = ((cell.dims["n_candidates"],), np.int32)
     out = {}
@@ -63,14 +71,18 @@ def _recsys_inputs(cfg, cell, rng):
             out[k] = rng.integers(0, cfg.vocab_sizes[0], size=sh).astype(np.int32)
         else:
             out[k] = rng.normal(0, 1, sh).astype(np.float32)
+    if cell.kind == "train":
+        # the reference draws the label as a normal first, then replaces
+        # it: both draws are made, so the next batch's draws line up
+        out["label"] = (rng.random(b) < 0.3).astype(np.float32)
     return out
 
 
 def make_inputs(spec, cell, rng=None, *, device=None) -> dict:
-    """The batch of a serving cell as tensors on ``device`` (default: the
-    card), drawn from ``rng`` (default ``np.random.default_rng(0)``) as
-    the reference draws it."""
-    if cell.kind not in SERVING_KINDS:
+    """The batch of a cell as tensors on ``device`` (default: the card),
+    drawn from ``rng`` (default ``np.random.default_rng(0)``) as the
+    reference draws it."""
+    if cell.kind not in KINDS:
         raise _not_ported(spec, cell)
     rng = rng or np.random.default_rng(0)
     dev = resolve_device(device)
@@ -85,24 +97,46 @@ def make_inputs(spec, cell, rng=None, *, device=None) -> dict:
 
 @dataclass
 class StepBundle:
-    """A serving cell's function and config.  ``fn`` takes ``(params,
-    batch)``; a ``decode`` cell's takes ``(params, cache, batch, pos)``."""
+    """A cell's function and config.  ``fn`` takes ``(params, batch)``; a
+    ``decode`` cell's takes ``(params, cache, batch, pos)``, a ``train``
+    cell's ``(state, batch)`` and returns ``(state, metrics)``, and its
+    ``init_fn(gen)`` draws the parameters (for ``init_train_state``)."""
 
     fn: object
     cfg: object
     kind: str
+    init_fn: object = None
 
 
-def build_step(spec, cell, ctx=None) -> StepBundle:
-    """The serving function of ``cell`` on ``spec``'s config: ``prefill``
-    runs ``transformer.forward`` and returns ``h[:, -1] @ head`` in f32;
-    ``decode`` is ``transformer.decode_step``; ``serve`` and
-    ``retrieval`` are ``recsys.score_fn`` and ``recsys.retrieval_fn``
-    (under ``ctx``, on each rank's row shard).  ``train`` and
-    ``graph_train`` raise ``NotImplementedError``."""
+def build_step(spec, cell, ctx=None, tcfg: TrainConfig | None = None) -> StepBundle:
+    """The function of ``cell`` on ``spec``'s config: ``train`` is
+    ``make_train_step(tcfg)`` (default ``TrainConfig()``) over
+    ``transformer.loss_fn`` or ``recsys.loss_fn`` (on one rank);
+    ``prefill`` runs ``transformer.forward`` and returns ``h[:, -1] @
+    head`` in f32; ``decode`` is ``transformer.decode_step``; ``serve``
+    and ``retrieval`` are ``recsys.score_fn`` and ``recsys.retrieval_fn``
+    (under ``ctx``, on each rank's row shard).  ``graph_train`` raises
+    ``NotImplementedError``."""
     cfg = spec.config
-    if cell.kind not in SERVING_KINDS:
+    if cell.kind not in KINDS:
         raise _not_ported(spec, cell)
+    if cell.kind == "train":
+        if spec.family == "lm":
+            def loss(params, batch):
+                return transformer.loss_fn(params, batch, cfg)
+
+            def init_fn(gen):
+                return transformer.init(gen, cfg)
+        elif spec.family == "recsys":
+            def loss(params, batch):
+                return recsys.loss_fn(params, batch, cfg, ctx)
+
+            def init_fn(gen):
+                return recsys.init(gen, cfg, ctx)
+        else:
+            raise ValueError((spec.family, cell.kind))
+        return StepBundle(fn=make_train_step(loss, tcfg or TrainConfig()), cfg=cfg,
+                          kind=cell.kind, init_fn=init_fn)
     if spec.family == "lm" and cell.kind == "prefill":
         def fn(params, batch):
             # the full-sequence forward; only the last position's logits

@@ -2,8 +2,6 @@
 ``repro.models.layers``): parameters are plain dicts, dtypes are explicit
 everywhere, and every initialiser draws from an explicit
 ``torch.Generator`` on the device it is given.
-
-``cross_entropy`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -141,3 +139,10 @@ def decode_attention(q, k_cache, v_cache, kv_len, backend: str = "kernel"):
     if backend == "ref":
         return decode_attention_plain(q, k_cache, v_cache, kv_len)
     return _kernel.decode_attention(q, k_cache, v_cache, kv_len.to(torch.int32))
+
+
+def cross_entropy(logits_f32, labels):
+    """Token-mean cross entropy, ``logsumexp - gold``, in f32."""
+    lse = torch.logsumexp(logits_f32, dim=-1)
+    gold = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

@@ -1,5 +1,5 @@
-"""RecSys architectures: DLRM (MLPerf), DIN, Wide&Deep, SASRec, serving
-side (counterpart of ``repro.models.recsys``).
+"""RecSys architectures: DLRM (MLPerf), DIN, Wide&Deep, SASRec
+(counterpart of ``repro.models.recsys``).
 
 All four read one concatenated mega-table through
 :func:`repro_torch.models.embedding.sharded_lookup`; their MLPs are plain
@@ -10,6 +10,7 @@ out)`` layout, so :func:`params_from_numpy` carries its weights across.
 
 Entry points:
   init(gen, cfg, ctx=None)                    -> params
+  loss_fn(params, batch, cfg, ctx=None)       -> scalar BCE loss (train_batch)
   score_fn(params, batch, cfg, ctx=None)      -> (B,) logits   (serve_* cells)
   retrieval_fn(params, batch, cfg, ctx=None)  -> (n_cand,) logits, the user
                                                  side hoisted out of the
@@ -19,7 +20,10 @@ Entry points:
 Each runs on the device of its parameters; ``init`` draws on the
 generator's.  Under a :class:`~repro_torch.dist.sharding.ShardingCtx` the
 ``embed`` and ``wide`` leaves hold this rank's row shard
-(:func:`local_params`).  ``loss_fn`` waits for the training slice.
+(:func:`local_params`).  Training runs on one rank: its lookup is a
+gather in both lookup modes, so gradients flow through it; gradients
+over ranks (through ``all_to_all``) wait for the launch slice (ROADMAP
+queue 1, item 13.6).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.device import resolve_device
 
 from . import layers as L
@@ -131,16 +136,7 @@ def params_from_numpy(np_params, device=None):
     """The reference's parameter pytree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, repro_params)``) as tensors on ``device``
     (the card when None), lists of MLP layers and blocks kept as lists."""
-    dev = resolve_device(device)
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
-        return torch.from_numpy(np.array(x)).to(dev)
-
-    return conv(np_params)
+    return tree.tree_from_numpy(np_params, resolve_device(device))
 
 
 def local_params(params, ctx):
@@ -274,6 +270,16 @@ def score_fn(params, batch, cfg: RecsysConfig, ctx=None):
     return _SCORERS[cfg.kind](params, batch, cfg, ctx)
 
 
+def loss_fn(params, batch, cfg: RecsysConfig, ctx=None):
+    """Mean binary cross entropy of :func:`score_fn`'s logits against
+    ``batch["label"]``, in the stable form ``max(z, 0) - z*y +
+    log1p(exp(-|z|))``, in f32."""
+    z = score_fn(params, batch, cfg, ctx).to(torch.float32)
+    y = batch["label"].to(torch.float32)
+    loss = torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-torch.abs(z)))
+    return torch.mean(loss)
+
+
 def _din_retrieval(params, batch, cfg, ctx):
     """DIN's candidates in chunks of :data:`DIN_RETRIEVAL_CHUNK`.  As the
     reference does (``recsys.py:283-285``), the profile row is
@@ -313,4 +319,4 @@ def retrieval_fn(params, batch, cfg: RecsysConfig, ctx=None):
 
 
 __all__ = ["CRITEO_VOCABS", "DIN_RETRIEVAL_CHUNK", "RecsysConfig", "field_offsets", "init",
-           "local_params", "params_from_numpy", "retrieval_fn", "score_fn"]
+           "local_params", "loss_fn", "params_from_numpy", "retrieval_fn", "score_fn"]

@@ -1,5 +1,5 @@
-"""Decoder-only LM (dense GQA and MoE variants), serving side (counterpart
-of ``repro.models.transformer``).
+"""Decoder-only LM (dense GQA and MoE variants): training and serving
+(counterpart of ``repro.models.transformer``).
 
 Parameters are a plain dict that mirrors the reference's pytree: the
 per-layer leaves are stacked on a leading layer axis, and every weight
@@ -10,6 +10,7 @@ weights across unchanged.
 Entry points:
   init(gen, cfg)                                  -> params
   forward(params, tokens, cfg)                    -> final hidden states
+  loss_fn(params, batch, cfg)                     -> scalar next-token loss
   init_cache(cfg, batch, max_seq)                 -> KV cache dict
   decode_step(params, cache, tokens, pos, cfg)    -> (logits, cache)
   params_from_numpy(np_params, cfg)               -> params
@@ -17,16 +18,17 @@ Entry points:
 Each runs on the card unless given a CPU generator or ``device="cpu"``.
 A config with ``moe=True`` routes each layer's FFN through
 :func:`repro_torch.models.moe.moe_ffn` (plus the shared expert's SwiGLU
-when ``n_shared`` is set).  ``loss_fn`` waits for the training slice.
+when ``n_shared`` is set).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.device import resolve_device
 
 from . import layers as L
@@ -56,6 +58,8 @@ class LMConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     q_chunk: int = 1024
+    xent_chunk: int = 512
+    remat: bool = True
 
     @property
     def params_count(self) -> int:
@@ -131,14 +135,7 @@ def params_from_numpy(np_params, cfg: LMConfig, device=None):
     ``jax.tree.map(np.asarray, repro_params)``) as tensors on ``device``
     (the card when None), in the same layout and dtype; the nested
     ``layers["moe"]`` dict of an MoE config comes across as a dict."""
-    dev = resolve_device(device)
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return torch.from_numpy(np.array(x)).to(dev)
-
-    return conv(np_params)
+    return tree.tree_from_numpy(np_params, resolve_device(device))
 
 
 def cast_params(params, dtype: torch.dtype):
@@ -182,16 +179,62 @@ def forward(params, tokens, cfg: LMConfig):
     over positions ``0..S-1`` and :func:`~repro_torch.models.layers.causal_attention`
     in chunks of ``cfg.q_chunk`` query rows, ``ln_f``).  An MoE layer runs
     :func:`~repro_torch.models.moe.moe_ffn` over the ``B * S`` rows, its
-    capacity set by that count, plus the shared expert."""
+    capacity set by that count, plus the shared expert.
+
+    With ``cfg.remat`` and grad enabled each layer body is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint(body)``: only a layer's input is kept, the body runs
+    again in the backward pass.  The stacked leaves are unbound once, so
+    their gradient is one stack of the per-layer gradients."""
     dt = L.dtype_of(cfg.dtype)
-    lay = params["layers"]
     dev = params["embed"].device
+    per_layer = {k: ({e: w.unbind(0) for e, w in v.items()} if k == "moe" else v.unbind(0))
+                 for k, v in params["layers"].items()}
     x = params["embed"][tokens.long()].to(dt)
     cos, sin = L.rope_tables(tokens.shape[1], cfg.head_dim, cfg.rope_theta, device=dev)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        lp = {k: ({e: w[i] for e, w in v.items()} if k == "moe" else v[i]) for k, v in lay.items()}
-        x = _layer_body(x, lp, cfg, cos, sin)
+        lp = {k: ({e: w[i] for e, w in v.items()} if k == "moe" else v[i])
+              for k, v in per_layer.items()}
+        if remat:
+            x = checkpoint(_layer_body, x, lp, cfg, cos, sin, use_reentrant=False)
+        else:
+            x = _layer_body(x, lp, cfg, cos, sin)
     return L.rms_norm(x, params["ln_f"])
+
+
+def _xent_chunk(xc, lc, head):
+    """Summed ``logsumexp - gold`` of one chunk: ``(B, chunk, d) @ head``
+    in the compute dtype, the logits cast to f32."""
+    logits = (xc @ head.to(xc.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def loss_fn(params, batch, cfg: LMConfig):
+    """Next-token loss over ``batch["tokens"]``/``batch["labels"]`` (B, S),
+    with the reference's sequence-chunked projection and softmax: the
+    sequence is cut into chunks of ``cfg.xent_chunk`` positions (one chunk
+    when that does not divide S), each chunk's ``(B, chunk, V)`` logits
+    are made in the compute dtype, cast to f32 and reduced, and under grad
+    the chunk is checkpointed, so its logits are made again in the
+    backward pass instead of being kept.  The f32 total over the chunks,
+    in order, divided by ``B * S``."""
+    x = forward(params, batch["tokens"], cfg)
+    b, s, _ = x.shape
+    chunk = min(cfg.xent_chunk, s)
+    if s % chunk != 0:
+        chunk = s
+    labels = batch["labels"]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        xc, lc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_xent_chunk, xc, lc, params["head"], use_reentrant=False)
+        else:
+            total = total + _xent_chunk(xc, lc, params["head"])
+    return total / float(b * s)
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None):

@@ -1,0 +1,142 @@
+"""Generic train step: loss -> grads -> (compression) -> clip -> update
+(counterpart of ``repro.train.step``).
+
+The step is family-agnostic: a ``loss_fn(params, batch)`` closure comes
+from the model zoo, the optimizer from :mod:`.optimizer`, compression
+from :mod:`repro_torch.dist.collectives`.  Gradients come from
+``torch.autograd.grad`` on detached leaves of the parameters (no copy).
+With ``microbatches > 1`` the batch is cut as the reference's
+``reshape(microbatches, -1, ...)``, the gradients accumulate in f32 and
+are divided by the count, and the reported loss is the **last**
+microbatch's, as the reference's ``lax.scan`` carry leaves it.
+
+A state is a plain dict: ``{"params", "opt", "step"}`` plus
+``"comp_err"`` (f32, like the parameters) under gradient compression.
+It lives on the device of its parameters; the step never moves it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import partial
+
+import torch
+
+from repro_torch import tree
+from repro_torch.dist import collectives
+
+from . import optimizer as opt
+from . import schedule as sched
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    schedule: str = "warmup_cosine"
+    warmup: int = 100
+    total_steps: int = 10_000
+    grad_compression: str = "none"  # none | bf16 | int8
+    microbatches: int = 1
+
+
+@torch.no_grad()
+def global_norm(t):
+    """sqrt of the f32 sum, leaf by leaf in flattened order, of each
+    leaf's f32 sum of squares."""
+    total = 0
+    for leaf in tree.leaves(t):
+        total = total + torch.sum(leaf.to(torch.float32) ** 2)
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(t, max_norm):
+    """``(clipped, norm)``: every leaf scaled by ``min(1, max_norm /
+    max(norm, 1e-9))`` in f32, cast back to its dtype; ``norm`` the raw
+    (pre-clip) global norm."""
+    norm = global_norm(t)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree.tree_map(lambda l: (l.to(torch.float32) * scale).to(l.dtype), t), norm
+
+
+def init_train_state(gen: torch.Generator, init_fn, tcfg: TrainConfig):
+    """``init_fn(gen)`` for the parameters (on ``gen``'s device), the
+    optimizer's zeroed state, step 0 and, under compression, zeroed f32
+    error buffers."""
+    params = init_fn(gen)
+    init, _, _ = opt.OPTIMIZERS[tcfg.optimizer]
+    dev = tree.leaves(params)[0].device
+    state = {"params": params, "opt": init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if tcfg.grad_compression != "none":
+        state["comp_err"] = tree.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    return state
+
+
+def state_from_numpy(np_state, device=None):
+    """A reference train state (``jax.tree.map(np.asarray, state)``:
+    params, optimizer moments, ``comp_err``, ``step``) as tensors on
+    ``device`` (the card when None), structure and dtypes kept."""
+    from repro_torch.device import resolve_device
+
+    return tree.tree_from_numpy(np_state, resolve_device(device))
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``(loss, grads)`` of ``loss_fn(params, batch)``: the loss detached,
+    the gradients in each parameter's dtype (zeros where a leaf is
+    unused), in ``params``' structure."""
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree.unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), tree.unflatten(params, grads)
+
+
+def make_train_step(loss_fn, tcfg: TrainConfig):
+    """``loss_fn(params, batch) -> scalar``.  Returns ``step(state,
+    batch) -> (new_state, metrics)``, metrics ``loss``, ``grad_norm``
+    (before the clip) and ``lr_scale``, 0-d tensors on the state's
+    device."""
+    _, update, occls = opt.OPTIMIZERS[tcfg.optimizer]
+    ocfg = occls(lr=tcfg.lr)
+    if tcfg.optimizer == "adamw":
+        ocfg = opt.AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay)
+    schedule = partial(sched.SCHEDULES[tcfg.schedule], warmup=tcfg.warmup,
+                       total=tcfg.total_steps)
+
+    def grads_of(params, batch):
+        if tcfg.microbatches <= 1:
+            return value_and_grad(loss_fn, params, batch)
+        n = tcfg.microbatches
+        mbs = {k: x.reshape(n, -1, *x.shape[1:]) for k, x in batch.items()}
+        acc = None
+        for i in range(n):
+            loss, g = value_and_grad(loss_fn, params, {k: x[i] for k, x in mbs.items()})
+            g = [x.to(torch.float32) for x in tree.leaves(g)]
+            if acc is None:
+                acc = [torch.zeros_like(x) for x in g]
+            for a, x in zip(acc, g):
+                a.add_(x)
+        return loss, tree.unflatten(params, [a / float(n) for a in acc])
+
+    def step(state, batch):
+        loss, grads = grads_of(state["params"], batch)
+        with torch.no_grad():
+            if tcfg.grad_compression != "none":
+                grads, new_err = collectives.apply_grad_compression(
+                    grads, state["comp_err"], tcfg.grad_compression)
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+            lr_scale = schedule(state["step"])
+            new_params, new_opt = update(grads, state["opt"], state["params"], ocfg, lr_scale)
+        out = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+        if tcfg.grad_compression != "none":
+            out["comp_err"] = new_err
+        return out, {"loss": loss, "grad_norm": gnorm, "lr_scale": lr_scale}
+
+    return step

@@ -1629,3 +1629,62 @@ def test_prefill_matches_decode_chain_on_card(cuda, monkeypatch, dtype):
     assert kernels.launches()["decode_attention"] == 48 * cfg.n_layers
     tol = (2e-5, 2e-5) if dtype == "float32" else (0.1, 0.05)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol[0], rtol=tol[1])
+
+
+# -- the training slice ------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("qwen2-0.5b", "moonshot-v1-16b-a3b", "din", "sasrec"))
+def test_train_step_on_card_equals_cpu(cuda, monkeypatch, arch):
+    """One ``train`` cell step of the reduced arch (f32 compute, TF32 off)
+    on the card against the CPU from the same state and batch: loss and
+    ``grad_norm`` within 1e-5 relative, AdamW's first moment (``0.1 *``
+    the clipped gradients) within 1e-5 of each leaf's largest magnitude,
+    the parameters within 2 lr (a gradient sign may differ where it is ~0:
+    CUDA's scatter-adds sum in another order) and within 1e-2 lr on all
+    but 0.1% of the elements."""
+    from repro_torch.launch import steps
+    from repro_torch import tree
+    from repro_torch.train import TrainConfig, init_train_state
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = configs.get(arch, reduced=True)
+    spec = dataclasses.replace(spec, config=dataclasses.replace(spec.config, dtype="float32"))
+    cell = next(c for c in spec.shapes if c.kind == "train")
+    tcfg = TrainConfig(total_steps=4, warmup=1)
+    bundle = steps.build_step(spec, cell, tcfg=tcfg)
+    cpu = init_train_state(torch.Generator().manual_seed(4), bundle.init_fn, tcfg)
+    card = tree.tree_map(lambda t: t.to(cuda), cpu)
+    batch = steps.make_inputs(spec, cell, np.random.default_rng(4), device="cpu")
+    want_s, want_m = bundle.fn(cpu, batch)
+    got_s, got_m = bundle.fn(card, {k: v.to(cuda) for k, v in batch.items()})
+    assert all(t.device.type == cuda.type for t in tree.leaves(got_s))
+    for k in ("loss", "grad_norm"):
+        assert float(got_m[k]) == pytest.approx(float(want_m[k]), rel=1e-5), k
+    for g, w in zip(tree.leaves(got_s["opt"]["m"]), tree.leaves(want_s["opt"]["m"])):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=max(1e-5 * float(w.abs().max()), 1e-9))
+    lr = tcfg.lr
+    for g, w in zip(tree.leaves(got_s["params"]), tree.leaves(want_s["params"])):
+        diff = (g.cpu() - w).abs()
+        assert float(diff.max()) <= 2 * lr and float((diff > 1e-2 * lr).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_card_tensors_restores_onto_the_card(cuda, tmp_path):
+    """A train state on the card (f32, bf16 and int32 leaves) saved
+    asynchronously and restored into a template on the card: every leaf
+    back on the card, bit-equal, dtypes kept."""
+    from repro_torch import tree
+    from repro_torch.train import checkpoint
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    state = {"params": {"w": torch.randn(64, 32, generator=gen, device=cuda),
+                        "h": torch.randn(16, generator=gen, device=cuda).to(torch.bfloat16)},
+             "step": torch.tensor(3, dtype=torch.int32, device=cuda)}
+    checkpoint.save(tmp_path, state, 3).join(timeout=60)
+    got, step = checkpoint.restore(tmp_path, tree.tree_map(torch.zeros_like, state))
+    assert step == 3
+    for g, w in zip(tree.leaves(got), tree.leaves(state)):
+        assert g.device.type == cuda.type and g.dtype == w.dtype and torch.equal(g, w)

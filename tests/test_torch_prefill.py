@@ -175,13 +175,23 @@ def test_lm_make_inputs_match_reference(arch, cell_name):
 
 
 def test_training_cells_raise_until_their_slice():
-    for arch, cell_name in (("qwen2-0.5b", "train_4k"), ("din", "train_batch")):
+    """The ``train`` cells build since the training slice (a step, its
+    ``init_fn``, the cell's batch); a ``graph_train`` cell (DimeNet's)
+    raises until the DimeNet slice."""
+    from repro_torch.configs import ShapeCell
+
+    for arch, cell_name, label in (("qwen2-0.5b", "train_4k", "labels"),
+                                   ("din", "train_batch", "label")):
         spec = tconfigs.get(arch, reduced=True)
         cell = next(c for c in spec.shapes if c.name == cell_name)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tsteps.build_step(spec, cell)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tsteps.make_inputs(spec, cell, device="cpu")
+        bundle = tsteps.build_step(spec, cell)
+        assert bundle.kind == "train" and callable(bundle.fn) and callable(bundle.init_fn)
+        assert label in tsteps.make_inputs(spec, cell, device="cpu")
+        graph = ShapeCell("full_graph_sm", "graph_train", {"n_nodes": 8, "n_edges": 16})
+        with pytest.raises(NotImplementedError, match="DimeNet slice"):
+            tsteps.build_step(spec, graph)
+        with pytest.raises(NotImplementedError, match="DimeNet slice"):
+            tsteps.make_inputs(spec, graph, device="cpu")
 
 
 def test_decode_cell_is_decode_step():
