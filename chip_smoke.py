@@ -293,7 +293,14 @@ Phases (any failure ends the run with a non-zero exit):
                SASRec's train state saved (async), restored onto the card
                bit-equal, the next step's loss == the uninterrupted one's;
                9d: ``synth_corpus`` of 200,000 documents, ``doc_of`` of
-               2^22 offsets on the card == ``torch.searchsorted``.
+               2^22 offsets on the card == ``torch.searchsorted``; 9e:
+               DimeNet's ``graph_train`` cells ``full_graph_sm``,
+               ``minibatch_lg`` and ``molecule`` at published widths (6
+               blocks, d 128, padded triplets), ``ogb_products`` reduced
+               (one card cannot hold it), 3 AdamW steps each on a seeded
+               batch through ``build_step`` and ``loop.run``, losses finite
+               and falling; ms a step, edges/s, peak GB; first, card == CPU
+               on the reduced config in both layouts.
 
 The ``corridor_scan`` entry of the kernels line times the fast fit's
 blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
@@ -3790,42 +3797,65 @@ def embedding_rank_body(rank: int, world: int, work: Path, job: dict) -> dict:
 #: within 1e-2 lr on all but 0.1% of the elements (a gradient sign may
 #: differ where it is ~0, which moves AdamW's step by up to 2 lr)
 TRAIN_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+#: phase 9e's (DimeNet) widening of the two.  Its padded layout gathers the
+#: messages from a bf16 copy, so the backward of that gather is a scatter-add
+#: in bf16, and CUDA's ``index_add_`` sums it in no fixed order (one bf16 ulp
+#: is 2^-8 of an element; the CPU parity tests measured <= 2.4e-4 of a leaf's
+#: largest magnitude against the reference): ``grad_norm`` and the first
+#: moment within GNN_GRAD_RTOL, a parameter off by more than 1e-2 lr on up to
+#: GNN_OFF_SHARE of a leaf's elements (a gradient sign flips where it is ~0).
+#: The loss within GNN_LOSS_RTOL: the forward's f32 segment sums are CUDA
+#: ``index_add_`` too, in no fixed order, and the gate ``rbf @ w_rbf_g``
+#: multiplies the messages block by block, which carries those rounding
+#: differences on (7.4e-6 seen on the reduced config, against 1e-5)
+GNN_LOSS_RTOL, GNN_GRAD_RTOL, GNN_OFF_SHARE = 5e-5, 2e-3, 1e-2
+#: phase 9e's learning rate at published widths: that gate takes DimeNet's
+#: outputs to ~1e5-1e6 at init (losses 1e5-1e12), and AdamW's first steps
+#: at lr 1e-3 or 1e-4 raised ``molecule``'s loss; at 1e-5 it fell in all of
+#: four seeds (a CPU probe of the full-width cell)
+GNN_LR = 1e-5
 #: the archs phase 9b trains at published widths (DLRM-MLPerf's 96.1 GB
 #: table waits for four cards, ROADMAP queue 1, item 13.6)
 TRAIN_RECSYS_ARCHS = ("din", "wide-deep", "sasrec")
 
 
-def train_step_check(dev, bundle, state, batch, lr: float, what: str) -> dict:
+def train_step_check(dev, bundle, state, batch, lr: float, what: str, *,
+                     loss_rtol: float = TRAIN_RTOL, norm_rtol: float = TRAIN_RTOL,
+                     grad_rtol: float = TRAIN_GRAD_RTOL, off_share: float = 1e-3) -> dict:
     """One step of ``bundle.fn`` from the same ``state`` and ``batch`` on
-    the card and on the CPU (the CPU copies made here): loss, grad norm,
-    first moment and parameters within the tolerances above."""
+    the card and on the CPU (the CPU copies made here): loss
+    (``loss_rtol``), grad norm (``norm_rtol``), first moment
+    (``grad_rtol``) and parameters (off by more than 1e-2 lr on at most
+    ``off_share`` of a leaf) within the tolerances above."""
     from repro_torch import tree
 
     cpu_state = tree.tree_map(lambda t: t.cpu(), state)
     got_s, got_m = bundle.fn(state, batch)
     want_s, want_m = bundle.fn(cpu_state, {k: v.cpu() for k, v in batch.items()})
     out = {}
-    for k in ("loss", "grad_norm"):
+    for k, rtol in (("loss", loss_rtol), ("grad_norm", norm_rtol)):
         g, w = float(got_m[k]), float(want_m[k])
-        if not np.isfinite(g) or abs(g - w) > TRAIN_RTOL * abs(w):
+        if not np.isfinite(g) or abs(g - w) > rtol * abs(w):
             fail(f"train check {what}: {k} {g} on the card vs {w} on the CPU")
         out[f"{k}_rel_err"] = abs(g - w) / max(abs(w), 1e-30)
-    m_used, p_err = 0.0, 0.0
+    m_used, p_err, p_off = 0.0, 0.0, 0.0
     for path, g, w in zip(*tree.flatten_with_paths(got_s["opt"]["m"]),
                           tree.leaves(want_s["opt"]["m"])):
         # 1e-9 absolute where a gradient is zero in exact arithmetic (DIN's
         # last attention bias: the softmax is shift-invariant)
-        allowed = max(TRAIN_GRAD_RTOL * float(w.abs().max()), 1e-9)
+        allowed = max(grad_rtol * float(w.abs().max()), 1e-9)
         err = float((g.cpu() - w).abs().max())
         if err > allowed:
             fail(f"train check {what}: first moment {path} off by {err} (allowed {allowed})")
         m_used = max(m_used, err / allowed)
     for path, g, w in zip(*tree.flatten_with_paths(got_s["params"]), tree.leaves(want_s["params"])):
         diff = (g.cpu() - w).abs()
-        if float(diff.max()) > 2 * lr or float((diff > 1e-2 * lr).float().mean()) > 1e-3:
-            fail(f"train check {what}: parameters {path} off by {float(diff.max())} (lr {lr})")
-        p_err = max(p_err, float(diff.max()))
-    out.update(grad_tol_used=m_used, param_max_abs_err=p_err)
+        share = float((diff > 1e-2 * lr).float().mean())
+        if float(diff.max()) > 2 * lr or share > off_share:
+            fail(f"train check {what}: parameters {path} off by {float(diff.max())} (lr {lr}), "
+                 f"{share} of them by more than 1e-2 lr")
+        p_err, p_off = max(p_err, float(diff.max())), max(p_off, share)
+    out.update(grad_tol_used=m_used, param_max_abs_err=p_err, param_off_share=p_off)
     return out
 
 
@@ -4060,10 +4090,130 @@ def phase_train_data(dev, *, n_docs: int, n_offsets: int, vocab: int) -> dict:
     return out
 
 
-def phase_train(dev, *, lm: dict, recsys: dict, data: dict) -> dict:
+#: the cells phase 9e trains at published widths; ogb_products' 61,859,328
+#: padded edges need 31.7 GB for one (E, 128) f32 message tensor and 63.3 GB
+#: for one block's (E, 2, 128) gathered messages, past one card: it runs
+#: reduced only until the 4-card edge-sharded path (ROADMAP queue 1, 13.6)
+GNN_CELLS = ("full_graph_sm", "minibatch_lg", "molecule")
+
+
+def dimenet_step_flops(cfg, n_nodes: int, n_edges: int, t_max: int) -> int:
+    """The matrix products of one DimeNet train step (padded layout): the
+    forward's, times 3 (the backward's two products a forward one).
+    Elementwise work, gathers and segment sums are left out."""
+    d, nb, rows = cfg.d_hidden, cfg.n_bilinear, n_edges * t_max
+    embed = n_nodes * (cfg.d_feat or 0) * d + n_edges * (cfg.n_radial * d + 3 * d * d)
+    block = (rows * (d * d + cfg.n_sbf * nb + d * nb * d + nb * d)  # w_kj, w_sbf, W, bmm
+             + n_edges * (4 * d * d + 2 * cfg.n_radial * d) + n_nodes * d * d)
+    return 3 * 2 * (embed + cfg.n_blocks * block + n_nodes * d * cfg.n_out)
+
+
+def phase_train_gnn(dev, *, reduced: bool, steps_n: int) -> dict:
+    """Phase 9e: DimeNet's ``graph_train`` cells.  First, on the reduced
+    config, one step of each of the four cells in both triplet layouts on
+    the card == the CPU (``GNN_GRAD_RTOL``, ``GNN_OFF_SHARE``).  Then
+    ``GNN_CELLS`` at published widths (6 blocks, d 128, n_bilinear 8, the
+    padded layout; ``reduced`` takes the reduced config) and
+    ``ogb_products`` reduced, each through ``launch.steps.build_step`` and
+    ``train.loop.run``: ``steps_n`` AdamW steps (lr ``GNN_LR``,
+    ``warmup_cosine`` with warmup 1) on the cell's batch of seed 0
+    (``make_inputs``), every loss finite and below the one before; ms a step (CUDA events), edges/s,
+    peak GB, each step's loss and ``grad_norm``.  No kernel of the port
+    runs: the launch counts are read to show it."""
+    from dataclasses import replace
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import steps
+    from repro_torch.train import TrainConfig, init_train_state, loop
+
+    t0 = time.perf_counter()
+    before = dict(kernels.launches())
+    tcfg = TrainConfig(lr=1e-3, warmup=1, total_steps=steps_n)
+    out = {"checks": [], "cells": [], "lr": GNN_LR}
+    small = configs.get("dimenet", reduced=True)
+    for layout in ("padded", "flat"):
+        spec = replace(small, config=replace(small.config, triplet_layout=layout))
+        for cell in spec.shapes:
+            bundle = steps.build_step(spec, cell, tcfg=tcfg)
+            state = init_train_state(torch.Generator(device=dev).manual_seed(1), bundle.init_fn,
+                                     tcfg)
+            batch = steps.make_inputs(spec, cell, np.random.default_rng(1), device=dev)
+            row = train_step_check(dev, bundle, state, batch, tcfg.lr,
+                                   f"dimenet {cell.name} {layout} reduced",
+                                   loss_rtol=GNN_LOSS_RTOL, norm_rtol=GNN_GRAD_RTOL,
+                                   grad_rtol=GNN_GRAD_RTOL, off_share=GNN_OFF_SHARE)
+            out["checks"].append({"cell": cell.name, "layout": layout, **row})
+    log(f"[train] dimenet reduced, 4 cells x 2 layouts: one step on the card == the CPU (worst "
+        f"loss rel err {max(r['loss_rel_err'] for r in out['checks']):.3g}, grad_norm "
+        f"{max(r['grad_norm_rel_err'] for r in out['checks']):.3g}, first moment at "
+        f"{max(r['grad_tol_used'] for r in out['checks']):.3g} of its tolerance, params "
+        f"{max(r['param_max_abs_err'] for r in out['checks']):.3g}, "
+        f"{max(r['param_off_share'] for r in out['checks']):.3g} of a leaf off by > 1e-2 lr)")
+
+    full = configs.get("dimenet", reduced=reduced)
+    runs = [(full, name) for name in GNN_CELLS] + [(small, "ogb_products")]
+    tcfg = TrainConfig(lr=GNN_LR, warmup=1, total_steps=steps_n)
+    for spec, name in runs:
+        cut = reduced or spec is small
+        cell = next(c for c in spec.shapes if c.name == name)
+        bundle = steps.build_step(spec, cell, tcfg=tcfg)
+        cfg = bundle.cfg
+        state, init_s = timed(dev, lambda: init_train_state(
+            torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg))
+        batch, batch_s = timed(dev, lambda: steps.make_inputs(spec, cell, np.random.default_rng(0),
+                                                              device=dev))
+        n_edges, t_max = batch["tri_kj"].shape
+        n_nodes = batch["pos"].shape[0]
+        metrics, step_ms = [], []
+
+        def step_fn(st, b):
+            (st, m), host_ms, dev_ms = timed_call(dev, lambda: bundle.fn(st, b))
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_ms.append(dev_ms if dev_ms is not None else host_ms)
+            return st, m
+
+        reset_peak(dev)
+        state, report = loop.run(step_fn, state, lambda step: batch,
+                                 loop.LoopConfig(total_steps=steps_n, log_every=0), log=log)
+        peak = peak_gb(dev)
+        losses = [m["loss"] for m in metrics]
+        if (report.steps_run != steps_n or not all(np.isfinite(losses))
+                or not all(b < a for a, b in zip(losses, losses[1:]))):
+            fail(f"train: dimenet {name} losses {losses} (finite and falling)")
+        ms = float(np.mean(step_ms[1:] if len(step_ms) > 1 else step_ms))
+        flops = dimenet_step_flops(cfg, n_nodes, n_edges, t_max)
+        row = {"cell": name, "reduced": cut, "nodes": n_nodes, "edges": n_edges,
+               "t_max": t_max, "n_blocks": cfg.n_blocks, "d_hidden": cfg.d_hidden,
+               "layout": cfg.triplet_layout, "init_s": init_s, "batch_s": batch_s,
+               "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics],
+               "step_ms": step_ms, "ms": ms, "edges_per_s": n_edges / (ms / 1e3),
+               "peak_gb": peak, "matmul_tflop": flops / 1e12,
+               "f32_floor_ms": flops / SCALAR_OPS_PER_S * 1e3}
+        out["cells"].append(row)
+        log(f"[train] dimenet/{name} {'reduced' if cut else 'at its widths'} "
+            f"({cfg.n_blocks} blocks, d {cfg.d_hidden}, {cfg.triplet_layout}, t_max {t_max}): "
+            f"{n_nodes:,} nodes, {n_edges:,} edges; batch {batch_s:.2f} s, init {init_s:.2f} s")
+        for i, m in enumerate(metrics):
+            log(f"[train]   step {i + 1}: loss {m['loss']:.6g}, grad_norm {m['grad_norm']:.6g}, "
+                f"{step_ms[i]:.2f} ms")
+        log(f"[train] dimenet/{name}: {ms:.2f} ms a step (steps 2-{steps_n}, "
+            f"{'CUDA events' if dev.type == 'cuda' else 'host clock'}), "
+            f"{row['edges_per_s']:.4g} edges/s, peak {peak} GB; matrix products "
+            f"{row['matmul_tflop']:.3f} TFLOP a step = {row['f32_floor_ms']:.2f} ms at "
+            f"{SCALAR_OPS_PER_S / 1e12:.0f} TFLOP/s f32")
+        del state, batch, bundle
+        free_device(dev)
+    out["launches"] = {k: v - before.get(k, 0) for k, v in kernels.launches().items()
+                       if v != before.get(k, 0)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase 9e done in {out['seconds']:.1f} s; kernel launches {out['launches']}")
+    return out
+
+
+def phase_train(dev, *, lm: dict, recsys: dict, data: dict, gnn: dict) -> dict:
     """Phase 9: training (9a the LM, 9b the recsys models, 9c a checkpoint
-    round trip, 9d the token pipeline's learned lookup).  No kernel of the
-    port runs here; the launch counts are read to show it."""
+    round trip, 9d the token pipeline's learned lookup, 9e DimeNet).  No
+    kernel of the port runs here; the launch counts are read to show it."""
     from repro_torch import kernels
 
     t0 = time.perf_counter()
@@ -4074,6 +4224,8 @@ def phase_train(dev, *, lm: dict, recsys: dict, data: dict) -> dict:
     del kept
     free_device(dev)
     out["data"] = phase_train_data(dev, **data)
+    free_device(dev)
+    out["gnn"] = phase_train_gnn(dev, **gnn)
     out["launches"] = {k: v for k, v in kernels.launches().items() if v}
     out["seconds"] = time.perf_counter() - t0
     log(f"[train] phase 9 done in {out['seconds']:.1f} s; kernel launches {out['launches']}")
@@ -4290,7 +4442,8 @@ def main(argv=None) -> int:
         train = {"lm": {"reduced": True, "batch": 8, "microbatches": 2, "steps_n": 6,
                         "check_tokens": 32},
                  "recsys": {"reduced": True, "steps_n": 3},
-                 "data": {"n_docs": 2000, "n_offsets": 1 << 12, "vocab": 256}}
+                 "data": {"n_docs": 2000, "n_offsets": 1 << 12, "vocab": 256},
+                 "gnn": {"reduced": True, "steps_n": 3}}
     else:
         info = phase_device()
         dev = torch.device("cuda")
@@ -4326,11 +4479,12 @@ def main(argv=None) -> int:
         # a step (cut from 256) in 2 microbatches, 6 steps, checked at 2
         # layers and 256 tokens; 9b: the recsys train_batch (65,536 rows) at
         # published widths, 3 steps; 9d: 200,000 documents (~1.4e8 tokens),
-        # 2^22 offsets
+        # 2^22 offsets; 9e: DimeNet's graph cells at published widths, 3 steps
         train = {"lm": {"reduced": False, "batch": 8, "microbatches": 2, "steps_n": 6,
                         "check_tokens": 256},
                  "recsys": {"reduced": False, "steps_n": 3},
-                 "data": {"n_docs": 200_000, "n_offsets": 1 << 22, "vocab": 151936}}
+                 "data": {"n_docs": 200_000, "n_offsets": 1 << 22, "vocab": 151936},
+                 "gnn": {"reduced": False, "steps_n": 3}}
     # f32 matrix products in full f32 (no TF32) in the twins and the reference math
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,24 +1,27 @@
-"""The assigned LM and recsys architectures, exact published configs
-(counterpart of ``repro.configs.archs``; DimeNet waits for its slice):
+"""The assigned architectures, exact published configs (counterpart of
+``repro.configs.archs``):
 
   LM:     granite-3-8b, minitron-8b, qwen2-0.5b,
           moonshot-v1-16b-a3b (MoE 64e top-6), qwen3-moe-235b-a22b (128e top-8)
+  GNN:    dimenet
   RecSys: dlrm-mlperf, din, wide-deep, sasrec
 
 Each also has a ``reduced`` variant (same topology, tiny dims) for the
 CPU tests.  The decoder serves all five LMs (the MoE configs route each
 layer's FFN through ``models/moe.py``); ``models/recsys.py`` scores the
-four recsys archs.
+four recsys archs; ``models/dimenet.py`` trains DimeNet's ``graph_train``
+cells.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
 
+from repro_torch.models.dimenet import DimeNetConfig
 from repro_torch.models.recsys import CRITEO_VOCABS, RecsysConfig
 from repro_torch.models.transformer import LMConfig
 
-from .base import LM_SHAPES, RECSYS_SHAPES, ArchSpec, ShapeCell, register
+from .base import LM_SHAPES, RECSYS_SHAPES, ArchSpec, ShapeCell, gnn_shapes, register
 
 GRANITE_3_8B = LMConfig(
     name="granite-3-8b", n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
@@ -82,6 +85,51 @@ def _lm_spec(cfg):
 
 for _cfg in (GRANITE_3_8B, MINITRON_8B, QWEN2_05B, MOONSHOT_16B_A3B, QWEN3_MOE_235B):
     register(_cfg.name, *_lm_spec(_cfg))
+
+# ---------------------------------------------------------------------------
+# GNN: DimeNet
+# ---------------------------------------------------------------------------
+
+# triplet_layout="padded": every triplet beside its target edge (a row
+# sum, no segment sum over triplets); "flat" is the reference's baseline
+DIMENET = DimeNetConfig(
+    name="dimenet", n_blocks=6, d_hidden=128, n_bilinear=8, n_spherical=7,
+    n_radial=6, triplet_layout="padded",
+)
+
+
+def _dimenet_full():
+    return ArchSpec("dimenet", "gnn", DIMENET, gnn_shapes())
+
+
+def _dimenet_reduced():
+    cfg = replace(DIMENET, n_blocks=2, d_hidden=32, n_bilinear=4, n_spherical=3, n_radial=4)
+    shapes = (
+        ShapeCell(
+            "full_graph_sm",
+            "graph_train",
+            {"n_nodes": 64, "n_edges": 256, "d_feat": 32, "n_out": 7, "t_max": 3},
+        ),
+        ShapeCell(
+            "minibatch_lg",
+            "graph_train",
+            {"n_nodes": 124, "n_edges": 240, "d_feat": 16, "n_out": 5, "t_max": 3},
+        ),
+        ShapeCell(
+            "ogb_products",
+            "graph_train",
+            {"n_nodes": 128, "n_edges": 512, "d_feat": 16, "n_out": 8, "t_max": 2},
+        ),
+        ShapeCell(
+            "molecule",
+            "graph_train",
+            {"n_nodes": 10 * 4, "n_edges": 20 * 4, "n_graphs": 4, "t_max": 3, "energy": True},
+        ),
+    )
+    return ArchSpec("dimenet", "gnn", cfg, shapes)
+
+
+register("dimenet", _dimenet_full, _dimenet_reduced)
 
 # ---------------------------------------------------------------------------
 # RecSys family

@@ -31,9 +31,6 @@ class ArchSpec:
 _REGISTRY: Dict[str, Callable[[], ArchSpec]] = {}
 _REDUCED: Dict[str, Callable[[], ArchSpec]] = {}
 
-#: the reference's archs whose family is not ported yet
-UNPORTED = ("dimenet",)
-
 
 def register(arch_id: str, spec_fn, reduced_fn):
     _REGISTRY[arch_id] = spec_fn
@@ -43,8 +40,6 @@ def register(arch_id: str, spec_fn, reduced_fn):
 def get(arch_id: str, reduced: bool = False) -> ArchSpec:
     table = _REDUCED if reduced else _REGISTRY
     if arch_id not in table:
-        if arch_id in UNPORTED:
-            raise KeyError(f"arch {arch_id!r} is not ported yet; available: {sorted(_REGISTRY)}")
         raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(_REGISTRY)}")
     return table[arch_id]()
 
@@ -70,3 +65,37 @@ RECSYS_SHAPES = (
     ShapeCell("serve_bulk", "serve", {"batch": 262144}),
     ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
 )
+
+
+def gnn_shapes(t_max: int = 4):
+    # minibatch_lg: fanout 15-10 from 1024 seeds -> fixed padded sizes
+    mb_nodes = 1024 + 1024 * 15 + 1024 * 15 * 10
+    mb_edges = 1024 * 15 + 1024 * 15 * 10
+    return (
+        ShapeCell(
+            "full_graph_sm",
+            "graph_train",
+            {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433, "n_out": 7, "t_max": t_max},
+        ),
+        ShapeCell(
+            "minibatch_lg",
+            "graph_train",
+            {"n_nodes": mb_nodes, "n_edges": mb_edges, "d_feat": 602, "n_out": 41, "t_max": t_max},
+        ),
+        ShapeCell(
+            "ogb_products",
+            "graph_train",
+            {"n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100, "n_out": 47, "t_max": 2},
+        ),
+        ShapeCell(
+            "molecule",
+            "graph_train",
+            {
+                "n_nodes": 30 * 128,
+                "n_edges": 64 * 128,
+                "n_graphs": 128,
+                "t_max": t_max,
+                "energy": True,
+            },
+        ),
+    )

@@ -2,7 +2,8 @@
 
     python -m repro_torch.launch.train --arch qwen2-0.5b --reduced --steps 3 --device cpu
 
-Wires a registered architecture's ``train`` cell (``launch.steps``), its
+Wires a registered architecture's ``train`` or ``graph_train`` cell
+(``launch.steps``; ``--arch dimenet`` trains a graph cell), its
 seeded batches and the fault-tolerant loop (``train.loop``) on one
 device: the card unless ``--device`` names another.  Batch ``step`` is
 ``make_inputs(..., rng=np.random.default_rng(step))``, as the reference
@@ -24,7 +25,8 @@ import torch
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--cell", default=None, help="shape cell (default: the first train cell)")
+    ap.add_argument("--cell", default=None,
+                    help="shape cell (default: the first train or graph_train cell)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
@@ -41,7 +43,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     spec = configs.get(args.arch, reduced=args.reduced)
-    cells = [c for c in spec.shapes if c.kind == "train"]
+    cells = [c for c in spec.shapes if c.kind in ("train", "graph_train")]
     cell = next((c for c in cells if c.name == args.cell), cells[0])
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        grad_compression=args.grad_compression,

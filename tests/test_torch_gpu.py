@@ -1688,3 +1688,74 @@ def test_checkpoint_of_card_tensors_restores_onto_the_card(cuda, tmp_path):
     assert step == 3
     for g, w in zip(tree.leaves(got), tree.leaves(state)):
         assert g.device.type == cuda.type and g.dtype == w.dtype and torch.equal(g, w)
+
+
+# -- the DimeNet slice -------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("padded", "flat"))
+def test_dimenet_step_on_card_equals_cpu(cuda, monkeypatch, layout):
+    """One ``graph_train`` step of each reduced DimeNet cell on the card
+    against the CPU from the same state and batch (TF32 off): loss within
+    5e-5 relative (the forward's f32 segment sums are CUDA ``index_add_``,
+    in no fixed order, carried on by the multiplying gate of every
+    block); ``grad_norm`` and AdamW's first moment within 2e-3 (of
+    each leaf's largest magnitude for the moment): the padded layout's
+    message gather reads a bf16 copy, so its backward is a bf16
+    scatter-add, which CUDA's ``index_add_`` sums in no fixed order; the
+    parameters within 2 lr, and within 1e-2 lr on all but 1% of a leaf
+    (a gradient sign may differ where it is ~0)."""
+    from repro_torch.launch import steps
+    from repro_torch import tree
+    from repro_torch.train import TrainConfig, init_train_state
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = configs.get("dimenet", reduced=True)
+    spec = dataclasses.replace(spec, config=dataclasses.replace(spec.config,
+                                                                triplet_layout=layout))
+    tcfg = TrainConfig(total_steps=4, warmup=1)
+    for cell in spec.shapes:
+        bundle = steps.build_step(spec, cell, tcfg=tcfg)
+        cpu = init_train_state(torch.Generator().manual_seed(4), bundle.init_fn, tcfg)
+        card = tree.tree_map(lambda t: t.to(cuda), cpu)
+        batch = steps.make_inputs(spec, cell, np.random.default_rng(4), device="cpu")
+        want_s, want_m = bundle.fn(cpu, batch)
+        got_s, got_m = bundle.fn(card, {k: v.to(cuda) for k, v in batch.items()})
+        assert all(t.device.type == cuda.type for t in tree.leaves(got_s))
+        assert float(got_m["loss"]) == pytest.approx(float(want_m["loss"]), rel=5e-5), cell.name
+        assert float(got_m["grad_norm"]) == pytest.approx(float(want_m["grad_norm"]), rel=2e-3)
+        for g, w in zip(tree.leaves(got_s["opt"]["m"]), tree.leaves(want_s["opt"]["m"])):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                       atol=max(2e-3 * float(w.abs().max()), 1e-9))
+        lr = tcfg.lr
+        for g, w in zip(tree.leaves(got_s["params"]), tree.leaves(want_s["params"])):
+            diff = (g.cpu() - w).abs()
+            assert float(diff.max()) <= 2 * lr and float((diff > 1e-2 * lr).float().mean()) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_dimenet_minibatch_lg_forward_at_full_width_on_card(cuda, monkeypatch):
+    """``minibatch_lg`` at DimeNet's published widths (6 blocks, d 128,
+    n_bilinear 8, padded triplets; 169,984 nodes, 168,960 edges): one
+    forward pass and its loss on the card, finite, with no intermediate
+    past ``(E * t_max, n_bilinear * d)`` (the bilinear contraction's two
+    products)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import dimenet
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = configs.get("dimenet")
+    cell = next(c for c in spec.shapes if c.name == "minibatch_lg")
+    bundle = steps.build_step(spec, cell)
+    params = bundle.init_fn(torch.Generator(device=cuda).manual_seed(0))
+    batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=cuda)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = dimenet.forward(params, batch, bundle.cfg)
+        loss = dimenet.loss_fn(params, batch, bundle.cfg)
+    assert tuple(out.shape) == (cell.dims["n_nodes"], cell.dims["n_out"])
+    assert bool(torch.isfinite(out).all()) and np.isfinite(float(loss))
+    e, t = batch["tri_kj"].shape
+    cap = e * t * bundle.cfg.n_bilinear * bundle.cfg.d_hidden * 4
+    assert torch.cuda.max_memory_allocated() < 4 * cap

@@ -82,12 +82,18 @@ def test_lm_configs_match_reference(arch, reduced):
 
 
 def test_registry_lists_the_lm_family_and_refuses_the_rest():
-    recsys = ("dlrm-mlperf", "din", "wide-deep", "sasrec")  # ported with the recsys slice
-    assert tconfigs.list_archs() == sorted(LM_ARCHS + recsys)
-    for arch in ("dimenet",):
-        assert arch in rconfigs.list_archs()
-        with pytest.raises(KeyError, match="not ported"):
-            tconfigs.get(arch)
+    """The registry lists every family the reference defines (recsys since
+    its slice, DimeNet since the DimeNet slice) with the reference's
+    specs, and refuses an unknown id."""
+    recsys = ("dlrm-mlperf", "din", "wide-deep", "sasrec")
+    assert tconfigs.list_archs() == sorted(LM_ARCHS + recsys + ("dimenet",))
+    assert tconfigs.list_archs() == rconfigs.list_archs()
+    for reduced in (False, True):
+        r, t = rconfigs.get("dimenet", reduced=reduced), tconfigs.get("dimenet", reduced=reduced)
+        assert dataclasses.asdict(t.config) == dataclasses.asdict(r.config)
+        assert (t.arch_id, t.family) == (r.arch_id, r.family)
+        assert [(c.name, c.kind, c.dims) for c in t.shapes] == [(c.name, c.kind, c.dims)
+                                                               for c in r.shapes]
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get("no-such-arch")
 

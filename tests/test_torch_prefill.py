@@ -176,21 +176,26 @@ def test_lm_make_inputs_match_reference(arch, cell_name):
 
 def test_training_cells_raise_until_their_slice():
     """The ``train`` cells build since the training slice (a step, its
-    ``init_fn``, the cell's batch); a ``graph_train`` cell (DimeNet's)
-    raises until the DimeNet slice."""
+    ``init_fn``, the cell's batch), and DimeNet's ``graph_train`` cells
+    since the DimeNet slice; a ``graph_train`` cell on a spec of another
+    family raises ``ValueError((family, kind))``."""
     from repro_torch.configs import ShapeCell
 
     for arch, cell_name, label in (("qwen2-0.5b", "train_4k", "labels"),
-                                   ("din", "train_batch", "label")):
+                                   ("din", "train_batch", "label"),
+                                   ("dimenet", "full_graph_sm", "labels")):
         spec = tconfigs.get(arch, reduced=True)
         cell = next(c for c in spec.shapes if c.name == cell_name)
         bundle = tsteps.build_step(spec, cell)
-        assert bundle.kind == "train" and callable(bundle.fn) and callable(bundle.init_fn)
+        assert bundle.kind == cell.kind and callable(bundle.fn) and callable(bundle.init_fn)
         assert label in tsteps.make_inputs(spec, cell, device="cpu")
+        if spec.family == "gnn":
+            continue
         graph = ShapeCell("full_graph_sm", "graph_train", {"n_nodes": 8, "n_edges": 16})
-        with pytest.raises(NotImplementedError, match="DimeNet slice"):
+        with pytest.raises(ValueError) as err:
             tsteps.build_step(spec, graph)
-        with pytest.raises(NotImplementedError, match="DimeNet slice"):
+        assert err.value.args[0] == (spec.family, "graph_train")
+        with pytest.raises(ValueError):
             tsteps.make_inputs(spec, graph, device="cpu")
 
 

@@ -100,9 +100,16 @@ def test_recsys_configs_match_reference(arch, reduced):
 
 
 def test_registry_lists_lm_and_recsys_and_refuses_dimenet():
-    assert tconfigs.list_archs() == sorted(LM_ARCHS + RECSYS_ARCHS)
-    with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get("dimenet")
+    """Every family is registered since the DimeNet slice: the registry
+    lists the reference's archs, and DimeNet's spec (config and shape
+    cells, full and reduced) equals the reference's."""
+    assert tconfigs.list_archs() == sorted(LM_ARCHS + RECSYS_ARCHS + ("dimenet",))
+    assert tconfigs.list_archs() == rconfigs.list_archs()
+    for reduced in (False, True):
+        r, t = rconfigs.get("dimenet", reduced=reduced), tconfigs.get("dimenet", reduced=reduced)
+        assert dataclasses.asdict(t.config) == dataclasses.asdict(r.config)
+        assert [(c.name, c.kind, c.dims) for c in t.shapes] == [(c.name, c.kind, c.dims)
+                                                               for c in r.shapes]
     assert tr.CRITEO_VOCABS == rr.CRITEO_VOCABS
 
 
