@@ -31,7 +31,9 @@ float kernels against their twins within the tolerances stated below.
 Last it trains: qwen2-0.5b and three recsys models at published widths
 through ``launch.steps``' ``train`` cells and ``train.loop`` (no kernel
 of the port lies on the training path), a checkpoint round trip, and the
-token pipeline's learned lookup.
+token pipeline's learned lookup; then trains over gloo ranks on the card
+(data-parallel, the recsys exchanges under autograd, the edge-sharded
+DimeNet, the elastic restore) and holds the dry run against the card.
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -70,7 +72,7 @@ Phases (any failure ends the run with a non-zero exit):
                lookup each; launch counts of the batched path (one per
                tier and kind), bit-exactness against the batched twin and
                batched ``torch.searchsorted``, ``unstack()`` against
-               fresh builds of the first and last shard, times, bounds
+               a fresh build of the first shard, times, bounds
                and the phase-4 plan lines;
                and a locality probe:
                the single-table model-free kernel over the whole table
@@ -161,12 +163,13 @@ Phases (any failure ends the run with a non-zero exit):
                frontier, the picks at 0.05/0.7/2/10% within budget and the
                report's round trip; ``mine_sy_rmi`` over amzn64 (UB,
                vote, winner; osm's repeat is cut) and the mined 2% SY-RMI
-               exact on both tables on ``kernel`` and ``xla`` (a cubic winner's kernel misses are logged: ROADMAP
+               exact on amzn64 on ``kernel`` and ``xla`` (osm's check is cut
+               for phase 10's time; a cubic winner's kernel misses are logged: ROADMAP
                queue 3); a ``TunedTier`` lifecycle on amzn64 in 4 shards
                (every 64th key held out): a PGM refresh through the device
                arm, an SY-RMI refresh through the host arm, what telemetry
                costs (``sharded_lookup`` on and off, ``timed_lookup``'s
-               phases, search launches equal), a retune over SY-RMI/RS
+               phases, search launches equal), a retune over SY-RMI
                within 2%, a rebalance under 90% skew, GAPPED inserts, a
                cluster into the delta and a compaction; after every step
                the ranks == numpy and ``metrics()`` == a host model; the
@@ -217,7 +220,7 @@ Phases (any failure ends the run with a non-zero exit):
                layers (64 experts top 6 + 2 shared, 16/16 heads of 128),
                bf16 weights drawn on the card a layer at a time, in a
                ``DecodeEngine`` of 8 slots x 2,048 positions whose ``tier``
-               is phase 5g's hot-key cache: 16 requests of 3-10 prompt
+               is phase 5g's hot-key cache: 8 requests of 3-10 prompt
                tokens, 16 new tokens each; every request finishes, logits
                finite, ``decode_attention`` launched n_layers x steps at
                group 1; the first 4 ticks re-run in place with
@@ -229,7 +232,7 @@ Phases (any failure ends the run with a non-zero exit):
                dispatch reads), attention's and one layer's
                ``moe_ffn`` share of a step, the kernel at the path's shape;
 7c. prefill  — qwen2-0.5b's ``prefill_32k`` cell at its published widths
-               (bf16), 2 sequences (cut from 32) of 32,768 tokens from
+               (bf16), 1 sequence (cut from 32) of 32,768 tokens from
                ``make_inputs``: ``build_step``'s ``forward`` and the last
                position's logits (finite), ms by CUDA events and tokens/s;
                first, at 256 tokens, those logits against a ``decode_step``
@@ -281,7 +284,7 @@ Phases (any failure ends the run with a non-zero exit):
                sequences of 4,096 tokens a step (cut from 256) from
                ``TokenBatcher`` over a seeded ``synth_corpus``, 2
                microbatches, AdamW, ``warmup_cosine(warmup=2)``, clip 1.0,
-               6 steps; every loss finite, the last below the first; ms a
+               4 steps; every loss finite, the last below the first; ms a
                step, tokens/s, peak GB, each step's loss and ``grad_norm``,
                6·N·tokens over 989 TFLOP/s beside the step; first, at 2
                layers and 256 tokens in f32, one step on the card == the
@@ -300,14 +303,31 @@ Phases (any failure ends the run with a non-zero exit):
                (one card cannot hold it), 3 AdamW steps each on a seeded
                batch through ``build_step`` and ``loop.run``, losses finite
                and falling; ms a step, edges/s, peak GB; first, card == CPU
-               on the reduced config in both layouts.
+               on the reduced config in both layouts;
+10. ranks    — training over gloo ranks on the one card: 10a qwen2-0.5b's
+               ``train_4k`` at published widths over 2 ranks (9a's first
+               batch, 4 sequences and one microbatch a rank): the ranks'
+               states bit-equal, == 9a's one-rank step (deterministic
+               algorithms; ``TRAIN_RTOL``/``TRAIN_GRAD_RTOL``), ms a step,
+               the gradient all-reduce's ms, tokens/s, peak GB a rank; 10b
+               wide & deep's ``train_batch`` over 4 ranks in ``"a2a"``
+               (``cap_factor`` 4.0) and ``"allreduce"``: every table shard
+               and replicated leaf == one rank, and SASRec's 9c state saved
+               over (1, 4) and restored over (4, 1) (``restore(shardings=)``)
+               bit-equal; 10c DimeNet's ``minibatch_lg`` at published widths
+               with its edges over 2 ranks == one rank (9e's tolerances), ms
+               a step, one message all-gather's ms, peak GB a rank; 10d the
+               dry runs (``launch.dryrun``, fake tensors) of the 9a cell,
+               10a and 9e's ``minibatch_lg``: FLOPs == ``FlopCounterMode`` on
+               the card's steps, DimeNet's within 3% of
+               ``dimenet_step_flops``; predicted peaks beside the measured.
 
 The ``corridor_scan`` entry of the kernels line times the fast fit's
 blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
-with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 9 on the CPU
-twins at a tiny size, phases 7-7e and 9 on the reduced configs (no
+with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 10 on the CPU
+twins at a tiny size, phases 7-7e, 9 and 10 on the reduced configs (no
 device result is printed).
 """
 
@@ -931,8 +951,10 @@ def log_intervals(prefix: str, row: dict) -> None:
 
 
 #: the shards whose unstacked index phase 5 holds against a fresh build
-#: of the shard (the others repeat the same stacking at the same shapes)
-UNSTACK_CHECKED = (0, -1)
+#: of the shard (the others repeat the same stacking at the same shapes;
+#: the last shard's repeat is cut for the run's time limit, which phase 10
+#: shares)
+UNSTACK_CHECKED = (0,)
 
 
 def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
@@ -981,7 +1003,7 @@ def phase_tier(dev, tables: dict, n_shards: int, nq_shard: int) -> tuple:
             fail(f"tier: {ds}/{kind} batched kernel vs twin max |err| {err}, equal to ref: {exact}")
         t0 = time.perf_counter()
         parts = bm.unstack()
-        for i in UNSTACK_CHECKED:  # the first and last shard: a fresh build of each
+        for i in UNSTACK_CHECKED:  # a fresh build of each checked shard
             part = parts[i]
             fresh = tix.build(kind, shards[i], device=dev)
             want, have = fresh.to_numpy(), part.to_numpy()
@@ -2166,8 +2188,9 @@ TUNER_KERNELS = ("rmi_search", "pgm_search", "rs_search", "kary_search", "batche
 #: the space budgets (% of the table) of the frontier's picks
 BUDGET_PCTS = (0.05, 0.7, 2.0, 10.0)
 #: the kinds of the retune's grid (PGM_M's bisection is swept in 5f-a
-#: already; PGM's candidates are cut for the run's time limit)
-RETUNE_KINDS = ("SY-RMI", "RS")
+#: already; PGM's and RS's candidates are cut for the run's time limit,
+#: which phase 10 shares: 5f-a sweeps RS's grid)
+RETUNE_KINDS = ("SY-RMI",)
 
 
 class SearchSorted:
@@ -2306,7 +2329,7 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
     phase 4's size.  5f-a the frontier (``sweep`` over ``candidate_grid``
     on ``kernel``, every candidate exact, budget picks, the report's round
     trip), 5f-b SY-RMI mining on ``lead`` and the mined SY-RMI at 2% on
-    both tables,
+    it,
     5f-c a ``TunedTier``'s lifecycle on ``lead`` split in 4 shards (the
     device and the host refresh, GAPPED absorb/overflow/compact, a retune,
     a rebalance; ranks == numpy and ``metrics()`` == a host model after
@@ -2380,7 +2403,9 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
     mining = {"ub": mined.ub, "votes": votes, "winner": mined.winner_root,
               "mining_s": mined.mining_time, "tables": {}}
     spec = tix.SYRMISpec(space_pct=2.0, ub=mined.ub, winner_root=mined.winner_root)
-    for ds, (tab, qs) in tables.items():
+    # checked on the lead table (the second table's repeat is cut for the
+    # run's time limit)
+    for ds, (tab, qs) in ((lead, tables[lead]),):
         idx = tix.build(spec, tab, device=dev)
         td, qd = keys.encode(tab, dev), keys.encode(qs, dev)
         want = torch.searchsorted(td, qd, right=True) - 1
@@ -2463,7 +2488,7 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
     out["seconds"]["5f-d"] = time.perf_counter() - t_d
     model.check("after the telemetry probes", tier)
 
-    # a retune: 2% of the table in fresh keys, over SY-RMI and RS
+    # a retune: 2% of the table in fresh keys, over SY-RMI (RETUNE_KINDS)
     tier.policy = tune.RebuildPolicy(retune_frac=0.02, kinds=RETUNE_KINDS)
     extra = not_in(rng.integers(int(table[0]), int(table[-1]), int(0.03 * n), dtype=np.uint64),
                    table)
@@ -3326,7 +3351,7 @@ BF16_OPS_PER_S = 989e12
 #: the recsys scorers, card against CPU: the CPU tests' f32 tolerance
 RECSYS_TOL = 2e-5
 #: the recsys archs phase 7d serves at published widths; DLRM-MLPerf's
-#: 96.1 GB mega-table needs four cards (ROADMAP queue 1, item 13.6)
+#: 96.1 GB mega-table needs four cards (ROADMAP queue 1, item 4)
 RECSYS_ARCHS = ("din", "wide-deep", "sasrec")
 #: rows of ``serve_bulk`` (and candidates of ``retrieval_cand``) held
 #: against the CPU; retrieval's candidates held against ``score_fn``
@@ -3815,7 +3840,7 @@ GNN_LOSS_RTOL, GNN_GRAD_RTOL, GNN_OFF_SHARE = 5e-5, 2e-3, 1e-2
 #: four seeds (a CPU probe of the full-width cell)
 GNN_LR = 1e-5
 #: the archs phase 9b trains at published widths (DLRM-MLPerf's 96.1 GB
-#: table waits for four cards, ROADMAP queue 1, item 13.6)
+#: table waits for four cards, ROADMAP queue 1, item 4)
 TRAIN_RECSYS_ARCHS = ("din", "wide-deep", "sasrec")
 
 
@@ -3832,24 +3857,38 @@ def train_step_check(dev, bundle, state, batch, lr: float, what: str, *,
     cpu_state = tree.tree_map(lambda t: t.cpu(), state)
     got_s, got_m = bundle.fn(state, batch)
     want_s, want_m = bundle.fn(cpu_state, {k: v.cpu() for k, v in batch.items()})
+    return compare_step(what, got_s, got_m, want_s, want_m, lr, "on the card", "on the CPU",
+                        loss_rtol=loss_rtol, norm_rtol=norm_rtol, grad_rtol=grad_rtol,
+                        off_share=off_share)
+
+
+def compare_step(what, got_s, got_m, want_s, want_m, lr: float, got_is: str, want_is: str, *,
+                 loss_rtol: float = TRAIN_RTOL, norm_rtol: float = TRAIN_RTOL,
+                 grad_rtol: float = TRAIN_GRAD_RTOL, off_share: float = 1e-3) -> dict:
+    """Two results of one train step (states with ``params`` and
+    ``opt["m"]``, and metrics) held to :func:`train_step_check`'s
+    tolerances; the states' leaves may lie on any device."""
+    from repro_torch import tree
+
     out = {}
     for k, rtol in (("loss", loss_rtol), ("grad_norm", norm_rtol)):
         g, w = float(got_m[k]), float(want_m[k])
         if not np.isfinite(g) or abs(g - w) > rtol * abs(w):
-            fail(f"train check {what}: {k} {g} on the card vs {w} on the CPU")
+            fail(f"train check {what}: {k} {g} {got_is} vs {w} {want_is}")
         out[f"{k}_rel_err"] = abs(g - w) / max(abs(w), 1e-30)
     m_used, p_err, p_off = 0.0, 0.0, 0.0
     for path, g, w in zip(*tree.flatten_with_paths(got_s["opt"]["m"]),
                           tree.leaves(want_s["opt"]["m"])):
+        g, w = g.cpu(), w.cpu()
         # 1e-9 absolute where a gradient is zero in exact arithmetic (DIN's
         # last attention bias: the softmax is shift-invariant)
         allowed = max(grad_rtol * float(w.abs().max()), 1e-9)
-        err = float((g.cpu() - w).abs().max())
+        err = float((g - w).abs().max())
         if err > allowed:
             fail(f"train check {what}: first moment {path} off by {err} (allowed {allowed})")
         m_used = max(m_used, err / allowed)
     for path, g, w in zip(*tree.flatten_with_paths(got_s["params"]), tree.leaves(want_s["params"])):
-        diff = (g.cpu() - w).abs()
+        diff = (g.cpu() - w.cpu()).abs()
         share = float((diff > 1e-2 * lr).float().mean())
         if float(diff.max()) > 2 * lr or share > off_share:
             fail(f"train check {what}: parameters {path} off by {float(diff.max())} (lr {lr}), "
@@ -4093,7 +4132,7 @@ def phase_train_data(dev, *, n_docs: int, n_offsets: int, vocab: int) -> dict:
 #: the cells phase 9e trains at published widths; ogb_products' 61,859,328
 #: padded edges need 31.7 GB for one (E, 128) f32 message tensor and 63.3 GB
 #: for one block's (E, 2, 128) gathered messages, past one card: it runs
-#: reduced only until the 4-card edge-sharded path (ROADMAP queue 1, 13.6)
+#: reduced only until four cards hold its edges (ROADMAP queue 1, item 4)
 GNN_CELLS = ("full_graph_sm", "minibatch_lg", "molecule")
 
 
@@ -4214,13 +4253,15 @@ def phase_train(dev, *, lm: dict, recsys: dict, data: dict, gnn: dict) -> dict:
     """Phase 9: training (9a the LM, 9b the recsys models, 9c a checkpoint
     round trip, 9d the token pipeline's learned lookup, 9e DimeNet).  No
     kernel of the port runs here; the launch counts are read to show it."""
-    from repro_torch import kernels
+    from repro_torch import kernels, tree
 
     t0 = time.perf_counter()
     kernels.reset_launches()
     out = {"lm": phase_train_lm(dev, "qwen2-0.5b", **lm)}
     out["recsys"], kept = phase_train_recsys(dev, TRAIN_RECSYS_ARCHS, **recsys)
     out["checkpoint"] = phase_train_checkpoint(dev, kept, ROOT / "build" / "train_ckpt")
+    SASREC_STATE.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(tree.tree_map(lambda t: t.cpu(), kept[3]), SASREC_STATE)  # phase 10b's
     del kept
     free_device(dev)
     out["data"] = phase_train_data(dev, **data)
@@ -4231,6 +4272,665 @@ def phase_train(dev, *, lm: dict, recsys: dict, data: dict, gnn: dict) -> dict:
     log(f"[train] phase 9 done in {out['seconds']:.1f} s; kernel launches {out['launches']}")
     return out
 
+
+# -- phase 10: ranks and launch ----------------------------------------------------------------
+
+#: phase 10's gloo ranks on the one card: 10a and 10c on 2, 10b on 4
+RANK_WORK = ROOT / "build" / "ranks"
+#: phase 9c's SASRec train state, kept on disk for 10b's elastic restore
+SASREC_STATE = RANK_WORK / "sasrec_state.pt"
+#: 10d's FLOP gates: the dry run's count of the 9a and 9e cells == the
+#: ``FlopCounterMode`` count of the same step run on the card (one code
+#: path, fake tensors against real ones) within DRY_FLOP_RTOL; DimeNet's
+#: within DRY_MODEL_RTOL of :func:`dimenet_step_flops`, which counts each
+#: product three times where the feature projection has no input gradient
+#: (0.6% of minibatch_lg's products).  The LM's count is printed beside
+#: 9a's 6·N·tokens, with no gate: remat recomputes the layers' projections
+#: (not the attention products, whose outputs the backward keeps), the
+#: loss chunks recompute the head, and the embedding is a gather
+DRY_FLOP_RTOL, DRY_MODEL_RTOL = 1e-6, 0.03
+
+
+def spawn_ranks(name: str, world: int, job: dict, timeout: float) -> tuple:
+    """Run ``train_rank`` on ``world`` spawned ranks in one gloo group (all
+    on the card, or the CPU in the rehearsal) with ``job`` in a fresh
+    ``build/ranks/<name>``; returns the work dir and each rank's result."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    work = RANK_WORK / name
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "job.json").write_text(json.dumps(job))
+    procs = mp.start_processes(train_rank, args=(world, str(work)), nprocs=world, join=False,
+                               start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not procs.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                fail(f"phase 10 {name}: the {world} ranks ran past {timeout} s")
+    finally:
+        for proc in procs.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(5)
+    return work, [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def train_rank(rank: int, world: int, work_dir: str) -> None:
+    """One rank of a phase-10 job (spawned; joins the gloo group, runs the
+    job's body, leaves).  Any failure raises, which fails the parent's
+    join."""
+    import torch.distributed as dist
+
+    work = Path(work_dir)
+    job = json.loads((work / "job.json").read_text())
+    if job["device"] == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:  # the CPU rehearsal: the ranks share the host's cores
+        dev = torch.device("cpu")
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{work / 'pg_init'}", rank=rank,
+                            world_size=world)
+    try:
+        result = RANK_BODIES[job["kind"]](rank, world, work, job, dev)
+    finally:
+        dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def _ctx(dev, world: int, shape, profile: str):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import ShardingCtx
+
+    mesh = DeviceMesh(dev.type, torch.arange(world).reshape(shape),
+                      mesh_dim_names=("data", "model"))
+    return ShardingCtx(mesh=mesh, profile=profile)
+
+
+#: the weights of :func:`digest`: word ``i`` of a leaf counts ``i * A + B``
+_DIGEST_A, _DIGEST_B = -7046029254386353131, 7640891576956012809
+
+
+def digest(state) -> list:
+    """Each leaf's bits as a 64-bit checksum: its 32-bit words (16-bit for
+    a 2-byte dtype) times position weights, summed in int64 arithmetic
+    that wraps.  Equal states give equal lists; phase 10 compares the
+    ranks' and the one-rank step's this way instead of moving GBs."""
+    from repro_torch import tree
+
+    out = []
+    for t in tree.leaves(state):
+        raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        words = raw.view(torch.int32) if raw.numel() % 4 == 0 else raw.view(torch.int16)
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        step = 1 << 26
+        for a in range(0, words.numel(), step):
+            w = torch.arange(a, min(a + step, words.numel()), dtype=torch.int64, device=t.device)
+            total += (words[a:a + step].to(torch.int64) * (w * _DIGEST_A + _DIGEST_B)).sum()
+        out.append(int(total))
+    return out
+
+
+def _events_ms(dev, fn, reps: int = 1):
+    """``fn()`` ``reps`` times between a barrier and CUDA events: the mean
+    ms (host ms off the card) and the last result."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return 1e3 * (time.perf_counter() - t0) / reps, out
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for a block (warnings where an op has none):
+    10a's gated steps, whose bf16 products and scatter-adds otherwise sum
+    in another order from one run to the next."""
+    old, warn = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old, warn_only=warn)
+
+
+def _cpu_result(state, metrics) -> dict:
+    from repro_torch import tree
+
+    return {"params": tree.tree_map(lambda t: t.cpu(), state["params"]),
+            "opt": {"m": tree.tree_map(lambda t: t.cpu(), state["opt"]["m"])},
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def rank_dp_lm(rank, world, work, job, dev) -> dict:
+    """10a on a rank: the LM's ``train`` cell over a (world, 1) ``tp_fsdp``
+    mesh, one microbatch a rank, from the seed-0 state on the saved global
+    batch: one gated step (deterministic algorithms), its state's
+    :func:`digest` (rank 0 saves the state when it differs from the
+    one-rank step's), then one step timed; the gradient all-reduce timed
+    alone (every parameter-shaped f32 leaf over ``dp``)."""
+    from dataclasses import replace
+
+    from repro_torch import configs, tree
+    from repro_torch.dist import collectives
+    from repro_torch.launch import steps
+    from repro_torch.train import TrainConfig, init_train_state
+
+    spec = configs.get(job["arch"], reduced=job["reduced"])
+    spec = replace(spec, config=replace(spec.config, dtype=job["dtype"]))
+    cell = next(c for c in spec.shapes if c.kind == "train")
+    ctx = _ctx(dev, world, (world, 1), "tp_fsdp")
+    tcfg = TrainConfig(total_steps=job["steps_n"], warmup=2)
+    bundle = steps.build_step(spec, cell, ctx, tcfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg)
+    batch = {k: v.to(dev) for k, v in torch.load(job["batch"]).items()}
+    reset_peak(dev)
+    with deterministic():
+        state, m = bundle.fn(state, batch)
+    dig = digest({"params": state["params"], "m": state["opt"]["m"]})
+    if rank == 0 and dig != job["digest"]:
+        torch.save(_cpu_result(state, m), work / "got_lm.pt")
+    ms, (state, m2) = _events_ms(dev, lambda: bundle.fn(state, batch))
+    leaves = tree.leaves(state["params"])
+    ar_ms, _ = _events_ms(dev, lambda: [collectives.psum_if_mapped(
+        p, ctx.mesh_axes("dp"), ctx) for p in leaves])
+    return {"rank": rank, "digest": dig, "metrics": {k: float(v) for k, v in m.items()},
+            "loss2": float(m2["loss"]), "ms": ms, "allreduce_ms": ar_ms, "peak_gb": peak_gb(dev),
+            "grad_bytes": sum(t.numel() * t.element_size() for t in leaves)}
+
+
+def rank_dp_recsys(rank, world, work, job, dev) -> dict:
+    """10b on a rank: wide & deep's ``train`` cell over a (1, world)
+    ``flat_dp`` mesh in each lookup mode (``cap_factor`` 4.0: nothing
+    drops), from the seed-0 state's row shard on the seed-0 batch: this
+    rank's state saved; then SASRec's 9c state placed over (1, world)
+    (``DTensor`` leaves on the host), saved, and restored over (world, 1)
+    with ``restore(shardings=)``, onto the card (each local block == the
+    saved leaf's) and onto the host (every ``full_tensor()`` == the saved
+    leaf)."""
+    import functools
+    from dataclasses import replace
+
+    import torch.distributed as dist
+
+    from repro_torch import configs, tree
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.train import TrainConfig, checkpoint, init_train_state
+
+    out = {"rank": rank, "modes": {}}
+    spec = configs.get(job["arch"], reduced=job["reduced"])
+    cell = next(c for c in spec.shapes if c.kind == "train")
+    ctx = _ctx(dev, world, (1, world), "flat_dp")
+    lookup = recsys.sharded_lookup
+    recsys.sharded_lookup = functools.partial(lookup, cap_factor=4.0)
+    try:
+        for mode in ("a2a", "allreduce"):
+            mspec = replace(spec, config=replace(spec.config, lookup_mode=mode))
+            tcfg = TrainConfig(lr=1e-3, warmup=1, total_steps=3)
+            bundle = steps.build_step(mspec, cell, ctx, tcfg)
+            state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn,
+                                     tcfg)
+            batch = steps.make_inputs(mspec, cell, np.random.default_rng(0), device=dev)
+            reset_peak(dev)
+            ms, (state, m) = _events_ms(dev, lambda: bundle.fn(state, batch))
+            torch.save(_cpu_result(state, m), work / f"got_{mode}_{rank}.pt")
+            out["modes"][mode] = {"ms": ms, "loss": float(m["loss"]), "peak_gb": peak_gb(dev)}
+            del state, batch, bundle
+    finally:
+        recsys.sharded_lookup = lookup
+    # gloo cannot gather a DTensor held on the card (its all_gather_into_tensor
+    # of CUDA tensors crashed a rank): the state is placed, saved and
+    # gathered on a host mesh, and restored onto the card block by block
+    host = torch.device("cpu")
+    saved = torch.load(job["sasrec"])
+    put = _ctx(host, world, (1, world), "flat_dp")
+    shard = steps.fit_tree(saved, steps.state_shardings(saved, "recsys", put), put.mesh)
+    coord = put.coordinate()
+    placed = tree.unflatten(saved, [_as_dtensor(s.local_block(t, coord).contiguous(), s, t)
+                                    for t, s in zip(tree.leaves(saved),
+                                                    tree.flatten_up_to(saved, shard))])
+    checkpoint.save(work / "ckpt", placed, 3).join(timeout=300)
+    dist.barrier()
+    out["restore"] = {"leaves": len(tree.leaves(saved))}
+    for where in (dev, host):
+        take = _ctx(where, world, (world, 1), "flat_dp")
+        shard = steps.fit_tree(saved, steps.state_shardings(saved, "recsys", take), take.mesh)
+        (got, step), restore_s = timed(where, lambda: checkpoint.restore(work / "ckpt", saved,
+                                                                          shardings=shard))
+        if where.type == dev.type and dev.type == "cuda":
+            c = take.coordinate()
+            out["restore"].update(step=step, restore_s=restore_s, blocks_same=all(
+                t.to_local().is_cuda and bool(torch.equal(t.to_local().cpu(), s.local_block(w, c)))
+                for t, w, s in zip(tree.leaves(got), tree.leaves(saved),
+                                   tree.flatten_up_to(saved, shard))))
+        else:
+            out["restore"].update(
+                sharded=sum(t.to_local().shape != t.shape for t in tree.leaves(got)),
+                same=all(bool(torch.equal(t.full_tensor(), w))
+                         for t, w in zip(tree.leaves(got), tree.leaves(saved))))
+            out["restore"].setdefault("restore_s", restore_s)
+    return out
+
+
+def _as_dtensor(local, sharding, whole):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                              shape=whole.shape, stride=whole.stride())
+
+
+def rank_edge_gnn(rank, world, work, job, dev) -> dict:
+    """10c on a rank: DimeNet's ``minibatch_lg`` with its edges over a (1,
+    world) ``flat_dp`` mesh, from the seed-0 state on the seed-0 batch: one
+    gated step and its :func:`digest` (rank 0 saves the state when it
+    differs from the one-rank step's), then one timed; one all-gather of a
+    block's bf16 messages timed alone."""
+    from repro_torch import configs
+    from repro_torch.dist import collectives
+    from repro_torch.launch import steps
+    from repro_torch.train import TrainConfig, init_train_state
+
+    spec = configs.get("dimenet", reduced=job["reduced"])
+    cell = next(c for c in spec.shapes if c.name == job["cell"])
+    ctx = _ctx(dev, world, (1, world), "flat_dp")
+    tcfg = TrainConfig(lr=GNN_LR, warmup=1, total_steps=3)
+    bundle = steps.build_step(spec, cell, ctx, tcfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg)
+    batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=dev)
+    reset_peak(dev)
+    state, m = bundle.fn(state, batch)
+    dig = digest({"params": state["params"], "m": state["opt"]["m"]})
+    if rank == 0 and dig != job["digest"]:
+        torch.save(_cpu_result(state, m), work / "got_gnn.pt")
+    ms, _ = _events_ms(dev, lambda: bundle.fn(state, batch))
+    e_loc = batch["edge_src"].shape[0] // world
+    msg = torch.zeros((e_loc, bundle.cfg.d_hidden), dtype=torch.bfloat16, device=dev)
+    ag_ms, _ = _events_ms(dev, lambda: collectives.all_gather(msg, ctx.group("edge")), reps=3)
+    return {"rank": rank, "digest": dig, "metrics": {k: float(v) for k, v in m.items()},
+            "ms": ms, "allgather_ms": ag_ms, "peak_gb": peak_gb(dev), "edges_a_rank": e_loc}
+
+
+def rank_two(rank, world, work, job, dev) -> dict:
+    """10a then 10c on one set of 2 ranks (one spawn: a spawn costs ~10 s)."""
+    lm = rank_dp_lm(rank, world, work, job["lm"], dev)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"lm": lm, "gnn": rank_edge_gnn(rank, world, work, job["gnn"], dev)}
+
+
+RANK_BODIES = {"two": rank_two, "dp_recsys": rank_dp_recsys}
+
+
+def _same_step(what, ranks, want_digest, got_file, want, lr, **tol) -> dict:
+    """The gate of a step over ranks against the one-rank step: every
+    rank's :func:`digest` equal (their states bit-equal), and equal to the
+    one-rank step's (then nothing moved and every error is 0) or within
+    ``tol`` of it (:func:`compare_step` on rank 0's saved state)."""
+    if any(r["digest"] != ranks[0]["digest"] for r in ranks):
+        fail(f"phase 10 {what}: the ranks' states differ after the step")
+    if ranks[0]["digest"] == want_digest:
+        loss = ranks[0]["metrics"]["loss"]
+        err = abs(loss - want["metrics"]["loss"]) / max(abs(want["metrics"]["loss"]), 1e-30)
+        rtol = tol.get("loss_rtol", TRAIN_RTOL)
+        if err > rtol:
+            fail(f"train check {what}: loss {loss} over ranks vs {want['metrics']['loss']} on one")
+        gn = ranks[0]["metrics"]["grad_norm"] - want["metrics"]["grad_norm"]
+        if gn:
+            fail(f"train check {what}: grad_norm differs though the states are bit-equal")
+        return {"loss_rel_err": err, "grad_norm_rel_err": 0.0, "grad_tol_used": 0.0,
+                "param_max_abs_err": 0.0, "param_off_share": 0.0, "bit_equal": True}
+    got = torch.load(got_file)
+    out = compare_step(what, got, ranks[0]["metrics"], want, want["metrics"], lr, "over ranks",
+                       "on one", **tol)
+    out["bit_equal"] = False
+    return out
+
+
+def prepare_dp_lm(dev, arch, *, reduced: bool, batch: int, steps_n: int,
+                  dtype: str | None = None) -> tuple:
+    """Phase 10a's one-rank half: ``arch``'s ``train_4k`` at its widths on
+    phase 9a's first batch (``batch`` sequences from the same
+    ``TokenBatcher``) from the seed-0 state, one step as 9a runs it (2
+    microbatches, deterministic algorithms), the loss of each half, and
+    the step's FLOPs (``FlopCounterMode`` in a call of its own: the mode
+    changes how some bf16 sums round).  ``dtype`` overrides the compute
+    dtype (the CPU rehearsal's f32: CPU bf16 products round otherwise in
+    processes with other thread counts).  Returns the one-rank result and
+    the ranks' job (2 ranks, one microbatch of half the batch a rank)."""
+    from dataclasses import replace
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.data import TokenBatcher, synth_corpus
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.train import TrainConfig, init_train_state
+
+    spec = configs.get(arch, reduced=reduced)
+    dtype = dtype or spec.config.dtype
+    spec = replace(spec, config=replace(spec.config, dtype=dtype))
+    cfg = spec.config
+    cell = next(c for c in spec.shapes if c.kind == "train")
+    seq = cell.dims["seq_len"]
+    corpus = synth_corpus(vocab_size=cfg.vocab, n_docs=2000, mean_len=512, seed=0, device=dev)
+    b = TokenBatcher(corpus, batch, seq, seed=0).batch_at(0)
+    del corpus
+    tcfg = TrainConfig(total_steps=steps_n, warmup=2, microbatches=2)
+    bundle = steps.build_step(spec, cell, tcfg=tcfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg)
+    with torch.no_grad():
+        halves = [float(transformer.loss_fn(state["params"], {k: v[i * batch // 2:(i + 1) * batch
+                                                                   // 2] for k, v in b.items()},
+                                             cfg)) for i in range(2)]
+    with deterministic():
+        want_s, want_m = bundle.fn(state, b)
+    want_digest = digest({"params": want_s["params"], "m": want_s["opt"]["m"]})
+    want = _cpu_result(want_s, want_m)
+    want["metrics"]["loss"] = float(np.mean(halves))  # the ranks report the dp mean
+    del want_s
+    with FlopCounterMode(display=False) as fc:  # a call of its own: the mode moves bf16 sums
+        bundle.fn(state, b)
+    batch_file = RANK_WORK / "dp_lm_batch.pt"
+    batch_file.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.cpu() for k, v in b.items()}, batch_file)
+    prep = {"arch": arch, "batch": batch, "seq": seq, "lr": tcfg.lr, "want": want,
+            "digest": want_digest, "flops": float(fc.get_total_flops())}
+    job = {"arch": arch, "reduced": reduced, "steps_n": steps_n, "dtype": dtype,
+           "batch": str(batch_file), "digest": want_digest}
+    return prep, job
+
+
+def finish_dp_lm(dev, prep: dict, work: Path, ranks: list) -> dict:
+    """Phase 10a's gate and its figures: ms a step, the gradient
+    all-reduce's ms, tokens/s, peak GB a rank."""
+    arch, batch, seq = prep["arch"], prep["batch"], prep["seq"]
+    check = _same_step(f"{arch} dp over 2 ranks", ranks, prep["digest"], work / "got_lm.pt",
+                       prep["want"], prep["lr"])
+    ms = max(r["ms"] for r in ranks)
+    out = {"arch": arch, "batch": batch, "seq": seq, "ranks": ranks, "check": check,
+           "one_rank_flops": prep["flops"], "ms": ms, "tokens_per_s": batch * seq / (ms / 1e3),
+           "allreduce_ms": max(r["allreduce_ms"] for r in ranks),
+           "peak_gb": [r["peak_gb"] for r in ranks]}
+    log(f"[ranks] 10a {arch} at its widths over 2 gloo ranks on one {dev.type} device ({batch} x "
+        f"{seq} tokens, {batch // 2} sequences a rank, one microbatch): states bit-equal across "
+        f"ranks; == the one-rank step ({'bit for bit' if check['bit_equal'] else 'within tolerance'}"
+        f"; loss rel err {check['loss_rel_err']:.3g} against the halves' mean, "
+        f"grad_norm {check['grad_norm_rel_err']:.3g}, first moment at "
+        f"{check['grad_tol_used']:.3g} of its tolerance, params {check['param_max_abs_err']:.3g}); "
+        f"{ms:.1f} ms a step (CUDA events, the second step), {out['tokens_per_s']:.1f} tokens/s, "
+        f"gradient all-reduce {out['allreduce_ms']:.1f} ms ({ranks[0]['grad_bytes'] / 1e9:.3f} GB "
+        f"over gloo), peak {out['peak_gb']} GB a rank")
+    return out
+
+
+def phase_dp_recsys(dev, arch, *, reduced: bool, world: int, sasrec: Path) -> dict:
+    """Phase 10b: ``arch``'s ``train_batch`` at published widths over
+    ``world`` gloo ranks in each lookup mode, against one step on this
+    process from the same seed-0 state and batch (rows rounded to
+    ``world`` shards as the ranks' are): each rank's table shards and
+    every replicated leaf within 9's tolerances.  Then SASRec's 9c state
+    saved over (1, world) and restored over (world, 1), bit-equal."""
+    from dataclasses import replace
+
+    from repro_torch import configs, tree
+    from repro_torch.dist.sharding import AbstractMesh, ShardingCtx
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.train import TrainConfig, init_train_state
+
+    spec = configs.get(arch, reduced=reduced)
+    cell = next(c for c in spec.shapes if c.kind == "train")
+    tcfg = TrainConfig(lr=1e-3, warmup=1, total_steps=3)
+    shaped = ShardingCtx(mesh=AbstractMesh((1, world), ("data", "model")), profile="flat_dp")
+    bundle = steps.build_step(spec, cell, tcfg=tcfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                             lambda g: recsys.init(g, spec.config, shaped), tcfg)
+    batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=dev)
+    (want_s, want_m), _, one_ms = timed_call(dev, lambda: bundle.fn(state, batch))
+    want = _cpu_result(want_s, want_m)
+    del state, want_s, batch, bundle
+    free_device(dev)
+    t0 = time.perf_counter()
+    work, ranks = spawn_ranks("dp_recsys", world, {"kind": "dp_recsys", "device": dev.type,
+                                                   "arch": arch, "reduced": reduced,
+                                                   "sasrec": str(sasrec)}, 600)
+    ranks_s = time.perf_counter() - t0
+    out = {"arch": arch, "world": world, "one_rank_ms": one_ms, "ranks": ranks, "checks": {},
+           "ranks_s": ranks_s}
+    for mode in ("a2a", "allreduce"):
+        parts = [torch.load(work / f"got_{mode}_{r}.pt") for r in range(world)]
+
+        def whole(key):
+            paths = tree.flatten_with_paths(parts[0][key])[0]
+            return tree.unflatten(parts[0][key], [
+                torch.cat([tree.leaves(p[key])[i] for p in parts])
+                if path.endswith(("['embed']", "['wide']")) else tree.leaves(parts[0][key])[i]
+                for i, path in enumerate(paths)])
+
+        for r in range(1, world):  # the replicated leaves: the same on every rank
+            for key in ("params",):
+                for path, a, b in zip(*tree.flatten_with_paths(parts[r][key]),
+                                      tree.leaves(parts[0][key])):
+                    if not path.endswith(("['embed']", "['wide']")) and not torch.equal(a, b):
+                        fail(f"phase 10b: {mode} rank {r}'s {path} differs from rank 0's")
+        got = {"params": whole("params"), "opt": whole("opt")}
+        out["checks"][mode] = compare_step(f"{arch} {mode} over {world} ranks", got,
+                                           parts[0]["metrics"], want, want["metrics"], tcfg.lr,
+                                           f"over {world} ranks", "on one")
+    if not all(r["restore"]["same"] and r["restore"].get("blocks_same", True) for r in ranks):
+        fail(f"phase 10b: SASRec's state restored over ({world}, 1) != saved over (1, {world})")
+    rs = ranks[0]["restore"]
+    log(f"[ranks] 10b {arch}/{cell.name} at its widths over {world} gloo ranks (flat_dp, a row "
+        f"shard and a quarter of the {cell.dims['batch']} rows a rank, cap_factor 4.0): tables "
+        f"and replicated leaves == one rank in a2a (first moment at "
+        f"{out['checks']['a2a']['grad_tol_used']:.3g} of its tolerance) and allreduce "
+        f"({out['checks']['allreduce']['grad_tol_used']:.3g}); ms a step "
+        + ", ".join(f"{m} {max(r['modes'][m]['ms'] for r in ranks):.2f}" for m in ("a2a", "allreduce"))
+        + f" (one rank {one_ms}); SASRec's 9c state saved over (1, {world}) and restored over "
+        f"({world}, 1): {rs['leaves']} leaves ({rs['sharded']} row-sharded), full_tensor() on "
+        f"the host and every block on the {dev.type} bit-equal, restore {rs['restore_s']:.2f} s; "
+        f"{ranks_s:.1f} s")
+    return out
+
+
+def prepare_edge_gnn(dev, *, reduced: bool, cell_name: str) -> tuple:
+    """Phase 10c's one-rank half: DimeNet's ``cell_name`` at published
+    widths, one step from the seed-0 state on the seed-0 batch and its
+    FLOPs (a call of its own, as 10a's).  Returns the one-rank result and
+    the ranks' job (the edges over 2 ranks)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.train import TrainConfig, init_train_state
+
+    spec = configs.get("dimenet", reduced=reduced)
+    cell = next(c for c in spec.shapes if c.name == cell_name)
+    tcfg = TrainConfig(lr=GNN_LR, warmup=1, total_steps=3)
+    bundle = steps.build_step(spec, cell, tcfg=tcfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg)
+    batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=dev)
+    n_edges, t_max = batch["tri_kj"].shape
+    n_nodes = batch["pos"].shape[0]
+    want_s, want_m = bundle.fn(state, batch)
+    want_digest = digest({"params": want_s["params"], "m": want_s["opt"]["m"]})
+    want = _cpu_result(want_s, want_m)
+    del want_s
+    with FlopCounterMode(display=False) as fc:  # a call of its own, as 10a's
+        bundle.fn(state, batch)
+    prep = {"cell": cell_name, "reduced": reduced, "nodes": n_nodes, "edges": n_edges,
+            "t_max": t_max, "want": want, "digest": want_digest,
+            "flops": float(fc.get_total_flops()),
+            "model_flops": dimenet_step_flops(bundle.cfg, n_nodes, n_edges, t_max)}
+    return prep, {"reduced": reduced, "cell": cell_name, "digest": want_digest}
+
+
+def finish_edge_gnn(dev, prep: dict, work: Path, ranks: list) -> dict:
+    """Phase 10c's gate (9e's tolerances) and its figures: ms a step, one
+    message all-gather's ms, peak GB a rank."""
+    name, n_edges = prep["cell"], prep["edges"]
+    check = _same_step(f"dimenet {name} over 2 edge ranks", ranks, prep["digest"],
+                       work / "got_gnn.pt", prep["want"], GNN_LR, loss_rtol=GNN_LOSS_RTOL,
+                       norm_rtol=GNN_GRAD_RTOL, grad_rtol=GNN_GRAD_RTOL, off_share=GNN_OFF_SHARE)
+    ms = max(r["ms"] for r in ranks)
+    out = {"cell": name, "nodes": prep["nodes"], "edges": n_edges, "t_max": prep["t_max"],
+           "check": check, "ranks": ranks, "ms": ms, "edges_per_s": n_edges / (ms / 1e3),
+           "allgather_ms": max(r["allgather_ms"] for r in ranks),
+           "peak_gb": [r["peak_gb"] for r in ranks], "one_rank_flops": prep["flops"],
+           "model_flops": prep["model_flops"]}
+    log(f"[ranks] 10c dimenet/{name} {'reduced' if prep['reduced'] else 'at its widths'} "
+        f"({prep['nodes']:,} nodes, {n_edges:,} edges, {n_edges // 2:,} a rank) over 2 gloo ranks: "
+        f"states bit-equal across ranks; == one rank ({'bit for bit' if check['bit_equal'] else 'within tolerance'}; "
+        f"loss rel err {check['loss_rel_err']:.3g}, grad_norm {check['grad_norm_rel_err']:.3g}, "
+        f"first moment at {check['grad_tol_used']:.3g} of its tolerance); {ms:.2f} ms a step, "
+        f"{out['edges_per_s']:.4g} edges/s, one bf16 message all-gather "
+        f"{out['allgather_ms']:.2f} ms, peak {out['peak_gb']} GB a rank")
+    return out
+
+
+DRY_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+from dataclasses import replace
+from repro_torch import configs
+from repro_torch.launch import dryrun
+from repro_torch.train import TrainConfig
+job = json.loads(sys.argv[2])
+out = {}
+for name, c in job.items():
+    spec = configs.get(c["arch"], reduced=c["reduced"])
+    cell = next(x for x in spec.shapes if x.name == c["cell"])
+    if "dims" in c:
+        cell = replace(cell, dims=dict(cell.dims, **c["dims"]))
+    if c.get("dtype"):
+        spec = replace(spec, config=replace(spec.config, dtype=c["dtype"]))
+    tcfg = TrainConfig(microbatches=c["microbatches"]) if c["arch"] != "dimenet" else None
+    out[name] = dryrun.run_cell(spec, cell, tuple(c["mesh"]), tcfg=tcfg, verbose=False)
+print(json.dumps(out))
+"""
+
+
+def start_dryruns(lm: dict, gnn: dict) -> object:
+    """Phase 10d's dry runs, started in a CPU subprocess at phase 10's
+    start (they run on fake tensors beside the ranks): the 9a cell (its
+    batch, 2 microbatches, one rank), 10a's (2 ranks, one microbatch), 9e's
+    ``minibatch_lg`` (one rank)."""
+    import subprocess
+
+    job = {"9a": {"arch": "qwen2-0.5b", "reduced": lm["reduced"], "cell": "train_4k",
+                  "dims": {"global_batch": lm["batch"]}, "microbatches": 2, "mesh": [1, 1],
+                  "dtype": lm.get("dtype")},
+           "10a": {"arch": "qwen2-0.5b", "reduced": lm["reduced"], "cell": "train_4k",
+                   "dims": {"global_batch": lm["batch"]}, "microbatches": 1, "mesh": [2, 1],
+                   "dtype": lm.get("dtype")},
+           "9e": {"arch": "dimenet", "reduced": gnn["reduced"], "cell": gnn["cell"],
+                  "mesh": [1, 1]}}
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", DRY_SCRIPT, str(ROOT), json.dumps(job)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def phase_dryrun_check(proc, lm_out: dict, gnn_out: dict, dp_out: dict, measured: dict) -> dict:
+    """Phase 10d: the dry runs against the card.  FLOPs: the 9a cell's ==
+    the counter's count of the one-rank step run on the card (10a) within
+    ``DRY_FLOP_RTOL`` (beside 9a's 6·N·tokens); 9e's ``minibatch_lg`` ==
+    its step on the card (10c) and within ``DRY_MODEL_RTOL`` of
+    :func:`dimenet_step_flops`.  Memory: each predicted peak beside the
+    measured ``max_memory_allocated`` (9a, 9e, 10a) as a ratio."""
+    from repro_torch import configs
+
+    out_s, err_s = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"phase 10d: the dry runs failed:\n{err_s[-3000:]}")
+    dry = json.loads(out_s.strip().splitlines()[-1])
+    cfg = configs.get("qwen2-0.5b", reduced=lm_out["reduced"]).config
+    checks = {
+        "9a_vs_card": (dry["9a"]["flops"], dp_out["one_rank_flops"], DRY_FLOP_RTOL),
+        "9e_vs_card": (dry["9e"]["flops"], gnn_out["one_rank_flops"], DRY_FLOP_RTOL),
+        "9e_vs_model": (dry["9e"]["flops"], gnn_out["model_flops"], DRY_MODEL_RTOL),
+    }
+    for name, (got, want, rtol) in checks.items():
+        if not abs(got - want) <= rtol * want:
+            fail(f"phase 10d: dry-run FLOPs {name}: {got:.6g} against {want:.6g} (rtol {rtol})")
+    six_nt = 6 * cfg.params_count * lm_out["batch"] * lm_out["seq"]
+    out = {"entries": dry, "flops": {k: {"dry": g, "want": w, "rel": g / w - 1}
+                                      for k, (g, w, _) in checks.items()},
+           "six_n_t": six_nt, "memory": {}}
+    for name, gb in measured.items():
+        pred = dry[name]["memory"]["peak_bytes"] / 1e9
+        out["memory"][name] = {"predicted_gb": pred, "measured_gb": gb,
+                               "ratio": None if gb is None else pred / gb}
+    log(f"[ranks] 10d dry runs (fake tensors, H100 roofline): 9a {dry['9a']['flops']:.6g} FLOPs "
+        f"== the card's count {dp_out['one_rank_flops']:.6g}, {dry['9a']['flops'] / six_nt:.4f} x "
+        f"6·N·tokens; 9e {dry['9e']['flops']:.6g} == the card's "
+        f"{gnn_out['one_rank_flops']:.6g}, {out['flops']['9e_vs_model']['rel']:+.4f} against "
+        f"dimenet_step_flops; 10a collectives {dry['10a']['collectives']['total'] / 1e9:.4f} GB a "
+        f"rank; peaks predicted / measured: " + ", ".join(
+            f"{k} {v['predicted_gb']:.2f} / {v['measured_gb']} GB" for k, v in out["memory"].items()))
+    return out
+
+
+def phase_ranks(dev, *, lm: dict, recsys: dict, gnn: dict, measured: dict) -> dict:
+    """Phase 10: training over ranks and the launch layer (10a the LM's
+    data-parallel step, 10b the recsys exchanges under autograd and the
+    elastic restore, 10c the edge-sharded DimeNet, 10d the dry run against
+    the card).  No kernel of the port runs here; the launch counts are
+    read to show it."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    dry = start_dryruns(lm, gnn)
+    try:
+        lm_prep, lm_job = prepare_dp_lm(dev, "qwen2-0.5b", reduced=lm["reduced"],
+                                        batch=lm["batch"], steps_n=lm["steps_n"],
+                                        dtype=lm.get("dtype"))
+        free_device(dev)
+        gnn_prep, gnn_job = prepare_edge_gnn(dev, reduced=gnn["reduced"], cell_name=gnn["cell"])
+        free_device(dev)
+        t1 = time.perf_counter()
+        work, ranks = spawn_ranks("two", 2, {"kind": "two", "device": dev.type, "lm": lm_job,
+                                             "gnn": gnn_job}, 600)
+        log(f"[ranks] 10a + 10c: 2 gloo ranks in {time.perf_counter() - t1:.1f} s")
+        out = {"dp_lm": finish_dp_lm(dev, lm_prep, work, [r["lm"] for r in ranks]),
+               "edge_gnn": finish_edge_gnn(dev, gnn_prep, work, [r["gnn"] for r in ranks])}
+        del lm_prep, gnn_prep
+        free_device(dev)
+        out["dp_recsys"] = phase_dp_recsys(dev, "wide-deep", reduced=recsys["reduced"], world=4,
+                                           sasrec=SASREC_STATE)
+        free_device(dev)
+        measured = dict(measured, **{"10a": max(out["dp_lm"]["peak_gb"], key=lambda x: x or 0)})
+        lm_out = dict(lm, seq=out["dp_lm"]["seq"])
+        out["dryrun"] = phase_dryrun_check(dry, lm_out, out["edge_gnn"], out["dp_lm"], measured)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    out["launches"] = {k: v for k, v in kernels.launches().items() if v}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[ranks] phase 10 done in {out['seconds']:.1f} s; kernel launches {out['launches']}")
+    return out
 
 def time_attention(dev, label, q, k, v, kv_len) -> dict:
     from repro_torch.kernels import decode_attention as att
@@ -4418,9 +5118,12 @@ def kernels_line(rows, launches, headline_table: str) -> dict:
 
 
 def main(argv=None) -> int:
+    # before the first cuBLAS handle: phase 10a runs its gated steps with
+    # deterministic algorithms, which cuBLAS honours only with this config
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-9 on the CPU twins at a tiny size (no device result)")
+                    help="run phases 3-10 on the CPU twins at a tiny size (no device result)")
     ap.add_argument("--out", type=Path, default=None, help="also write every row as JSON here")
     args = ap.parse_args(argv)
 
@@ -4444,6 +5147,8 @@ def main(argv=None) -> int:
                  "recsys": {"reduced": True, "steps_n": 3},
                  "data": {"n_docs": 2000, "n_offsets": 1 << 12, "vocab": 256},
                  "gnn": {"reduced": True, "steps_n": 3}}
+        ranks_cfg = {"lm": {"reduced": True, "batch": 8, "steps_n": 6, "dtype": "float32"},
+                     "recsys": {"reduced": True}, "gnn": {"reduced": True, "cell": "minibatch_lg"}}
     else:
         info = phase_device()
         dev = torch.device("cuda")
@@ -4464,10 +5169,11 @@ def main(argv=None) -> int:
         hotcache = {"batch": 1 << 16, "batches": 4, "n_insert": 1 << 16}
         pool = {"seqs": 8, "positions": 32768, "page": 16}
         moe_serve = {"reduced": False, "max_seq": 2048}
-        # 7c: prefill_32k's 32,768 tokens, 2 sequences (cut from 32); 7d: the
+        # 7c: prefill_32k's 32,768 tokens, 1 sequence (cut from 32, and from
+        # 2 for phase 10's time); 7d: the
         # recsys cells at published widths; 7e: DIN's 10,000,000-item
         # vocabulary as raw 64-bit ids, 2^22 ids a batch
-        prefill = {"reduced": False, "batch": 2, "seq": 32768, "check_tokens": 256}
+        prefill = {"reduced": False, "batch": 1, "seq": 32768, "check_tokens": 256}
         recsys = {"reduced": False, "check_rows": RECSYS_CHECK_ROWS, "pairs": RETRIEVAL_PAIRS}
         lke = {"n_keys": 10_000_000, "dim": 18, "n_queries": 1 << 22}
         # decode_attention: qwen2-0.5b's decode_32k cell (B 128) and
@@ -4476,15 +5182,22 @@ def main(argv=None) -> int:
         times = {"att_a": (128, 14, 2, 64, 32768), "att_b": (8, 32, 8, 128, 32768),
                  "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 22, 128, 1 << 20, 1 << 16)}
         # 9a: qwen2-0.5b's train_4k at its widths, 8 sequences of 4,096 tokens
-        # a step (cut from 256) in 2 microbatches, 6 steps, checked at 2
+        # a step (cut from 256) in 2 microbatches, 4 steps (cut from 6 for
+        # phase 10's time), checked at 2
         # layers and 256 tokens; 9b: the recsys train_batch (65,536 rows) at
         # published widths, 3 steps; 9d: 200,000 documents (~1.4e8 tokens),
         # 2^22 offsets; 9e: DimeNet's graph cells at published widths, 3 steps
-        train = {"lm": {"reduced": False, "batch": 8, "microbatches": 2, "steps_n": 6,
+        train = {"lm": {"reduced": False, "batch": 8, "microbatches": 2, "steps_n": 4,
                         "check_tokens": 256},
                  "recsys": {"reduced": False, "steps_n": 3},
                  "data": {"n_docs": 200_000, "n_offsets": 1 << 22, "vocab": 151936},
                  "gnn": {"reduced": False, "steps_n": 3}}
+        # 10a: 9a's first batch (8 x 4,096 tokens) over 2 ranks, 4 sequences
+        # a rank; 10b: wide & deep's train_batch over 4 ranks; 10c:
+        # minibatch_lg at published widths over 2 edge ranks; 10d: their dry runs
+        ranks_cfg = {"lm": {"reduced": False, "batch": 8, "steps_n": 6},
+                     "recsys": {"reduced": False},
+                     "gnn": {"reduced": False, "cell": "minibatch_lg"}}
     # f32 matrix products in full f32 (no TF32) in the twins and the reference math
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4536,7 +5249,8 @@ def main(argv=None) -> int:
     free_device(dev)
     log(f"[serve] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    moe_served = phase_moe_serve(dev, "moonshot-v1-16b-a3b", slots=8, n_requests=16, max_new=16,
+    # 8 requests, one wave of the 8 slots (cut from 16 for phase 10's time)
+    moe_served = phase_moe_serve(dev, "moonshot-v1-16b-a3b", slots=8, n_requests=8, max_new=16,
                                  ref_ticks=4, tier=hot_cache, **moe_serve)
     del hot_cache
     free_device(dev)
@@ -4558,6 +5272,10 @@ def main(argv=None) -> int:
     log(f"[times] done in {time.perf_counter() - t0:.1f} s")
     free_device(dev)
     trained = phase_train(dev, **train)
+    free_device(dev)
+    lg = next(c for c in trained["gnn"]["cells"] if c["cell"] == ranks_cfg["gnn"]["cell"])
+    ranked_train = phase_ranks(dev, **ranks_cfg, measured={"9a": trained["lm"]["peak_gb"],
+                                                           "9e": lg["peak_gb"]})
     by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k],
                    "fits": fits["launches"][k], "tuner": tuner["launches"][k],
                    "hotcache": hot["launches"][k]} for k in BATCHED}
@@ -4600,6 +5318,7 @@ def main(argv=None) -> int:
                                         "moe_serve": moe_served, "prefill": prefilled,
                                         "recsys": scored, "lke": keyed,
                                         "embedding_ranks": ranked, "train": trained,
+                                        "ranks": ranked_train,
                                         "attention_rows": att_rows, "bag_rows": bag_rows,
                                         "fit_rows": fits["rows"], "grid_rows": fits["grid"],
                                         "refresh_rows": fits["refresh"], "tuner": tuner,

@@ -1,9 +1,10 @@
 """Tier substrate (counterpart of ``repro.dist``).
 
 ``sharding`` maps logical axis names (dp / fsdp / tp / ep / edge / row)
-onto the named dims of a ``DeviceMesh`` and gives each its process group;
-``collectives`` holds the owner-exchange bucketing and the psum helpers
-on ``torch.distributed``; ``sharded_index`` stacks same-spec per-shard
+onto the named dims of a ``DeviceMesh`` (or an abstract mesh), gives each
+its process group and places tensors (``spec``/``sharding``/``constrain``);
+``collectives`` holds the owner-exchange bucketing and the differentiable
+exchanges and psum helpers on ``torch.distributed``; ``sharded_index`` stacks same-spec per-shard
 indexes leaf-wise and answers a tier in one process (``mode="ref"``) or
 one shard a rank (``"a2a"``, ``"allgather"``), and refreshes and
 rebalances its shards in place; an updatable (GAPPED) tier also takes
@@ -27,12 +28,23 @@ from .sharded_index import (
     tier_metrics,
     weighted_quantile_bounds,
 )
-from .sharding import ShardingCtx, single_device_ctx
+from .sharding import (
+    AbstractMesh,
+    CommLedger,
+    NamedSharding,
+    PartitionSpec,
+    ShardingCtx,
+    single_device_ctx,
+)
 
 __all__ = [
     "collectives",
     "sharding",
     "sharded_index",
+    "AbstractMesh",
+    "CommLedger",
+    "NamedSharding",
+    "PartitionSpec",
     "ShardingCtx",
     "single_device_ctx",
     "DROPPED",

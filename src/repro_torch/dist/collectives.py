@@ -11,13 +11,27 @@
 * psum helpers: ``all_reduce`` over the group of some mesh dims of a
   :class:`~repro_torch.dist.sharding.ShardingCtx`, a no-op when there
   are no dims, so step code stays mesh-shape agnostic.
+* :func:`all_gather` and :func:`reduce_scatter` (along dim 0, in the
+  tensor's own dtype).
+
+The exchanges are differentiable, so gradients cross ranks as the
+reference's ``shard_map`` collectives carry them: an all-to-all's
+backward is the reverse all-to-all, a psum's backward is the psum of the
+ranks' gradients (each rank's downstream may differ), an all-gather's
+backward is a reduce-scatter in the same dtype (and a reduce-scatter's an
+all-gather).  On a gloo group the
+reduce-scatter is an all-reduce and this rank's block of it (gloo has no
+reduce-scatter); gloo carries CUDA tensors through the host.  On the dry
+run's abstract mesh (a :class:`~repro_torch.dist.sharding.CountingGroup`)
+each helper returns a tensor of the right shape and records the bytes
+the rank would move.
 
 * Error-feedback gradient compression (:func:`compressed_grad_leaf`,
   :func:`apply_grad_compression`): each leaf sent as bf16 or as int8 with
   one f32 scale, the rounding error carried to the next step.
 
-The reference's ``OVERLAP_XLA_FLAGS`` waits for the launch slice
-(ROADMAP queue 1, item 13.6).
+The port sets no XLA or NCCL flags: the reference's ``OVERLAP_XLA_FLAGS``
+are TPU flags (``launch.train --print-xla-flags`` says so).
 """
 
 from __future__ import annotations
@@ -86,14 +100,131 @@ def unbucket_inverse(replies, slots, valid, order, n: int, init):
     return out_sorted[:n][torch.argsort(order)]
 
 
-def all_to_all(x, group):
-    """Exchange the rows of ``x`` (``(n_ranks, ...)``, contiguous): row
-    ``j`` goes to group rank ``j``, and row ``i`` of the result came from
-    group rank ``i``.  One ``all_to_all_single`` with equal splits."""
+def _counting(group) -> bool:
+    from repro_torch.dist.sharding import CountingGroup
+
+    return isinstance(group, CountingGroup)
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def _group_size(group) -> int:
+    return group.size if _counting(group) else dist.get_world_size(group)
+
+
+def _a2a(x, group):
     x = x.contiguous()
     out = torch.empty_like(x)
+    if _counting(group):
+        group.ledger.add("all-to-all", _nbytes(out))
+        return out
     dist.all_to_all_single(out, x, group=group)
     return out
+
+
+def _all_reduce(x, group, op=dist.ReduceOp.SUM):
+    out = x.clone()
+    if _counting(group):
+        group.ledger.add("all-reduce", 2 * _nbytes(out))
+        return out
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def _gather(x, group):
+    x = x.contiguous()
+    n = _group_size(group)
+    if _counting(group):
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        group.ledger.add("all-gather", _nbytes(out))
+        return out
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts)
+
+
+def _reduce_scatter(x, group):
+    """This rank's block (along dim 0) of the sum of every rank's ``x``."""
+    x = x.contiguous()
+    n = _group_size(group)
+    rows = x.shape[0] // n
+    if _counting(group):
+        group.ledger.add("reduce-scatter", _nbytes(x))
+        return x.new_empty((rows,) + tuple(x.shape[1:]))
+    if dist.get_backend(group) == "nccl":
+        out = x.new_empty((rows,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+    me = dist.get_rank(group)
+    return _all_reduce(x, group)[me * rows:(me + 1) * rows]
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _a2a(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.group), None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group), None
+
+
+def all_to_all(x, group):
+    """Exchange the rows of ``x`` (``(n_ranks, ...)``): row ``j`` goes to
+    group rank ``j``, and row ``i`` of the result came from group rank
+    ``i``.  One ``all_to_all_single`` with equal splits; its backward is
+    the reverse exchange."""
+    return _AllToAll.apply(x, group)
+
+
+def all_gather(x, group):
+    """Every rank's ``x`` stacked along dim 0, in group rank order, in
+    ``x``'s dtype; the backward is a reduce-scatter of the gradient in
+    that dtype (each rank gets the sum of the ranks' gradients of its
+    block)."""
+    return _AllGather.apply(x, group)
+
+
+def reduce_scatter(x, group):
+    """This rank's block (along dim 0, in group rank order) of the sum of
+    every rank's ``x``; the backward all-gathers the gradient."""
+    return _ReduceScatter.apply(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -103,13 +234,12 @@ def all_to_all(x, group):
 
 def psum_if_mapped(x, axes, ctx=None):
     """The sum of ``x`` over the group of the mesh dims ``axes`` of
-    ``ctx`` (a new tensor); ``x`` itself when ``axes`` is empty/None."""
+    ``ctx`` (a new tensor); ``x`` itself when ``axes`` is empty/None.  Its
+    backward sums the ranks' gradients over the same group."""
     axes = tuple(axes or ())
     if not axes:
         return x
-    out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.axes_group(axes)[0])
-    return out
+    return _PSum.apply(x, ctx.axes_group(axes)[0])
 
 
 def pmean_if_mapped(x, axes, ctx=None):
@@ -118,7 +248,7 @@ def pmean_if_mapped(x, axes, ctx=None):
     axes = tuple(axes or ())
     if not axes:
         return x
-    return psum_if_mapped(x, axes, ctx) / dist.get_world_size(ctx.axes_group(axes)[0])
+    return psum_if_mapped(x, axes, ctx) / _group_size(ctx.axes_group(axes)[0])
 
 
 def psum_tree(t, axes, ctx=None):
@@ -130,6 +260,15 @@ def psum_tree(t, axes, ctx=None):
     return tree.tree_map(lambda leaf: psum_if_mapped(leaf, axes, ctx), t)
 
 
+def max_if_mapped(x, axes, ctx=None):
+    """The elementwise max of ``x`` over the group of the mesh dims
+    ``axes`` of ``ctx`` (no gradient); ``x`` itself when there are none."""
+    axes = tuple(axes or ())
+    if not axes:
+        return x
+    return _all_reduce(x, ctx.axes_group(axes)[0], op=dist.ReduceOp.MAX)
+
+
 # ---------------------------------------------------------------------------
 # Error-feedback gradient compression
 # ---------------------------------------------------------------------------
@@ -137,7 +276,7 @@ def psum_tree(t, axes, ctx=None):
 METHODS = ("bf16", "int8")
 
 
-def compressed_grad_leaf(g, err, method: str):
+def compressed_grad_leaf(g, err, method: str, reduce_max=None):
     """Compress one gradient leaf with error feedback.
 
     Returns ``(g_hat, new_err)``: ``g_hat`` the decompressed (wire-format)
@@ -152,23 +291,33 @@ def compressed_grad_leaf(g, err, method: str):
     one multiply-subtract against the unrounded ``round(x / scale) *
     scale``.  The port takes the same scale and forms that residual
     exactly in f64 (a 7-bit integer times an f32 fits in 53 bits) before
-    its one rounding to f32."""
+    its one rounding to f32.
+
+    ``reduce_max`` (int8) takes this rank's ``max|x|`` to the leaf's:
+    a leaf whose rows are spread over ranks scales by the max over all of
+    them, as the reference's global array does."""
     x = g.to(torch.float32) + err
     if method == "bf16":
         g_hat = x.to(torch.bfloat16).to(torch.float32)
         return g_hat, x - g_hat
     if method == "int8":
-        scale = torch.clamp(torch.max(torch.abs(x)), min=1e-30) * (1.0 / 127.0)
+        amax = torch.max(torch.abs(x))
+        if reduce_max is not None:
+            amax = reduce_max(amax)
+        scale = torch.clamp(amax, min=1e-30) * (1.0 / 127.0)
         k = torch.round(x / scale)
         return k * scale, (x.double() - k.double() * scale.double()).to(torch.float32)
     raise ValueError(f"unknown grad compression {method!r}; choose from {METHODS}")
 
 
-def apply_grad_compression(grads, errs, method: str):
+def apply_grad_compression(grads, errs, method: str, reduce_max=None):
     """:func:`compressed_grad_leaf` leaf by leaf over a nest of dicts,
-    lists and tuples and the matching nest of errors.  Returns
-    ``(grads_hat, new_errs)``, both in ``grads``' structure."""
-    pairs = [compressed_grad_leaf(g, e, method)
-             for g, e in zip(tree.leaves(grads), tree.flatten_up_to(grads, errs))]
+    lists and tuples and the matching nest of errors (``reduce_max``: one
+    entry a leaf, or None).  Returns ``(grads_hat, new_errs)``, both in
+    ``grads``' structure."""
+    leaves = tree.leaves(grads)
+    maxes = reduce_max or [None] * len(leaves)
+    pairs = [compressed_grad_leaf(g, e, method, r)
+             for g, e, r in zip(leaves, tree.flatten_up_to(grads, errs), maxes)]
     return (tree.unflatten(grads, [p[0] for p in pairs]),
             tree.unflatten(grads, [p[1] for p in pairs]))

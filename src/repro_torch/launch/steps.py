@@ -13,9 +13,18 @@ Kinds: ``train`` and ``graph_train`` a full optimizer step
 the LM and recsys ``train`` cells, DimeNet's ``graph_train`` cells);
 ``prefill`` a full-sequence forward that returns the last position's
 logits; ``decode`` one token against a KV cache; ``serve`` and
-``retrieval`` the recsys scorers.  The reference's sharding pytrees
-(``state_shardings``, ``fit_sharding``) and its abstract inputs wait for
-the launch slice (ROADMAP queue 1, item 13.6).
+``retrieval`` the recsys scorers.
+
+The sharding trees, as the reference's: each family's classifier of a
+parameter path (``_lm_logical``, ``_recsys_logical``, ``_gnn_logical``),
+:func:`state_shardings` (moments and error buffers placed like their
+parameters), :func:`fit_sharding`/:func:`fit_tree` (drop mesh axes per dim
+until the dim divides) and :func:`input_shardings`, on a live or an
+abstract mesh.  :func:`input_shapes` gives a cell's batch as
+``(shape, dtype)`` pairs with no data (the reference's abstract inputs).
+Under a context, a ``train`` or ``graph_train`` step reduces its
+gradients over ranks (:func:`repro_torch.train.make_train_step`), and a
+recsys model's ``init_fn`` returns this rank's row shard.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import NamedSharding, PartitionSpec, mesh_shape
 from repro_torch.models import dimenet, recsys, transformer
 from repro_torch.train import TrainConfig, make_train_step
 
@@ -39,6 +50,221 @@ def _check_kind(spec, cell):
     no step for, as the reference's ``build_step`` raises."""
     if cell.kind not in KINDS.get(spec.family, ()):
         raise ValueError((spec.family, cell.kind))
+
+
+# ---------------------------------------------------------------------------
+# Parameter placement by path (family-specific classifiers)
+# ---------------------------------------------------------------------------
+
+
+def _lm_logical(path: str):
+    if "moe" in path:
+        if "router" in path:
+            return (None, None, None)
+        if "wd" in path:
+            return (None, "ep", None, "fsdp")
+        return (None, "ep", "fsdp", None)
+    if path.endswith("embed"):
+        return ("tp", "fsdp")
+    if path.endswith("head"):
+        return ("fsdp", "tp")
+    for nm in ("wq", "wk", "wv", "wg", "wu"):
+        if path.endswith(nm):
+            return (None, "fsdp", "tp")
+    for nm in ("wo", "wd"):
+        if path.endswith(nm):
+            return (None, "tp", "fsdp")
+    for nm in ("bq", "bk", "bv"):
+        if path.endswith(nm):
+            return (None, "tp")
+    return None  # norms etc: replicated
+
+
+def _recsys_logical(path: str):
+    if path.endswith("embed") or path.endswith("wide"):
+        return ("row", None)
+    return None
+
+
+def _gnn_logical(path: str):
+    return None  # GNN params are small: replicated
+
+
+_LOGICAL = {"lm": _lm_logical, "recsys": _recsys_logical, "gnn": _gnn_logical}
+
+#: optimizer prefixes stripped so moments shard like their params
+_STATE_PREFIXES = ("opt/m/", "opt/v/", "comp_err/")
+
+
+def ref_paths(t) -> list:
+    """Each leaf's path as the reference's ``state_shardings`` renders it
+    (dict keys bare, list positions ``[i]``, joined by ``/``), in
+    flattened order."""
+    paths, _ = tree.flatten_with_paths(t)
+    out = []
+    for p in paths:
+        parts = [k[2:-2] if k.startswith("['") else k for k in p.split("/")] if p else []
+        out.append("/".join(parts))
+    return out
+
+
+def _logical_of(path: str, ndim: int, family: str):
+    for prefix in _STATE_PREFIXES:
+        if path.startswith(prefix):
+            path = path[len(prefix):]
+    logical = _LOGICAL[family](path)
+    return None if logical is None or len(logical) != ndim else logical
+
+
+def param_logical(t, family: str) -> list:
+    """Each leaf's logical axes (None: replicated), flattened order."""
+    return [_logical_of(p, len(leaf.shape), family) for p, leaf in zip(ref_paths(t), tree.leaves(t))]
+
+
+def state_shardings(state_tree, family: str, ctx):
+    """A :class:`NamedSharding` tree for a train/serve state (leaves:
+    tensors or anything with ``.shape``) by parameter path."""
+    return tree.unflatten(state_tree, [ctx.sharding(*lg) if lg else ctx.sharding()
+                                       for lg in param_logical(state_tree, family)])
+
+
+def fit_sharding(shape, sharding, mesh):
+    """Drop mesh axes per dim until the dim size divides evenly (the
+    reference's ``jit`` in_shardings need exact divisibility; published
+    vocab/batch sizes such as 151,936 and 10^6 do not always divide 256
+    or 512): each dim falls back to the largest prefix of its axis tuple
+    that does.  Only the mesh's axis sizes are read."""
+    sizes = mesh_shape(mesh)
+    new = []
+    for i, entry in enumerate(sharding.spec):
+        if entry is None:
+            new.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        while axes:
+            prod = 1
+            for a in axes:
+                prod *= sizes[a]
+            if shape[i] % prod == 0:
+                break
+            axes = axes[:-1]
+        if not axes:
+            new.append(None)
+        elif len(axes) == 1:
+            new.append(axes[0])
+        else:
+            new.append(tuple(axes))
+    return NamedSharding(mesh, PartitionSpec(*new))
+
+
+def fit_tree(templates, shardings, mesh):
+    """:func:`fit_sharding` leaf-wise over matching trees (template leaves:
+    anything with ``.shape``, e.g. meta tensors)."""
+    leaves = tree.leaves(templates)
+    shard = tree.flatten_up_to(templates, shardings)
+    return tree.unflatten(templates, [
+        fit_sharding(tuple(t.shape), s, mesh) for t, s in zip(leaves, shard)])
+
+
+def _lm_input_shardings(cell, ctx):
+    if cell.kind == "train":
+        return {"tokens": ctx.sharding("dp", None), "labels": ctx.sharding("dp", None)}
+    if cell.kind == "prefill":
+        return {"tokens": ctx.sharding("dp", None)}
+    if cell.dims.get("seq_shard"):
+        return {"tokens": ctx.sharding(None, None)}
+    return {"tokens": ctx.sharding("dp", None)}
+
+
+def _gnn_input_shardings(cell, ctx, cfg=None):
+    e_shard = ctx.sharding("edge")
+    rep = ctx.sharding()
+    out = {"pos": rep, "edge_src": e_shard, "edge_dst": e_shard}
+    if cfg is not None and getattr(cfg, "triplet_layout", "flat") == "padded":
+        out["tri_kj"] = ctx.sharding("edge", None)
+        out["tri_mask"] = ctx.sharding("edge", None)
+        out["edge_mask"] = e_shard
+    else:
+        out["tri_kj"] = e_shard
+        out["tri_ji"] = e_shard
+    if cell.dims.get("energy"):
+        out.update({"z": rep, "node_graph": rep, "target": rep})
+    else:
+        out.update({"feat": rep, "labels": rep, "label_mask": rep})
+    return out
+
+
+def _recsys_input_shardings(cfg, cell, ctx):
+    rep = ctx.sharding()
+    if cfg.kind == "sasrec":
+        out = {"seq": ctx.sharding("dp", None), "target": ctx.sharding("dp")}
+    else:
+        out = {"sparse": ctx.sharding("dp", None)}
+        if cfg.kind == "dlrm":
+            out["dense"] = ctx.sharding("dp", None)
+        if cfg.kind == "din":
+            out["hist"] = ctx.sharding("dp", None)
+    if cell.kind == "train":
+        out["label"] = ctx.sharding("dp")
+    if cell.kind == "retrieval":
+        # batch=1: user side replicated, candidate list sharded on dp
+        out = {k: rep for k in out}
+        out["candidates"] = ctx.sharding("dp")
+    return out
+
+
+def input_shardings(spec, cell, ctx):
+    """The :class:`NamedSharding` of each input of a cell's batch."""
+    if spec.family == "lm":
+        return _lm_input_shardings(cell, ctx)
+    if spec.family == "gnn":
+        return _gnn_input_shardings(cell, ctx, _cfg_for_cell(spec, cell))
+    if spec.family == "recsys":
+        return _recsys_input_shardings(spec.config, cell, ctx)
+    raise ValueError(spec.family)
+
+
+def input_shapes(spec, cell) -> dict:
+    """A cell's batch as ``{name: (shape, torch dtype)}``, no data drawn
+    (the reference's ``make_inputs(abstract=True)``)."""
+    i32, f32 = torch.int32, torch.float32
+    if spec.family == "lm":
+        b, s = cell.dims["global_batch"], cell.dims["seq_len"]
+        if cell.kind == "train":
+            return {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
+        return {"tokens": ((b, s) if cell.kind == "prefill" else (b, 1), i32)}
+    if spec.family == "gnn":
+        cfg, d = _cfg_for_cell(spec, cell), cell.dims
+        n, e = d["n_nodes"], d["n_edges"]
+        t_max = d.get("t_max", 4)
+        t = e * t_max
+        padded = cfg.triplet_layout == "padded"
+        if padded:
+            e = ((e + 511) // 512) * 512
+        shp = {"pos": ((n, 3), f32), "edge_src": ((e,), i32), "edge_dst": ((e,), i32)}
+        if padded:
+            shp.update(tri_kj=((e, t_max), i32), tri_mask=((e, t_max), f32),
+                       edge_mask=((e,), f32))
+        else:
+            shp.update(tri_kj=((t,), i32), tri_ji=((t,), i32))
+        if d.get("energy"):
+            shp.update(z=((n,), i32), node_graph=((n,), i32), target=((d["n_graphs"],), f32))
+        else:
+            shp.update(feat=((n, d["d_feat"]), f32), labels=((n,), i32), label_mask=((n,), f32))
+        return shp
+    cfg, b = spec.config, cell.dims["batch"]
+    shp = {"sparse": ((b, cfg.n_sparse), i32)}
+    if cfg.kind == "dlrm":
+        shp["dense"] = ((b, cfg.n_dense), f32)
+    if cfg.kind == "din":
+        shp["hist"] = ((b, cfg.seq_len), i32)
+    if cfg.kind == "sasrec":
+        shp = {"seq": ((b, cfg.seq_len), i32), "target": ((b,), i32)}
+    if cell.kind == "train":
+        shp["label"] = ((b,), f32)
+    if cell.kind == "retrieval":
+        shp["candidates"] = ((cell.dims["n_candidates"],), i32)
+    return shp
 
 
 def _lm_inputs(cfg, cell, rng):
@@ -167,9 +393,10 @@ class StepBundle:
 def build_step(spec, cell, ctx=None, tcfg: TrainConfig | None = None) -> StepBundle:
     """The function of ``cell`` on ``spec``'s config: ``train`` is
     ``make_train_step(tcfg)`` (default ``TrainConfig()``) over
-    ``transformer.loss_fn`` or ``recsys.loss_fn`` (on one rank), and
+    ``transformer.loss_fn`` or ``recsys.loss_fn``, and
     ``graph_train`` the same over ``dimenet.loss_fn`` on the cell's config
-    (:func:`_cfg_for_cell`); ``prefill`` runs ``transformer.forward`` and
+    (:func:`_cfg_for_cell`), over the ranks of ``ctx`` when given (each
+    rank calls the step with the same global batch); ``prefill`` runs ``transformer.forward`` and
     returns ``h[:, -1] @ head`` in f32; ``decode`` is
     ``transformer.decode_step``; ``serve`` and ``retrieval`` are
     ``recsys.score_fn`` and ``recsys.retrieval_fn`` (under ``ctx``, on each
@@ -185,19 +412,26 @@ def build_step(spec, cell, ctx=None, tcfg: TrainConfig | None = None) -> StepBun
             def init_fn(gen):
                 return transformer.init(gen, cfg)
         elif spec.family == "recsys":
+            # each rank feeds its own slice of the batch to the lookups
+            local = None if ctx is None else ctx.local_view()
+
             def loss(params, batch):
-                return recsys.loss_fn(params, batch, cfg, ctx)
+                return recsys.loss_fn(params, batch, cfg, local)
 
             def init_fn(gen):
-                return recsys.init(gen, cfg, ctx)
+                params = recsys.init(gen, cfg, ctx)
+                if ctx is None or ctx.n("row") == 1:
+                    return params
+                mine = recsys.local_params(params, ctx)
+                return {k: (v.clone() if k in ("embed", "wide") else v) for k, v in mine.items()}
         else:
             def loss(params, batch):
                 return dimenet.loss_fn(params, batch, cfg, ctx)
 
             def init_fn(gen):
                 return dimenet.init(gen, cfg)
-        return StepBundle(fn=make_train_step(loss, tcfg or TrainConfig()), cfg=cfg,
-                          kind=cell.kind, init_fn=init_fn)
+        step = make_train_step(loss, tcfg or TrainConfig(), ctx=ctx, family=spec.family)
+        return StepBundle(fn=step, cfg=cfg, kind=cell.kind, init_fn=init_fn)
     if spec.family == "lm" and cell.kind == "prefill":
         def fn(params, batch):
             # the full-sequence forward; only the last position's logits

@@ -28,10 +28,33 @@ Entry points:
   loss_fn(params, batch, cfg, ctx=None)       -> scalar f32 loss
   build_triplets / build_triplets_padded      -> host numpy triplet lists
 
-Each runs on the device of its parameters.  Edge sharding (the
-reference's ``shard_map`` over edge axes) and gradients over ranks wait
-for the launch slice (ROADMAP queue 1, item 13.6): ``forward`` refuses a
-context whose ``edge`` axis spans more than one rank.
+Each runs on the device of its parameters.
+
+Edge sharding (the reference's ``shard_map`` over the ``edge`` axes,
+``repro/models/dimenet.py:184-297``).  Under a context whose ``edge``
+axis spans ``n`` ranks, every rank is given the same whole batch (the
+reference's global arrays) and works on its block of the arrays the
+reference places over ``edge``: its ``E/n`` edges, rows ``[r E/n, (r + 1)
+E/n)`` for the rank at index ``r``, with the padded layout's triplet rows
+beside them, or the flat layout's ``T/n`` triplets ``[r T/n, (r + 1)
+T/n)`` (the reference's even split of ``tri_kj``/``tri_ji``):
+
+* one all-gather of the edge vectors for the geometry (bf16 in the
+  padded layout, as the reference's; f32 in the flat one, whose
+  reference gathers are f32);
+* one all-gather of the messages for each block's interaction (bf16
+  padded, f32 flat); the flat layout's triplet sums land on any edge, so
+  each block also reduce-scatters its ``(E, d)`` aggregate to the edges'
+  ranks;
+* a psum over ``edge`` of each block's node aggregate.
+
+Each all-gather's backward is a reduce-scatter in the same dtype (a
+reduce-scatter's an all-gather), the psum's a psum (``dist.collectives``),
+so every rank's gradient is ``n`` times the gradient of its part and the
+train step sums them over ``edge`` and divides by ``n``.  Every shape is
+static (the dry run runs this path on fake tensors).  An edge or triplet
+count that ``n`` does not divide runs whole on every rank
+(``fit_sharding``'s fallback).
 """
 
 from __future__ import annotations
@@ -45,6 +68,7 @@ import torch.nn.functional as F
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives
 
 from . import layers as L
 
@@ -208,11 +232,20 @@ def build_triplets(src: np.ndarray, dst: np.ndarray, n_nodes: int, t_max: int = 
     return kj[keep].astype(np.int32), ji[keep].astype(np.int32)
 
 
-def _check_ctx(ctx):
-    if ctx is not None and ctx.n("edge") > 1:
-        raise NotImplementedError(
-            "DimeNet over edge-sharded ranks waits for the launch slice (ROADMAP queue 1, "
-            "item 13.6); run it on one rank")
+def _edge_split(ctx, batch):
+    """``(group, index, n)`` of this rank along ``edge`` under ``ctx``, or
+    None when the work is not split (no context, one rank, or ``n`` does
+    not divide the edge or the flat triplet count)."""
+    n = 1 if ctx is None else ctx.n("edge")
+    counts = (batch["edge_src"].shape[0], batch["tri_kj"].shape[0])
+    if n == 1 or any(c % n for c in counts):
+        return None
+    return ctx.group("edge"), ctx.index("edge"), n
+
+
+def _block(x, r: int, n: int):
+    rows = x.shape[0] // n
+    return x[r * rows:(r + 1) * rows]
 
 
 def _norm(v):
@@ -234,12 +267,12 @@ def _bilinear(a, w_bil, x_kj):
     return torch.bmm(a.reshape(rows, 1, nb), y.reshape(rows, nb, d)).reshape(rows, d)
 
 
-def _padded_geometry(vec, tri_kj, cfg: DimeNetConfig):
-    """sbf of the padded layout, (E, t_max, n_sbf): the k->j edge vectors
-    gathered from a bf16 copy (as the reference's all-gather rounds
-    them), the j->i vectors in f32."""
+def _padded_geometry(vec, vg, tri_kj, cfg: DimeNetConfig):
+    """sbf of the padded layout, (E, t_max, n_sbf) for this rank's rows:
+    the k->j edge vectors gathered from ``vg``, the bf16 copy of every
+    edge's vector (as the reference's all-gather rounds them), the j->i
+    vectors ``vec`` in f32."""
     e, t = tri_kj.shape
-    vg = vec.to(torch.bfloat16)
     v_kj = -vg.index_select(0, tri_kj.reshape(-1)).to(torch.float32).reshape(e, t, 3)
     v_ji = vec.to(torch.float32)[:, None, :]
     ang = _cos_angle(v_ji, v_kj)  # (E, t)
@@ -247,13 +280,13 @@ def _padded_geometry(vec, tri_kj, cfg: DimeNetConfig):
     return sbf_basis(d_kj.reshape(-1), ang.reshape(-1), cfg).reshape(e, t, -1)
 
 
-def _padded_interaction(m, sbf, tri_kj, blk):
-    """Per-edge triplet aggregation of the padded layout: the messages
-    gathered from a bf16 copy, the bilinear contraction, a row sum (the
-    pad triplets are zero through ``sbf``'s mask factor)."""
-    dt = m.dtype
+def _padded_interaction(mg, sbf, tri_kj, blk, dt):
+    """Per-edge triplet aggregation of the padded layout for this rank's
+    rows: the messages gathered from ``mg``, the bf16 copy of every
+    edge's message, the bilinear contraction, a row sum (the pad
+    triplets are zero through ``sbf``'s mask factor)."""
     e, t = tri_kj.shape
-    mg = m.to(torch.bfloat16).index_select(0, tri_kj.reshape(-1)).to(dt)  # (E·t, d)
+    mg = mg.index_select(0, tri_kj.reshape(-1)).to(dt)  # (E·t, d)
     x_kj = F.silu(mg @ blk["w_kj"].to(dt))
     a = sbf.reshape(e * t, -1) @ blk["w_sbf"].to(dt)  # (E·t, n_bilinear)
     tri = _bilinear(a, blk["w_bil"].to(dt), x_kj)
@@ -269,14 +302,21 @@ def forward(params, batch, cfg: DimeNetConfig, ctx=None):
     """batch: pos (N, 3), z (N,) or feat (N, F), edge_src/edge_dst (E,),
     the triplets (flat: tri_kj/tri_ji (T,); padded: tri_kj/tri_mask (E,
     t_max) and edge_mask (E,)), node_graph (N,) -> (N, n_out), or
-    (n_graphs,) energies for a molecule readout."""
-    _check_ctx(ctx)
+    (n_graphs,) energies for a molecule readout.  Under an edge-sharded
+    ``ctx`` every rank returns the same output (module docstring)."""
     dt = L.dtype_of(cfg.dtype)
     pos = batch["pos"].to(dt)
-    src = batch["edge_src"].long()
-    dst = batch["edge_dst"].long()
     n_nodes = pos.shape[0]
+    split = _edge_split(ctx, batch)
+    group, r, n = split if split else (None, 0, 1)
 
+    def mine(x):  # this rank's block of an edge-placed array
+        return _block(x, r, n) if split else x
+
+    def gather(x):  # every rank's block of ``x``, in ``x``'s dtype
+        return collectives.all_gather(x, group) if split else x
+
+    src, dst = mine(batch["edge_src"]).long(), mine(batch["edge_dst"]).long()
     if cfg.d_feat:
         h = batch["feat"].to(dt) @ params["embed_z"].to(dt)
     else:
@@ -287,38 +327,46 @@ def forward(params, batch, cfg: DimeNetConfig, ctx=None):
     rbf = rbf_basis(dist, cfg).to(dt)  # (E, n_radial)
 
     padded = cfg.triplet_layout == "padded"
-    tri_kj = batch["tri_kj"].long()
+    tri_kj = mine(batch["tri_kj"]).long()
     if padded:
-        sbf = _padded_geometry(vec, tri_kj, cfg).to(dt)
-        sbf = sbf * batch["tri_mask"][..., None].to(dt)  # (E, t_max, n_sbf)
+        sbf = _padded_geometry(vec, gather(vec.to(torch.bfloat16)), tri_kj, cfg).to(dt)
+        sbf = sbf * mine(batch["tri_mask"])[..., None].to(dt)  # (E, t_max, n_sbf)
     else:
-        tri_ji = batch["tri_ji"].long()
+        tri_ji = mine(batch["tri_ji"]).long()
+        vec_all = gather(vec)
+        dist_all = torch.sqrt(torch.sum(vec_all * vec_all, dim=-1) + 1e-9) if split else dist
         # angles of the triplets k->j->i: between edge kj and edge ji
-        angle = _cos_angle(vec.index_select(0, tri_ji), -vec.index_select(0, tri_kj))
-        sbf = sbf_basis(dist.index_select(0, tri_kj), angle, cfg).to(dt)  # (T, n_sbf)
+        angle = _cos_angle(vec_all.index_select(0, tri_ji), -vec_all.index_select(0, tri_kj))
+        sbf = sbf_basis(dist_all.index_select(0, tri_kj), angle, cfg).to(dt)  # (T, n_sbf)
 
     # embedding block: directed edge messages
     emb = torch.cat([h.index_select(0, src), h.index_select(0, dst),
                      rbf @ params["emb_rbf"].to(dt)], dim=-1)
     m = F.silu(emb @ params["emb_msg"].to(dt))  # (E, d)
     if "edge_mask" in batch:  # padded layout: pad edges carry no message
-        m = m * batch["edge_mask"][:, None].to(dt)
+        m = m * mine(batch["edge_mask"])[:, None].to(dt)
 
     node_out = torch.zeros((n_nodes, cfg.d_hidden), dtype=dt, device=pos.device)
     for blk in params["blocks"]:
         if padded:
-            agg = _padded_interaction(m, sbf, tri_kj, blk)
+            agg = _padded_interaction(gather(m.to(torch.bfloat16)), sbf, tri_kj, blk, dt)
         else:
-            x_kj = F.silu(m.index_select(0, tri_kj) @ blk["w_kj"].to(dt))
+            m_all = gather(m)
+            x_kj = F.silu(m_all.index_select(0, tri_kj) @ blk["w_kj"].to(dt))
             a = sbf @ blk["w_sbf"].to(dt)  # (T, n_bilinear)
-            agg = _segment_sum(_bilinear(a, blk["w_bil"].to(dt), x_kj), tri_ji, m.shape[0])
+            agg = _segment_sum(_bilinear(a, blk["w_bil"].to(dt), x_kj), tri_ji, m_all.shape[0])
+            if split:  # the triplet sums of every rank, for this rank's edges
+                agg = collectives.reduce_scatter(agg, group)
         g = rbf @ blk["w_rbf_g"].to(dt)
         x = F.silu(m @ blk["w_msg"].to(dt)) * g + agg @ blk["w_up"].to(dt)
         x = x + F.silu(x @ blk["w_res1"].to(dt)) @ blk["w_res2"].to(dt)
         m = m + x  # residual edge-message update
-        # output block: edges -> nodes
+        # output block: edges -> nodes, summed over the edge ranks
         contrib = (rbf @ blk["w_out_rbf"].to(dt)) * m
-        node_out = node_out + _segment_sum(contrib, dst, n_nodes) @ blk["w_out"].to(dt)
+        nodes = _segment_sum(contrib, dst, n_nodes)
+        if split:
+            nodes = collectives.psum_if_mapped(nodes, ctx.mesh_axes("edge"), ctx)
+        node_out = node_out + nodes @ blk["w_out"].to(dt)
 
     out = node_out @ params["out_final"].to(dt)  # (N, n_out)
     if cfg.n_out == 1 and cfg.n_graphs > 0:  # molecule energy readout

@@ -12,7 +12,14 @@
       capacity-factored request matrix, one ``all_to_all`` sends the
       requests, each owner gathers its rows, a second ``all_to_all``
       sends the vectors back; over-capacity ids get the zero vector.
-  Every rank returns the same ``(B, F, D)``.
+  Every rank returns the same ``(B, F, D)``.  Under a context with
+  ``local_batch`` (a train step's :meth:`ShardingCtx.local_view`) each
+  rank passes its own ids and gets their rows: ``"a2a"`` exchanges them
+  as its slice, ``"allreduce"`` all-gathers the ids, sums the masked
+  gathers and keeps this rank's block.  Both carry gradients back to the
+  owners' rows: the all-to-all's backward is the reverse exchange, the
+  psum's the psum of the ranks' gradients, and a capacity-dropped id,
+  whose forward is the zero vector, sends no gradient.
 * :class:`LearnedKeyedEmbedding` — the paper's technique on a model's
   hot path: raw 64-bit hashed ids become dense rows through a
   predecessor search in a learned index over the sorted key set (one
@@ -28,7 +35,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import keys as keymod
 from repro_torch.core.cdf import sorted_unique
@@ -80,12 +86,17 @@ def sharded_lookup(table, ids, ctx=None, mode: str = "allreduce", cap_factor: fl
     rank calls with the same ``ids``, and every rank gets the same
     answer; ``"a2a"`` gives the zero vector to ids beyond a (source,
     owner) pair's ``cap_factor`` capacity (``cap_factor >= n_shards``
-    never drops)."""
+    never drops).  With ``ctx.local_batch`` each rank passes its own
+    ``ids`` and gets its own rows (module docstring)."""
     if mode not in MODES:
         raise ValueError(mode)
     n_shards = n_row_shards(ctx)
     if n_shards == 1:
         return table[ids.long()]
+    if ctx.local_batch:
+        if mode == "allreduce":
+            return _allreduce_local(table, ids, ctx)
+        return _a2a_lookup(table, ids, ctx, n_shards, cap_factor)
     if mode == "allreduce":
         return _allreduce_lookup(table, ids, ctx, n_shards)
     dp = ctx.n("dp")
@@ -97,9 +108,7 @@ def sharded_lookup(table, ids, ctx=None, mode: str = "allreduce", cap_factor: fl
     me = ctx.index("dp")
     part = _a2a_lookup(table, ids[me * b_loc:(me + 1) * b_loc], ctx, n_shards, cap_factor)
     if dp > 1:
-        parts = [torch.empty_like(part) for _ in range(dp)]
-        dist.all_gather(parts, part.contiguous(), group=ctx.group("dp"))
-        part = torch.cat(parts)
+        part = collectives.all_gather(part, ctx.group("dp"))
     return part[:b]
 
 
@@ -110,6 +119,17 @@ def _allreduce_lookup(table, ids, ctx, n_shards: int):
     mine = (local >= 0) & (local < rows_per)
     out = table[torch.clamp(local, 0, rows_per - 1)] * mine[..., None].to(table.dtype)
     return collectives.psum_if_mapped(out, ctx.mesh_axes("row"), ctx)
+
+
+def _allreduce_local(table, ids, ctx):
+    """Each rank's own ``ids`` (the same count on every rank): every rank's
+    ids all-gathered over the row group, the masked gathers summed, this
+    rank's block kept."""
+    every = collectives.all_gather(ids, ctx.group("row"))
+    out = _allreduce_lookup(table, every, ctx, n_row_shards(ctx))
+    b = ids.shape[0]
+    me = ctx.index("row")
+    return out[me * b:(me + 1) * b]
 
 
 def _a2a_lookup(table, local_ids, ctx, n_shards: int, cap_factor: float):

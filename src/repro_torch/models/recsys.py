@@ -20,10 +20,10 @@ Entry points:
 Each runs on the device of its parameters; ``init`` draws on the
 generator's.  Under a :class:`~repro_torch.dist.sharding.ShardingCtx` the
 ``embed`` and ``wide`` leaves hold this rank's row shard
-(:func:`local_params`).  Training runs on one rank: its lookup is a
-gather in both lookup modes, so gradients flow through it; gradients
-over ranks (through ``all_to_all``) wait for the launch slice (ROADMAP
-queue 1, item 13.6).
+(:func:`local_params`).  On one rank the lookup is a gather in both
+lookup modes; over ranks (``launch.steps.build_step`` under a context)
+each rank trains on its slice of the batch and its row shard, and the
+lookups' exchanges carry the gradients to the owners' rows.
 """
 
 from __future__ import annotations

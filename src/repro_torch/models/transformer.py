@@ -14,6 +14,7 @@ Entry points:
   init_cache(cfg, batch, max_seq)                 -> KV cache dict
   decode_step(params, cache, tokens, pos, cfg)    -> (logits, cache)
   params_from_numpy(np_params, cfg)               -> params
+  param_logical_axes(cfg) / cache_logical_axes()  -> logical placement trees
 
 Each runs on the card unless given a CPU generator or ``device="cpu"``.
 A config with ``moe=True`` routes each layer's FFN through
@@ -144,6 +145,45 @@ def cast_params(params, dtype: torch.dtype):
     if isinstance(params, dict):
         return {k: cast_params(v, dtype) for k, v in params.items()}
     return params.to(dtype)
+
+
+def param_logical_axes(cfg: LMConfig):
+    """Logical sharding axes per parameter leaf (stacked layer dim first),
+    as the reference's: resolved by ``ShardingCtx.sharding`` they place
+    the leaves; this slice keeps them whole on every rank (the launch
+    slice shards no parameter over ``fsdp``/``tp``/``ep``)."""
+    lay = {
+        "ln1": (None, None),
+        "ln2": (None, None),
+        "wq": (None, "fsdp", "tp"),
+        "wk": (None, "fsdp", "tp"),
+        "wv": (None, "fsdp", "tp"),
+        "wo": (None, "tp", "fsdp"),
+        "wg": (None, "fsdp", "tp"),
+        "wu": (None, "fsdp", "tp"),
+        "wd": (None, "tp", "fsdp"),
+    }
+    if cfg.qkv_bias:
+        lay.update({"bq": (None, "tp"), "bk": (None, "tp"), "bv": (None, "tp")})
+    if cfg.moe:
+        lay["moe"] = {
+            "router": (None, None, None),
+            "wg": (None, "ep", "fsdp", None),
+            "wu": (None, "ep", "fsdp", None),
+            "wd": (None, "ep", None, "fsdp"),
+        }
+    return {"embed": ("tp", "fsdp"), "layers": lay, "ln_f": (None,), "head": ("fsdp", "tp")}
+
+
+def cache_logical_axes(seq_shard: bool = False):
+    """Logical axes of the KV cache's ``k``/``v`` (layers, batch, sequence,
+    KV heads, head dim), as the reference's: batch on ``dp`` and the
+    sequence on ``seqm`` (decode_32k), or the sequence on ``sp``
+    (long_500k, batch 1).  ``seqm``/``sp`` have no rule in either
+    profile, so they resolve to no mesh axis."""
+    if seq_shard:
+        return {"k": (None, None, "sp", None, None), "v": (None, None, "sp", None, None)}
+    return {"k": (None, "dp", "seqm", None, None), "v": (None, "dp", "seqm", None, None)}
 
 
 def _layer_body(x, lp, cfg: LMConfig, cos, sin):

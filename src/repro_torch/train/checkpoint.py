@@ -19,7 +19,13 @@ holds the same bytes as ``V2``), and the crc32 covers those bytes.
   background thread (``save`` returns it to ``join()``);
 * integrity: ``restore`` checks each leaf's crc32 (``IOError``) and its
   shape against the template (``ValueError``), and puts each leaf on the
-  template leaf's device.
+  template leaf's device;
+* elastic restore: with ``shardings`` (a matching tree of
+  :class:`~repro_torch.dist.sharding.NamedSharding` on a live
+  ``DeviceMesh``, e.g. ``launch.steps.state_shardings``) each leaf comes
+  back as a ``DTensor`` on that mesh whose ``to_local()`` is this rank's
+  block, whatever layout wrote it: a checkpoint restores onto any other
+  mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch import tree
 
@@ -45,15 +52,24 @@ def _crc(arr: np.ndarray) -> int:
 
 def save(ckpt_dir, state, step: int, async_write: bool = True):
     """Save the tree ``state`` at ``step``.  Returns the writer thread
-    (``join()`` it) when ``async_write``, else None after the write."""
+    (``join()`` it) when ``async_write``, else None after the write.  A
+    state holding ``DTensor`` leaves is saved by every rank of their mesh
+    together: each leaf is gathered whole (``full_tensor``), and the
+    default group's rank 0 writes the files (the others' thread does
+    nothing)."""
     ckpt_dir = Path(ckpt_dir)
     tmp = ckpt_dir / f".tmp_step_{step}"
     final = ckpt_dir / f"step_{step}"
     tmp.mkdir(parents=True, exist_ok=True)
 
     paths, leaves = tree.flatten_with_paths(state)
+    sharded = [_is_dtensor(l) for l in leaves]
+    # a DTensor leaf is gathered whole on every rank; then rank 0 writes
+    leaves = [l.full_tensor() if d else l for l, d in zip(leaves, sharded)]
     dtypes = [BF16 if l.dtype == torch.bfloat16 else None for l in leaves]
     host_leaves = [tree.to_numpy(l) for l in leaves]
+    if any(sharded) and torch.distributed.get_rank() != 0:
+        return _done(async_write)
 
     def write():
         manifest = {"step": step, "leaves": []}
@@ -80,6 +96,21 @@ def save(ckpt_dir, state, step: int, async_write: bool = True):
     return None
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _done(async_write: bool):
+    """What :func:`save` returns on a rank that writes nothing."""
+    if not async_write:
+        return None
+    t = threading.Thread(target=lambda: None, daemon=True)
+    t.start()
+    return t
+
+
 def latest_step(ckpt_dir):
     p = Path(ckpt_dir) / "LATEST"
     if not p.exists():
@@ -87,10 +118,15 @@ def latest_step(ckpt_dir):
     return int(p.read_text().strip())
 
 
-def restore(ckpt_dir, state_template, step: int | None = None):
+def restore(ckpt_dir, state_template, step: int | None = None, shardings=None):
     """``(state, step)``: the checkpoint at ``step`` (default: ``LATEST``)
     in ``state_template``'s structure, each leaf on its template leaf's
-    device in the dtype the manifest names."""
+    device in the dtype the manifest names.  The template's leaves need
+    only ``shape`` (and ``device`` without ``shardings``).
+
+    ``shardings``: a matching tree of ``NamedSharding`` on a live mesh;
+    each leaf is then a ``DTensor`` on that mesh, placed as its sharding
+    says, holding this rank's block on the mesh's device type."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -101,14 +137,32 @@ def restore(ckpt_dir, state_template, step: int | None = None):
         manifest = json.load(f)
 
     paths, leaves = tree.flatten_with_paths(state_template)
+    shards = (tree.flatten_up_to(state_template, shardings) if shardings is not None
+              else [None] * len(leaves))
     by_path = {e["path"]: e for e in manifest["leaves"]}
     out = []
-    for p, tmpl in zip(paths, leaves):
+    for p, tmpl, shd in zip(paths, leaves, shards):
         e = by_path[p]
         arr = np.load(d / e["file"])
         if _crc(arr) != e["crc32"]:
             raise IOError(f"checksum mismatch for leaf {p}")
         if list(arr.shape) != list(tmpl.shape):
             raise ValueError(f"shape mismatch for {p}: {arr.shape} vs {tuple(tmpl.shape)}")
-        out.append(tree.from_numpy(arr, tmpl.device, e["dtype"]))
+        if shd is None:
+            out.append(tree.from_numpy(arr, tmpl.device, e["dtype"]))
+        else:
+            out.append(_placed(arr, e["dtype"], shd))
     return tree.unflatten(state_template, out), step
+
+
+def _placed(arr, dtype_name, sharding):
+    """The host array ``arr`` as a ``DTensor`` on ``sharding``'s mesh: this
+    rank's block, copied to the mesh's device."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = sharding.mesh
+    coord = mesh.get_coordinate()
+    whole = tree.from_numpy(arr, "cpu", dtype_name)
+    local = sharding.local_block(whole, coord).contiguous().to(mesh.device_type)
+    return DTensor.from_local(local, mesh, sharding.placements, run_check=False,
+                              shape=whole.shape, stride=whole.stride())

@@ -13,6 +13,34 @@ microbatch's, as the reference's ``lax.scan`` carry leaves it.
 A state is a plain dict: ``{"params", "opt", "step"}`` plus
 ``"comp_err"`` (f32, like the parameters) under gradient compression.
 It lives on the device of its parameters; the step never moves it.
+
+Over ranks (``make_train_step(..., ctx=, family=)``), where the reference
+gets its data-parallel gradient from GSPMD, the step reduces each
+gradient leaf over the groups its placement implies
+(``launch.steps.state_shardings``):
+
+* the LM and recsys families split the batch over ``dp``: every rank
+  takes its slice of the global batch it is given (all of it when the
+  batch does not divide by ``n("dp")``, ``fit_sharding``'s fallback), and
+  a replicated leaf's gradient is the mean over ``dp`` of the ranks'
+  gradients;
+* a ``row``-placed leaf (recsys ``embed``/``wide``) is this rank's shard:
+  its gradient arrives through the lookups' exchanges (their backward
+  sums every rank's contribution) and is divided by ``n("row")``, with no
+  all-reduce;
+* DimeNet (``gnn``) splits the work, not the batch, over ``edge``: every
+  rank computes the same loss, and a replicated leaf takes the sum of
+  the ranks' partial gradients over ``edge``, divided by ``n("edge")``
+  (the node psum's backward hands every rank ``n`` times the
+  gradient of its part).
+
+The reduction comes after the microbatch accumulation and before
+``apply_grad_compression``, which so compresses the global gradient as
+the reference does; the global norm and the int8 scale of a ``row`` leaf
+take its sum and max over the ranks.  The reported loss is the mean over
+the split axis (each rank's last microbatch's).  Parameters are not
+sharded over ``fsdp``/``tp``/``ep``: ranks along those axes (``model``
+under ``tp_fsdp``) hold whole replicas and run the same slice.
 """
 
 from __future__ import annotations
@@ -53,11 +81,11 @@ def global_norm(t):
 
 
 @torch.no_grad()
-def clip_by_global_norm(t, max_norm):
+def clip_by_global_norm(t, max_norm, norm=None):
     """``(clipped, norm)``: every leaf scaled by ``min(1, max_norm /
     max(norm, 1e-9))`` in f32, cast back to its dtype; ``norm`` the raw
-    (pre-clip) global norm."""
-    norm = global_norm(t)
+    (pre-clip) global norm (:func:`global_norm` unless given)."""
+    norm = global_norm(t) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree.tree_map(lambda l: (l.to(torch.float32) * scale).to(l.dtype), t), norm
 
@@ -98,17 +126,44 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree.unflatten(params, grads)
 
 
-def make_train_step(loss_fn, tcfg: TrainConfig):
+def _split_axis(family):
+    """The logical axis a family's train step splits over, and whether it
+    splits the batch (``dp``) or only the work (``edge``)."""
+    return ("edge", False) if family == "gnn" else ("dp", True)
+
+
+def local_batch(batch: dict, ctx, family) -> dict:
+    """This rank's slice of a global ``batch`` along ``dp``: rows ``[i *
+    B/n, (i + 1) * B/n)`` of every value for the rank at index ``i`` of
+    ``n = ctx.n("dp")``; the whole batch when ``n`` does not divide ``B``
+    (or the family splits no batch)."""
+    axis, slices = _split_axis(family)
+    n = 1 if ctx is None else ctx.n(axis)
+    sizes = {int(v.shape[0]) for v in batch.values()}
+    if not slices or n == 1 or len(sizes) != 1 or next(iter(sizes)) % n:
+        return batch
+    rows = next(iter(sizes)) // n
+    i = ctx.index(axis)
+    return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+
+
+def make_train_step(loss_fn, tcfg: TrainConfig, ctx=None, family: str | None = None):
     """``loss_fn(params, batch) -> scalar``.  Returns ``step(state,
     batch) -> (new_state, metrics)``, metrics ``loss``, ``grad_norm``
     (before the clip) and ``lr_scale``, 0-d tensors on the state's
-    device."""
+    device.  With ``ctx`` and ``family`` (``"lm"``, ``"recsys"``,
+    ``"gnn"``) the step runs on every rank of ``ctx``'s mesh, each given
+    the same global batch, and reduces the gradients over ranks as the
+    module docstring says."""
     _, update, occls = opt.OPTIMIZERS[tcfg.optimizer]
     ocfg = occls(lr=tcfg.lr)
     if tcfg.optimizer == "adamw":
         ocfg = opt.AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay)
     schedule = partial(sched.SCHEDULES[tcfg.schedule], warmup=tcfg.warmup,
                        total=tcfg.total_steps)
+    axis, _ = _split_axis(family)
+    n_split = 1 if ctx is None else ctx.n(axis)
+    n_row = 1 if ctx is None else ctx.n("row")
 
     def grads_of(params, batch):
         if tcfg.microbatches <= 1:
@@ -125,13 +180,50 @@ def make_train_step(loss_fn, tcfg: TrainConfig):
                 a.add_(x)
         return loss, tree.unflatten(params, [a / float(n) for a in acc])
 
+    def reduce_grads(grads, rows):
+        """The global gradient from this rank's (see the module docstring)."""
+        axes = ctx.mesh_axes(axis)
+        out = []
+        for g, row in zip(tree.leaves(grads), rows):
+            if row:
+                out.append(g / n_row)
+            else:
+                out.append(collectives.psum_if_mapped(g, axes, ctx) / n_split)
+        return tree.unflatten(grads, out)
+
+    def norm_of(grads, rows):
+        total = 0
+        for g, row in zip(tree.leaves(grads), rows):
+            sq = torch.sum(g.to(torch.float32) ** 2)
+            if row:
+                sq = collectives.psum_if_mapped(sq, ctx.mesh_axes("row"), ctx)
+            total = total + sq
+        return torch.sqrt(total)
+
     def step(state, batch):
+        ranks = ctx is not None and (n_split > 1 or n_row > 1)
+        rows = row_leaves(state["params"], family, ctx) if ranks else None
+        if ranks and tcfg.optimizer == "adafactor" and any(rows):
+            raise NotImplementedError("Adafactor's factored moments of a row-sharded leaf need "
+                                      "its column means over ranks; train it with AdamW")
+        if ranks:
+            batch = local_batch(batch, ctx, family)
         loss, grads = grads_of(state["params"], batch)
         with torch.no_grad():
+            if ranks:
+                grads = reduce_grads(grads, rows)
+                loss = collectives.psum_if_mapped(loss, ctx.mesh_axes(axis), ctx) / n_split
             if tcfg.grad_compression != "none":
+                maxes = None
+                if ranks:
+                    def global_max(x):
+                        return collectives.max_if_mapped(x, ctx.mesh_axes("row"), ctx)
+
+                    maxes = [global_max if r else None for r in rows]
                 grads, new_err = collectives.apply_grad_compression(
-                    grads, state["comp_err"], tcfg.grad_compression)
-            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+                    grads, state["comp_err"], tcfg.grad_compression, maxes)
+            norm = norm_of(grads, rows) if ranks else None
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm)
             lr_scale = schedule(state["step"])
             new_params, new_opt = update(grads, state["opt"], state["params"], ocfg, lr_scale)
         out = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
@@ -140,3 +232,14 @@ def make_train_step(loss_fn, tcfg: TrainConfig):
         return out, {"loss": loss, "grad_norm": gnorm, "lr_scale": lr_scale}
 
     return step
+
+
+def row_leaves(params, family, ctx) -> list:
+    """For each parameter leaf (flattened order), whether it is placed over
+    ``row`` under ``ctx`` (``launch.steps.state_shardings``' classifier):
+    this rank holds a shard of its rows."""
+    from repro_torch.launch.steps import param_logical
+
+    if ctx is None or ctx.n("row") == 1:
+        return [False] * len(tree.leaves(params))
+    return ["row" in (lg or ()) for lg in param_logical(params, family)]

@@ -297,17 +297,6 @@ def test_flat_pad_triplets_are_unmasked_self_triplets_of_edge_0():
     assert not torch.equal(out[dst0], out_cut[dst0])
 
 
-def test_forward_refuses_an_edge_sharded_context():
-    class _Ctx:
-        def n(self, logical):
-            return 4 if logical == "edge" else 1
-
-    *_, cfg_t, tb = _case("molecule", "padded")
-    p = td.init(torch.Generator().manual_seed(0), cfg_t)
-    with pytest.raises(NotImplementedError, match="13.6"):
-        td.forward(p, tb, cfg_t, _Ctx())
-
-
 def test_reference_dimenet_raises_under_single_device_ctx(ref_runs):
     """The reference's finding (ROADMAP queue 3): under the plain
     ``single_device_ctx()`` the output block's ``segment_sum`` over

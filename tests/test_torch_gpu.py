@@ -119,6 +119,23 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for one test, the old
+    setting restored after it.  A test that compares the port with itself
+    bit for bit through ``index_add``, ``index_put(accumulate=True)`` (a
+    gather's backward) or DimeNet's segment sums takes it: on the CPU
+    those accumulate repeated rows in an order that depends on the
+    threads, unless the deterministic kernels are asked for."""
+    old, warn = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old, warn_only=warn)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("table_kind", ("uniform", "lognormal", "clustered", "bursty", "sequential"))
 @pytest.mark.parametrize("kind", KINDS)
@@ -945,6 +962,167 @@ def embedding_rank_cases(rank: int, world: int, work_dir: str, device: str) -> N
     np.savez(work / f"emb_out{rank}.npz", **out)
 
 
+def _rank_ctx(case: dict, world: int, dev):
+    """The case's context on the first ``prod(case["mesh"])`` ranks of the
+    world (None on a rank outside them).  Every rank builds the mesh (its
+    groups are collective); a case's rules name one mesh dim a logical
+    axis where the mesh is a subset of the world."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import ShardingCtx
+
+    shape = tuple(case["mesh"])
+    mesh = DeviceMesh(dev.type, torch.arange(int(np.prod(shape))).reshape(shape),
+                      mesh_dim_names=("data", "model"))
+    if mesh.get_coordinate() is None:
+        return None
+    return ShardingCtx(mesh=mesh, profile=case.get("profile", "tp_fsdp"),
+                       rules=case.get("rules") or {})
+
+
+def _case_spec(case: dict):
+    """The reduced arch of a step case, with its config overrides."""
+    spec = configs.get(case["arch"], reduced=True)
+    cfg = dataclasses.replace(spec.config, **case.get("config", {}))
+    return dataclasses.replace(spec, config=cfg)
+
+
+def train_rank_cases(rank: int, world: int, work_dir: str, device: str) -> None:
+    """One rank of the training cases over ranks (``work_dir/train_cases.json``),
+    each on its context (:func:`_rank_ctx`; a rank outside a case's mesh
+    skips it):
+
+    * ``step``: one ``launch.steps.build_step`` step of the case's cell and
+      ``TrainConfig`` from the saved state (recsys: this rank's row shard of
+      it) on the saved global batch; the new state and the metrics;
+    * ``lookup``: ``models.embedding.sharded_lookup`` of this rank's row
+      shard of a saved table on the saved ids (``local``: this rank's block
+      of them, under ``ctx.local_view()``), ``cap_factor`` 4.0, and the
+      gradient of ``sum(out * w)`` with respect to the shard;
+    * ``restore``: the saved state placed as ``state_shardings`` says on the
+      case's mesh (``DTensor`` leaves), saved by ``checkpoint.save``, then
+      restored under each mesh of ``restore_meshes``: every leaf's local
+      shape, and whether its ``full_tensor()`` is bit-equal to the saved one.
+
+    A recsys step's lookups run at ``cap_factor`` 4.0 (nothing drops on 4
+    ranks).  Writes ``train_out{rank}.pt``."""
+    import functools
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import embedding, recsys
+    from repro_torch.train import TrainConfig, checkpoint
+
+    import os
+
+    work, dev = Path(work_dir), torch.device(device)
+    if dev.type == "cuda":  # cuBLAS is deterministic only with this workspace config
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.cuda.set_device(0)
+    else:  # the ranks share the host's cores
+        torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    spec_list = json.loads((work / "train_cases.json").read_text())
+    lookup = recsys.sharded_lookup
+    recsys.sharded_lookup = functools.partial(lookup, cap_factor=4.0)
+    out = {}
+    try:
+        for case in spec_list:
+            ctx = _rank_ctx(case, world, dev)
+            if ctx is None:
+                dist.barrier()
+                continue
+            data = torch.load(work / case["inputs"], map_location=dev, weights_only=True)
+            if case["kind"] == "step":
+                data = {"state": tree.tree_map(lambda t: t.to(dev), data["state"]),
+                        "batch": {k: v.to(dev) for k, v in data["batch"].items()}}
+                spec = _case_spec(case)
+                cell = next(c for c in spec.shapes if c.name == case["cell"])
+                bundle = steps.build_step(spec, cell, ctx, TrainConfig(**case["tcfg"]))
+                state = data["state"]
+                if spec.family == "recsys":
+                    state = dict(state, params=recsys.local_params(state["params"], ctx))
+                    state = tree.tree_map(lambda t: t.clone(), state)
+                    state["opt"] = {k: (recsys.local_params(v, ctx) if k in ("m", "v") else v)
+                                    for k, v in state["opt"].items()}
+                    if "comp_err" in state:
+                        state["comp_err"] = recsys.local_params(state["comp_err"], ctx)
+                new, metrics = bundle.fn(state, data["batch"])
+                out[case["name"]] = {"state": tree.tree_map(lambda t: t.cpu(), new),
+                                     "metrics": {k: float(v) for k, v in metrics.items()}}
+            elif case["kind"] == "lookup":
+                shard = embedding.local_rows(data["table"], ctx).detach().clone()
+                shard.requires_grad_(True)
+                ids, w = data["ids"], data["w"]
+                view = ctx
+                if case["local"]:
+                    b = ids.shape[0] // ctx.n("row")
+                    me = ctx.index("row")
+                    ids, w, view = ids[me * b:(me + 1) * b], w[me * b:(me + 1) * b], ctx.local_view()
+                got = embedding.sharded_lookup(shard, ids, view, mode=case["mode"], cap_factor=4.0)
+                (grad,) = torch.autograd.grad((got * w).sum(), shard)
+                out[case["name"]] = {"out": got.detach().cpu(), "grad": grad.cpu()}
+            else:  # restore
+                out[case["name"]] = _restore_case(case, world, data["state"], work, dev)
+            dist.barrier()
+    finally:
+        recsys.sharded_lookup = lookup
+    torch.save(out, work / f"train_out{rank}.pt")
+
+
+def _restore_case(case: dict, world: int, state, work: Path, dev) -> dict:
+    """The restore case on this rank: ``state`` placed as
+    ``state_shardings`` says over the case's mesh on the host (gloo cannot
+    gather a ``DTensor`` held on the card: its ``all_gather_into_tensor``
+    of CUDA tensors crashed a rank), saved, and restored under each mesh of
+    ``restore_meshes``: on the host, each leaf's local shape and whether its
+    ``full_tensor()`` is bit-equal to the saved leaf; and, on the card,
+    whether each local block is bit-equal to the saved leaf's block."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.train import checkpoint
+
+    host = torch.device("cpu")
+    state = tree.tree_map(lambda t: t.cpu(), state)
+    ctx = _rank_ctx(case, world, host)
+    shard = steps.fit_tree(state, steps.state_shardings(state, "lm", ctx), ctx.mesh)
+    coord = ctx.coordinate()
+    placed = tree.unflatten(state, [
+        _dtensor(s.local_block(t, coord).contiguous(), s, t)
+        for t, s in zip(tree.leaves(state), tree.flatten_up_to(state, shard))])
+    checkpoint.save(work / "ckpt", placed, 1).join(timeout=120)
+    dist.barrier()
+    shapes, same, on_dev = {}, {}, {}
+    for m in case["restore_meshes"]:
+        key = "x".join(map(str, m))
+        for where in {host, dev}:
+            rctx = _rank_ctx(dict(case, mesh=m), world, where)
+            rshard = steps.fit_tree(state, steps.state_shardings(state, "lm", rctx), rctx.mesh)
+            got, _ = checkpoint.restore(work / "ckpt", state, shardings=rshard)
+            if where == host:
+                shapes[key] = [list(t.to_local().shape) for t in tree.leaves(got)]
+                same[key] = [bool(torch.equal(t.full_tensor(), w))
+                             for t, w in zip(tree.leaves(got), tree.leaves(state))]
+            if where == dev:
+                c = rctx.coordinate()
+                on_dev[key] = [t.to_local().device.type == dev.type and bool(torch.equal(
+                    t.to_local().cpu(), s.local_block(w, c)))
+                    for t, w, s in zip(tree.leaves(got), tree.leaves(state),
+                                       tree.flatten_up_to(state, rshard))]
+    return {"shapes": shapes, "same": same, "on_device": on_dev}
+
+
+def _dtensor(local, sharding, whole):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                              shape=whole.shape, stride=whole.stride())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ("a2a", "allgather"))
 def test_collective_modes_two_ranks_on_card(cuda, tmp_path, mode):
@@ -1759,3 +1937,197 @@ def test_dimenet_minibatch_lg_forward_at_full_width_on_card(cuda, monkeypatch):
     e, t = batch["tri_kj"].shape
     cap = e * t * bundle.cfg.n_bilinear * bundle.cfg.d_hidden * 4
     assert torch.cuda.max_memory_allocated() < 4 * cap
+
+
+# -- gradients over ranks (phase 10's gates at the reduced size) ----------------------------------
+
+#: (name, case) of the spawned-rank cases on the card: the reduced archs in
+#: f32, a step from a seeded state over the 4 gloo ranks on the one card
+_CARD_RANK_CASES = (
+    ("lm-4", dict(arch="qwen2-0.5b", family="lm", cell="train_4k", mesh=[4, 1],
+                  profile="tp_fsdp", config={"dtype": "float32"})),
+    ("lm-int8-4", dict(arch="qwen2-0.5b", family="lm", cell="train_4k", mesh=[4, 1],
+                       profile="tp_fsdp", config={"dtype": "float32"},
+                       tcfg={"grad_compression": "int8"})),
+    ("wide-deep-a2a-4", dict(arch="wide-deep", family="recsys", cell="train_batch",
+                             mesh=[1, 4], profile="flat_dp", config={"lookup_mode": "a2a"})),
+    ("wide-deep-allreduce-4", dict(arch="wide-deep", family="recsys", cell="train_batch",
+                                   mesh=[1, 4], profile="flat_dp",
+                                   config={"lookup_mode": "allreduce"})),
+    ("dimenet-padded-4", dict(arch="dimenet", family="gnn", cell="molecule", mesh=[4, 1],
+                              profile="flat_dp", config={"triplet_layout": "padded"})),
+    ("dimenet-flat-4", dict(arch="dimenet", family="gnn", cell="full_graph_sm", mesh=[1, 4],
+                            profile="flat_dp", config={"triplet_layout": "flat"})),
+)
+#: first-moment tolerance of each family against the one-rank step on the
+#: card (of each leaf's largest magnitude): sums over ranks reorder, and
+#: DimeNet's padded layout reduce-scatters its message gradients in bf16
+_CARD_GRAD_RTOL = {"lm": 1e-5, "recsys": 1e-5, "gnn": 2e-3}
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """Every card case once on 4 gloo ranks on the one card, and each
+    step's one-rank twin on the card (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    work = tmp_path_factory.mktemp("card_ranks")
+    want, lookup, restore_state = card_rank_inputs(work)
+    run_ranks(train_rank_cases, 4, work, str(work), "cuda", timeout=900)
+    got = [torch.load(work / f"train_out{r}.pt", weights_only=False) for r in range(4)]
+    return want, got, lookup, restore_state
+
+
+def card_rank_inputs(work: Path):
+    """Write the card cases (``work/train_cases.json`` and their inputs) and
+    return each step's one-rank result on the card, the lookup inputs and
+    the restore case's state."""
+    import os
+
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.train import TrainConfig, init_train_state
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases, want = [], {}
+    for name, c in _CARD_RANK_CASES:
+        tcfg = dict(total_steps=4, warmup=1, **c.get("tcfg", {}))
+        spec = _case_spec(c)
+        cell = next(x for x in spec.shapes if x.name == c["cell"])
+        one = steps.build_step(spec, cell, None, TrainConfig(**tcfg))
+        init = one.init_fn
+        if c["family"] == "recsys":  # rows rounded to 4 shards, as the ranks' are
+            from repro_torch.dist.sharding import AbstractMesh, ShardingCtx
+
+            shaped = ShardingCtx(mesh=AbstractMesh((1, 4), ("data", "model")), profile="flat_dp")
+            init = lambda g, cfg=spec.config, s=shaped: recsys.init(g, cfg, s)  # noqa: E731
+        state = init_train_state(torch.Generator().manual_seed(7), init, TrainConfig(**tcfg))
+        batch = steps.make_inputs(spec, cell, np.random.default_rng(7), device="cpu")
+        torch.save({"state": state, "batch": batch}, work / f"{name}.pt")
+        cases.append(dict(c, name=name, kind="step", inputs=f"{name}.pt", tcfg=tcfg))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ws, wm = one.fn(tree.tree_map(lambda t: t.to("cuda"), state),
+                            {k: v.to("cuda") for k, v in batch.items()})
+        finally:
+            torch.use_deterministic_algorithms(False)
+        want[name] = (tree.tree_map(lambda t: t.cpu(), ws), {k: float(v) for k, v in wm.items()})
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.normal(0, 1, (64, 6)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 64, (32, 5)))
+    w = torch.from_numpy(rng.normal(0, 1, (32, 5, 6)).astype(np.float32))
+    torch.save({"table": table, "ids": ids, "w": w}, work / "lookup.pt")
+    for mode in ("a2a", "allreduce"):
+        cases.append(dict(name=f"lookup-{mode}", kind="lookup", inputs="lookup.pt", mesh=[1, 4],
+                          profile="flat_dp", mode=mode, local=True))
+    gen = torch.Generator().manual_seed(3)
+    restore_state = {"params": {"embed": torch.randn(64, 8, generator=gen),
+                                "layers": {"wq": torch.randn(2, 8, 16, generator=gen)},
+                                "ln_f": torch.randn(8, generator=gen)},
+                     "step": torch.tensor(2, dtype=torch.int32)}
+    torch.save({"state": restore_state}, work / "restore.pt")
+    cases.append(dict(name="restore", kind="restore", inputs="restore.pt", mesh=[2, 2],
+                      profile="tp_fsdp", restore_meshes=[[1, 4], [4, 1]]))
+    (work / "train_cases.json").write_text(json.dumps(cases))
+    return want, (table, ids, w), restore_state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [n for n, _ in _CARD_RANK_CASES])
+def test_train_step_over_ranks_on_card(card_ranks, name):
+    """Phase 10a-10c's gates at the reduced size: a train step over 4 gloo
+    ranks on the card (the LM data-parallel, also under int8
+    compression; wide & deep's exchanges under autograd in both lookup
+    modes at ``cap_factor`` 4.0; DimeNet's edges split in both layouts)
+    leaves every rank holding the same replicated leaves, bit for bit, and
+    equals the one-rank step on the card: loss and ``grad_norm`` within
+    1e-5 relative (2e-3 for ``grad_norm`` under compression or DimeNet's
+    bf16 gathers), the first moment within ``_CARD_GRAD_RTOL`` of each
+    leaf's largest magnitude (under int8, one quantum ``G / 127`` where a
+    rounding tie fell the other way)."""
+    from repro_torch import tree
+
+    c = dict(_CARD_RANK_CASES)[name]
+    want_s, want_m = card_ranks[0][name]
+    got = [g.get(name) for g in card_ranks[1] if g.get(name) is not None]
+    rows = c["family"] == "recsys"
+    paths = tree.flatten_with_paths(got[0]["state"])[0]
+    for i, p in enumerate(paths):
+        if rows and p.endswith(("['embed']", "['wide']")):
+            continue
+        assert all(torch.equal(tree.leaves(g["state"])[i], tree.leaves(got[0]["state"])[i])
+                   for g in got), p
+    state = got[0]["state"]
+    if rows:  # the row shards in rank order
+        state = tree.unflatten(state, [
+            torch.cat([tree.leaves(g["state"])[i] for g in got]) if p.endswith(("['embed']",
+                                                                                 "['wide']"))
+            else tree.leaves(state)[i] for i, p in enumerate(paths)])
+    loose = c["family"] == "gnn" or c.get("tcfg", {}).get("grad_compression")
+    m = got[0]["metrics"]
+    assert m["loss"] == pytest.approx(want_m["loss"], rel=1e-5 if c["family"] != "gnn" else 5e-5)
+    assert m["grad_norm"] == pytest.approx(want_m["grad_norm"], rel=2e-3 if loose else 1e-5)
+    rtol = _CARD_GRAD_RTOL[c["family"]]
+    for p, g, w in zip(*tree.flatten_with_paths(state["opt"]["m"]),
+                       tree.leaves(want_s["opt"]["m"])):
+        big = max(float(w.abs().max()), 1e-9)  # 0.1 * clip * G: a quantum is big / 127
+        allowed = rtol * big + (big / 127 * 1.01 if c.get("tcfg") else 0)
+        assert float((g - w).abs().max()) <= allowed, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ("a2a", "allreduce"))
+def test_sharded_lookup_gradients_over_ranks_on_card(card_ranks, mode):
+    """``sharded_lookup`` on 4 gloo ranks on the card, each rank its
+    quarter of the ids: the rows equal the gather bit for bit, the shards'
+    gradients put together equal the gather's within 1e-6."""
+    table, ids, w = card_ranks[2]
+    outs = [g[f"lookup-{mode}"] for g in card_ranks[1]]
+    assert torch.equal(torch.cat([o["out"] for o in outs]), table[ids])
+    leaf = table.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad((leaf[ids] * w).sum(), leaf)
+    np.testing.assert_allclose(torch.cat([o["grad"] for o in outs]).numpy(), want.numpy(),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_elastic_restore_over_ranks_on_card(card_ranks):
+    """A state placed over a (2, 2) mesh of 4 gloo ranks as ``DTensor``
+    leaves on the host (gloo gathers no ``DTensor`` held on the card),
+    saved, and restored onto (1, 4) and (4, 1): on the host every
+    ``full_tensor()`` bit-equal to the saved leaf, on the card every local
+    block bit-equal to the saved leaf's block; the (1, 4) layout splits
+    the embedding's rows (``tp`` over ``model``)."""
+    for g in card_ranks[1]:
+        r = g["restore"]
+        assert all(all(v) for v in r["same"].values())
+        assert all(all(v) for v in r["on_device"].values()) and set(r["on_device"]) == {"1x4",
+                                                                                      "4x1"}
+        assert r["shapes"]["1x4"][0] == [16, 8]
+
+
+@pytest.mark.gpu
+def test_dryrun_flops_equal_the_step_on_card(cuda, monkeypatch):
+    """The dry run of the reduced qwen2-0.5b ``train_4k`` (fake tensors, one
+    rank) counts the same FLOPs as ``FlopCounterMode`` around the real step
+    on the card, within 1e-6, and predicts a peak no lower than the state
+    it holds."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.train import TrainConfig, init_train_state
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = configs.get("qwen2-0.5b", reduced=True)
+    cell = next(c for c in spec.shapes if c.kind == "train")
+    tcfg = TrainConfig()
+    entry = dryrun.run_cell(spec, cell, (1, 1), tcfg=tcfg, verbose=False)
+    bundle = steps.build_step(spec, cell, tcfg=tcfg)
+    state = init_train_state(torch.Generator(device=cuda).manual_seed(0), bundle.init_fn, tcfg)
+    batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=cuda)
+    with FlopCounterMode(display=False) as fc:
+        bundle.fn(state, batch)
+    assert entry["flops"] == pytest.approx(fc.get_total_flops(), rel=1e-6)
+    assert entry["memory"]["peak_bytes"] >= entry["memory"]["argument_bytes"]

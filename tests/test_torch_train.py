@@ -58,6 +58,7 @@ from repro_torch.train import TrainConfig, make_train_step, state_from_numpy
 from repro_torch.train import optimizer as topt
 from repro_torch.train import schedule as tsched
 from repro_torch.train import step as tstep
+from test_torch_gpu import deterministic  # noqa: F401  (fixture)
 
 CTX = single_device_ctx()
 F32_GRAD_RTOL = 1e-5
@@ -324,10 +325,11 @@ def test_lm_loss_and_gradients_match_reference(dtype, xent_chunk):
         _close_by_leaf(got_g, want_g, BF16_GRAD_TOL, "grad")
 
 
-def test_remat_changes_no_gradient():
+def test_remat_changes_no_gradient(deterministic):
     """Remat on and off (the layer bodies and the loss chunks recomputed
     in the backward pass, or kept) give the same loss and gradients, bit
-    for bit on the CPU."""
+    for bit on the CPU (deterministic kernels: the embedding gather's
+    backward accumulates repeated tokens)."""
     _, cfg_t = _lm_cfgs("float32", xent_chunk=16)
     params = tt.init(torch.Generator().manual_seed(1), cfg_t)
     batch = {k: _t(v) for k, v in _lm_batch(1).items()}

@@ -48,6 +48,7 @@ from repro_torch.models import recsys as tr
 from repro_torch.models import transformer as tt
 from repro_torch.train import TrainConfig, state_from_numpy
 from repro_torch.train import step as tstep
+from test_torch_gpu import deterministic  # noqa: F401  (fixture)
 
 CTX = single_device_ctx()
 RECSYS_ARCHS = ("dlrm-mlperf", "din", "wide-deep", "sasrec")
@@ -157,9 +158,10 @@ def test_recsys_train_cell_matches_reference(recsys_steps, arch):
 
 
 @pytest.mark.parametrize("arch", RECSYS_ARCHS)
-def test_recsys_train_step_is_the_same_under_both_lookup_modes(arch):
+def test_recsys_train_step_is_the_same_under_both_lookup_modes(arch, deterministic):
     """On one rank ``"a2a"`` and ``"allreduce"`` are the same gather: the
-    port's step gives bit-equal states under either."""
+    port's step gives bit-equal states under either (deterministic
+    kernels: the gather's backward accumulates repeated rows)."""
     _, tspec = _specs(arch)
     cell = _train_cell(tspec)
     states = []
