@@ -156,8 +156,9 @@ Phases (any failure ends the run with a non-zero exit):
                shape, the exact form on each row's first 8,192 keys);
 5f. tuner    — the paper's tuning procedure on the search kernels (the
                reference's ``tune.pareto``, ``tune.mining``, ``tune.rebuild``):
-               ``tune.sweep`` of ``candidate_grid`` on phase 4's amzn64 table
-               (2^24 keys, 2^22 queries, ``fit="auto"``, ``kernel``; 24
+               ``tune.sweep`` of ``candidate_grid`` on every other key of
+               phase 4's amzn64 table (2^23 keys: cut from 2^24 for the
+               run's time; 2^22 queries, ``fit="auto"``, ``kernel``; 24
                candidates, every one exact), each candidate's space and ns a
                query beside ``torch.searchsorted``'s, the strictly monotone
                frontier, the picks at 0.05/0.7/2/10% within budget and the
@@ -284,7 +285,7 @@ Phases (any failure ends the run with a non-zero exit):
                sequences of 4,096 tokens a step (cut from 256) from
                ``TokenBatcher`` over a seeded ``synth_corpus``, 2
                microbatches, AdamW, ``warmup_cosine(warmup=2)``, clip 1.0,
-               4 steps; every loss finite, the last below the first; ms a
+               2 steps; every loss finite, the last below the first; ms a
                step, tokens/s, peak GB, each step's loss and ``grad_norm``,
                6·N·tokens over 989 TFLOP/s beside the step; first, at 2
                layers and 256 tokens in f32, one step on the card == the
@@ -305,7 +306,8 @@ Phases (any failure ends the run with a non-zero exit):
                and falling; ms a step, edges/s, peak GB; first, card == CPU
                on the reduced config in both layouts;
 10. ranks    — training over gloo ranks on the one card: 10a qwen2-0.5b's
-               ``train_4k`` at published widths over 2 ranks (9a's first
+               ``train_4k`` at published widths, data parallel alone over
+               2 ranks (whole replicas; 9a's first
                batch, 4 sequences and one microbatch a rank): the ranks'
                states bit-equal, == 9a's one-rank step (deterministic
                algorithms; ``TRAIN_RTOL``/``TRAIN_GRAD_RTOL``), ms a step,
@@ -320,7 +322,18 @@ Phases (any failure ends the run with a non-zero exit):
                dry runs (``launch.dryrun``, fake tensors) of the 9a cell,
                10a and 9e's ``minibatch_lg``: FLOPs == ``FlopCounterMode`` on
                the card's steps, DimeNet's within 3% of
-               ``dimenet_step_flops``; predicted peaks beside the measured.
+               ``dimenet_step_flops``; predicted peaks beside the measured;
+               10e the LM family placed over a (data 2, model 2) ``tp_fsdp``
+               mesh of 4 ranks in one spawn (each rank its blocks, bf16
+               compute): 10e-i 10a's qwen2-0.5b and batch, held against
+               9a's one-rank step; 10e-ii moonshot-v1-16b-a3b at published
+               widths, depth cut to 2 of 48 layers (with AdamW the whole
+               depth is 115 GB), 2 x 4,096 tokens, held against a one-rank
+               step in one microbatch a dp shard (the same capacity):
+               loss, global norm, first moment and (10e-i) parameters
+               within ``PLACED_RTOL``/``PLACED_GRAD_RTOL``, ms a step,
+               tokens/s, one forward's FSDP gathers and one tp all-reduce
+               timed, state bytes and peak GB a rank.
 
 The ``corridor_scan`` entry of the kernels line times the fast fit's
 blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
@@ -934,12 +947,12 @@ def interval_backends(dev, what: str, idx, t_dev, q_dev, got, ref, want_np) -> d
         fail(f"intervals: a window of {what} misses its rank")
     out = {"reduction_factor": reduction_factor(lo, hi, t_dev.numel()),
            "mean_window": float((hi - lo + 1).double().mean()),
-           "intervals_ms": device_ms(lambda: idx.intervals(t_dev, q_dev), dev, reps=10, warmup=2)}
+           "intervals_ms": device_ms(lambda: idx.intervals(t_dev, q_dev), dev, reps=5, warmup=1)}
     for backend in tix.INTERVAL_BACKENDS:
         if not torch.equal(idx.lookup(t_dev, q_dev, backend=backend), got):
             fail(f"{backend}: {what} ranks differ from the kernel's")
         out[f"{backend}_lookup_ms"] = device_ms(
-            lambda b=backend: idx.lookup(t_dev, q_dev, backend=b), dev, reps=10, warmup=2)
+            lambda b=backend: idx.lookup(t_dev, q_dev, backend=b), dev, reps=5, warmup=1)
     return out
 
 
@@ -1349,7 +1362,7 @@ def collective_rank(rank: int, world: int, work_dir: str) -> None:
     (work / f"rank{rank}.json").write_text(json.dumps(result))
 
 
-def _rank_ms(fn, dev, group, reps: int = 5):
+def _rank_ms(fn, dev, group, reps: int = 3):
     """``fn()``'s result and its mean ms over ``reps`` calls after one warm
     call, each between a barrier of every rank and a synchronise: CUDA
     events on the card (None on the CPU) and the host clock."""
@@ -2324,11 +2337,11 @@ def telemetry_cost(dev, tier, model, qs: np.ndarray, reps: int = 20) -> dict:
     return row
 
 
-def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
+def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str, stride: int = 1) -> dict:
     """Phase 5f: the paper's tuning procedure on the search kernels, at
     phase 4's size.  5f-a the frontier (``sweep`` over ``candidate_grid``
-    on ``kernel``, every candidate exact, budget picks, the report's round
-    trip), 5f-b SY-RMI mining on ``lead`` and the mined SY-RMI at 2% on
+    on ``kernel`` on every ``stride``-th key of ``lead``, every candidate
+    exact, budget picks, the report's round trip), 5f-b SY-RMI mining on ``lead`` and the mined SY-RMI at 2% on
     it,
     5f-c a ``TunedTier``'s lifecycle on ``lead`` split in 4 shards (the
     device and the host refresh, GAPPED absorb/overflow/compact, a retune,
@@ -2348,21 +2361,26 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
     t0 = time.perf_counter()
     table = tables[lead][0]
     n = len(table)
-    cands = tune.sweep(table, n_queries=nq, reps=3, fit="auto", check_exact=True, device=dev)
-    want_specs = [s for s in tune.candidate_grid(n) if "kernel" in tix.impls.query_impl(
+    # on the card swept on every other key (2^23 of the 2^24): the sweep's
+    # host builds were the run's largest cost, and the run's time limit is
+    # shared with phase 10 (a cut of scale, not of width or checks; PERF.md §4)
+    swept = table[::stride]
+    m = len(swept)
+    cands = tune.sweep(swept, n_queries=nq, reps=3, fit="auto", check_exact=True, device=dev)
+    want_specs = [s for s in tune.candidate_grid(m) if "kernel" in tix.impls.query_impl(
         s.kind).backends]
     if [c.spec for c in cands] != want_specs:
         fail("tuner: the sweep's candidates are not candidate_grid's kernel kinds")
     bad = [c.spec.display_name() for c in cands if not c.exact]
     if bad:
         fail(f"tuner: sweep candidates not exact on kernel: {bad}")
-    q_np = np.random.default_rng(0).choice(table, size=min(nq, max(16, n)))
-    t_dev, q_dev = keys.encode(table, dev), keys.encode(q_np, dev)
+    q_np = np.random.default_rng(0).choice(swept, size=min(nq, max(16, m)))
+    t_dev, q_dev = keys.encode(swept, dev), keys.encode(q_np, dev)
     ss_ns = _time_lookup(SearchSorted(), t_dev, q_dev, "kernel", 3) / len(q_np) * 1e9
     rows = []
     for c in cands:
         row = {"kind": c.kind, "spec": c.spec.display_name(), "space_bytes": c.space_bytes,
-               "space_pct": c.space_pct_of(n), "ns_per_query": c.ns_per_query,
+               "space_pct": c.space_pct_of(m), "ns_per_query": c.ns_per_query,
                "build_s": c.build_s, "exact": c.exact}
         rows.append(row)
         log(f"[tuner] {row['spec']}: space {row['space_pct']:.5f}% ({c.space_bytes} B), "
@@ -2375,19 +2393,19 @@ def phase_tuner(dev, tables: dict, nq: int, nq_shard: int, lead: str) -> dict:
     log(f"[tuner] frontier: {[c.spec.display_name() for c in front]}")
     picks = {}
     for pct in BUDGET_PCTS:
-        best = tune.best_candidate_for_budget(cands, n, pct)
-        if best is None or best.space_bytes > pct / 100.0 * n * 8:
+        best = tune.best_candidate_for_budget(cands, m, pct)
+        if best is None or best.space_bytes > pct / 100.0 * m * 8:
             fail(f"tuner: budget {pct}%: pick {best} does not fit")
         picks[pct] = best.spec.display_name()
-        log(f"[tuner] budget {pct}%: {best.spec.display_name()} ({best.space_pct_of(n):.5f}%, "
+        log(f"[tuner] budget {pct}%: {best.spec.display_name()} ({best.space_pct_of(m):.5f}%, "
             f"{best.ns_per_query:.4f} ns a query)")
-    report = json.loads(json.dumps(tune.frontier_report(table, cands, front)))
+    report = json.loads(json.dumps(tune.frontier_report(swept, cands, front)))
     if tune.report_specs(report) != [c.spec for c in front] or \
             tune.report_specs(report, "candidates") != [c.spec for c in cands]:
         fail("tuner: frontier_report does not round-trip through report_specs")
     out.update(frontier=rows, frontier_specs=[c.spec.display_name() for c in front],
-               picks=picks, searchsorted_ns=ss_ns)
-    del cands, front
+               picks=picks, searchsorted_ns=ss_ns, swept_keys=m)
+    del cands, front, swept, t_dev, q_dev
     out["seconds"]["5f-a"] = time.perf_counter() - t0
     log(f"[tuner] 5f-a frontier done in {out['seconds']['5f-a']:.1f} s")
 
@@ -4343,14 +4361,21 @@ def train_rank(rank: int, world: int, work_dir: str) -> None:
     (work / f"rank{rank}.json").write_text(json.dumps(result))
 
 
-def _ctx(dev, world: int, shape, profile: str):
+#: 10a's rules: data parallelism alone over ``data`` (``fsdp``, ``tp`` and
+#: ``ep`` on no axis), so its ranks hold whole replicas and its step stays
+#: bit-equal to 9a's; 10e places the same model over (2, 2)
+DP_ONLY = {"dp": ("data",), "fsdp": (), "tp": (), "ep": (), "edge": ("data", "model"),
+           "row": ("data", "model")}
+
+
+def _ctx(dev, world: int, shape, profile: str, rules=None):
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.dist import ShardingCtx
 
     mesh = DeviceMesh(dev.type, torch.arange(world).reshape(shape),
                       mesh_dim_names=("data", "model"))
-    return ShardingCtx(mesh=mesh, profile=profile)
+    return ShardingCtx(mesh=mesh, profile=profile, rules=dict(rules or {}))
 
 
 #: the weights of :func:`digest`: word ``i`` of a leaf counts ``i * A + B``
@@ -4421,12 +4446,13 @@ def _cpu_result(state, metrics) -> dict:
 
 
 def rank_dp_lm(rank, world, work, job, dev) -> dict:
-    """10a on a rank: the LM's ``train`` cell over a (world, 1) ``tp_fsdp``
-    mesh, one microbatch a rank, from the seed-0 state on the saved global
-    batch: one gated step (deterministic algorithms), its state's
-    :func:`digest` (rank 0 saves the state when it differs from the
-    one-rank step's), then one step timed; the gradient all-reduce timed
-    alone (every parameter-shaped f32 leaf over ``dp``)."""
+    """10a on a rank: the LM's ``train`` cell over a (world, 1) mesh, data
+    parallel alone (:data:`DP_ONLY`: whole replicas), one microbatch a
+    rank, from the seed-0 state on the saved global batch: one step,
+    gated and timed (deterministic algorithms; a second, timed step is cut
+    for the run's time), its state's :func:`digest` (rank 0 saves the state
+    when it differs from the one-rank step's); the gradient all-reduce
+    timed alone (every parameter-shaped f32 leaf over ``dp``)."""
     from dataclasses import replace
 
     from repro_torch import configs, tree
@@ -4437,23 +4463,22 @@ def rank_dp_lm(rank, world, work, job, dev) -> dict:
     spec = configs.get(job["arch"], reduced=job["reduced"])
     spec = replace(spec, config=replace(spec.config, dtype=job["dtype"]))
     cell = next(c for c in spec.shapes if c.kind == "train")
-    ctx = _ctx(dev, world, (world, 1), "tp_fsdp")
+    ctx = _ctx(dev, world, (world, 1), "tp_fsdp", DP_ONLY)
     tcfg = TrainConfig(total_steps=job["steps_n"], warmup=2)
     bundle = steps.build_step(spec, cell, ctx, tcfg)
     state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg)
     batch = {k: v.to(dev) for k, v in torch.load(job["batch"]).items()}
     reset_peak(dev)
-    with deterministic():
-        state, m = bundle.fn(state, batch)
+    with deterministic():  # the one step, gated and timed (a second one is cut for time)
+        ms, (state, m) = _events_ms(dev, lambda: bundle.fn(state, batch))
     dig = digest({"params": state["params"], "m": state["opt"]["m"]})
     if rank == 0 and dig != job["digest"]:
         torch.save(_cpu_result(state, m), work / "got_lm.pt")
-    ms, (state, m2) = _events_ms(dev, lambda: bundle.fn(state, batch))
     leaves = tree.leaves(state["params"])
     ar_ms, _ = _events_ms(dev, lambda: [collectives.psum_if_mapped(
         p, ctx.mesh_axes("dp"), ctx) for p in leaves])
     return {"rank": rank, "digest": dig, "metrics": {k: float(v) for k, v in m.items()},
-            "loss2": float(m2["loss"]), "ms": ms, "allreduce_ms": ar_ms, "peak_gb": peak_gb(dev),
+            "ms": ms, "allreduce_ms": ar_ms, "peak_gb": peak_gb(dev),
             "grad_bytes": sum(t.numel() * t.element_size() for t in leaves)}
 
 
@@ -4541,9 +4566,10 @@ def _as_dtensor(local, sharding, whole):
 def rank_edge_gnn(rank, world, work, job, dev) -> dict:
     """10c on a rank: DimeNet's ``minibatch_lg`` with its edges over a (1,
     world) ``flat_dp`` mesh, from the seed-0 state on the seed-0 batch: one
-    gated step and its :func:`digest` (rank 0 saves the state when it
-    differs from the one-rank step's), then one timed; one all-gather of a
-    block's bf16 messages timed alone."""
+    step, gated and timed (a second, timed step is cut for the run's time),
+    and its :func:`digest` (rank 0 saves the state when it differs from the
+    one-rank step's); one all-gather of a block's bf16 messages timed
+    alone."""
     from repro_torch import configs
     from repro_torch.dist import collectives
     from repro_torch.launch import steps
@@ -4557,11 +4583,10 @@ def rank_edge_gnn(rank, world, work, job, dev) -> dict:
     state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg)
     batch = steps.make_inputs(spec, cell, np.random.default_rng(0), device=dev)
     reset_peak(dev)
-    state, m = bundle.fn(state, batch)
+    ms, (state, m) = _events_ms(dev, lambda: bundle.fn(state, batch))  # gated and timed
     dig = digest({"params": state["params"], "m": state["opt"]["m"]})
     if rank == 0 and dig != job["digest"]:
         torch.save(_cpu_result(state, m), work / "got_gnn.pt")
-    ms, _ = _events_ms(dev, lambda: bundle.fn(state, batch))
     e_loc = batch["edge_src"].shape[0] // world
     msg = torch.zeros((e_loc, bundle.cfg.d_hidden), dtype=torch.bfloat16, device=dev)
     ag_ms, _ = _events_ms(dev, lambda: collectives.all_gather(msg, ctx.group("edge")), reps=3)
@@ -4578,7 +4603,14 @@ def rank_two(rank, world, work, job, dev) -> dict:
     return {"lm": lm, "gnn": rank_edge_gnn(rank, world, work, job["gnn"], dev)}
 
 
-RANK_BODIES = {"two": rank_two, "dp_recsys": rank_dp_recsys}
+def rank_four(rank, world, work, job, dev) -> dict:
+    """10b then 10e on one set of 4 ranks (one spawn)."""
+    recsys = rank_dp_recsys(rank, world, work, job["recsys"], dev)
+    free_device(dev)
+    return {"recsys": recsys, "placed": rank_placed(rank, world, work, job["placed"], dev)}
+
+
+RANK_BODIES = {"two": rank_two, "four": rank_four}
 
 
 def _same_step(what, ranks, want_digest, got_file, want, lr, **tol) -> dict:
@@ -4678,22 +4710,282 @@ def finish_dp_lm(dev, prep: dict, work: Path, ranks: list) -> dict:
         f"; loss rel err {check['loss_rel_err']:.3g} against the halves' mean, "
         f"grad_norm {check['grad_norm_rel_err']:.3g}, first moment at "
         f"{check['grad_tol_used']:.3g} of its tolerance, params {check['param_max_abs_err']:.3g}); "
-        f"{ms:.1f} ms a step (CUDA events, the second step), {out['tokens_per_s']:.1f} tokens/s, "
+        f"{ms:.1f} ms a step (CUDA events, the gated step), {out['tokens_per_s']:.1f} tokens/s, "
         f"gradient all-reduce {out['allreduce_ms']:.1f} ms ({ranks[0]['grad_bytes'] / 1e9:.3f} GB "
         f"over gloo), peak {out['peak_gb']} GB a rank")
     return out
 
 
-def phase_dp_recsys(dev, arch, *, reduced: bool, world: int, sasrec: Path) -> dict:
-    """Phase 10b: ``arch``'s ``train_batch`` at published widths over
-    ``world`` gloo ranks in each lookup mode, against one step on this
-    process from the same seed-0 state and batch (rows rounded to
-    ``world`` shards as the ranks' are): each rank's table shards and
-    every replicated leaf within 9's tolerances.  Then SASRec's 9c state
-    saved over (1, world) and restored over (world, 1), bit-equal."""
+#: phase 10e's gates: the placed step (bf16 compute over a (2, 2) mesh)
+#: against the one-rank step.  A row-parallel product over 2 ``tp`` ranks
+#: rounds each half to bf16 (unit roundoff 2^-8) and their sum again, and
+#: each ``fsdp`` reduce-scatter sums bf16 gradients, where one rank rounds a
+#: product once and sums its microbatches in f32: so the repo's bf16
+#: tolerances for two rounding orders (``test_torch_train.BF16_LOSS_TOL``
+#: and ``BF16_GRAD_TOL``).  The loss, a mean over the batch's tokens, and
+#: the global norm within PLACED_RTOL relative; the first moment (0.1 x the
+#: clipped gradient) within PLACED_GRAD_RTOL of each leaf's largest
+#: magnitude; the parameters (10e-i) as :func:`compare_step` holds them,
+#: over the elements whose gradient exceeds that tolerance (below it a
+#: gradient's sign may differ, and AdamW then moves it 2 lr the other way)
+PLACED_RTOL, PLACED_GRAD_RTOL = 2e-3, 0.05
+#: phase 10e's mesh: (data 2, model 2) under ``tp_fsdp`` on 4 gloo ranks
+PLACED_MESH = (2, 2)
+
+
+def save_placed_want(want: dict, path: Path, with_params: bool) -> list:
+    """The one-rank step's first moment (bf16: 2^-9 relative, far inside
+    ``PLACED_GRAD_RTOL``) and, when asked, its f32 parameters, saved for
+    the ranks to read block by block (``mmap``); returns each moment
+    leaf's largest magnitude (flattened order)."""
+    from repro_torch import tree
+
+    m = want["opt"]["m"]
+    out = {"opt": {"m": tree.tree_map(lambda t: t.to(torch.bfloat16), m)}}
+    if with_params:
+        out["params"] = want["params"]
+    torch.save(out, path)
+    return [float(t.abs().max()) for t in tree.leaves(m)]
+
+
+def prepare_placed_moe(dev, *, reduced: bool, layers: int | None, batch: int,
+                       dtype: str | None = None) -> tuple:
+    """Phase 10e-ii's one-rank half: moonshot-v1-16b-a3b at its widths, its
+    depth cut to ``layers``, ``batch`` sequences of the ``train_4k``
+    cell's length from ``TokenBatcher``, one step from the seed-0 state in
+    one microbatch a ``dp`` shard (so each routes its tokens at the
+    shard's capacity, as a rank of the mesh does), deterministic
+    algorithms.  Returns the figures the ranks are held to and their job."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.data import TokenBatcher, synth_corpus
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.train import TrainConfig, init_train_state
+
+    arch = "moonshot-v1-16b-a3b"
+    spec = configs.get(arch, reduced=reduced)
+    spec = replace(spec, config=replace(spec.config, n_layers=layers or spec.config.n_layers,
+                                        dtype=dtype or spec.config.dtype))
+    cfg = spec.config
+    cell = next(c for c in spec.shapes if c.kind == "train")
+    seq = cell.dims["seq_len"]
+    corpus = synth_corpus(vocab_size=cfg.vocab, n_docs=2000, mean_len=512, seed=0, device=dev)
+    b = TokenBatcher(corpus, batch, seq, seed=0).batch_at(0)
+    del corpus
+    dp = PLACED_MESH[0]
+    tcfg = TrainConfig(total_steps=4, warmup=2, microbatches=dp)
+    bundle = steps.build_step(spec, cell, tcfg=tcfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg)
+    rows = batch // dp
+    with torch.no_grad():
+        loss = float(np.mean([float(transformer.loss_fn(state["params"], {
+            k: v[i * rows:(i + 1) * rows] for k, v in b.items()}, cfg)) for i in range(dp)]))
+    with deterministic():
+        want_s, want_m = bundle.fn(state, b)
+    del state
+    from repro_torch import tree
+
+    want = {"opt": {"m": tree.tree_map(lambda t: t.cpu(), want_s["opt"]["m"])},
+            "metrics": {k: float(v) for k, v in want_m.items()}}
+    want["metrics"]["loss"] = loss  # the ranks report the dp mean
+    del want_s
+    free_device(dev)
+    batch_file = RANK_WORK / "placed_moe_batch.pt"
+    torch.save({k: v.cpu() for k, v in b.items()}, batch_file)
+    maxes = save_placed_want(want, RANK_WORK / "placed_moe_want.pt", with_params=False)
+    prep = {"arch": arch, "layers": layers, "batch": batch, "seq": seq, "lr": tcfg.lr,
+            "metrics": want["metrics"], "m_max": maxes}
+    job = {"arch": arch, "reduced": reduced, "layers": layers, "dtype": cfg.dtype,
+           "batch": str(batch_file), "want": str(RANK_WORK / "placed_moe_want.pt"),
+           "m_max": maxes, "params": False, "timed_step": False}
+    return prep, job
+
+
+def placed_job_lm(prep: dict, job: dict) -> tuple:
+    """Phase 10e-i's figures and job: 10a's model, batch and one-rank step
+    (9a's), its moments and parameters saved for the ranks."""
+    want = prep["want"]
+    maxes = save_placed_want(want, RANK_WORK / "placed_lm_want.pt", with_params=True)
+    figures = {"arch": prep["arch"], "layers": None, "batch": prep["batch"], "seq": prep["seq"],
+               "lr": prep["lr"], "metrics": want["metrics"], "m_max": maxes}
+    return figures, {"arch": prep["arch"], "reduced": job["reduced"], "layers": None,
+                     "dtype": job["dtype"], "batch": job["batch"],
+                     "want": str(RANK_WORK / "placed_lm_want.pt"), "m_max": maxes,
+                     "params": True, "timed_step": False}
+
+
+def _placed_errors(state, want_file: str, placement, m_max: list, lr: float,
+                   with_params: bool) -> dict:
+    """This rank's blocks against the same blocks of the one-rank step's
+    state (the gathered state compared block by block, read from
+    ``want_file`` by ``mmap``): per leaf the first moment's largest error
+    and, with parameters, the share of the block whose gradient passes the
+    tolerance and moved more than 1e-2 lr off, and the largest move."""
+    from repro_torch import tree
+
+    want = torch.load(want_file, mmap=True, weights_only=True)
+    coord = placement.ctx.coordinate()
+    shard = dict(zip(tree.flatten_with_paths(placement.whole)[0], placement.shardings()))
+    paths_m, got_m = tree.flatten_with_paths({"opt": {"m": state["opt"]["m"]}})
+    paths_p, got_p = tree.flatten_with_paths({"params": state["params"]})
+    want_p = tree.leaves(want["params"]) if with_params else [None] * len(got_p)
+    out = {"m_err": [], "p_off": [], "p_err": []}
+    for i, (path, g, w, top) in enumerate(zip(paths_m, got_m, tree.leaves(want["opt"]["m"]),
+                                              m_max)):
+        wb = shard[path].local_block(w, coord).to(g.device, torch.float32)
+        out["m_err"].append(float((g.float() - wb).abs().max()))
+        if with_params:
+            pw = shard[paths_p[i]].local_block(want_p[i], coord).to(g.device)
+            diff = (got_p[i] - pw).abs()
+            real = wb.abs() > PLACED_GRAD_RTOL * top
+            out["p_off"].append(int(((diff > 1e-2 * lr) & real).sum()) / diff.numel())
+            out["p_err"].append(float(diff.max()))
+    return out
+
+
+def rank_placed(rank, world, work, job, dev) -> dict:
+    """10e on a rank: 10e-i (qwen2-0.5b) then 10e-ii (moonshot, depth cut)
+    placed over the (2, 2) ``tp_fsdp`` mesh: each rank draws every leaf
+    from the seed-0 generator and keeps its block, one gated step on the
+    saved global batch (deterministic algorithms), its blocks held against
+    the one-rank step's, then a second step timed where the job asks for
+    one (none does: the gated step is the timed one, a second step cut for
+    the run's time); then one forward's FSDP gathers
+    (every placed weight's block cast to bf16 and gathered over ``fsdp``)
+    and one tensor-parallel all-reduce of a layer's activations, timed
+    alone; state bytes and peak GB of the rank."""
     from dataclasses import replace
 
     from repro_torch import configs, tree
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import StatePlacement
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.train import TrainConfig, init_train_state
+
+    out = {}
+    for part in ("lm", "moe"):
+        j = job[part]
+        spec = configs.get(j["arch"], reduced=j["reduced"])
+        cfg = replace(spec.config, dtype=j["dtype"])
+        if j["layers"]:
+            cfg = replace(cfg, n_layers=j["layers"])
+        spec = replace(spec, config=cfg)
+        cell = next(c for c in spec.shapes if c.kind == "train")
+        ctx = _ctx(dev, world, PLACED_MESH, "tp_fsdp")
+        tcfg = TrainConfig(total_steps=4, warmup=2)
+        bundle = steps.build_step(spec, cell, ctx, tcfg)
+        reset_peak(dev)
+        state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn, tcfg)
+        placement = StatePlacement(ctx, "lm", init_train_state(
+            None, lambda _: bundle.init_fn.whole, tcfg))
+        state_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(state))
+        whole_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(placement.whole))
+        batch = {k: v.to(dev) for k, v in torch.load(j["batch"]).items()}
+        with deterministic():
+            ms, (state, m) = _events_ms(dev, lambda: bundle.fn(state, batch))
+        errs = _placed_errors(state, j["want"], placement, j["m_max"], tcfg.lr, j["params"])
+        if j["timed_step"]:  # a second step, timed alone
+            ms, (state, _) = _events_ms(dev, lambda: bundle.fn(state, batch))
+        peak = peak_gb(dev)
+        plan = transformer.placement(cfg, ctx)
+        gathers = [(t, pl) for t, pl in zip(tree.leaves(state["params"]), tree.leaves(plan))
+                   if any(lg == "fsdp" and a for lg, a in pl.dims)]
+        del state
+
+        def fsdp_pass():
+            for t, pl in gathers:
+                i = next(i for i, (lg, _) in enumerate(pl.dims) if lg == "fsdp")
+                collectives.all_gather_dim(t.to(torch.bfloat16), pl.axes(i), ctx, i)
+
+        gather_ms, _ = _events_ms(dev, fsdp_pass)
+        rows = batch["tokens"].shape[0] // ctx.n("dp")
+        act = torch.ones((rows, batch["tokens"].shape[1], cfg.d_model), dtype=torch.bfloat16,
+                         device=dev)
+        ar_ms, _ = _events_ms(dev, lambda: collectives.reduce_from(act, ctx.mesh_axes("tp"),
+                                                                  ctx), reps=3)
+        out[part] = {"rank": rank, "metrics": {k: float(v) for k, v in m.items()},
+                     "ms": ms, "errs": errs, "peak_gb": peak,
+                     "timed": "the second step" if j["timed_step"] else "the gated step",
+                     "state_bytes": state_bytes, "whole_bytes": whole_bytes,
+                     "fsdp_gather_ms": gather_ms,
+                     "gathered_bytes": sum(t.numel() * 2 * ctx.n("fsdp") for t, _ in gathers),
+                     "tp_allreduce_ms": ar_ms, "tp_allreduce_bytes": act.numel() * 2,
+                     # a tp all-reduce per layer's attention and FFN in the forward, again
+                     # in remat's recompute, and each copy_to's backward
+                     "tp_allreduces_a_step": 6 * cfg.n_layers}
+        del gathers, act
+        free_device(dev)
+    return out
+
+
+def finish_placed(dev, prep: dict, ranks: list) -> dict:
+    """Phase 10e's gates (every rank's metrics equal; loss, global norm,
+    first moment and, for 10e-i, parameters within the ``PLACED_*``
+    tolerances of the one-rank step) and its figures."""
+    out = {}
+    for part, label in (("lm", "10e-i"), ("moe", "10e-ii")):
+        p, rs = prep[part], [r[part] for r in ranks]
+        if any(r["metrics"] != rs[0]["metrics"] for r in rs):
+            fail(f"phase {label}: the ranks' metrics differ: {[r['metrics'] for r in rs]}")
+        got, want = rs[0]["metrics"], p["metrics"]
+        check = {}
+        for k in ("loss", "grad_norm"):
+            err = abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            if not np.isfinite(got[k]) or err > PLACED_RTOL:
+                fail(f"phase {label}: {k} {got[k]} placed vs {want[k]} on one rank")
+            check[f"{k}_rel_err"] = err
+        m_err = [max(r["errs"]["m_err"][i] for r in rs) for i in range(len(p["m_max"]))]
+        used = [e / max(PLACED_GRAD_RTOL * top, 1e-9) for e, top in zip(m_err, p["m_max"])]
+        if max(used) > 1:
+            fail(f"phase {label}: first moment off by {m_err} against maxima {p['m_max']}")
+        check["grad_tol_used"] = max(used)
+        if rs[0]["errs"]["p_err"]:
+            p_err = max(max(r["errs"]["p_err"]) for r in rs)
+            share = max(max(r["errs"]["p_off"]) for r in rs)
+            if p_err > 2 * p["lr"] * (1 + 1e-3) or share > 1e-3:
+                fail(f"phase {label}: parameters off by {p_err} (lr {p['lr']}), {share} of a "
+                     "leaf by more than 1e-2 lr where its gradient passes the tolerance")
+            check.update(param_max_abs_err=p_err, param_off_share=share)
+        ms = max(r["ms"] for r in rs)
+        tokens = p["batch"] * p["seq"]
+        o = {"arch": p["arch"], "batch": p["batch"], "seq": p["seq"], "check": check, "ms": ms,
+             "tokens_per_s": tokens / (ms / 1e3), "peak_gb": [r["peak_gb"] for r in rs],
+             "state_bytes": [r["state_bytes"] for r in rs], "whole_bytes": rs[0]["whole_bytes"],
+             "fsdp_gather_ms": max(r["fsdp_gather_ms"] for r in rs),
+             "gathered_bytes": rs[0]["gathered_bytes"],
+             "tp_allreduce_ms": max(r["tp_allreduce_ms"] for r in rs),
+             "tp_allreduce_bytes": rs[0]["tp_allreduce_bytes"],
+             "tp_allreduces_a_step": rs[0]["tp_allreduces_a_step"], "metrics": got}
+        out[part] = o
+        depth = (f", depth cut to {p['layers']} of 48 layers (the whole depth with AdamW is the "
+                 "115 GB that waits for four cards)" if p.get("layers") else "")
+        log(f"[ranks] {label} {p['arch']} at its widths{depth}, placed over a (data 2, model 2) "
+            f"tp_fsdp mesh of 4 gloo ranks on one {dev.type} device ({p['batch']} x {p['seq']} "
+            f"tokens, {p['batch'] // 2} a dp rank): == the one-rank step (loss rel err "
+            f"{check['loss_rel_err']:.3g}, grad_norm {check['grad_norm_rel_err']:.3g}, first "
+            f"moment at {check['grad_tol_used']:.3g} of its tolerance"
+            + (f", params {check['param_max_abs_err']:.3g}, off share "
+               f"{check['param_off_share']:.3g}" if "param_off_share" in check else "")
+            + f"); {ms:.1f} ms a step (CUDA events, {rs[0]['timed']}), {o['tokens_per_s']:.1f} "
+            f"tokens/s; one forward's FSDP gathers {o['fsdp_gather_ms']:.1f} ms "
+            f"({o['gathered_bytes'] / 1e9:.3f} GB gathered, bf16), one tp all-reduce "
+            f"{o['tp_allreduce_ms']:.2f} ms ({o['tp_allreduce_bytes'] / 1e6:.1f} MB, "
+            f"{o['tp_allreduces_a_step']} a step); state {[b / 1e9 for b in o['state_bytes']]} GB "
+            f"a rank against {o['whole_bytes'] / 1e9:.3f} GB whole"
+            + (" (10a's replica on each rank)" if part == "lm" else "")
+            + f", peak {o['peak_gb']} GB a rank")
+    return out
+
+
+def prepare_dp_recsys(dev, arch, *, reduced: bool, world: int, sasrec: Path) -> tuple:
+    """Phase 10b's one-rank half: ``arch``'s ``train_batch`` at published
+    widths, one step on this process from the seed-0 state and batch
+    (rows rounded to ``world`` shards as the ranks' are).  Returns it and
+    the ranks' job."""
+    from repro_torch import configs
     from repro_torch.dist.sharding import AbstractMesh, ShardingCtx
     from repro_torch.launch import steps
     from repro_torch.models import recsys
@@ -4711,11 +5003,20 @@ def phase_dp_recsys(dev, arch, *, reduced: bool, world: int, sasrec: Path) -> di
     want = _cpu_result(want_s, want_m)
     del state, want_s, batch, bundle
     free_device(dev)
-    t0 = time.perf_counter()
-    work, ranks = spawn_ranks("dp_recsys", world, {"kind": "dp_recsys", "device": dev.type,
-                                                   "arch": arch, "reduced": reduced,
-                                                   "sasrec": str(sasrec)}, 600)
-    ranks_s = time.perf_counter() - t0
+    prep = {"arch": arch, "world": world, "want": want, "one_ms": one_ms, "lr": tcfg.lr,
+            "cell": cell}
+    return prep, {"arch": arch, "reduced": reduced, "sasrec": str(sasrec)}
+
+
+def finish_dp_recsys(dev, prep: dict, work: Path, ranks: list, ranks_s: float) -> dict:
+    """Phase 10b: the ranks' step in each lookup mode against the one-rank
+    step (each rank's table shards and every replicated leaf within 9's
+    tolerances), and SASRec's 9c state saved over (1, world) and restored
+    over (world, 1), bit-equal."""
+    from repro_torch import tree
+
+    arch, world, want, one_ms, cell = (prep[k] for k in ("arch", "world", "want", "one_ms",
+                                                          "cell"))
     out = {"arch": arch, "world": world, "one_rank_ms": one_ms, "ranks": ranks, "checks": {},
            "ranks_s": ranks_s}
     for mode in ("a2a", "allreduce"):
@@ -4736,8 +5037,8 @@ def phase_dp_recsys(dev, arch, *, reduced: bool, world: int, sasrec: Path) -> di
                         fail(f"phase 10b: {mode} rank {r}'s {path} differs from rank 0's")
         got = {"params": whole("params"), "opt": whole("opt")}
         out["checks"][mode] = compare_step(f"{arch} {mode} over {world} ranks", got,
-                                           parts[0]["metrics"], want, want["metrics"], tcfg.lr,
-                                           f"over {world} ranks", "on one")
+                                           parts[0]["metrics"], want, want["metrics"],
+                                           prep["lr"], f"over {world} ranks", "on one")
     if not all(r["restore"]["same"] and r["restore"].get("blocks_same", True) for r in ranks):
         fail(f"phase 10b: SASRec's state restored over ({world}, 1) != saved over (1, {world})")
     rs = ranks[0]["restore"]
@@ -4749,8 +5050,7 @@ def phase_dp_recsys(dev, arch, *, reduced: bool, world: int, sasrec: Path) -> di
         + ", ".join(f"{m} {max(r['modes'][m]['ms'] for r in ranks):.2f}" for m in ("a2a", "allreduce"))
         + f" (one rank {one_ms}); SASRec's 9c state saved over (1, {world}) and restored over "
         f"({world}, 1): {rs['leaves']} leaves ({rs['sharded']} row-sharded), full_tensor() on "
-        f"the host and every block on the {dev.type} bit-equal, restore {rs['restore_s']:.2f} s; "
-        f"{ranks_s:.1f} s")
+        f"the host and every block on the {dev.type} bit-equal, restore {rs['restore_s']:.2f} s")
     return out
 
 
@@ -4803,7 +5103,7 @@ def finish_edge_gnn(dev, prep: dict, work: Path, ranks: list) -> dict:
         f"({prep['nodes']:,} nodes, {n_edges:,} edges, {n_edges // 2:,} a rank) over 2 gloo ranks: "
         f"states bit-equal across ranks; == one rank ({'bit for bit' if check['bit_equal'] else 'within tolerance'}; "
         f"loss rel err {check['loss_rel_err']:.3g}, grad_norm {check['grad_norm_rel_err']:.3g}, "
-        f"first moment at {check['grad_tol_used']:.3g} of its tolerance); {ms:.2f} ms a step, "
+        f"first moment at {check['grad_tol_used']:.3g} of its tolerance); {ms:.2f} ms a step (the gated step), "
         f"{out['edges_per_s']:.4g} edges/s, one bf16 message all-gather "
         f"{out['allgather_ms']:.2f} ms, peak {out['peak_gb']} GB a rank")
     return out
@@ -4826,16 +5126,21 @@ for name, c in job.items():
     if c.get("dtype"):
         spec = replace(spec, config=replace(spec.config, dtype=c["dtype"]))
     tcfg = TrainConfig(microbatches=c["microbatches"]) if c["arch"] != "dimenet" else None
-    out[name] = dryrun.run_cell(spec, cell, tuple(c["mesh"]), tcfg=tcfg, verbose=False)
+    out[name] = dryrun.run_cell(spec, cell, tuple(c["mesh"]), tcfg=tcfg, verbose=False,
+                                rules=c.get("rules"))
 print(json.dumps(out))
 """
 
 
 def start_dryruns(lm: dict, gnn: dict) -> object:
-    """Phase 10d's dry runs, started in a CPU subprocess at phase 10's
-    start (they run on fake tensors beside the ranks): the 9a cell (its
-    batch, 2 microbatches, one rank), 10a's (2 ranks, one microbatch), 9e's
-    ``minibatch_lg`` (one rank)."""
+    """Phase 10d's dry runs, started in a CPU subprocess when the run
+    starts, so they finish beside the host builds of phases 4-5 and not
+    beside phase 10's gloo ranks (which they slowed 2.6-fold on a busy
+    host): the 9a cell (its batch, 2 microbatches, one rank), 10a's (2
+    ranks, one microbatch), 9e's ``minibatch_lg`` (one rank).  Its output
+    goes to files under ``build/`` (a pipe nobody reads could fill); the
+    process is killed at exit if it still runs."""
+    import atexit
     import subprocess
 
     job = {"9a": {"arch": "qwen2-0.5b", "reduced": lm["reduced"], "cell": "train_4k",
@@ -4843,12 +5148,17 @@ def start_dryruns(lm: dict, gnn: dict) -> object:
                   "dtype": lm.get("dtype")},
            "10a": {"arch": "qwen2-0.5b", "reduced": lm["reduced"], "cell": "train_4k",
                    "dims": {"global_batch": lm["batch"]}, "microbatches": 1, "mesh": [2, 1],
-                   "dtype": lm.get("dtype")},
+                   "dtype": lm.get("dtype"), "rules": DP_ONLY},
            "9e": {"arch": "dimenet", "reduced": gnn["reduced"], "cell": gnn["cell"],
                   "mesh": [1, 1]}}
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    return subprocess.Popen([sys.executable, "-c", DRY_SCRIPT, str(ROOT), json.dumps(job)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    out_dir = ROOT / "build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "dryrun.out", "w") as out, open(out_dir / "dryrun.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", DRY_SCRIPT, str(ROOT), json.dumps(job)],
+                                stdout=out, stderr=err, text=True, env=env)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc
 
 
 def phase_dryrun_check(proc, lm_out: dict, gnn_out: dict, dp_out: dict, measured: dict) -> dict:
@@ -4860,8 +5170,10 @@ def phase_dryrun_check(proc, lm_out: dict, gnn_out: dict, dp_out: dict, measured
     measured ``max_memory_allocated`` (9a, 9e, 10a) as a ratio."""
     from repro_torch import configs
 
-    out_s, err_s = proc.communicate(timeout=900)
+    proc.wait(timeout=900)
+    out_s = (ROOT / "build" / "dryrun.out").read_text()
     if proc.returncode != 0:
+        err_s = (ROOT / "build" / "dryrun.err").read_text()
         fail(f"phase 10d: the dry runs failed:\n{err_s[-3000:]}")
     dry = json.loads(out_s.strip().splitlines()[-1])
     cfg = configs.get("qwen2-0.5b", reduced=lm_out["reduced"]).config
@@ -4891,17 +5203,17 @@ def phase_dryrun_check(proc, lm_out: dict, gnn_out: dict, dp_out: dict, measured
     return out
 
 
-def phase_ranks(dev, *, lm: dict, recsys: dict, gnn: dict, measured: dict) -> dict:
+def phase_ranks(dev, dry, *, lm: dict, recsys: dict, gnn: dict, placed: dict,
+                measured: dict) -> dict:
     """Phase 10: training over ranks and the launch layer (10a the LM's
     data-parallel step, 10b the recsys exchanges under autograd and the
     elastic restore, 10c the edge-sharded DimeNet, 10d the dry run against
-    the card).  No kernel of the port runs here; the launch counts are
-    read to show it."""
+    the card, 10e the LM family placed over fsdp, tp and ep).  No kernel
+    of the port runs here; the launch counts are read to show it."""
     from repro_torch import kernels
 
     t0 = time.perf_counter()
     kernels.reset_launches()
-    dry = start_dryruns(lm, gnn)
     try:
         lm_prep, lm_job = prepare_dp_lm(dev, "qwen2-0.5b", reduced=lm["reduced"],
                                         batch=lm["batch"], steps_n=lm["steps_n"],
@@ -4915,10 +5227,27 @@ def phase_ranks(dev, *, lm: dict, recsys: dict, gnn: dict, measured: dict) -> di
         log(f"[ranks] 10a + 10c: 2 gloo ranks in {time.perf_counter() - t1:.1f} s")
         out = {"dp_lm": finish_dp_lm(dev, lm_prep, work, [r["lm"] for r in ranks]),
                "edge_gnn": finish_edge_gnn(dev, gnn_prep, work, [r["gnn"] for r in ranks])}
+        placed_lm, placed_lm_job = placed_job_lm(lm_prep, lm_job)
         del lm_prep, gnn_prep
         free_device(dev)
-        out["dp_recsys"] = phase_dp_recsys(dev, "wide-deep", reduced=recsys["reduced"], world=4,
-                                           sasrec=SASREC_STATE)
+        # 10b and 10e (the LM family placed over (data 2, model 2)) share one
+        # spawn of 4 ranks; their one-rank halves run first
+        recsys_prep, recsys_job = prepare_dp_recsys(dev, "wide-deep", reduced=recsys["reduced"],
+                                                    world=4, sasrec=SASREC_STATE)
+        placed_moe, placed_moe_job = prepare_placed_moe(dev, reduced=placed["reduced"],
+                                                        layers=placed["moe_layers"],
+                                                        batch=placed["moe_batch"],
+                                                        dtype=lm.get("dtype"))
+        t1 = time.perf_counter()
+        work, ranks = spawn_ranks("four", 4, {
+            "kind": "four", "device": dev.type, "recsys": recsys_job,
+            "placed": {"lm": placed_lm_job, "moe": placed_moe_job}}, 900)
+        ranks_s = time.perf_counter() - t1
+        log(f"[ranks] 10b + 10e: 4 gloo ranks in {ranks_s:.1f} s")
+        out["dp_recsys"] = finish_dp_recsys(dev, recsys_prep, work,
+                                            [r["recsys"] for r in ranks], ranks_s)
+        out["placed"] = finish_placed(dev, {"lm": placed_lm, "moe": placed_moe},
+                                      [r["placed"] for r in ranks])
         free_device(dev)
         measured = dict(measured, **{"10a": max(out["dp_lm"]["peak_gb"], key=lambda x: x or 0)})
         lm_out = dict(lm, seq=out["dp_lm"]["seq"])
@@ -4926,7 +5255,7 @@ def phase_ranks(dev, *, lm: dict, recsys: dict, gnn: dict, measured: dict) -> di
     finally:
         if dry.poll() is None:
             dry.kill()
-            dry.communicate()
+            dry.wait()
     out["launches"] = {k: v for k, v in kernels.launches().items() if v}
     out["seconds"] = time.perf_counter() - t0
     log(f"[ranks] phase 10 done in {out['seconds']:.1f} s; kernel launches {out['launches']}")
@@ -5132,6 +5461,7 @@ def main(argv=None) -> int:
         dev, info = torch.device("cpu"), None
         sys.path.insert(0, str(ROOT / "src"))
         parity_n, full_n, full_nq, shard_nq = 4096, 1 << 14, 1 << 12, 1 << 10
+        sweep_stride = 1
         mutation_batches, tier_fresh = (1 << 4, 1 << 6, 1 << 8), 1 << 8
         serve = {"reduced": True, "max_seq": 128, "long_prompt": 40}
         hotcache = {"batch": 1 << 10, "batches": 2, "n_insert": 1 << 8}
@@ -5148,7 +5478,8 @@ def main(argv=None) -> int:
                  "data": {"n_docs": 2000, "n_offsets": 1 << 12, "vocab": 256},
                  "gnn": {"reduced": True, "steps_n": 3}}
         ranks_cfg = {"lm": {"reduced": True, "batch": 8, "steps_n": 6, "dtype": "float32"},
-                     "recsys": {"reduced": True}, "gnn": {"reduced": True, "cell": "minibatch_lg"}}
+                     "recsys": {"reduced": True}, "gnn": {"reduced": True, "cell": "minibatch_lg"},
+                     "placed": {"reduced": True, "moe_layers": None, "moe_batch": 4}}
     else:
         info = phase_device()
         dev = torch.device("cuda")
@@ -5157,6 +5488,7 @@ def main(argv=None) -> int:
         from repro_torch.data import TIERS
 
         parity_n, full_n, full_nq, shard_nq = 65536, TIERS["L4"], 1 << 22, 1 << 20
+        sweep_stride = 2  # 5f-a sweeps 2^23 of the table's keys (cut for the run's time)
         mutation_batches, tier_fresh = (1 << 10, 1 << 12, 1 << 14, 1 << 16), 1 << 16
         # max_seq: the sequence length of the decode_32k shape cell
         # long_prompt: ~716 positions (45 tiles of 16) for the first ticks
@@ -5182,12 +5514,12 @@ def main(argv=None) -> int:
         times = {"att_a": (128, 14, 2, 64, 32768), "att_b": (8, 32, 8, 128, 32768),
                  "bag_a": (4096, 128, 8192, 1024), "bag_b": (1 << 22, 128, 1 << 20, 1 << 16)}
         # 9a: qwen2-0.5b's train_4k at its widths, 8 sequences of 4,096 tokens
-        # a step (cut from 256) in 2 microbatches, 4 steps (cut from 6 for
-        # phase 10's time), checked at 2
+        # a step (cut from 256) in 2 microbatches, 2 steps (cut from 6, 4, 3
+        # for phase 10's time), checked at 2
         # layers and 256 tokens; 9b: the recsys train_batch (65,536 rows) at
         # published widths, 3 steps; 9d: 200,000 documents (~1.4e8 tokens),
         # 2^22 offsets; 9e: DimeNet's graph cells at published widths, 3 steps
-        train = {"lm": {"reduced": False, "batch": 8, "microbatches": 2, "steps_n": 4,
+        train = {"lm": {"reduced": False, "batch": 8, "microbatches": 2, "steps_n": 2,
                         "check_tokens": 256},
                  "recsys": {"reduced": False, "steps_n": 3},
                  "data": {"n_docs": 200_000, "n_offsets": 1 << 22, "vocab": 151936},
@@ -5195,12 +5527,17 @@ def main(argv=None) -> int:
         # 10a: 9a's first batch (8 x 4,096 tokens) over 2 ranks, 4 sequences
         # a rank; 10b: wide & deep's train_batch over 4 ranks; 10c:
         # minibatch_lg at published widths over 2 edge ranks; 10d: their dry runs
+        # 10e: 10e-i 10a's model and batch placed over (data 2, model 2);
+        # 10e-ii moonshot at its widths, its depth cut to 2 of 48 layers (the
+        # whole depth with AdamW is 115 GB), 2 x 4,096 tokens
         ranks_cfg = {"lm": {"reduced": False, "batch": 8, "steps_n": 6},
                      "recsys": {"reduced": False},
-                     "gnn": {"reduced": False, "cell": "minibatch_lg"}}
+                     "gnn": {"reduced": False, "cell": "minibatch_lg"},
+                     "placed": {"reduced": False, "moe_layers": 2, "moe_batch": 2}}
     # f32 matrix products in full f32 (no TF32) in the twins and the reference math
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dry = start_dryruns(ranks_cfg["lm"], ranks_cfg["gnn"])  # phase 10d, on the host
 
     t0 = time.perf_counter()
     phase_parity(dev, parity_n)
@@ -5232,7 +5569,7 @@ def main(argv=None) -> int:
     del host_fits
     log(f"[fits] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    tuner = phase_tuner(dev, tables, full_nq, shard_nq, "amzn64")
+    tuner = phase_tuner(dev, tables, full_nq, shard_nq, "amzn64", stride=sweep_stride)
     log(f"[tuner] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     hot, hot_cache = phase_hotcache(dev, tables["amzn64"][0], **hotcache)
@@ -5274,7 +5611,7 @@ def main(argv=None) -> int:
     trained = phase_train(dev, **train)
     free_device(dev)
     lg = next(c for c in trained["gnn"]["cells"] if c["cell"] == ranks_cfg["gnn"]["cell"])
-    ranked_train = phase_ranks(dev, **ranks_cfg, measured={"9a": trained["lm"]["peak_gb"],
+    ranked_train = phase_ranks(dev, dry, **ranks_cfg, measured={"9a": trained["lm"]["peak_gb"],
                                                            "9e": lg["peak_gb"]})
     by_path = {k: {"tier": tier_launches[k], "sharded": sharded_launches[k],
                    "fits": fits["launches"][k], "tuner": tuner["launches"][k],

@@ -12,7 +12,16 @@
   :class:`~repro_torch.dist.sharding.ShardingCtx`, a no-op when there
   are no dims, so step code stays mesh-shape agnostic.
 * :func:`all_gather` and :func:`reduce_scatter` (along dim 0, in the
-  tensor's own dtype).
+  tensor's own dtype), and :func:`all_gather_dim` along any dim over the
+  group of some mesh dims (the FSDP gather of a stacked weight's dim 1
+  or 2), whose backward reduce-scatters along that dim.
+* The tensor-parallel pair (Megatron's ``f``/``g``): :func:`copy_to`
+  (identity forward, psum backward) at the entry to a column-parallel
+  product, and :func:`reduce_from` (psum forward, identity backward) after
+  a row-parallel one.  :func:`psum_if_mapped` sums in both directions:
+  after a row-parallel product whose result feeds a loss that every rank
+  of the group computes alike it would hand each rank ``n`` times the
+  gradient, so the placed LM uses the pair.
 
 The exchanges are differentiable, so gradients cross ranks as the
 reference's ``shard_map`` collectives carry them: an all-to-all's
@@ -110,7 +119,9 @@ def _nbytes(x) -> int:
     return x.numel() * x.element_size()
 
 
-def _group_size(group) -> int:
+def group_size(group) -> int:
+    """The number of ranks of a process group (or of a dry run's
+    :class:`~repro_torch.dist.sharding.CountingGroup`)."""
     return group.size if _counting(group) else dist.get_world_size(group)
 
 
@@ -133,22 +144,25 @@ def _all_reduce(x, group, op=dist.ReduceOp.SUM):
     return out
 
 
-def _gather(x, group):
+def _gather(x, group, dim: int = 0):
+    """Every rank's ``x`` concatenated along ``dim`` in group rank order."""
     x = x.contiguous()
-    n = _group_size(group)
+    n = group_size(group)
     if _counting(group):
-        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = x.new_empty(shape)
         group.ledger.add("all-gather", _nbytes(out))
         return out
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts)
+    return torch.cat(parts, dim)
 
 
 def _reduce_scatter(x, group):
     """This rank's block (along dim 0) of the sum of every rank's ``x``."""
     x = x.contiguous()
-    n = _group_size(group)
+    n = group_size(group)
     rows = x.shape[0] // n
     if _counting(group):
         group.ledger.add("reduce-scatter", _nbytes(x))
@@ -183,17 +197,6 @@ class _PSum(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
-class _AllGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _gather(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _reduce_scatter(g, ctx.group), None
-
-
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -203,6 +206,45 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _gather(g, ctx.group), None
+
+
+def _scatter_along(x, group, dim: int):
+    """This rank's block along ``dim`` of the sum of every rank's ``x``."""
+    if dim == 0:
+        return _reduce_scatter(x, group)
+    return _reduce_scatter(x.movedim(dim, 0), group).movedim(0, dim).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_along(g, ctx.group, ctx.dim), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def all_to_all(x, group):
@@ -218,7 +260,7 @@ def all_gather(x, group):
     ``x``'s dtype; the backward is a reduce-scatter of the gradient in
     that dtype (each rank gets the sum of the ranks' gradients of its
     block)."""
-    return _AllGather.apply(x, group)
+    return _AllGather.apply(x, group, 0)
 
 
 def reduce_scatter(x, group):
@@ -248,7 +290,7 @@ def pmean_if_mapped(x, axes, ctx=None):
     axes = tuple(axes or ())
     if not axes:
         return x
-    return psum_if_mapped(x, axes, ctx) / _group_size(ctx.axes_group(axes)[0])
+    return psum_if_mapped(x, axes, ctx) / group_size(ctx.axes_group(axes)[0])
 
 
 def psum_tree(t, axes, ctx=None):
@@ -258,6 +300,40 @@ def psum_tree(t, axes, ctx=None):
     if not axes:
         return t
     return tree.tree_map(lambda leaf: psum_if_mapped(leaf, axes, ctx), t)
+
+
+def all_gather_dim(x, axes, ctx, dim: int):
+    """Every rank's ``x`` over the group of the mesh dims ``axes`` of
+    ``ctx``, concatenated along ``dim`` in the order of the flattened axis
+    (a tiled all-gather, in ``x``'s dtype); ``x`` itself when ``axes`` is
+    empty.  The backward reduce-scatters the gradient along ``dim``: each
+    rank gets the sum over the group of its block's gradients."""
+    axes = tuple(axes or ())
+    if not axes:
+        return x
+    return _AllGather.apply(x, ctx.axes_group(axes)[0], dim)
+
+
+def copy_to(x, axes, ctx):
+    """``x`` as it is, entering a region whose ranks over ``axes`` each
+    compute a part (a column-parallel product, this rank's experts): the
+    backward sums the parts' gradients over the group.  ``x`` itself when
+    ``axes`` is empty."""
+    axes = tuple(axes or ())
+    if not axes:
+        return x
+    return _CopyTo.apply(x, ctx.axes_group(axes)[0])
+
+
+def reduce_from(x, axes, ctx):
+    """The sum over the group of ``axes`` of each rank's part, leaving the
+    region :func:`copy_to` entered: every rank gets the whole, and its
+    gradient passes back unchanged (each rank's downstream computes the
+    same).  ``x`` itself when ``axes`` is empty."""
+    axes = tuple(axes or ())
+    if not axes:
+        return x
+    return _ReduceFrom.apply(x, ctx.axes_group(axes)[0])
 
 
 def max_if_mapped(x, axes, ctx=None):

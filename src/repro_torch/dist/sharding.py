@@ -32,6 +32,12 @@ placements, and :meth:`ShardingCtx.constrain` returns a plain tensor as it
 is (eager PyTorch propagates no sharding, and the reference's constraint
 never changes a value) and redistributes a ``DTensor``.
 
+Placing a state (the LM family under ``tp_fsdp``): :func:`fit_sharding`
+drops a dim's mesh axes until they divide it, as the reference's;
+:func:`shard_state` cuts a whole state into this rank's blocks
+(``launch.steps.state_shardings`` through :func:`fit_sharding`), and
+:func:`gather_state` puts the blocks back together over the groups.
+
 A mesh may also be an :class:`AbstractMesh`: axis names and sizes with no
 process group behind it, for the sharding trees and the dry run.  Its
 ``group``/``index`` raise, unless it carries a :class:`CommLedger` (the
@@ -373,6 +379,139 @@ class ShardingCtx:
         # every rank creates every sub-mesh's group, in the same order
         groups = [dist.new_group(row) for row in rows.tolist()]
         return groups[mine], index
+
+
+def fit_sharding(shape, sharding, mesh):
+    """Drop mesh axes per dim until the dim size divides evenly (the
+    reference's ``jit`` in_shardings need exact divisibility; published
+    vocab/batch sizes such as 151,936 and 10^6 do not always divide 256
+    or 512): each dim falls back to the largest prefix of its axis tuple
+    that does.  Only the mesh's axis sizes are read."""
+    sizes = mesh_shape(mesh)
+    new = []
+    for i, entry in enumerate(sharding.spec):
+        if entry is None:
+            new.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        while axes:
+            prod = 1
+            for a in axes:
+                prod *= sizes[a]
+            if shape[i] % prod == 0:
+                break
+            axes = axes[:-1]
+        if not axes:
+            new.append(None)
+        elif len(axes) == 1:
+            new.append(axes[0])
+        else:
+            new.append(tuple(axes))
+    return NamedSharding(mesh, PartitionSpec(*new))
+
+
+def split_axes(sharding: NamedSharding) -> tuple:
+    """The mesh axes of more than one rank that split some dim of a leaf
+    placed by ``sharding``, in mesh order (those over which its ranks hold
+    different blocks)."""
+    used = {a for entry in sharding.spec for a in _entry_axes(entry)}
+    sizes = mesh_shape(sharding.mesh)
+    return tuple(a for a in mesh_axis_names(sharding.mesh) if a in used and sizes[a] > 1)
+
+
+def placed_shardings(whole, ctx: ShardingCtx, family: str):
+    """The fitted :class:`NamedSharding` of each leaf of a whole state or
+    parameter tree (leaves: anything with ``.shape``), as the reference
+    places it: ``launch.steps.state_shardings`` through
+    :func:`fit_sharding`."""
+    from repro_torch import tree
+    from repro_torch.launch.steps import state_shardings
+
+    shard = state_shardings(whole, family, ctx)
+    return tree.unflatten(whole, [fit_sharding(tuple(t.shape), s, ctx.mesh) for t, s in zip(
+        tree.leaves(whole), tree.flatten_up_to(whole, shard))])
+
+
+def shard_state(whole, ctx: ShardingCtx, family: str, *, device=None):
+    """This rank's blocks of a whole state (or parameter tree): each leaf's
+    block under :func:`placed_shardings` at this rank's mesh coordinate, a
+    contiguous copy (on ``device``, default the leaf's own), so the whole
+    leaf can be freed.  Leaves may be tensors or numpy arrays (the
+    reference's state as ``jax.tree.map(np.asarray, state)`` gives it,
+    bfloat16 included: ``tree.from_numpy``)."""
+    import numpy as np
+
+    from repro_torch import tree
+
+    leaves = [tree.from_numpy(t, "cpu") if isinstance(t, np.ndarray) else t
+              for t in tree.leaves(whole)]
+    whole = tree.unflatten(whole, leaves)
+    coord = ctx.coordinate()
+    out = []
+    for t, s in zip(leaves, tree.flatten_up_to(whole, placed_shardings(whole, ctx, family))):
+        block = s.local_block(t, coord)
+        out.append(block.to(device or t.device, copy=True).contiguous())
+    return tree.unflatten(whole, out)
+
+
+def gather_state(local, ctx: ShardingCtx, family: str, whole, *, device="cpu"):
+    """The whole state from this rank's blocks (:func:`shard_state`'s
+    inverse), on every rank of the mesh together: each split dim
+    all-gathered over the group of its axes.  ``whole`` is a matching tree
+    whose leaves give the whole shapes (meta tensors, arrays): a block's
+    shape alone does not say whether a dim fell back to replication.
+    On a gloo group the blocks travel as host tensors (gloo crashes
+    gathering a ``DTensor`` held on the card); the result is on
+    ``device`` (the host by default)."""
+    from repro_torch import tree
+    from repro_torch.dist import collectives
+
+    sizes = mesh_shape(ctx.mesh)
+    leaves = tree.leaves(local)
+    shards = tree.flatten_up_to(local, placed_shardings(whole, ctx, family))
+    out = []
+    for t, w, s in zip(leaves, tree.leaves(whole), shards):
+        if tuple(s.shard_shape(tuple(w.shape))) != tuple(t.shape):
+            raise ValueError(f"a block of shape {tuple(t.shape)} is not this rank's block of a "
+                             f"{tuple(w.shape)} leaf under {s.spec}")
+        split = [tuple(a for a in _entry_axes(e) if sizes[a] > 1) for e in s.spec]
+        x = t.detach()
+        if any(_gloo(ctx, axes) for axes in split):
+            x = x.cpu()
+        for i, axes in enumerate(split):
+            x = collectives.all_gather_dim(x, axes, ctx, i)
+        out.append(x.to(device))
+    return tree.unflatten(local, out)
+
+
+@dataclass
+class StatePlacement:
+    """A placed state's layout: its context, family and a tree of its
+    whole leaves (anything with ``.shape``, e.g. meta tensors), for
+    :func:`gather_state`, :func:`shard_state` and placed checkpoints."""
+
+    ctx: ShardingCtx
+    family: str
+    whole: object
+
+    def gather(self, local, *, device="cpu"):
+        return gather_state(local, self.ctx, self.family, self.whole, device=device)
+
+    def shard(self, whole, *, device=None):
+        return shard_state(whole, self.ctx, self.family, device=device)
+
+    def shardings(self) -> list:
+        """The fitted :class:`NamedSharding` of each leaf, flattened order."""
+        from repro_torch import tree
+
+        return tree.leaves(placed_shardings(self.whole, self.ctx, self.family))
+
+
+def _gloo(ctx: ShardingCtx, axes: tuple) -> bool:
+    """Whether the group over ``axes`` is a gloo group (None: no group)."""
+    if not axes or ctx.abstract:
+        return False
+    return dist.get_backend(ctx.axes_group(axes)[0]) == "gloo"
 
 
 def single_device_ctx(profile: str = "tp_fsdp", *, device=None) -> ShardingCtx:

@@ -25,20 +25,26 @@ records per card:
 * ``memory``: the peak of live tensor bytes during the call, counted by
   :class:`PeakBytes` (a ``TorchDispatchMode`` of the port's own that
   follows each storage's lifetime: ``MemTracker`` is not used), beside
-  the state's bytes by part from the shard shapes (``params``, ``opt``,
-  ``comp_err``), the gradients' and the batch's; ``activation_bytes`` is
-  the rest of the peak;
+  the state's bytes by part from the rank's shard shapes (``params``,
+  ``opt``, ``comp_err``: the blocks ``init_fn`` keeps), the gradients'
+  and the batch's; ``activation_bytes`` is the rest of the peak;
 * ``traffic``: the bytes each operator reads and writes (every operand
   and result once: the unfused eager traffic, an upper bound);
-* ``collectives``: bytes and counts by kind from the ledger;
+* ``collectives``: bytes and counts by kind from the ledger, counted by
+  the same helpers the step calls (an LM's FSDP all-gathers of each
+  layer's blocks and their reduce-scatters in the backward, the
+  tensor-parallel all-reduces, the gradient all-reduces over ``dp``);
 * ``model_flops`` and ``model_flops_ratio`` as the reference's
   (``dryrun.py:120-133``; the ratio over the flops of every card);
 * a roofline on the H100 SXM data sheet (:data:`H100`).
 
-What it sizes is what the port runs: parameters whole on every rank,
-ranks along ``model`` running the same batch slice as replicas.  A cell
-whose per-card bytes pass the card's 80 GB says so (``fits``); it does
-not fail.
+What it sizes is what the port runs: an LM's parameters placed over
+``fsdp``/``tp``/``ep`` as the reference places them (each rank its
+blocks; ``launch.steps.build_step``), the recsys tables by row, DimeNet's
+edges, the rest replicated.  A cell whose per-card bytes pass the card's
+80 GB says so (``fits``); it does not fail.  An LM ``decode`` cell on a
+mesh of more than one rank is listed as a failure: the port does not
+place the sequence-sharded cache yet.
 """
 
 from __future__ import annotations
@@ -135,11 +141,11 @@ class PeakBytes(TorchDispatchMode):
         return out
 
 
-def _abstract_ctx(spec, mesh_shape, axes):
+def _abstract_ctx(spec, mesh_shape, axes, rules=None):
     from repro_torch.dist.sharding import AbstractMesh, CommLedger, ShardingCtx
 
     mesh = AbstractMesh(tuple(mesh_shape), tuple(axes), ledger=CommLedger())
-    return ShardingCtx(mesh=mesh, profile=profile_for(spec))
+    return ShardingCtx(mesh=mesh, profile=profile_for(spec), rules=dict(rules or {}))
 
 
 def _peak_flops(spec) -> float:
@@ -148,11 +154,12 @@ def _peak_flops(spec) -> float:
 
 
 def run_cell(spec, cell, mesh_shape=(16, 16), axes=("data", "model"), *, tcfg=None,
-             verbose: bool = True) -> dict:
+             verbose: bool = True, rules=None) -> dict:
     """One (arch x cell x mesh) entry: the cell's step called once on fake
     tensors at rank 0's shapes (a ``train``/``graph_train`` cell's full
     optimizer step; the others' forward).  ``tcfg`` defaults to the
-    reference's ``MICROBATCHES``."""
+    reference's ``MICROBATCHES``; ``rules`` override the profile's logical
+    axes (e.g. data parallelism alone: ``fsdp``/``tp``/``ep`` on no axis)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -162,7 +169,7 @@ def run_cell(spec, cell, mesh_shape=(16, 16), axes=("data", "model"), *, tcfg=No
     from repro_torch.train import TrainConfig, init_train_state
 
     t0 = time.perf_counter()
-    ctx = _abstract_ctx(spec, mesh_shape, axes)
+    ctx = _abstract_ctx(spec, mesh_shape, axes, rules)
     ledger = ctx.mesh.ledger
     n_cards = ctx.mesh.size
     tcfg = tcfg or TrainConfig(microbatches=MICROBATCHES.get((spec.arch_id, cell.name), 1))
@@ -179,7 +186,7 @@ def run_cell(spec, cell, mesh_shape=(16, 16), axes=("data", "model"), *, tcfg=No
             from repro_torch.models import recsys
 
             if spec.family == "lm":
-                params = transformer.init(gen, bundle.cfg)
+                params = transformer.init(gen, bundle.cfg, ctx)
             else:
                 params = recsys.local_params(recsys.init(gen, bundle.cfg, ctx), ctx)
             parts = {"params": params}

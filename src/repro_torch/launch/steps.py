@@ -23,8 +23,9 @@ until the dim divides) and :func:`input_shardings`, on a live or an
 abstract mesh.  :func:`input_shapes` gives a cell's batch as
 ``(shape, dtype)`` pairs with no data (the reference's abstract inputs).
 Under a context, a ``train`` or ``graph_train`` step reduces its
-gradients over ranks (:func:`repro_torch.train.make_train_step`), and a
-recsys model's ``init_fn`` returns this rank's row shard.
+gradients over ranks (:func:`repro_torch.train.make_train_step`), a
+recsys model's ``init_fn`` returns this rank's row shard, and an LM's
+this rank's blocks of its parameters placed over ``fsdp``/``tp``/``ep``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import NamedSharding, PartitionSpec, mesh_shape
+from repro_torch.dist.sharding import fit_sharding
 from repro_torch.models import dimenet, recsys, transformer
 from repro_torch.train import TrainConfig, make_train_step
 
@@ -126,35 +127,6 @@ def state_shardings(state_tree, family: str, ctx):
     tensors or anything with ``.shape``) by parameter path."""
     return tree.unflatten(state_tree, [ctx.sharding(*lg) if lg else ctx.sharding()
                                        for lg in param_logical(state_tree, family)])
-
-
-def fit_sharding(shape, sharding, mesh):
-    """Drop mesh axes per dim until the dim size divides evenly (the
-    reference's ``jit`` in_shardings need exact divisibility; published
-    vocab/batch sizes such as 151,936 and 10^6 do not always divide 256
-    or 512): each dim falls back to the largest prefix of its axis tuple
-    that does.  Only the mesh's axis sizes are read."""
-    sizes = mesh_shape(mesh)
-    new = []
-    for i, entry in enumerate(sharding.spec):
-        if entry is None:
-            new.append(None)
-            continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        while axes:
-            prod = 1
-            for a in axes:
-                prod *= sizes[a]
-            if shape[i] % prod == 0:
-                break
-            axes = axes[:-1]
-        if not axes:
-            new.append(None)
-        elif len(axes) == 1:
-            new.append(axes[0])
-        else:
-            new.append(tuple(axes))
-    return NamedSharding(mesh, PartitionSpec(*new))
 
 
 def fit_tree(templates, shardings, mesh):
@@ -390,6 +362,25 @@ class StepBundle:
     init_fn: object = None
 
 
+def _placed_prefill(params, batch, cfg, ctx, plan):
+    """The prefill step on this rank's blocks: the rank's ``dp`` slice of
+    the batch (all of it when it does not divide) through the placed
+    forward, ``h[:, -1]`` times the ``tp`` columns of the head, and the
+    f32 logits gathered over ``tp`` and ``dp``: every rank returns the
+    whole ``(B, V)``."""
+    from repro_torch.dist import collectives
+    from repro_torch.train.step import local_batch
+
+    mine = local_batch(batch, ctx, "lm")
+    view = ctx.local_view() if mine is not batch else ctx
+    h = transformer.forward(params, mine["tokens"], cfg, view)
+    head, tp = transformer.head_block(params, cfg, ctx, plan, h.dtype)
+    logits = collectives.all_gather_dim((h[:, -1] @ head).float(), tp, ctx, 1)
+    if mine is not batch:
+        logits = collectives.all_gather_dim(logits, ctx.mesh_axes("dp"), ctx, 0)
+    return logits
+
+
 def build_step(spec, cell, ctx=None, tcfg: TrainConfig | None = None) -> StepBundle:
     """The function of ``cell`` on ``spec``'s config: ``train`` is
     ``make_train_step(tcfg)`` (default ``TrainConfig()``) over
@@ -401,16 +392,30 @@ def build_step(spec, cell, ctx=None, tcfg: TrainConfig | None = None) -> StepBun
     ``transformer.decode_step``; ``serve`` and ``retrieval`` are
     ``recsys.score_fn`` and ``recsys.retrieval_fn`` (under ``ctx``, on each
     rank's row shard).  A kind the family has no step for raises
-    ``ValueError((family, kind))``."""
+    ``ValueError((family, kind))``.
+
+    An LM under a context whose ``tp``/``fsdp``/``ep`` axes hold more than
+    one rank is placed (``transformer.placement``): its ``init_fn`` returns
+    this rank's blocks (each leaf drawn whole, its block kept, the rest
+    freed; ``init_fn.whole`` is the whole meta template), the ``train``
+    step runs on the blocks and the ``prefill`` step returns the whole
+    logits on every rank (:func:`_placed_prefill`).  The ``decode`` cell
+    is not placed yet: it raises under such a context."""
     _check_kind(spec, cell)
     cfg = _cfg_for_cell(spec, cell)
+    plan = transformer.placement(cfg, ctx) if spec.family == "lm" else None
     if cell.kind in ("train", "graph_train"):
+        shardings = None
         if spec.family == "lm":
-            def loss(params, batch):
-                return transformer.loss_fn(params, batch, cfg)
+            def loss(params, batch, view=None):
+                return transformer.loss_fn(params, batch, cfg, view)
 
             def init_fn(gen):
-                return transformer.init(gen, cfg)
+                return transformer.init(gen, cfg, ctx)
+
+            if plan is not None:  # each rank draws the whole leaves and keeps its blocks
+                init_fn.whole = transformer.param_template(cfg)
+                shardings = plan
         elif spec.family == "recsys":
             # each rank feeds its own slice of the batch to the lookups
             local = None if ctx is None else ctx.local_view()
@@ -430,15 +435,23 @@ def build_step(spec, cell, ctx=None, tcfg: TrainConfig | None = None) -> StepBun
 
             def init_fn(gen):
                 return dimenet.init(gen, cfg)
-        step = make_train_step(loss, tcfg or TrainConfig(), ctx=ctx, family=spec.family)
+        step = make_train_step(loss, tcfg or TrainConfig(), ctx=ctx, family=spec.family,
+                               shardings=shardings)
         return StepBundle(fn=step, cfg=cfg, kind=cell.kind, init_fn=init_fn)
-    if spec.family == "lm" and cell.kind == "prefill":
+    if spec.family == "lm" and cell.kind == "prefill" and plan is not None:
+        def fn(params, batch):
+            return _placed_prefill(params, batch, cfg, ctx, plan)
+    elif spec.family == "lm" and cell.kind == "prefill":
         def fn(params, batch):
             # the full-sequence forward; only the last position's logits
             # leave the step, the (B, S, V) logits are never made
             h = transformer.forward(params, batch["tokens"], cfg)
             return (h[:, -1] @ params["head"].to(h.dtype)).float()
     elif spec.family == "lm" and cell.kind == "decode":
+        if plan is not None:
+            raise NotImplementedError("decode under a placed context (the sequence-sharded "
+                                      "cache) is not ported: ROADMAP queue 1")
+
         def fn(params, cache, batch, pos):
             return transformer.decode_step(params, cache, batch["tokens"], pos, cfg)
     elif spec.family == "recsys" and cell.kind == "serve":

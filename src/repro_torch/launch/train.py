@@ -17,12 +17,17 @@ takes the CPU-size variant.
 Under ``torchrun`` with more than one rank it builds the reference's
 mesh, ``d = isqrt(n)``, ``(n // d, d)`` over ``("data", "model")``, with
 the arch's sharding profile (``dryrun.profile_for``), and trains with the
-data-parallel step (``train.make_train_step`` under that context): every
-rank draws the same global batch and takes its slice.  The process
+step over ranks (``train.make_train_step`` under that context): every
+rank draws the same global batch and takes its slice.  An LM's
+parameters are placed over ``fsdp``/``tp``/``ep`` (``data`` and
+``model``): each rank draws every leaf and keeps its block
+(``transformer.init`` under the context, the blocks
+``dist.sharding.shard_state`` cuts from the same draws).  The process
 group's backend is the one ``--backend`` names (none is picked); with
 ``nccl`` each rank takes the card ``LOCAL_RANK``, with ``gloo`` every rank
-the one ``--device`` names.  Checkpoints are written by one rank only
-(``--ckpt-dir`` is refused over several ranks).
+the one ``--device`` names.  Checkpoints of a placed state are gathered
+whole on the host and written by rank 0; a restart restores each rank's
+blocks from them, on this mesh or any other (``train.checkpoint``).
 
 ``--print-xla-flags`` prints nothing on stdout: the port sets no XLA or
 NCCL flags (the reference's ``OVERLAP_XLA_FLAGS`` are TPU flags), and a
@@ -89,13 +94,22 @@ def main(argv=None):
         if rank == 0:
             print(msg, flush=True)
 
+    placement = None
+    if getattr(bundle.init_fn, "whole", None) is not None:  # an LM placed over the mesh
+        from repro_torch.dist.sharding import StatePlacement
+
+        whole = init_train_state(None, lambda _: bundle.init_fn.whole, tcfg)
+        placement = StatePlacement(ctx, spec.family, whole)
+    elif world > 1 and args.ckpt_dir is not None:
+        raise SystemExit(f"--ckpt-dir over several ranks is for a placed LM; {args.arch} would "
+                         "have each rank write its own files")
     try:
         state = init_train_state(torch.Generator(device=dev).manual_seed(0), bundle.init_fn,
                                  tcfg)
         state, report = loop.run(
             bundle.fn, state, batch_at,
             loop.LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=50),
-            log=log)
+            log=log, placement=placement)
         last = f", final loss {report.losses[-1]:.4f}" if report.losses else ""
         log(f"[train] done: {report.steps_run} steps{last}")
     finally:
@@ -116,9 +130,6 @@ def _rank_context(spec, args, world: int):
 
     if args.backend is None:
         raise SystemExit(f"{world} ranks: name the process-group backend with --backend")
-    if args.ckpt_dir is not None:
-        raise SystemExit("--ckpt-dir is for one rank: over several, each rank would write "
-                         "the same files")
     if args.backend == "nccl":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(dev)

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import collectives
 from repro_torch.kernels import decode_attention as _kernel
 
 #: the attention backends of the serving path: the hand-written kernel
@@ -70,11 +71,18 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def swiglu(x, wg, wu, wd):
-    """x: (..., d) -> (..., d) through the gated FFN (weights in (in, out))."""
+def swiglu(x, wg, wu, wd, *, ctx=None, axes=()):
+    """x: (..., d) -> (..., d) through the gated FFN (weights in (in, out)).
+
+    Tensor-parallel over the mesh axes ``axes`` of ``ctx``: ``wg``/``wu``
+    hold this rank's ``d_ff`` columns and ``wd`` the same rows, so the
+    input enters through ``copy_to`` and the rank's partial output leaves
+    through ``reduce_from`` (the sum over the group, its gradient passed
+    back unchanged)."""
+    x = collectives.copy_to(x, axes, ctx)
     g = x @ wg.to(x.dtype)
     u = x @ wu.to(x.dtype)
-    return (torch.nn.functional.silu(g) * u) @ wd.to(x.dtype)
+    return collectives.reduce_from((torch.nn.functional.silu(g) * u) @ wd.to(x.dtype), axes, ctx)
 
 
 def causal_attention(q, k, v, *, q_chunk: int = 1024):
@@ -82,6 +90,8 @@ def causal_attention(q, k, v, *, q_chunk: int = 1024):
     a time, so the live logits are ``(B, Hq, q_chunk, S)``: the reference's
     plain path (``repro.models.layers.causal_attention``, outside any
     kernel).  q: (B, S, Hq, hd); k/v: (B, S, Hkv, hd) -> (B, S, Hq, hd).
+    Under tensor parallelism it runs on a rank's own heads (``Hq`` and
+    ``Hkv`` local, query head ``i`` reading KV head ``i // (Hq / Hkv)``).
 
     As the reference: when ``q_chunk`` does not divide S the whole
     sequence is one chunk; logits in the working dtype scaled by
@@ -141,8 +151,29 @@ def decode_attention(q, k_cache, v_cache, kv_len, backend: str = "kernel"):
     return _kernel.decode_attention(q, k_cache, v_cache, kv_len.to(torch.int32))
 
 
+def vocab_parallel_xent(logits_f32, labels, ctx, axes):
+    """Each token's ``logsumexp - gold`` (f32) from this rank's block of
+    vocabulary columns, ``logits_f32`` (..., V / n), the ``n`` ranks over
+    the mesh axes ``axes`` holding the blocks in order: the max over the
+    group (no gradient: it only steadies the exponent), the sum of the
+    exponentials over the group, and the gold logit from the rank whose
+    block holds the label (zero from the others, summed).  Every rank gets
+    the same values; each rank's gradient reaches its own columns.  The
+    counterpart of the reference's ``cross_entropy`` on vocabulary-sharded
+    logits, whose sums its sharding constraint leaves to XLA."""
+    cols = logits_f32.shape[-1]
+    m = collectives.max_if_mapped(logits_f32.detach().amax(dim=-1), axes, ctx)
+    se = collectives.reduce_from(torch.exp(logits_f32 - m[..., None]).sum(dim=-1), axes, ctx)
+    ids = labels.long() - ctx.axes_group(axes)[1] * cols
+    mine = (ids >= 0) & (ids < cols)
+    gold = torch.gather(logits_f32, -1, torch.clamp(ids, 0, cols - 1)[..., None])[..., 0]
+    gold = collectives.reduce_from(torch.where(mine, gold, torch.zeros_like(gold)), axes, ctx)
+    return m + torch.log(se) - gold
+
+
 def cross_entropy(logits_f32, labels):
-    """Token-mean cross entropy, ``logsumexp - gold``, in f32."""
+    """Token-mean cross entropy, ``logsumexp - gold``, in f32 (over logits
+    split by vocabulary across ranks: :func:`vocab_parallel_xent`)."""
     lse = torch.logsumexp(logits_f32, dim=-1)
     gold = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold)

@@ -1,11 +1,17 @@
-"""Mixture-of-Experts block on one card (counterpart of ``repro.models.moe``).
+"""Mixture-of-Experts block, on one card or expert-parallel over ranks
+(counterpart of ``repro.models.moe``).
 
 The reference runs the block under ``shard_map``: each model column
 routes the local tokens to its own ``E / ep`` experts, FSDP-sharded
-expert weights are all-gathered a layer at a time, and a psum over the
-expert axis assembles the output.  On one card the mesh has one column:
-``ep = dp = 1``, ``col = 0``, ``e_loc = n_experts``, no all-gather and no
-psum, and the ``shard_map`` body runs once on every token.
+expert weights are cast to the compute dtype and all-gathered over the
+dp axes a layer at a time, and a psum over the expert axis assembles the
+output.  :func:`moe_ffn` under a :class:`~repro_torch.dist.sharding.ShardingCtx`
+does the same with the collectives written out: ``col`` is this rank's
+index along ``ep``, ``e_loc = E / n(ep)``, and the capacity comes from the
+rank's ``t_loc`` tokens (so a mesh drops other pairs than one card does
+on the same batch).  On one card the mesh has one column: ``ep = dp =
+1``, ``col = 0``, ``e_loc = n_experts``, no all-gather and no psum, and
+the ``shard_map`` body runs once on every token.
 
 The capacity dispatch is **sort-based**, as the reference's: flatten the
 (token, k) pairs, sort them by expert id, find each expert's boundary
@@ -32,6 +38,7 @@ import math
 import torch
 
 from repro_torch.core import search
+from repro_torch.dist import collectives
 
 
 def _top_k(probs: torch.Tensor, k: int) -> tuple:
@@ -98,19 +105,59 @@ def _dispatch_local(x, gate_w, *, e_loc: int, col, n_experts: int, top_k: int,
     return xe, combine
 
 
-def moe_ffn(x2d, moe_params, cfg):
-    """x2d: (T, d) tokens on one card.
+def expert_placement(cfg, ctx):
+    """``(ep_axes, fsdp_axes)`` of the expert weights under ``ctx``: the
+    mesh axes (of more than one rank) that split the expert dim and the
+    ``d_model`` dim of ``wg``/``wu``/``wd`` once fitted to the whole
+    shapes (``()`` where a dim stays whole)."""
+    from repro_torch.dist.sharding import _entry_axes, fit_sharding, mesh_shape
+
+    sizes = mesh_shape(ctx.mesh)
+    shape = (cfg.n_experts, cfg.d_model, cfg.d_ff_expert)
+    spec = fit_sharding(shape, ctx.sharding("ep", "fsdp", None), ctx.mesh).spec
+    return tuple(tuple(a for a in _entry_axes(e) if sizes[a] > 1) for e in spec[:2])
+
+
+def moe_ffn(x2d, moe_params, cfg, ctx=None, *, replicated_tokens: bool = False):
+    """x2d: (T, d) tokens.
 
     moe_params: ``{'router': (d, E), 'wg', 'wu': (E, d, ffe), 'wd': (E,
-    ffe, d)}``, one layer's.  Returns (T, d) in ``x2d``'s dtype: the
-    reference's ``moe_ffn`` with one mesh column."""
+    ffe, d)}``, one layer's.  Returns (T, d) in ``x2d``'s dtype.  Without
+    ``ctx``: the reference's ``moe_ffn`` with one mesh column.
+
+    Under ``ctx`` the expert weights are this rank's blocks
+    (:func:`expert_placement`): cast to the compute dtype, then gathered
+    over their ``fsdp`` dim; the tokens and the (replicated) router enter
+    through ``copy_to`` over ``ep`` and the experts' output leaves through
+    ``reduce_from``, so every rank of the ``ep`` group gets the block's
+    whole output and the router's and tokens' gradients sum the columns'
+    parts.  In the context's local view ``x2d`` is this rank's own tokens;
+    in the global view every rank passes all ``T`` and takes its ``T /
+    n(dp)`` rows (all of them with ``replicated_tokens``, for a ``T`` that
+    does not divide), the outputs gathered back over ``dp``."""
     dtype = x2d.dtype
+    ep = fsdp = dp = ()
+    if ctx is not None:
+        ep, fsdp = expert_placement(cfg, ctx)
+        if not (ctx.local_batch or replicated_tokens or ctx.n("dp") == 1):
+            dp = ctx.mesh_axes("dp")
+    x = x2d
+    if dp:
+        group, i = ctx.axes_group(dp)
+        t_loc = x2d.shape[0] // collectives.group_size(group)
+        x = x2d[i * t_loc:(i + 1) * t_loc]
+    wg = collectives.all_gather_dim(moe_params["wg"].to(dtype), fsdp, ctx, 1)
+    wu = collectives.all_gather_dim(moe_params["wu"].to(dtype), fsdp, ctx, 1)
+    wd = collectives.all_gather_dim(moe_params["wd"].to(dtype), fsdp, ctx, 2)
+    x = collectives.copy_to(x, ep, ctx)
+    router = collectives.copy_to(moe_params["router"], ep, ctx)
     xe, combine = _dispatch_local(
-        x2d, moe_params["router"], e_loc=cfg.n_experts, col=0, n_experts=cfg.n_experts,
-        top_k=cfg.top_k, capacity=capacity_of(x2d.shape[0], cfg), dtype=dtype,
+        x, router, e_loc=wg.shape[0], col=ctx.axes_group(ep)[1] if ep else 0,
+        n_experts=cfg.n_experts, top_k=cfg.top_k, capacity=capacity_of(x.shape[0], cfg),
+        dtype=dtype,
     )
-    g = torch.bmm(xe, moe_params["wg"].to(dtype))
-    u = torch.bmm(xe, moe_params["wu"].to(dtype))
+    g = torch.bmm(xe, wg)
+    u = torch.bmm(xe, wu)
     h = torch.nn.functional.silu(g) * u
-    ye = torch.bmm(h, moe_params["wd"].to(dtype))
-    return combine(ye)
+    y = collectives.reduce_from(combine(torch.bmm(h, wd)), ep, ctx)
+    return collectives.all_gather_dim(y, dp, ctx, 0)

@@ -8,9 +8,9 @@ reference's product and :func:`params_from_numpy` carries the reference's
 weights across unchanged.
 
 Entry points:
-  init(gen, cfg)                                  -> params
-  forward(params, tokens, cfg)                    -> final hidden states
-  loss_fn(params, batch, cfg)                     -> scalar next-token loss
+  init(gen, cfg, ctx=None)                        -> params (this rank's blocks under ctx)
+  forward(params, tokens, cfg, ctx=None)          -> final hidden states
+  loss_fn(params, batch, cfg, ctx=None)           -> scalar next-token loss
   init_cache(cfg, batch, max_seq)                 -> KV cache dict
   decode_step(params, cache, tokens, pos, cfg)    -> (logits, cache)
   params_from_numpy(np_params, cfg)               -> params
@@ -20,17 +20,40 @@ Each runs on the card unless given a CPU generator or ``device="cpu"``.
 A config with ``moe=True`` routes each layer's FFN through
 :func:`repro_torch.models.moe.moe_ffn` (plus the shared expert's SwiGLU
 when ``n_shared`` is set).
+
+Under a :class:`~repro_torch.dist.sharding.ShardingCtx` whose ``tp``,
+``fsdp`` or ``ep`` axes hold more than one rank, the parameters are placed
+as the reference places them (:func:`placement`: ``param_logical_axes``
+through ``fit_sharding``; a dim its axes do not divide stays whole) and a
+rank holds only its blocks.  ``forward``/``loss_fn`` then follow the
+reference's ``transformer.py:162-262`` with the collectives written out:
+each ``w*``/``b*`` block is cast to the compute dtype and then
+all-gathered over its ``fsdp`` dim (so the ranks move bf16; the backward
+reduce-scatters); ``wq``/``wk``/``wv``/``wg``/``wu`` are column-parallel and
+``wo``/``wd`` row-parallel over ``tp``, between
+:func:`~repro_torch.dist.collectives.copy_to` and
+:func:`~repro_torch.dist.collectives.reduce_from`; a rank attends with its
+own heads (all heads, its slice of the output taken, when ``n_heads``
+does not divide), with K/V gathered whole and each local head's KV head
+picked when ``n_kv_heads`` does not divide (the reference's replicated
+K/V); the embedding is vocabulary-parallel (the ``fsdp`` columns gathered,
+a masked gather of the local rows, a sum over ``tp``) and so is the loss
+(:func:`~repro_torch.models.layers.vocab_parallel_xent` over the ``tp``
+columns of ``head``).  A block whose shape is not this rank's (a whole
+replica under a placed context) raises.  Without a context, or on a mesh
+of one rank, they compute exactly what the one-card model computes.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives
 
 from . import layers as L
 from .moe import moe_ffn
@@ -86,49 +109,93 @@ class LMConfig:
         return self.n_layers * per_layer + 2 * self.vocab * d + d
 
 
-def init(gen: torch.Generator, cfg: LMConfig):
+def _param_specs(cfg: LMConfig) -> list:
+    """``(path, shape, how)`` of every parameter leaf, in the order
+    :func:`init` draws them (``how``: ``ones``, ``zeros``, ``dense`` or
+    ``embed``)."""
+    d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_layers
+    out = [(("layers", "ln1"), (n, d), "ones"), (("layers", "ln2"), (n, d), "ones"),
+           (("layers", "wq"), (n, d, cfg.n_heads * hd), "dense"),
+           (("layers", "wk"), (n, d, cfg.n_kv_heads * hd), "dense"),
+           (("layers", "wv"), (n, d, cfg.n_kv_heads * hd), "dense"),
+           (("layers", "wo"), (n, cfg.n_heads * hd, d), "dense")]
+    if cfg.qkv_bias:
+        out += [(("layers", "bq"), (n, cfg.n_heads * hd), "zeros"),
+                (("layers", "bk"), (n, cfg.n_kv_heads * hd), "zeros"),
+                (("layers", "bv"), (n, cfg.n_kv_heads * hd), "zeros")]
+    if cfg.moe:
+        e, ffe = cfg.n_experts, cfg.d_ff_expert
+        out += [(("layers", "moe", "router"), (n, d, e), "dense"),
+                (("layers", "moe", "wg"), (n, e, d, ffe), "dense"),
+                (("layers", "moe", "wu"), (n, e, d, ffe), "dense"),
+                (("layers", "moe", "wd"), (n, e, ffe, d), "dense")]
+        ff = cfg.n_shared * ffe  # the shared expert, when there is one
+    else:
+        ff = cfg.d_ff
+    if ff:
+        out += [(("layers", "wg"), (n, d, ff), "dense"), (("layers", "wu"), (n, d, ff), "dense"),
+                (("layers", "wd"), (n, ff, d), "dense")]
+    return out + [(("embed",), (cfg.vocab, d), "embed"), (("ln_f",), (d,), "ones"),
+                  (("head",), (d, cfg.vocab), "dense")]
+
+
+def _put(t: dict, path: tuple, leaf) -> None:
+    for k in path[:-1]:
+        t = t.setdefault(k, {})
+    t[path[-1]] = leaf
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The whole shape of every parameter leaf, in the parameters' nest."""
+    out = {}
+    for path, shape, _ in _param_specs(cfg):
+        _put(out, path, shape)
+    return out
+
+
+def param_template(cfg: LMConfig) -> dict:
+    """The parameters as meta tensors of their whole shapes and
+    ``param_dtype`` (for ``init_train_state`` of a whole-state template)."""
+    pd = L.dtype_of(cfg.param_dtype)
+    out = {}
+    for path, shape, _ in _param_specs(cfg):
+        _put(out, path, torch.empty(shape, dtype=pd, device="meta"))
+    return out
+
+
+def init(gen: torch.Generator, cfg: LMConfig, ctx=None):
     """Random parameters drawn from ``gen`` on its device (a CUDA generator
     for the card, ``torch.Generator()`` for the CPU).  The reference's
     ``jax.random`` draws cannot be reproduced; carry its weights across
     with :func:`params_from_numpy` instead.  Each stacked tensor is drawn
     a layer at a time into its ``param_dtype`` storage, so a bf16 model
-    at full width never holds an f32 copy of a whole stack."""
+    at full width never holds an f32 copy of a whole stack.
+
+    Under a placed ``ctx`` (:func:`placement`) each leaf is drawn whole,
+    this rank's block kept (a copy) and the rest freed before the next
+    leaf: the same draws, so the blocks are ``shard_state`` of the whole
+    parameters drawn from the same seed."""
     pd = L.dtype_of(cfg.param_dtype)
-    d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_layers
     dev = gen.device
-    layers = {
-        "ln1": torch.ones((n, d), dtype=pd, device=dev),
-        "ln2": torch.ones((n, d), dtype=pd, device=dev),
-        "wq": L.dense_init(gen, (n, d, cfg.n_heads * hd), pd),
-        "wk": L.dense_init(gen, (n, d, cfg.n_kv_heads * hd), pd),
-        "wv": L.dense_init(gen, (n, d, cfg.n_kv_heads * hd), pd),
-        "wo": L.dense_init(gen, (n, cfg.n_heads * hd, d), pd),
-    }
-    if cfg.qkv_bias:
-        layers["bq"] = torch.zeros((n, cfg.n_heads * hd), dtype=pd, device=dev)
-        layers["bk"] = torch.zeros((n, cfg.n_kv_heads * hd), dtype=pd, device=dev)
-        layers["bv"] = torch.zeros((n, cfg.n_kv_heads * hd), dtype=pd, device=dev)
-    if cfg.moe:
-        e, ffe = cfg.n_experts, cfg.d_ff_expert
-        layers["moe"] = {
-            "router": L.dense_init(gen, (n, d, e), pd),
-            "wg": L.dense_init(gen, (n, e, d, ffe), pd),
-            "wu": L.dense_init(gen, (n, e, d, ffe), pd),
-            "wd": L.dense_init(gen, (n, e, ffe, d), pd),
-        }
-        ff = cfg.n_shared * ffe  # the shared expert, when there is one
-    else:
-        ff = cfg.d_ff
-    if ff:
-        layers["wg"] = L.dense_init(gen, (n, d, ff), pd)
-        layers["wu"] = L.dense_init(gen, (n, d, ff), pd)
-        layers["wd"] = L.dense_init(gen, (n, ff, d), pd)
-    return {
-        "embed": L.embed_init(gen, (cfg.vocab, d), pd),
-        "layers": layers,
-        "ln_f": torch.ones((d,), dtype=pd, device=dev),
-        "head": L.dense_init(gen, (d, cfg.vocab), pd),
-    }
+    plan = placement(cfg, ctx)
+    coord = ctx.coordinate() if plan is not None else None
+    out = {}
+    for path, shape, how in _param_specs(cfg):
+        if how == "ones":
+            leaf = torch.ones(shape, dtype=pd, device=dev)
+        elif how == "zeros":
+            leaf = torch.zeros(shape, dtype=pd, device=dev)
+        elif how == "dense":
+            leaf = L.dense_init(gen, shape, pd)
+        else:
+            leaf = L.embed_init(gen, shape, pd)
+        if plan is not None:
+            node = plan
+            for k in path:
+                node = node[k]
+            leaf = node.sharding.local_block(leaf, coord).clone()
+        _put(out, path, leaf)
+    return out
 
 
 def params_from_numpy(np_params, cfg: LMConfig, device=None):
@@ -149,9 +216,8 @@ def cast_params(params, dtype: torch.dtype):
 
 def param_logical_axes(cfg: LMConfig):
     """Logical sharding axes per parameter leaf (stacked layer dim first),
-    as the reference's: resolved by ``ShardingCtx.sharding`` they place
-    the leaves; this slice keeps them whole on every rank (the launch
-    slice shards no parameter over ``fsdp``/``tp``/``ep``)."""
+    as the reference's: resolved by ``ShardingCtx.sharding`` and fitted
+    (:func:`placement`) they place the leaves."""
     lay = {
         "ln1": (None, None),
         "ln2": (None, None),
@@ -186,34 +252,179 @@ def cache_logical_axes(seq_shard: bool = False):
     return {"k": (None, "dp", "seqm", None, None), "v": (None, "dp", "seqm", None, None)}
 
 
-def _layer_body(x, lp, cfg: LMConfig, cos, sin):
+@dataclass(frozen=True)
+class Placed:
+    """One placed parameter leaf: its fitted ``sharding``, its whole
+    ``shape``, this rank's ``block`` shape and, per dim, the logical axis
+    and the mesh axes of more than one rank that split it."""
+
+    sharding: object
+    shape: tuple
+    block: tuple
+    dims: tuple
+
+    @classmethod
+    def of(cls, sharding, shape, logical, sizes) -> "Placed":
+        dims = tuple((lg, tuple(a for a in (e if isinstance(e, tuple) else (e,))
+                                if e is not None and sizes[a] > 1))
+                     for lg, e in zip(logical, sharding.spec))
+        return cls(sharding, tuple(shape), tuple(sharding.shard_shape(tuple(shape))), dims)
+
+    def axes(self, i: int, logical: str | None = None) -> tuple:
+        """The mesh axes splitting dim ``i`` (``()`` when whole, or when
+        its logical axis is not ``logical``)."""
+        lg, axes = self.dims[i]
+        return axes if logical is None or lg == logical else ()
+
+    def layer(self) -> "Placed":
+        """This leaf's placement with the stacked layer dim dropped."""
+        return replace(self, shape=self.shape[1:], block=self.block[1:], dims=self.dims[1:])
+
+
+def placement(cfg: LMConfig, ctx):
+    """The placement of each parameter leaf under ``ctx`` (a nest of
+    :class:`Placed` like the parameters'), or None when nothing is split
+    (no context, or every axis of one rank): ``param_logical_axes``
+    resolved by ``ctx`` and fitted to the whole shapes by
+    ``dist.sharding.fit_sharding``, as the reference's
+    ``fit_tree(state_shardings)`` places them."""
+    if ctx is None:
+        return None
+    from repro_torch.dist.sharding import fit_sharding, mesh_shape
+
+    sizes = mesh_shape(ctx.mesh)
+    logical = param_logical_axes(cfg)
+    out, split = {}, False
+    for path, shape, _ in _param_specs(cfg):
+        lg = logical
+        for k in path:
+            lg = lg[k]
+        leaf = Placed.of(fit_sharding(shape, ctx.sharding(*lg), ctx.mesh), shape, lg, sizes)
+        split = split or any(axes for _, axes in leaf.dims)
+        _put(out, path, leaf)
+    return out if split else None
+
+
+def check_blocks(params, plan) -> None:
+    """Every leaf of ``params`` has this rank's block shape under ``plan``:
+    a whole copy of a split leaf (or any other shape) raises."""
+    paths, leaves = tree.flatten_with_paths(params)
+    for p, t, want in zip(paths, leaves, tree.flatten_up_to(params, plan)):
+        if tuple(t.shape) != want.block:
+            raise ValueError(f"parameter {p} has shape {tuple(t.shape)}, not this rank's block "
+                             f"{want.block} of {want.shape} under {want.sharding.spec}: a placed "
+                             "context runs on each rank's blocks (dist.sharding.shard_state)")
+
+
+def _layer_plan(plan):
+    return {k: ({e: w.layer() for e, w in v.items()} if k == "moe" else v.layer())
+            for k, v in plan["layers"].items()}
+
+
+def _attention_tp(h, lp, cfg: LMConfig, cos, sin, ctx, plan, att):
+    """This rank's part of the attention output, before ``wo``'s row block:
+    ``(B, S, hq * hd / n)`` over the ``n`` ranks of ``att`` (the ``tp`` axes
+    of ``wo``'s rows, which split ``wq``'s columns alike)."""
+    b, s, _ = h.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    group, r = ctx.axes_group(att)
+    n = collectives.group_size(group)
+    kv_axes = plan["wk"].axes(1)
+    heads = hq % n == 0  # each rank its own heads; else all heads, its output slice
+    kv_split = heads and hkv % n == 0 and kv_axes == att
+    h = collectives.copy_to(h, att, ctx)
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if not heads:
+        q = collectives.all_gather_dim(q, att, ctx, 2)
+    if not kv_split:  # K/V whole on every rank (the reference's replicated K/V)
+        k = collectives.all_gather_dim(k, kv_axes, ctx, 2)
+        v = collectives.all_gather_dim(v, kv_axes, ctx, 2)
+    hq_loc = hq // n if heads else hq
+    hkv_loc = hkv // n if kv_split else hkv
+    q = L.apply_rope(q.reshape(b, s, hq_loc, hd), cos, sin)
+    k = L.apply_rope(k.reshape(b, s, hkv_loc, hd), cos, sin)
+    v = v.reshape(b, s, hkv_loc, hd)
+    if heads and not kv_split:  # the one KV head this rank's query heads share
+        per = hq // hkv
+        if per % hq_loc:
+            raise NotImplementedError(f"{hq} query heads over {n} ranks and {hkv} KV heads: a "
+                                      "rank's query heads would read several KV heads unevenly")
+        kv = r * hq_loc // per
+        k, v = k[:, :, kv:kv + 1], v[:, :, kv:kv + 1]
+    o = L.causal_attention(q, k, v, q_chunk=cfg.q_chunk).reshape(b, s, hq_loc * hd)
+    if not heads:
+        cols = hq * hd // n
+        o = o[..., r * cols:(r + 1) * cols]
+    return o
+
+
+def _layer_body(x, lp, cfg: LMConfig, cos, sin, ctx=None, plan=None):
     """One layer over the whole sequence: x (B, S, d) in the compute dtype;
     ``lp`` one layer's leaves.  The reference casts the ``w*``/``b*``
     leaves to the compute dtype up front (its MoE leaves inside
-    ``moe_ffn``)."""
+    ``moe_ffn``).  ``plan``: the layer's :class:`Placed` leaves under a
+    placed ``ctx`` (module docstring)."""
     b, s, d = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
     lp = {k: (v.to(dt) if k.startswith(("w", "b")) else v) for k, v in lp.items()}
+    att = ffn = ()
+    if plan is not None:
+        for k in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):  # FSDP: cast (above), then gathered
+            if k in lp:
+                i = next(i for i, (lg, _) in enumerate(plan[k].dims) if lg == "fsdp")
+                lp[k] = collectives.all_gather_dim(lp[k], plan[k].axes(i), ctx, i)
+        att = plan["wo"].axes(0)
+        ffn = plan["wd"].axes(0) if "wd" in plan else ()
     h = L.rms_norm(x, lp["ln1"])
-    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = L.apply_rope(q.reshape(b, s, hq, hd), cos, sin)
-    k = L.apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
-    o = L.causal_attention(q, k, v.reshape(b, s, hkv, hd), q_chunk=cfg.q_chunk)
-    x = x + o.reshape(b, s, hq * hd) @ lp["wo"]
+    if att:
+        o = _attention_tp(h, lp, cfg, cos, sin, ctx, plan, att)
+        x = x + collectives.reduce_from(o @ lp["wo"], att, ctx)
+    else:
+        q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = L.apply_rope(q.reshape(b, s, hq, hd), cos, sin)
+        k = L.apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
+        o = L.causal_attention(q, k, v.reshape(b, s, hkv, hd), q_chunk=cfg.q_chunk)
+        x = x + o.reshape(b, s, hq * hd) @ lp["wo"]
     h = L.rms_norm(x, lp["ln2"])
     if cfg.moe:
-        y = moe_ffn(h.reshape(b * s, d), lp["moe"], cfg).reshape(b, s, d)
+        rep = ctx is not None and not ctx.local_batch and (b * s) % ctx.n("dp") != 0
+        y = moe_ffn(h.reshape(b * s, d), lp["moe"], cfg, ctx,
+                    replicated_tokens=rep).reshape(b, s, d)
         if cfg.n_shared:
-            y = y + L.swiglu(h, lp["wg"], lp["wu"], lp["wd"])
+            y = y + L.swiglu(h, lp["wg"], lp["wu"], lp["wd"], ctx=ctx, axes=ffn)
     else:
-        y = L.swiglu(h, lp["wg"], lp["wu"], lp["wd"])
+        y = L.swiglu(h, lp["wg"], lp["wu"], lp["wd"], ctx=ctx, axes=ffn)
     return x + y
 
 
-def forward(params, tokens, cfg: LMConfig):
+def _embed(params, tokens, cfg: LMConfig, ctx, plan):
+    """The embedding rows of ``tokens`` in the compute dtype; under a plan,
+    vocabulary-parallel: the block cast, its ``fsdp`` columns gathered, a
+    masked gather of this rank's rows, the sum over ``tp``.  The gathered
+    table is held in f32 for the row gather, so the gradients of a token's
+    repeats sum in f32 as the one-card gather's do (the values are the
+    compute dtype's either way)."""
+    dt = L.dtype_of(cfg.dtype)
+    if plan is None:
+        return params["embed"][tokens.long()].to(dt)
+    pe = plan["embed"]
+    tbl = collectives.all_gather_dim(params["embed"].to(dt), pe.axes(1, "fsdp"), ctx, 1).float()
+    tp = pe.axes(0, "tp")
+    if not tp:
+        return tbl[tokens.long()].to(dt)
+    rows = tbl.shape[0]
+    ids = tokens.long() - ctx.axes_group(tp)[1] * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = tbl[torch.clamp(ids, 0, rows - 1)] * mine[..., None].to(tbl.dtype)
+    return collectives.reduce_from(x.to(dt), tp, ctx)
+
+
+def forward(params, tokens, cfg: LMConfig, ctx=None):
     """tokens (B, S) int -> final hidden states (B, S, d) in the compute
     dtype: the reference's full-sequence pass (embed, the layers with RoPE
     over positions ``0..S-1`` and :func:`~repro_torch.models.layers.causal_attention`
@@ -224,22 +435,29 @@ def forward(params, tokens, cfg: LMConfig):
     With ``cfg.remat`` and grad enabled each layer body is checkpointed
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
     ``jax.checkpoint(body)``: only a layer's input is kept, the body runs
-    again in the backward pass.  The stacked leaves are unbound once, so
-    their gradient is one stack of the per-layer gradients."""
-    dt = L.dtype_of(cfg.dtype)
+    again in the backward pass (its FSDP gathers too).  The stacked
+    leaves are unbound once, so their gradient is one stack of the
+    per-layer gradients.  Under a placed ``ctx`` the parameters are this
+    rank's blocks and ``tokens`` the rows the context's view gives it
+    (module docstring)."""
+    plan = placement(cfg, ctx)
+    if plan is not None:
+        check_blocks(params, plan)
+    lplan = None if plan is None else _layer_plan(plan)
     dev = params["embed"].device
     per_layer = {k: ({e: w.unbind(0) for e, w in v.items()} if k == "moe" else v.unbind(0))
                  for k, v in params["layers"].items()}
-    x = params["embed"][tokens.long()].to(dt)
+    x = _embed(params, tokens, cfg, ctx, plan)
     cos, sin = L.rope_tables(tokens.shape[1], cfg.head_dim, cfg.rope_theta, device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
+    extra = () if plan is None else (ctx, lplan)
     for i in range(cfg.n_layers):
         lp = {k: ({e: w[i] for e, w in v.items()} if k == "moe" else v[i])
               for k, v in per_layer.items()}
         if remat:
-            x = checkpoint(_layer_body, x, lp, cfg, cos, sin, use_reentrant=False)
+            x = checkpoint(_layer_body, x, lp, cfg, cos, sin, *extra, use_reentrant=False)
         else:
-            x = _layer_body(x, lp, cfg, cos, sin)
+            x = _layer_body(x, lp, cfg, cos, sin, *extra)
     return L.rms_norm(x, params["ln_f"])
 
 
@@ -252,7 +470,23 @@ def _xent_chunk(xc, lc, head):
     return torch.sum(lse - gold)
 
 
-def loss_fn(params, batch, cfg: LMConfig):
+def _xent_chunk_tp(xc, lc, head, ctx, axes):
+    """:func:`_xent_chunk` on this rank's vocabulary columns of ``head``."""
+    logits = (xc @ head.to(xc.dtype)).float()
+    return torch.sum(L.vocab_parallel_xent(logits, lc, ctx, axes))
+
+
+def head_block(params, cfg: LMConfig, ctx, plan, dtype):
+    """``head`` cast to ``dtype`` with its ``fsdp`` rows gathered: the whole
+    head, or this rank's ``tp`` columns of it; and those ``tp`` axes."""
+    if plan is None:
+        return params["head"].to(dtype), ()
+    ph = plan["head"]
+    head = collectives.all_gather_dim(params["head"].to(dtype), ph.axes(0, "fsdp"), ctx, 0)
+    return head, ph.axes(1, "tp")
+
+
+def loss_fn(params, batch, cfg: LMConfig, ctx=None):
     """Next-token loss over ``batch["tokens"]``/``batch["labels"]`` (B, S),
     with the reference's sequence-chunked projection and softmax: the
     sequence is cut into chunks of ``cfg.xent_chunk`` positions (one chunk
@@ -260,20 +494,31 @@ def loss_fn(params, batch, cfg: LMConfig):
     are made in the compute dtype, cast to f32 and reduced, and under grad
     the chunk is checkpointed, so its logits are made again in the
     backward pass instead of being kept.  The f32 total over the chunks,
-    in order, divided by ``B * S``."""
-    x = forward(params, batch["tokens"], cfg)
+    in order, divided by ``B * S``.  Under a placed ``ctx`` the head's
+    block is gathered over ``fsdp`` once (in the compute dtype, then held
+    in f32 so the chunks' gradients sum in f32 as the one-card loss's do)
+    and each chunk's logits are this rank's ``tp`` columns
+    (:func:`~repro_torch.models.layers.vocab_parallel_xent`)."""
+    x = forward(params, batch["tokens"], cfg, ctx)
     b, s, _ = x.shape
     chunk = min(cfg.xent_chunk, s)
     if s % chunk != 0:
         chunk = s
     labels = batch["labels"]
+    plan = placement(cfg, ctx)
+    head, tp = params["head"], ()
+    if plan is not None:
+        head, tp = head_block(params, cfg, ctx, plan, x.dtype)
+        head = head.float()
+        x = collectives.copy_to(x, tp, ctx)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, chunk):
         xc, lc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        fn, extra = (_xent_chunk_tp, (ctx, tp)) if tp else (_xent_chunk, ())
         if torch.is_grad_enabled():
-            total = total + checkpoint(_xent_chunk, xc, lc, params["head"], use_reentrant=False)
+            total = total + checkpoint(fn, xc, lc, head, *extra, use_reentrant=False)
         else:
-            total = total + _xent_chunk(xc, lc, params["head"])
+            total = total + fn(xc, lc, head, *extra)
     return total / float(b * s)
 
 

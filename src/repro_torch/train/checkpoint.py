@@ -25,7 +25,14 @@ holds the same bytes as ``V2``), and the crc32 covers those bytes.
   ``DeviceMesh``, e.g. ``launch.steps.state_shardings``) each leaf comes
   back as a ``DTensor`` on that mesh whose ``to_local()`` is this rank's
   block, whatever layout wrote it: a checkpoint restores onto any other
-  mesh.
+  mesh;
+* placed states (plain tensors, each rank its blocks: the LM under
+  ``tp``/``fsdp``/``ep``): with ``placement`` (a
+  :class:`~repro_torch.dist.sharding.StatePlacement`) the state is gathered
+  whole once (``gather_state``, on the host) and rank 0 writes it, so the
+  files are a whole state's and restore onto any layout; ``restore`` with
+  ``placement`` cuts each whole leaf to this rank's block under that
+  placement.
 """
 
 from __future__ import annotations
@@ -50,26 +57,30 @@ def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
 
 
-def save(ckpt_dir, state, step: int, async_write: bool = True):
+def save(ckpt_dir, state, step: int, async_write: bool = True, *, placement=None):
     """Save the tree ``state`` at ``step``.  Returns the writer thread
     (``join()`` it) when ``async_write``, else None after the write.  A
     state holding ``DTensor`` leaves is saved by every rank of their mesh
     together: each leaf is gathered whole (``full_tensor``), and the
     default group's rank 0 writes the files (the others' thread does
-    nothing)."""
+    nothing).  So is a placed state with its ``placement``
+    (:class:`~repro_torch.dist.sharding.StatePlacement`): gathered whole
+    once on the host, then written by rank 0."""
     ckpt_dir = Path(ckpt_dir)
     tmp = ckpt_dir / f".tmp_step_{step}"
     final = ckpt_dir / f"step_{step}"
-    tmp.mkdir(parents=True, exist_ok=True)
 
+    if placement is not None:
+        state = placement.gather(state)
     paths, leaves = tree.flatten_with_paths(state)
     sharded = [_is_dtensor(l) for l in leaves]
     # a DTensor leaf is gathered whole on every rank; then rank 0 writes
     leaves = [l.full_tensor() if d else l for l, d in zip(leaves, sharded)]
     dtypes = [BF16 if l.dtype == torch.bfloat16 else None for l in leaves]
     host_leaves = [tree.to_numpy(l) for l in leaves]
-    if any(sharded) and torch.distributed.get_rank() != 0:
+    if (any(sharded) or placement is not None) and torch.distributed.get_rank() != 0:
         return _done(async_write)
+    tmp.mkdir(parents=True, exist_ok=True)
 
     def write():
         manifest = {"step": step, "leaves": []}
@@ -118,7 +129,8 @@ def latest_step(ckpt_dir):
     return int(p.read_text().strip())
 
 
-def restore(ckpt_dir, state_template, step: int | None = None, shardings=None):
+def restore(ckpt_dir, state_template, step: int | None = None, shardings=None, *,
+            placement=None):
     """``(state, step)``: the checkpoint at ``step`` (default: ``LATEST``)
     in ``state_template``'s structure, each leaf on its template leaf's
     device in the dtype the manifest names.  The template's leaves need
@@ -126,7 +138,13 @@ def restore(ckpt_dir, state_template, step: int | None = None, shardings=None):
 
     ``shardings``: a matching tree of ``NamedSharding`` on a live mesh;
     each leaf is then a ``DTensor`` on that mesh, placed as its sharding
-    says, holding this rank's block on the mesh's device type."""
+    says, holding this rank's block on the mesh's device type.
+
+    ``placement``: a :class:`~repro_torch.dist.sharding.StatePlacement` of
+    a placed state; the template holds this rank's blocks, each saved
+    (whole) leaf must have the placement's whole shape, and this rank
+    gets its block of it as a plain tensor on the template leaf's device,
+    whatever layout wrote the checkpoint."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -139,16 +157,25 @@ def restore(ckpt_dir, state_template, step: int | None = None, shardings=None):
     paths, leaves = tree.flatten_with_paths(state_template)
     shards = (tree.flatten_up_to(state_template, shardings) if shardings is not None
               else [None] * len(leaves))
+    blocks = placement.shardings() if placement is not None else [None] * len(leaves)
+    wholes = tree.leaves(placement.whole) if placement is not None else leaves
+    coord = placement.ctx.coordinate() if placement is not None else None
     by_path = {e["path"]: e for e in manifest["leaves"]}
     out = []
-    for p, tmpl, shd in zip(paths, leaves, shards):
+    for p, tmpl, shd, blk, whole in zip(paths, leaves, shards, blocks, wholes):
         e = by_path[p]
         arr = np.load(d / e["file"])
         if _crc(arr) != e["crc32"]:
             raise IOError(f"checksum mismatch for leaf {p}")
-        if list(arr.shape) != list(tmpl.shape):
-            raise ValueError(f"shape mismatch for {p}: {arr.shape} vs {tuple(tmpl.shape)}")
-        if shd is None:
+        if list(arr.shape) != list(whole.shape):
+            raise ValueError(f"shape mismatch for {p}: {arr.shape} vs {tuple(whole.shape)}")
+        if blk is not None:
+            t = blk.local_block(tree.from_numpy(arr, "cpu", e["dtype"]), coord)
+            if tuple(t.shape) != tuple(tmpl.shape):
+                raise ValueError(f"shape mismatch for {p}: block {tuple(t.shape)} vs "
+                                 f"{tuple(tmpl.shape)}")
+            out.append(t.contiguous().to(tmpl.device))
+        elif shd is None:
             out.append(tree.from_numpy(arr, tmpl.device, e["dtype"]))
         else:
             out.append(_placed(arr, e["dtype"], shd))

@@ -52,17 +52,20 @@ def run(
     cfg: LoopConfig,
     preempt_flag: Optional[Callable[[], bool]] = None,
     log=print,
+    placement=None,
 ) -> tuple:
     """Run the loop; returns ``(state, LoopReport)``.  A checkpoint under
     ``cfg.ckpt_dir`` is restored into ``state``'s structure and devices
-    before the first step."""
+    before the first step.  A placed state (each rank its blocks) passes
+    its ``placement`` (``dist.sharding.StatePlacement``): checkpoints are
+    then gathered whole and restored block by block (``checkpoint``)."""
     report = LoopReport(steps_run=0, final_step=0)
     start_step = 0
 
     if cfg.ckpt_dir is not None:
         latest = checkpoint.latest_step(cfg.ckpt_dir)
         if latest is not None:
-            state, start_step = checkpoint.restore(cfg.ckpt_dir, state)
+            state, start_step = checkpoint.restore(cfg.ckpt_dir, state, placement=placement)
             report.restored_from = start_step
             log(f"[loop] restored checkpoint at step {start_step}")
 
@@ -92,14 +95,15 @@ def run(
         if cfg.ckpt_dir and cfg.ckpt_every and next_step % cfg.ckpt_every == 0:
             if pending is not None:
                 pending.join()
-            pending = checkpoint.save(cfg.ckpt_dir, state, next_step)
+            pending = checkpoint.save(cfg.ckpt_dir, state, next_step, placement=placement)
 
         if preempt_flag is not None and preempt_flag():
             log(f"[loop] preemption at step {next_step}: checkpoint + exit")
             if pending is not None:
                 pending.join()
             if cfg.ckpt_dir:
-                checkpoint.save(cfg.ckpt_dir, state, next_step, async_write=False)
+                checkpoint.save(cfg.ckpt_dir, state, next_step, async_write=False,
+                                placement=placement)
             report.preempted = True
             report.final_step = next_step
             return state, report
@@ -107,6 +111,7 @@ def run(
     if pending is not None:
         pending.join()
     if cfg.ckpt_dir:
-        checkpoint.save(cfg.ckpt_dir, state, cfg.total_steps, async_write=False)
+        checkpoint.save(cfg.ckpt_dir, state, cfg.total_steps, async_write=False,
+                        placement=placement)
     report.final_step = cfg.total_steps
     return state, report

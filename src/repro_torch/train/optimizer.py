@@ -13,6 +13,7 @@ walked in ``jax.tree_util``'s order (:mod:`repro_torch.tree`).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -97,33 +98,105 @@ def adafactor_init(params):
     return {"step": _step0(params), "v": tree.tree_map(one, params)}
 
 
+class _Whole:
+    """Reductions of one placed leaf's block to the whole leaf's (the
+    reference places Adafactor's ``vr``/``vc``/``v`` whole on every rank:
+    their paths match no parameter's): a block's partial sums laid at its
+    offsets in zeros of the whole shape and summed over the axes that split
+    the leaf; the whole moments cut back to the block."""
+
+    def __init__(self, placed, ctx):
+        from repro_torch.dist.sharding import NamedSharding, PartitionSpec, split_axes
+
+        self.ctx, self.shape = ctx, placed.shape
+        self.axes = split_axes(placed.sharding)
+        spec = tuple(placed.sharding.spec)
+        self.coord = ctx.coordinate()
+
+        def cut(keep):
+            return NamedSharding(placed.sharding.mesh, PartitionSpec(*[spec[i] for i in keep]))
+
+        n = len(self.shape)
+        self.rows = cut(range(n - 1))  # the shape of a mean over the last dim
+        self.cols = cut([i for i in range(n) if i != n - 2])  # over the one before
+        self.full = placed.sharding
+
+    def _sum(self, part, sharding, shape):
+        from repro_torch.dist import collectives
+
+        whole = torch.zeros(shape, dtype=part.dtype, device=part.device)
+        sharding.local_block(whole, self.coord).copy_(part)
+        return collectives.psum_if_mapped(whole, self.axes, self.ctx)
+
+    def mean_rows(self, x):  # torch.mean(x, dim=-1) of the whole leaf
+        return self._sum(x.sum(dim=-1), self.rows, self.shape[:-1]) / self.shape[-1]
+
+    def mean_cols(self, x):  # torch.mean(x, dim=-2) of the whole leaf
+        return self._sum(x.sum(dim=-2), self.cols, self.shape[:-2] + self.shape[-1:]) \
+            / self.shape[-2]
+
+    def gather(self, x):
+        return self._sum(x, self.full, self.shape)
+
+    def mean(self, x):  # torch.mean(x) of the whole leaf
+        from repro_torch.dist import collectives
+
+        return collectives.psum_if_mapped(x.sum(), self.axes, self.ctx) / math.prod(self.shape)
+
+    def block_rows(self, w):
+        return self.rows.local_block(w, self.coord)
+
+    def block_cols(self, w):
+        return self.cols.local_block(w, self.coord)
+
+    def block(self, w):
+        return self.full.local_block(w, self.coord)
+
+
 @torch.no_grad()
-def adafactor_update(grads, state, params, cfg: AdafactorConfig, lr_scale=1.0):
+def adafactor_update(grads, state, params, cfg: AdafactorConfig, lr_scale=1.0, *, ctx=None,
+                     shardings=None):
+    """One Adafactor step.  Under a placed LM (``shardings``: the nest of
+    ``transformer.Placed`` of the parameters, ``ctx`` their context) the
+    gradients and parameters are this rank's blocks while the second
+    moments are whole, as the reference places them: a split leaf's row
+    and column means, its unfactored moment and the update's RMS sum over
+    the axes that split it, and its update takes the moments' block."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     beta = 1.0 - t ** (-cfg.decay)
     lr = cfg.lr * lr_scale
 
-    def upd(g, v, p):
+    def upd(g, v, p, pl):
+        whole = None if pl is None or not any(a for _, a in pl.dims) else _Whole(pl, ctx)
         g32 = g.to(torch.float32)
         g2 = g32 * g32 + cfg.eps
-        if _factored(p.shape):
+        if _factored(p.shape) and whole is None:
             vr = beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
             vc = beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
             rfac = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=cfg.eps)
             u = g32 / (torch.sqrt(rfac)[..., None] * torch.sqrt(vc)[..., None, :] + cfg.eps)
             v_n = {"vr": vr, "vc": vc}
+        elif _factored(p.shape):
+            vr = beta * v["vr"] + (1 - beta) * whole.mean_rows(g2)
+            vc = beta * v["vc"] + (1 - beta) * whole.mean_cols(g2)
+            rfac = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=cfg.eps)
+            u = g32 / (torch.sqrt(whole.block_rows(rfac))[..., None]
+                       * torch.sqrt(whole.block_cols(vc))[..., None, :] + cfg.eps)
+            v_n = {"vr": vr, "vc": vc}
         else:
-            vn = beta * v["v"] + (1 - beta) * g2
-            u = g32 / (torch.sqrt(vn) + cfg.eps)
+            vn = beta * v["v"] + (1 - beta) * (g2 if whole is None else whole.gather(g2))
+            u = g32 / (torch.sqrt(vn if whole is None else whole.block(vn)) + cfg.eps)
             v_n = {"v": vn}
-        rms = torch.sqrt(torch.mean(u * u) + cfg.eps)
+        mean_u2 = torch.mean(u * u) if whole is None else whole.mean(u * u)
+        rms = torch.sqrt(mean_u2 + cfg.eps)
         u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
         return v_n, (p.to(torch.float32) - lr * u).to(p.dtype)
 
     # walk the v tree at the parameters' leaf positions, in their order
-    out = [upd(g, v, p) for g, v, p in zip(
-        tree.leaves(grads), tree.flatten_up_to(grads, state["v"]), tree.leaves(params))]
+    placed = tree.leaves(shardings) if shardings is not None else [None] * len(tree.leaves(grads))
+    out = [upd(g, v, p, pl) for g, v, p, pl in zip(
+        tree.leaves(grads), tree.flatten_up_to(grads, state["v"]), tree.leaves(params), placed)]
     return (tree.unflatten(grads, [o[1] for o in out]),
             {"step": step, "v": tree.unflatten(grads, [o[0] for o in out])})
 

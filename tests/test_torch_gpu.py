@@ -994,7 +994,9 @@ def train_rank_cases(rank: int, world: int, work_dir: str, device: str) -> None:
 
     * ``step``: one ``launch.steps.build_step`` step of the case's cell and
       ``TrainConfig`` from the saved state (recsys: this rank's row shard of
-      it) on the saved global batch; the new state and the metrics;
+      it; a placed LM: this rank's blocks, ``StatePlacement.shard``) on the
+      saved global batch; the new state (a placed LM's gathered whole) and
+      the metrics;
     * ``lookup``: ``models.embedding.sharded_lookup`` of this rank's row
       shard of a saved table on the saved ids (``local``: this rank's block
       of them, under ``ctx.local_view()``), ``cap_factor`` 4.0, and the
@@ -1011,6 +1013,7 @@ def train_rank_cases(rank: int, world: int, work_dir: str, device: str) -> None:
     import torch.distributed as dist
 
     from repro_torch import tree
+    from repro_torch.dist.sharding import StatePlacement
     from repro_torch.launch import steps
     from repro_torch.models import embedding, recsys
     from repro_torch.train import TrainConfig, checkpoint
@@ -1049,7 +1052,13 @@ def train_rank_cases(rank: int, world: int, work_dir: str, device: str) -> None:
                                     for k, v in state["opt"].items()}
                     if "comp_err" in state:
                         state["comp_err"] = recsys.local_params(state["comp_err"], ctx)
+                placement = None
+                if getattr(bundle.init_fn, "whole", None) is not None:  # a placed LM
+                    placement = StatePlacement(ctx, "lm", state)
+                    state = placement.shard(state)
                 new, metrics = bundle.fn(state, data["batch"])
+                if placement is not None:  # the whole state, gathered over the mesh
+                    new = placement.gather(new)
                 out[case["name"]] = {"state": tree.tree_map(lambda t: t.cpu(), new),
                                      "metrics": {k: float(v) for k, v in metrics.items()}}
             elif case["kind"] == "lookup":
@@ -1121,6 +1130,128 @@ def _dtensor(local, sharding, whole):
 
     return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
                               shape=whole.shape, stride=whole.stride())
+
+
+def placed_grads(loss_fn, params, batch, ctx, plan):
+    """The loss and the global gradient of a placed LM on this rank, as
+    ``make_train_step`` forms them: this rank's ``dp`` slice in the local
+    view (the global view when it does not divide), each block's gradient
+    summed over the ``dp`` axes that do not split it and divided by
+    ``n(dp)``; the loss the ``dp`` mean."""
+    from repro_torch import tree
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import split_axes
+    from repro_torch.train.step import local_batch, value_and_grad
+
+    mine = local_batch(batch, ctx, "lm")
+    view = ctx.local_view() if mine is not batch else ctx
+    loss, grads = value_and_grad(lambda p, b: loss_fn(p, b, view), params, mine)
+    dp, n = ctx.mesh_axes("dp"), ctx.n("dp")
+    out = [collectives.psum_if_mapped(g, tuple(a for a in dp if a not in split_axes(
+        pl.sharding)), ctx) / n for g, pl in zip(tree.leaves(grads), tree.leaves(plan))]
+    return collectives.psum_if_mapped(loss, dp, ctx) / n, tree.unflatten(grads, out)
+
+
+def placed_rank_cases(rank: int, world: int, work_dir: str, device: str) -> None:
+    """One rank of the placed-LM cases (``work_dir/placed_cases.json``),
+    each on its mesh (:func:`_rank_ctx`, ``tp_fsdp``):
+
+    * ``step``: the saved whole state placed (``StatePlacement.shard``) and
+      one ``build_step`` train step of the case's arch, config and
+      ``TrainConfig`` on the saved global batch; the new state gathered
+      whole, the metrics, and the loss and global gradient of the placed
+      loss (:func:`placed_grads`), gathered whole;
+    * ``roundtrip``: the saved state (tensors, and numpy leaves) placed and
+      gathered back: bit-equal or not; and whether no split leaf's block
+      is its whole;
+    * ``ckpt``: the saved state placed, checkpointed (gathered on the host,
+      rank 0 writes), then restored with the placement of each mesh of
+      ``restore_meshes``: whether every block is bit-equal to the saved
+      whole leaf's block there.
+
+    Writes ``placed_out{rank}.pt``."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.dist.sharding import StatePlacement
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.train import TrainConfig, checkpoint, init_train_state
+
+    work, dev = Path(work_dir), torch.device(device)
+    if dev.type == "cuda":
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:  # the ranks share the host's cores
+        torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    for case in json.loads((work / "placed_cases.json").read_text()):
+        ctx = _rank_ctx(dict(case, profile="tp_fsdp"), world, dev)
+        if ctx is None:
+            dist.barrier()
+            continue
+        data = torch.load(work / case["inputs"], map_location=dev, weights_only=True)
+        spec = _case_spec(case)
+        cell = next(c for c in spec.shapes if c.kind == "train")
+        tcfg = TrainConfig(**case.get("tcfg", {}))
+        bundle = steps.build_step(spec, cell, ctx, tcfg)
+        whole = init_train_state(None, lambda _: bundle.init_fn.whole, tcfg)
+        placement = StatePlacement(ctx, "lm", whole)
+        state = data["state"]
+        if case["kind"] == "step":
+            local = placement.shard(state)
+            new, metrics = bundle.fn(local, data["batch"])
+            plan = transformer.placement(spec.config, ctx)
+            loss, grads = placed_grads(
+                lambda p, b, v: transformer.loss_fn(p, b, spec.config, v), local["params"],
+                data["batch"], ctx, plan)
+            pwhole = StatePlacement(ctx, "lm", whole["params"])
+            out[case["name"]] = {"state": placement.gather(new),
+                                 "metrics": {k: float(v) for k, v in metrics.items()},
+                                 "loss": float(loss), "grads": pwhole.gather(grads),
+                                 "local_bytes": sum(t.numel() * t.element_size()
+                                                    for t in tree.leaves(local)),
+                                 "shapes": [list(t.shape) for t in tree.leaves(local)]}
+        elif case["kind"] == "roundtrip":
+            local = placement.shard(state)
+            as_np = tree.unflatten(state, [t.cpu().numpy() if t.dtype != torch.bfloat16 else t
+                                           for t in tree.leaves(state)])
+            local_np = placement.shard(as_np, device=dev)
+            back = placement.gather(local)
+            split = [any(a for _, a in pl.dims) for pl in tree.leaves(
+                transformer.placement(spec.config, ctx))]
+            out[case["name"]] = {
+                "same": all(torch.equal(a, b.cpu()) for a, b in zip(tree.leaves(back),
+                                                                    tree.leaves(state))),
+                "same_np": all(torch.equal(a, b) for a, b in zip(tree.leaves(local_np),
+                                                                 tree.leaves(local))),
+                "no_whole": all(tuple(t.shape) != tuple(w.shape) for t, w, sp in zip(
+                    tree.leaves(local["params"]), tree.leaves(state["params"]), split) if sp),
+                "n_split": sum(split)}
+        else:  # ckpt
+            ckpt = work / case["name"]
+            checkpoint.save(ckpt, placement.shard(state), 1, placement=placement).join(
+                timeout=120)
+            dist.barrier()
+            same = {}
+            for m in case["restore_meshes"]:
+                rctx = _rank_ctx(dict(case, mesh=m, profile="tp_fsdp"), world, dev)
+                key = "x".join(map(str, m))
+                if rctx is None:
+                    same[key] = None
+                    continue
+                rplace = StatePlacement(rctx, "lm", whole)
+                want = rplace.shard(state)
+                got, _ = checkpoint.restore(ckpt, want, placement=rplace)
+                same[key] = all(torch.equal(a, b) for a, b in zip(tree.leaves(got),
+                                                                  tree.leaves(want)))
+            out[case["name"]] = {"same": same}
+        dist.barrier()
+    torch.save(out, work / f"placed_out{rank}.pt")
 
 
 @pytest.mark.gpu
@@ -2131,3 +2262,104 @@ def test_dryrun_flops_equal_the_step_on_card(cuda, monkeypatch):
         bundle.fn(state, batch)
     assert entry["flops"] == pytest.approx(fc.get_total_flops(), rel=1e-6)
     assert entry["memory"]["peak_bytes"] >= entry["memory"]["argument_bytes"]
+
+
+# -- parameters placed over fsdp, tp and ep (phase 10e's gates at the reduced size) -----------
+
+#: (name, arch, microbatches of the one-rank twin): the MoE's twin takes one
+#: microbatch a dp shard, so each routes at the shard's capacity as a rank does
+_PLACED_CARD_CASES = (("granite", "granite-3-8b", 1), ("moonshot", "moonshot-v1-16b-a3b", 2))
+
+
+@pytest.fixture(scope="module")
+def placed_card_ranks(tmp_path_factory):
+    """The placed cases on a (2, 2) ``tp_fsdp`` mesh of 4 gloo ranks on the
+    one card (f32), and each step's one-rank twin on the card (TF32 off):
+    returns ``(want, got_by_rank)``, ``want[name] = (state, metrics, the
+    mean of the twin's microbatch losses)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import TrainConfig, init_train_state
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = tmp_path_factory.mktemp("placed_card")
+    cases, want = [], {}
+    for name, arch, mb in _PLACED_CARD_CASES:
+        c = dict(arch=arch, config={"dtype": "float32"})
+        spec = _case_spec(c)
+        cell = next(x for x in spec.shapes if x.kind == "train")
+        tcfg = dict(total_steps=4, warmup=1)
+        state = init_train_state(torch.Generator().manual_seed(7),
+                                 lambda g, cfg=spec.config: tt.init(g, cfg), TrainConfig(**tcfg))
+        batch = steps.make_inputs(spec, cell, np.random.default_rng(7), device="cpu")
+        torch.save({"state": state, "batch": batch}, work / f"{name}.pt")
+        cases.append(dict(c, name=name, kind="step", inputs=f"{name}.pt", mesh=[2, 2], tcfg=tcfg))
+        one = steps.build_step(spec, cell, None, TrainConfig(**tcfg, microbatches=mb))
+        dev_state = tree.tree_map(lambda t: t.to("cuda"), state)
+        dev_batch = {k: v.to("cuda") for k, v in batch.items()}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ws, wm = one.fn(dev_state, dev_batch)
+            rows = batch["tokens"].shape[0] // mb
+            with torch.no_grad():
+                loss = np.mean([float(tt.loss_fn(dev_state["params"], {
+                    k: v[i * rows:(i + 1) * rows] for k, v in dev_batch.items()}, spec.config))
+                    for i in range(mb)])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        want[name] = (tree.tree_map(lambda t: t.cpu(), ws), {k: float(v) for k, v in wm.items()},
+                      float(loss))
+    cases.append(dict(name="roundtrip-moonshot", kind="roundtrip", inputs="moonshot.pt",
+                      mesh=[2, 2], arch="moonshot-v1-16b-a3b", config={"dtype": "float32"},
+                      tcfg={}))
+    cases.append(dict(name="ckpt", kind="ckpt", inputs="granite.pt", mesh=[2, 2],
+                      arch="granite-3-8b", config={"dtype": "float32"}, tcfg={},
+                      restore_meshes=[[1, 1], [4, 1], [1, 4]]))
+    (work / "placed_cases.json").write_text(json.dumps(cases))
+    run_ranks(placed_rank_cases, 4, work, str(work), "cuda", timeout=900)
+    return want, [torch.load(work / f"placed_out{r}.pt", weights_only=False) for r in range(4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [n for n, _, _ in _PLACED_CARD_CASES])
+def test_placed_step_over_ranks_on_card(placed_card_ranks, name):
+    """Phase 10e's gates at the reduced size: a train step of the reduced
+    granite (its one KV head gathered on both ``tp`` ranks) and moonshot
+    (8 experts over ``ep``) placed on a (2, 2) mesh of 4 gloo ranks on the
+    card: every rank gathers the same state, bit for bit, and the step ==
+    the one-rank step on the card (moonshot's in one microbatch a ``dp``
+    shard: the same capacity): the loss (the ``dp`` mean) and
+    ``grad_norm`` within 1e-5 relative, the first moment within 1e-5 of
+    each leaf's largest magnitude."""
+    from repro_torch import tree
+
+    want_s, want_m, want_loss = placed_card_ranks[0][name]
+    got = [g[name] for g in placed_card_ranks[1]]
+    for g in got[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(tree.leaves(g["state"]),
+                                                     tree.leaves(got[0]["state"])))
+    m = got[0]["metrics"]
+    assert m["loss"] == pytest.approx(want_loss, rel=1e-5)
+    assert m["grad_norm"] == pytest.approx(want_m["grad_norm"], rel=1e-5)
+    for p, g, w in zip(*tree.flatten_with_paths(got[0]["state"]["opt"]["m"]),
+                       tree.leaves(want_s["opt"]["m"])):
+        assert float((g - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1e-9), p
+
+
+@pytest.mark.gpu
+def test_placed_state_round_trips_and_restores_on_card(placed_card_ranks):
+    """On the card: the reduced moonshot's state placed over (2, 2) and
+    gathered back bit for bit (no split leaf held whole), and the placed
+    granite's checkpoint restored onto (1, 1), (4, 1) and (1, 4) block by
+    block, bit-equal."""
+    for g in placed_card_ranks[1]:
+        r = g["roundtrip-moonshot"]
+        assert r["same"] and r["same_np"] and r["no_whole"]
+        assert all(v for v in g["ckpt"]["same"].values() if v is not None)
+    assert all(placed_card_ranks[1][0]["ckpt"]["same"].values())

@@ -58,6 +58,7 @@ FLOP_RTOL = 0.10
 REF_SCRIPT = r'''
 import json, sys
 from pathlib import Path
+import numpy as np
 import jax
 jax.devices()
 import repro  # noqa: F401
@@ -149,6 +150,17 @@ for name in ("train_4k", "prefill_32k"):
                         "batch": int(batch), "flops": e["hlo_analysis"]["flops"]}
     if name == "train_4k":
         out["dry_entry"] = e
+# the train cell placed over a (2, 2) mesh: each device's argument bytes
+cell = next(c for c in spec.shapes if c.name == "train_4k")
+from jax.sharding import AxisType
+m22 = jax.make_mesh((2, 2), ("data", "model"), devices=devs[:4], axis_types=(AxisType.Auto,) * 2)
+e = rdry.run_cell(spec, cell, m22, False, verbose=False)
+batch = steps.make_inputs(spec, cell, True)
+ctx22 = ShardingCtx(mesh=m22, profile="tp_fsdp")
+bsh = steps.fit_tree(batch, steps.input_shardings(spec, cell, ctx22), m22)
+per_dev = sum(int(np.prod(s.shard_shape(v.shape))) * v.dtype.itemsize
+              for v, s in zip(jax.tree_util.tree_leaves(batch), jax.tree_util.tree_leaves(bsh)))
+out["dry22"] = {"argument": e["memory_analysis"]["argument_size_in_bytes"], "batch": int(per_dev)}
 Path(sys.argv[1]).write_text(json.dumps(out, default=lambda x: list(x) if isinstance(x, tuple) else str(x)))
 print("REF OK")
 '''
@@ -333,22 +345,49 @@ def test_dryrun_flops_match_reference(ref, dry, name):
 
 
 def test_dryrun_counts_collectives_over_ranks():
-    """On a (1, 4) mesh a data-parallel LM step all-reduces every
-    gradient leaf (twice its bytes, ring) and the loss; an edge-sharded
-    DimeNet step all-gathers and psums; a recsys step all-to-alls."""
+    """On a (4, 1) mesh an LM step, its parameters placed over ``fsdp``,
+    all-reduces each replicated leaf's gradient (twice its bytes, ring),
+    the loss and each placed leaf's share of the global norm, and
+    reduce-scatters each placed leaf's gradient once, whole, in the
+    compute dtype (bf16); an edge-sharded DimeNet step all-gathers and
+    psums; a recsys step all-to-alls."""
     spec = tconfigs.get("granite-3-8b", reduced=True)
     cell = next(c for c in spec.shapes if c.name == "train_4k")
     e = dryrun.run_cell(spec, cell, (4, 1), tcfg=TrainConfig(), verbose=False)
     c = e["collectives"]
-    # each replicated parameter leaf's gradient, plus the loss
-    assert c["n_all-reduce"] == len(tree.leaves(tt.init(torch.Generator(), spec.config))) + 1
-    assert c["all-reduce"] == 2 * e["memory"]["params_bytes"] + 2 * 4
+    whole = tree.leaves(tt.init(torch.Generator(), spec.config))
+    ctx = ShardingCtx(mesh=AbstractMesh((4, 1), ("data", "model")), profile="tp_fsdp")
+    split = [any(a for _, a in pl.dims) for pl in tree.leaves(tt.placement(spec.config, ctx))]
+    n_placed = sum(split)
+    rep_bytes = sum(t.numel() * t.element_size() for t, s in zip(whole, split) if not s)
+    # each replicated parameter leaf's gradient, the loss, each placed leaf's norm share
+    assert c["n_all-reduce"] == (len(whole) - n_placed) + 1 + n_placed
+    assert c["all-reduce"] == 2 * rep_bytes + 2 * 4 + 2 * 4 * n_placed
+    assert c["reduce-scatter"] == sum(t.numel() * 2 for t, s in zip(whole, split) if s)
     g = dryrun.run_cell(tconfigs.get("dimenet", reduced=True),
                         tconfigs.get("dimenet", reduced=True).shapes[3], (1, 2), verbose=False)
     assert g["collectives"]["n_all-gather"] > 0 and g["collectives"]["n_reduce-scatter"] > 0
     r = dryrun.run_cell(tconfigs.get("wide-deep", reduced=True),
                         tconfigs.get("wide-deep", reduced=True).shapes[0], (1, 4), verbose=False)
     assert r["collectives"]["n_all-to-all"] > 0
+
+
+def test_dryrun_placed_state_bytes_equal_reference_on_2x2(ref):
+    """The reduced granite-3-8b ``train_4k`` on a (2, 2) ``tp_fsdp`` mesh:
+    a rank's state bytes (its blocks of the parameters and of AdamW's
+    moments, the step counters) == the reference's per-device
+    ``memory_analysis`` argument bytes minus its batch shard, and the
+    ledger holds the fsdp leaves' all-gathers and reduce-scatters and the
+    tensor-parallel all-reduces."""
+    spec = tconfigs.get(DRY_ARCH, reduced=True)
+    cell = next(c for c in spec.shapes if c.name == "train_4k")
+    e = dryrun.run_cell(spec, cell, (2, 2), tcfg=TrainConfig(), verbose=False)
+    m, want = e["memory"], ref["dry22"]
+    assert m["argument_bytes"] - m["batch_bytes"] == want["argument"] - want["batch"]
+    assert m["params_bytes"] < _dry_cell("train_4k")["memory"]["params_bytes"] / 2
+    c = e["collectives"]
+    assert c["n_all-gather"] > 0 and c["n_reduce-scatter"] > 0 and c["n_all-reduce"] > 0
+    assert c["all-gather"] > c["reduce-scatter"] > 0  # remat gathers each layer twice
 
 
 def test_dryrun_cli_and_report(tmp_path, monkeypatch, capsys):

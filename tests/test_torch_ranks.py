@@ -370,8 +370,10 @@ def _check_step(got_state, got_m, want_state, want_m, *, loss: bool, grad_rtol: 
 def test_dp_lm_step_matches_one_rank_and_reference(ranks, case):
     """One data-parallel step of the reduced qwen2-0.5b (f32) over 2 or 4
     ranks (each its slice of 8 sequences; the 6-sequence case does not
-    divide, so every rank runs all 6; ``replicas``: dp 2 x model 2) ==
-    the one-rank step on the whole batch and the reference's."""
+    divide, so every rank runs all 6; ``replicas``: dp 2 x model 2), its
+    parameters placed over ``fsdp`` (and ``tp`` on the 2 x 2 mesh: under
+    ``tp_fsdp`` no rank holds a whole replica) and the new state gathered
+    == the one-rank step on the whole batch and the reference's."""
     (ref_state, ref_m), (one_state, one_m), got = ranks[case]
     _ranks_agree(got, rows=False)
     tcfg = LM_CASES[case]["tcfg"]
