@@ -181,7 +181,7 @@ Phases (any failure ends the run with a non-zero exit):
                4's amzn64 table with every 64th key held out; the
                concentrated-Zipf traffic of ``benchmarks/serve_slo.py``'s cache
                A/B leg (a 1.15, a 2,048-rank hot span, 3 phases that shift
-               it) at 4 batches a phase of 2^16 queries, the same batches
+               it) at 3 batches a phase of 2^16 queries, the same batches
                cache-off (the bare tier) and cache-on (primed per phase as
                ``serve_slo.py`` does), every batch == ``torch.searchsorted``;
                hits, misses, rebuilds, ms a batch (host clock, CUDA
@@ -274,7 +274,12 @@ Phases (any failure ends the run with a non-zero exit):
                call), bounds, and the twin check;
                ``decode_attention``'s split plan (kernel, tile, n_split,
                stages, threads) and its time at other splits (forced
-               through ``split_plan``), and the
+               through ``split_plan``); ``return_lse=True`` at
+               ``decode_32k`` (row 0 at ``kv_len = 0``): ``(out, lse)`` ==
+               the twin within ``ATT_TOL[f32]`` on the whole cache and on
+               2 and 4 sequence blocks, the blocks combined on the card ==
+               the one call within ``ATT_TOL[bf16]``, its time with and
+               without the lse beside its bound (PERF.md row 10c); and the
                ``-Xptxas -v`` registers of ``decode_attention``,
                ``rmi_search``, ``pgm_search``, ``kary_search``,
                ``rs_search`` and ``embedding_bag``;
@@ -333,7 +338,27 @@ Phases (any failure ends the run with a non-zero exit):
                loss, global norm, first moment and (10e-i) parameters
                within ``PLACED_RTOL``/``PLACED_GRAD_RTOL``, ms a step,
                tokens/s, one forward's FSDP gathers and one tp all-reduce
-               timed, state bytes and peak GB a rank.
+               timed, state bytes and peak GB a rank; 10f decode under the
+               same mesh and spawn (each rank its parameter and cache
+               blocks, caches filled from seeds a (layer, 1,024-position
+               run) at a time, 3 steps at the cache's last positions):
+               10f-i qwen2-0.5b's ``decode_32k`` with ``seqm`` on model
+               (batch cut from 128 to 32), 10f-ii ``long_500k`` (524,288
+               positions) with ``sp`` on the whole mesh, 10f-iii 10e-ii's
+               moonshot from its seed-0 parameters, 8 slots x 2,048
+               positions, the cache on ``dp`` alone (the kernel on each
+               rank's heads), 10f-iv ``DecodeEngine(ctx=...)`` (8 slots x
+               512 positions, 8 requests of 8 new tokens, under ``tp`` and
+               ``dp`` with the weights held, no ``fsdp``): the ranks'
+               logits equal and within ``SERVE_ATOL``/``SERVE_RTOL`` of the
+               one-rank steps, their cache blocks against the one-rank
+               cache's (``_decode_cache_errors``: later layers within
+               ``CACHE_ULPS``, a stale-row control beyond it), the engine's
+               tokens equal on every rank, ``decode_attention`` launched
+               n_layers x steps on each rank; ms a step, the combine's ms
+               a layer, one layer's FSDP gathers, cache and peak GB a rank,
+               each part's seconds; in the parent, the kernel on rank 0's
+               block beside the one-card call on the whole cache.
 
 The ``corridor_scan`` entry of the kernels line times the fast fit's
 blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
@@ -437,7 +462,8 @@ SERVE_KERNELS = {
     "decode_attention": {
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:85",
-        "path": "DecodeEngine -> decode_step (phase 7: qwen2-0.5b; phase 7b: moonshot MoE)",
+        "path": "DecodeEngine -> decode_step (phase 7: qwen2-0.5b; phase 7b: moonshot MoE); "
+                "the placed decode_step and DecodeEngine(ctx=...) on 4 ranks (phase 10f)",
     },
     "embedding_bag": {
         "source": "src/repro_torch/csrc/embedding_bag.cu",
@@ -4321,6 +4347,11 @@ def spawn_ranks(name: str, world: int, job: dict, timeout: float) -> tuple:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     (work / "job.json").write_text(json.dumps(job))
+    # the ranks share one card: segments that grow in place keep each
+    # rank's allocator from holding GBs it cannot use (10e-ii peaks at
+    # ~18 GB a rank, four of them on 80 GB); read by each rank at its
+    # first allocation, the parent's allocator is set already
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     procs = mp.start_processes(train_rank, args=(world, str(work)), nprocs=world, join=False,
                                start_method="spawn")
     deadline = time.monotonic() + timeout
@@ -4604,10 +4635,13 @@ def rank_two(rank, world, work, job, dev) -> dict:
 
 
 def rank_four(rank, world, work, job, dev) -> dict:
-    """10b then 10e on one set of 4 ranks (one spawn)."""
+    """10b, 10e then 10f on one set of 4 ranks (one spawn)."""
     recsys = rank_dp_recsys(rank, world, work, job["recsys"], dev)
     free_device(dev)
-    return {"recsys": recsys, "placed": rank_placed(rank, world, work, job["placed"], dev)}
+    placed = rank_placed(rank, world, work, job["placed"], dev)
+    free_device(dev)
+    return {"recsys": recsys, "placed": placed,
+            "decode": rank_decode(rank, world, work, job["decode"], dev)}
 
 
 RANK_BODIES = {"two": rank_two, "four": rank_four}
@@ -4980,6 +5014,492 @@ def finish_placed(dev, prep: dict, ranks: list) -> dict:
     return out
 
 
+#: phase 10f's rules: 10e's ``tp_fsdp`` rules with the sequence axes a
+#: deployment names (``transformer.cache_logical_axes``): ``seqm`` on the
+#: model axis (decode_32k: batch on data, sequence on model) and ``sp`` on
+#: the whole mesh (long_500k)
+DECODE_SEQ_RULES = {"seqm": ("model",), "sp": ("data", "model")}
+
+
+def decode_rules(layout: str):
+    """10f's rules: 10e's ``tp_fsdp`` alone (``"tp_fsdp"``: None), with the
+    sequence axes of :data:`DECODE_SEQ_RULES` named (``"seq"``), or those
+    with ``fsdp`` on no axis (``"serve"``: tensor and data parallelism, the
+    weights held, not gathered a step, as a serving deployment holds
+    them)."""
+    if layout == "tp_fsdp":
+        return None
+    from repro_torch.dist.sharding import _rules_for
+
+    rules = dict(_rules_for("tp_fsdp", ("data", "model")), **DECODE_SEQ_RULES)
+    if layout == "serve":
+        rules["fsdp"] = ()
+    return rules
+
+
+def fill_cache(cache: dict, batch: int, row0: int, seq0: int, draw: int, seed: int,
+               layer0: int = 0) -> None:
+    """Seeded values in a cache block ``(layers, rows, positions, Hkv, D)``
+    that holds layers ``[layer0, ...)``, rows ``[row0, ...)`` of a batch of
+    ``batch`` and positions ``[seq0, ...)``: each (layer, run of ``draw``
+    positions) of the whole cache is drawn from its own seed and the
+    block's rows and positions cut out of it, so a rank makes its own
+    block and the one-rank half the whole cache, with the same values."""
+    n_layers, rows, s_blk, hkv, hd = cache["k"].shape
+    dev = cache["k"].device
+    gen = torch.Generator(device=dev)
+    for li in range(n_layers):
+        for j in range(seq0 // draw, (seq0 + s_blk + draw - 1) // draw):
+            lo, hi = max(j * draw, seq0), min((j + 1) * draw, seq0 + s_blk)
+            for kv, name in enumerate(("k", "v")):
+                gen.manual_seed(seed + 2 * ((layer0 + li) * 1_000_003 + j) + kv)
+                vals = torch.randn((batch, draw, hkv, hd), generator=gen, device=dev,
+                                   dtype=cache[name].dtype)
+                cache[name][li, :, lo - seq0:hi - seq0] = vals[row0:row0 + rows,
+                                                               lo - j * draw:hi - j * draw]
+
+
+def _decode_spec(p: dict, dtype):
+    """The arch config, cell dims and seq_shard of a 10f part."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+
+    spec = configs.get(p["arch"], reduced=p["reduced"])
+    cfg = replace(spec.config, dtype=dtype or spec.config.dtype)
+    if p.get("layers"):
+        cfg = replace(cfg, n_layers=p["layers"])
+    cell = next(c for c in spec.shapes if c.name == p["cell"])
+    b = p.get("batch") or cell.dims["global_batch"]
+    s = p.get("seq") or cell.dims["seq_len"]
+    return cfg, b, s, bool(cell.dims.get("seq_shard"))
+
+
+#: 10f's gate on the K/V rows that the steps wrote in the layers after
+#: the first, in bf16 ulps of the RMS of each written head vector (the D
+#: values of one row, position and KV head; near-zero values take their
+#: vector's scale).  The first layer's rows come from the same embedding
+#: rows and agree within ``ATT_TOL[bf16]`` (bit for bit on the card); the
+#: later ones carry the residual stream's drift over the ranks (the ``tp``
+#: partial sums of ``wo`` and ``wd`` rounded to bf16 before the sum, the
+#: sequence blocks combined in another order than one kernel call).  Set
+#: between the readings (PERF.md §6): the largest sound one (29 ulps
+#: on an H100, 31 in a CPU bf16 run) and the control, a stale row (the
+#: seeded value the step should have overwritten: 287.5 ulps at the
+#: least), which every run reads too and which must exceed it
+CACHE_ULPS = 96
+
+
+def rms_ulps(diff, ref):
+    """``diff`` in bf16 ulps (``2^(floor(log2 x) - 7)``) of the RMS of
+    each head vector of ``ref`` (its last dim)."""
+    rms = ref.float().pow(2).mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return diff / torch.exp2(torch.floor(torch.log2(rms)) - 7)
+
+
+def block_kernel_ms(dev, cfg, cache: dict, p: dict, b: int, s: int, ss: bool, gen) -> tuple:
+    """The kernel on rank 0's block of the first layer, called as the
+    placed step calls it (its rows and sequence block, ``return_lse``
+    where the sequence is split; its query heads and their slice of the
+    KV heads where ``tp`` splits the heads and the sequence is whole),
+    timed on the one card in the parent: its ms and the block's (rows,
+    positions, KV heads)."""
+    import math
+
+    from repro_torch.dist import ShardingCtx
+    from repro_torch.dist.sharding import AbstractMesh, mesh_shape
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import transformer
+
+    ctx = ShardingCtx(mesh=AbstractMesh(PLACED_MESH, ("data", "model")), profile="tp_fsdp",
+                      rules=dict(decode_rules(p["layout"]) or {}))
+    cplan = transformer.cache_placement(cfg, ctx, b, s, ss)
+    plan = transformer.placement(cfg, ctx)
+    att = transformer._layer_plan(plan)["wo"].axes(0) if plan is not None else ()
+    n = math.prod(mesh_shape(ctx.mesh)[a] for a in att)
+    b_loc, s_blk = cplan.block[1:3] if cplan is not None else (b, s)
+    seq = cplan.axes(2) if cplan is not None else ()
+    k, v = (cache[x][0][:b_loc, :s_blk].contiguous() for x in ("k", "v"))
+    nq = cfg.n_heads
+    if att and not seq and cfg.n_heads % n == 0:
+        h0, nk = transformer._decode_heads(cfg, n, 0)
+        k, v, nq = k[:, :, h0:h0 + nk], v[:, :, h0:h0 + nk], cfg.n_heads // n
+    q = torch.randn((b_loc, nq, cfg.head_dim), generator=gen, device=dev).to(k.dtype)
+    kv_len = torch.full((b_loc,), min(p["pos0"] + p["steps"], s_blk), dtype=torch.int32,
+                        device=dev)
+    ms = device_ms(lambda: decode_attention(q, k, v, kv_len, return_lse=bool(seq)), dev)
+    return ms, [b_loc, s_blk, int(k.shape[2])]
+
+
+def prepare_decode(dev, job: dict) -> tuple:
+    """Phase 10f's one-rank halves, before the spawn of 4 ranks: for each
+    part, the seed's whole parameters and seeded whole cache, ``steps``
+    one-card ``decode_step`` calls at the cache's last positions (an MoE's
+    rows one ``dp`` shard at a time, each routed at its shard's capacity
+    as on the mesh), the logits and the rows written saved for the ranks,
+    the kernel's ms on the whole cache's first layer and on rank 0's
+    block of it (:func:`block_kernel_ms`); then the one-rank engine's
+    first tick's logits.  Everything is freed before the ranks start."""
+    from repro_torch.kernels.decode_attention import _sm_count, decode_attention, split_plan
+    from repro_torch.models import transformer
+    from repro_torch.serve import DecodeEngine
+
+    prep, parts = {}, {}
+    for name, p in job["cells"].items():
+        t0 = time.perf_counter()
+        cfg, b, s, ss = _decode_spec(p, job["dtype"])
+        params = transformer.init(torch.Generator(device=dev).manual_seed(p["seed"]), cfg)
+        cache = transformer.init_cache(cfg, b, s, device=dev)
+        fill_cache(cache, b, 0, 0, job["draw"], p["seed"])
+        gen = torch.Generator(device=dev).manual_seed(p["seed"] + 1)
+        tokens = torch.randint(0, cfg.vocab, (p["steps"], b, 1), generator=gen, device=dev,
+                               dtype=torch.int32)
+        pos0 = s - 1 - p["steps"]
+        parts_n = PLACED_MESH[0] if cfg.moe and b % PLACED_MESH[0] == 0 else 1
+        rows = b // parts_n
+        logits = []
+        for i in range(p["steps"]):
+            step = []
+            for j in range(parts_n):
+                part = {k: v[:, j * rows:(j + 1) * rows] for k, v in cache.items()}
+                step.append(transformer.decode_step(params, part, tokens[i, j * rows:(j + 1) * rows],
+                                                    pos0 + i, cfg)[0])
+            logits.append(torch.cat(step))
+        del part, step  # views of the cache: it is freed below
+        logits = torch.stack(logits)
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"phase 10f-{name}: the one-rank logits are not finite")
+        q = torch.randn((b, cfg.n_heads, cfg.head_dim), generator=gen, device=dev).to(
+            cache["k"].dtype)
+        kv_len = torch.full((b,), pos0 + p["steps"], dtype=torch.int32, device=dev)
+        kernel_ms = device_ms(lambda: decode_attention(q, cache["k"][0], cache["v"][0], kv_len),
+                              dev)
+        block_ms, block = block_kernel_ms(dev, cfg, cache, dict(p, pos0=pos0), b, s, ss, gen)
+        # the one-card call's split: (tile, shares a (row, KV head)) and its blocks
+        plan = split_plan(b, cfg.n_kv_heads, cfg.head_dim, s, cache["k"].element_size(),
+                          _sm_count(dev)) if dev.type == "cuda" else None
+        want = RANK_WORK / f"decode_{name}_want.pt"
+        torch.save({"logits": logits.cpu(), "tokens": tokens.cpu(),
+                    "rows": {k: v[:, :, pos0:pos0 + p["steps"]].cpu() for k, v in cache.items()}},
+                   want)
+        cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+        prep[name] = {"arch": p["arch"], "batch": b, "seq": s, "seq_shard": ss,
+                      "layout": p["layout"],
+                      "layers": cfg.n_layers, "steps": p["steps"], "pos0": pos0,
+                      "one_card_kernel_ms": kernel_ms, "block_kernel_ms": block_ms,
+                      "one_card_split": None if plan is None else {
+                          "tile": plan[0], "n_split": plan[1],
+                          "blocks": b * cfg.n_kv_heads * plan[1]},
+                      "kernel_block": block, "whole_cache_gb": cache_bytes / 1e9,
+                      "prepare_s": time.perf_counter() - t0}
+        parts[name] = dict(p, want=str(want), pos0=pos0)
+        del params, cache, logits, q
+        free_device(dev)
+    e = job["engine"]
+    cfg, _, _, _ = _decode_spec(e, job["dtype"])
+    rng = np.random.default_rng(e["seed"])
+    prompts = [rng.integers(0, cfg.vocab, e["prompt"]).tolist() for _ in range(e["requests"])]
+    params = transformer.init(torch.Generator(device=dev).manual_seed(e["seed"]), cfg)
+    # the one-rank engine up to its first tick: the gate's logits
+    first, _, ticks, run_s = serve_first_tick(
+        DecodeEngine(params, cfg, batch_slots=e["slots"], max_seq=e["max_seq"]), prompts,
+        e["max_new"], max_ticks=1)
+    del params
+    free_device(dev)  # the engine died with serve_first_tick's frame
+    want = RANK_WORK / "decode_engine_want.pt"
+    torch.save({"first": first.cpu()}, want)
+    prep["engine"] = {"arch": e["arch"], "layers": cfg.n_layers, "slots": e["slots"],
+                      "max_seq": e["max_seq"], "requests": e["requests"], "first_tick_s": run_s}
+    parts["engine"] = dict(e, want=str(want), prompts=prompts)
+    return prep, {"dtype": job["dtype"], "draw": job["draw"], "parts": parts}
+
+
+def serve_first_tick(eng, prompts: list, max_new: int, max_ticks: int = 10_000) -> tuple:
+    """Serve ``prompts`` (``max_new`` tokens each) on ``eng`` for at most
+    ``max_ticks`` ticks: the first decode tick's logits (f32), every
+    request's tokens, the ticks and the host seconds.  The engine is
+    referenced from this frame alone, so it is freed when the call
+    returns."""
+    from repro_torch.serve import Request
+
+    first, decode = [], eng._decode
+
+    def spy(*args):
+        logits, cache = decode(*args)
+        if not first:
+            first.append(logits.float())
+        return logits, cache
+
+    eng._decode = spy
+    reqs = [Request(rid=i, prompt=np.asarray(pr, np.int32), max_new_tokens=max_new)
+            for i, pr in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    ticks = eng.run_until_drained(max_ticks)
+    run_s = time.perf_counter() - t0
+    return first[0], [r.out_tokens for r in reqs], ticks, run_s
+
+
+def _block_origin(ctx, plan, block: tuple) -> tuple:
+    """The first row and position of this rank's cache block."""
+    rows, seq = (plan.axes(1), plan.axes(2)) if plan is not None else ((), ())
+    return (ctx.axes_group(rows)[1] * block[1] if rows else 0,
+            ctx.axes_group(seq)[1] * block[2] if seq else 0)
+
+
+def _decode_cache_errors(cache: dict, want_rows: dict, p: dict, b: int, origin: tuple,
+                         seed: int, draw: int) -> dict:
+    """This rank's cache block after the steps against the one-rank
+    cache's same block, a layer at a time: every position the steps did
+    not write bit-equal to the seeded values; the rows the one-rank steps
+    wrote at ``pos0 ...`` within ``ATT_TOL[bf16]`` in the first layer and
+    within :data:`CACHE_ULPS` (:func:`rms_ulps`) in the later ones.
+    Returns each class's largest error and count beyond, and the control:
+    the fewest ulps by which any written head vector of a later layer
+    would be off had the step left it stale (its seeded value)."""
+    n_layers, rows, s_blk = cache["k"].shape[:3]
+    row0, seq0 = origin
+    atol, rtol = ATT_TOL[torch.bfloat16]
+    out = {"unwritten_bad": 0, "first_err": 0.0, "first_bad": 0, "later_ulps": 0.0,
+           "later_bad": 0, "stale_min_ulps": None}
+    # local position -> the (last) step that wrote it
+    written = {min(max(p["pos0"] + t, 0), p["seq"] - 1) - seq0: t for t in range(p["steps"])}
+    written = {at: t for at, t in written.items() if 0 <= at < s_blk}
+    for li in range(n_layers):
+        fresh = {k: torch.empty_like(v[li:li + 1]) for k, v in cache.items()}
+        fill_cache(fresh, b, row0, seq0, draw, seed, layer0=li)
+        for k in fresh:
+            got, want = cache[k][li], fresh[k][0]
+            keep = torch.ones(s_blk, dtype=torch.bool, device=got.device)
+            keep[list(written)] = False
+            out["unwritten_bad"] += int((got[:, keep] != want[:, keep]).sum())
+            for at, t in written.items():
+                w = want_rows[k][li, row0:row0 + rows, t].to(got.device).float()
+                diff = (got[:, at].float() - w).abs()
+                if li == 0:
+                    out["first_err"] = max(out["first_err"], float(diff.max()))
+                    out["first_bad"] += int((diff > atol + rtol * w.abs()).sum())
+                    continue
+                u = rms_ulps(diff, w)
+                out["later_ulps"] = max(out["later_ulps"], float(u.max()))
+                out["later_bad"] += int((u > CACHE_ULPS).sum())
+                stale = float(rms_ulps((want[:, at].float() - w).abs(), w).amax(dim=-1).min())
+                old = out["stale_min_ulps"]
+                out["stale_min_ulps"] = stale if old is None else min(old, stale)
+    return out
+
+
+def rank_decode(rank, world, work, job, dev) -> dict:
+    """10f on a rank, on 10e's (data 2, model 2) mesh: for each part the
+    seed's parameters placed (each leaf drawn whole, the block kept), the
+    rank's seeded cache block, ``steps`` placed ``decode_step`` calls on
+    the saved tokens (CUDA events between barriers; the launch count), the
+    logits against the one-rank half's, the cache block against its one;
+    one layer's FSDP gathers and the combine of one layer (collectives,
+    so timed on the ranks) timed; cache and peak GB, the part's seconds.
+    Then the engine under the context on the saved requests: its tokens,
+    its first tick's logits against the one-rank engine's."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.serve import DecodeEngine
+
+    out = {}
+    for name, p in job["parts"].items():
+        t0 = time.perf_counter()
+        cfg, b, s, ss = _decode_spec(p, job["dtype"])
+        ctx = _ctx(dev, world, PLACED_MESH, "tp_fsdp", decode_rules(p["layout"]))
+        reset_peak(dev)
+        params = transformer.init(torch.Generator(device=dev).manual_seed(p["seed"]), cfg, ctx)
+        if name == "engine":
+            eng = DecodeEngine(params, cfg, ctx=ctx, batch_slots=p["slots"], max_seq=p["max_seq"])
+            del params
+            cache_gb = sum(t.numel() * t.element_size() for t in eng.cache.values()) / 1e9
+            kernels.reset_launches()
+            dist.barrier()
+            first, tokens, ticks, run_s = serve_first_tick(eng, p["prompts"], p["max_new"])
+            del eng
+            want = torch.load(p["want"])["first"].to(dev)
+            diff = (first - want).abs()
+            out[name] = {"tokens": tokens, "ticks": ticks, "run_s": run_s,
+                         "steps": sum(len(pr) for pr in p["prompts"]) + ticks,
+                         "launches": kernels.launches()["decode_attention"],
+                         "first_max_abs_err": float(diff.max()),
+                         "first_bad": int((diff > SERVE_ATOL + SERVE_RTOL * want.abs()).sum()),
+                         "cache_gb": cache_gb, "peak_gb": peak_gb(dev),
+                         "part_s": time.perf_counter() - t0}
+            del first, want, diff
+            free_device(dev)
+            continue
+        plan = transformer.cache_placement(cfg, ctx, b, s, ss)
+        cache = transformer.init_cache(cfg, b, s, device=dev, ctx=ctx, seq_shard=ss)
+        origin = _block_origin(ctx, plan, tuple(cache["k"].shape))
+        fill_cache(cache, b, *origin, job["draw"], p["seed"])
+        want = torch.load(p["want"])
+        tokens = want["tokens"].to(dev)
+        kernels.reset_launches()
+        ms, logits = [], []
+        for i in range(p["steps"]):
+            t, (lg, cache) = _events_ms(dev, lambda i=i: transformer.decode_step(
+                params, cache, tokens[i], p["pos0"] + i, cfg, ctx, seq_shard=ss, max_seq=s))
+            ms.append(t)
+            logits.append(lg)
+        launches = kernels.launches()["decode_attention"]
+        logits = torch.stack(logits)
+        wl = want["logits"].to(dev)
+        diff = (logits - wl).abs()
+        bad = int((diff > SERVE_ATOL + SERVE_RTOL * wl.abs()).sum()) + int(
+            (~torch.isfinite(logits)).sum())
+        logits_err = float(diff.max())
+        cache_check = _decode_cache_errors(cache, want["rows"], dict(p, seq=s), b, origin,
+                                           p["seed"], job["draw"])
+        del wl, diff, want
+        # one layer's FSDP gathers and the combine of one layer
+        dt = L.dtype_of(cfg.dtype)
+        lplan = transformer._layer_plan(transformer.placement(cfg, ctx))
+        lp = {k: ({e: w[0] for e, w in v.items()} if k == "moe" else v[0])
+              for k, v in params["layers"].items()}
+        gather_ms, (gathered, _, _) = _events_ms(dev, lambda: transformer._layer_weights(
+            lp, dt, ctx, lplan))
+        gathered_bytes = sum(t.numel() * t.element_size() for k, t in gathered.items()
+                             if k != "moe" and k.startswith("w"))
+        del gathered
+        seq = plan.axes(2) if plan is not None else ()
+        combine_ms = None
+        if seq:
+            gen = torch.Generator(device=dev).manual_seed(rank)
+            o = torch.randn((cache["k"].shape[1], cfg.n_heads, cfg.head_dim), generator=gen,
+                            device=dev)
+            lse = torch.randn(o.shape[:2], generator=gen, device=dev)
+            combine_ms = _events_ms(dev, lambda: L.combine_softmax_shards(o, lse, seq, ctx, dt),
+                                    reps=3)[0]
+            del o, lse
+        out[name] = {"ms": ms, "launches": launches, "logits_digest": digest([logits]),
+                     "logits_max_abs_err": logits_err,
+                     "logits_bad": bad, "cache": cache_check,
+                     "block": list(cache["k"].shape), "origin": list(origin),
+                     "cache_gb": sum(t.numel() * t.element_size() for t in cache.values()) / 1e9,
+                     "peak_gb": peak_gb(dev), "fsdp_gather_ms": gather_ms,
+                     "fsdp_gathered_bytes": gathered_bytes, "combine_ms": combine_ms,
+                     "part_s": time.perf_counter() - t0}
+        del params, cache, logits, lp
+        free_device(dev)
+    return out
+
+
+def decode_job(reduced: bool, dtype, *, draw: int, batch: int, moe_seq: int) -> dict:
+    """Phase 10f's parts on qwen2-0.5b (moonshot-v1-16b-a3b for 10f-iii),
+    3 steps each at the cache's last positions: 10f-i ``decode_32k`` with
+    ``seqm`` on model, its batch cut to ``batch`` (128 at full scale: the
+    parent's whole cache and the ranks' would take turns on one card);
+    10f-ii ``long_500k`` at its full length with ``sp`` on the whole mesh;
+    10f-iii the MoE at 10e-ii's depth (2 layers) from its seed-0
+    parameters, 8 slots of ``moe_seq`` positions, the cache on ``dp``
+    alone (the kernel on each rank's heads, a slice of the cache's);
+    10f-iv the engine, 8 slots x 512 positions, 8 requests of 8 new
+    tokens from one-token prompts, under the serving layout (``tp`` and
+    ``dp``, ``seqm`` on model, the weights held: ``decode_rules``).
+    ``draw`` positions a seeded draw."""
+    qwen = {"arch": "qwen2-0.5b", "reduced": reduced, "steps": 3}
+    return {"dtype": dtype, "draw": draw, "cells": {
+        "i": dict(qwen, cell="decode_32k", batch=batch, layout="seq", seed=11),
+        "ii": dict(qwen, cell="long_500k", layout="seq", seed=12),
+        "iii": {"arch": "moonshot-v1-16b-a3b", "reduced": reduced, "steps": 3,
+                "cell": "decode_32k", "batch": 8, "seq": moe_seq, "layout": "tp_fsdp",
+                "layers": None if reduced else 2, "seed": 0}},
+        "engine": dict(qwen, cell="decode_32k", layout="serve", seed=11, slots=8,
+                       max_seq=128 if reduced else 512, requests=8, max_new=8, prompt=1)}
+
+
+def finish_decode(dev, prep: dict, ranks: list) -> dict:
+    """Phase 10f's gates (each part: every rank's logits equal, within
+    ``SERVE_ATOL``/``SERVE_RTOL`` of the one-rank steps', each cache block
+    against the one-rank cache's as :func:`_decode_cache_errors` holds it,
+    the stale control beyond :data:`CACHE_ULPS`, ``layers`` kernel
+    launches a step on every rank; the engine: every rank's tokens equal,
+    its first tick's logits within the serve tolerance of the one-rank
+    engine's, ``layers`` launches a step) and its figures."""
+    out = {}
+    labels = {"i": "10f-i", "ii": "10f-ii", "iii": "10f-iii", "engine": "10f-iv"}
+    for name, p in prep.items():
+        label, rs = labels[name], [r[name] for r in ranks]
+        if name == "engine":
+            if any(r["tokens"] != rs[0]["tokens"] for r in rs):
+                fail(f"phase {label}: the ranks' engines served different tokens")
+            if any(r["first_bad"] for r in rs):
+                fail(f"phase {label}: the first tick's logits are off the one-rank engine's by "
+                     f"{[r['first_max_abs_err'] for r in rs]}")
+            if dev.type == "cuda" and any(r["launches"] != p["layers"] * r["steps"] for r in rs):
+                fail(f"phase {label}: decode_attention launched {[r['launches'] for r in rs]} "
+                     f"times, expected {p['layers']} x {rs[0]['steps']} steps on each rank")
+            o = dict(p, ranks_ticks=rs[0]["ticks"], ranks_run_s=max(r["run_s"] for r in rs),
+                     first_max_abs_err=max(r["first_max_abs_err"] for r in rs),
+                     launches=[r["launches"] for r in rs], cache_gb=rs[0]["cache_gb"],
+                     peak_gb=[r["peak_gb"] for r in rs], part_s=max(r["part_s"] for r in rs))
+            out[name] = o
+            log(f"[ranks] {label} DecodeEngine(ctx=...) {p['arch']} at its widths on the 4 ranks "
+                f"(tp on model and dp on data, the weights held, no fsdp; seqm on model: a "
+                f"batch half and a sequence half of the cache a rank), "
+                f"{p['slots']} slots x {p['max_seq']} positions, {p['requests']} requests: every "
+                f"rank served the same tokens; first tick's logits max |err| "
+                f"{o['first_max_abs_err']:.4g} against the one-rank engine's first tick "
+                f"({p['first_tick_s']:.2f} s there); {o['ranks_ticks']} ticks, {rs[0]['steps']} "
+                f"steps in {o['ranks_run_s']:.1f} s on the ranks; launches {o['launches']}; "
+                f"cache {o['cache_gb']:.4f} GB, peak {o['peak_gb']} GB a rank; the part "
+                f"{o['part_s']:.1f} s")
+            continue
+        if any(r["logits_digest"] != rs[0]["logits_digest"] for r in rs):
+            fail(f"phase {label}: the ranks returned different logits")
+        if any(r["logits_bad"] for r in rs):
+            fail(f"phase {label}: logits off the one-rank steps' by "
+                 f"{[r['logits_max_abs_err'] for r in rs]} (atol {SERVE_ATOL}, rtol {SERVE_RTOL})")
+        if any(r["cache"][k] for r in rs for k in ("unwritten_bad", "first_bad", "later_bad")):
+            fail(f"phase {label}: cache blocks off the one-rank cache (later layers' bound "
+                 f"{CACHE_ULPS} ulps): {[r['cache'] for r in rs]}")
+        stale = [r["cache"]["stale_min_ulps"] for r in rs
+                 if r["cache"]["stale_min_ulps"] is not None]
+        if p["layers"] > 1 and (not stale or min(stale) <= CACHE_ULPS):
+            fail(f"phase {label}: the cache gate cannot see a stale row: {stale} ulps against "
+                 f"the bound {CACHE_ULPS}")
+        want_launches = p["layers"] * p["steps"]
+        if dev.type == "cuda" and any(r["launches"] != want_launches for r in rs):
+            fail(f"phase {label}: decode_attention launched {[r['launches'] for r in rs]} times, "
+                 f"expected {p['layers']} x {p['steps']} on each rank")
+        ms = [max(r["ms"][i] for r in rs) for i in range(p["steps"])]
+        combine = [r["combine_ms"] for r in rs if r["combine_ms"] is not None]
+        o = dict(p, step_ms=ms, logits_max_abs_err=max(r["logits_max_abs_err"] for r in rs),
+                 cache_first_err=max(r["cache"]["first_err"] for r in rs),
+                 cache_later_ulps=max(r["cache"]["later_ulps"] for r in rs),
+                 cache_stale_min_ulps=min(stale) if stale else None,
+                 launches=[r["launches"] for r in rs], block=rs[0]["block"],
+                 cache_gb=[r["cache_gb"] for r in rs], peak_gb=[r["peak_gb"] for r in rs],
+                 fsdp_gather_ms=max(r["fsdp_gather_ms"] for r in rs),
+                 fsdp_gathered_bytes=rs[0]["fsdp_gathered_bytes"],
+                 combine_ms=max(combine) if combine else None,
+                 part_s=max(r["part_s"] for r in rs))
+        out[name] = o
+        layout = "sp on the whole mesh" if p["seq_shard"] else (
+            "seqm on model" if p["layout"] != "tp_fsdp" else "the batch on data alone")
+        log(f"[ranks] {label} {p['arch']} decode at its widths, {p['layers']} layers, "
+            f"{p['batch']} x {p['seq']} positions ({layout}), "
+            f"a rank's block {o['block']}: {p['steps']} steps at pos {p['pos0']}.. == the one-rank "
+            f"steps (logits max |err| {o['logits_max_abs_err']:.4g}; the rows written max |err| "
+            f"{o['cache_first_err']:.3g} in the first layer, {o['cache_later_ulps']:.4g} ulps of "
+            f"their head vectors' RMS in the later ones (bound {CACHE_ULPS}; a stale row "
+            f"{o['cache_stale_min_ulps']} ulps at the least); the rest bit-equal); "
+            f"ms a step {ms} (CUDA events between barriers); one layer's "
+            f"FSDP gathers {o['fsdp_gather_ms']} ms ({o['fsdp_gathered_bytes'] / 1e6:.1f} MB); "
+            f"the combine {o['combine_ms']} ms a layer; the kernel on rank 0's block "
+            f"{p['kernel_block']} {p['block_kernel_ms']} ms against {p['one_card_kernel_ms']} ms "
+            f"on the whole cache (one card, in the parent; split {p['one_card_split']}); cache {o['cache_gb']} GB a rank "
+            f"({p['whole_cache_gb']:.2f} GB whole); peak {o['peak_gb']} GB a rank; launches "
+            f"{o['launches']}; the part {o['part_s']:.1f} s on the ranks")
+    return out
+
+
 def prepare_dp_recsys(dev, arch, *, reduced: bool, world: int, sasrec: Path) -> tuple:
     """Phase 10b's one-rank half: ``arch``'s ``train_batch`` at published
     widths, one step on this process from the seed-0 state and batch
@@ -5203,13 +5723,14 @@ def phase_dryrun_check(proc, lm_out: dict, gnn_out: dict, dp_out: dict, measured
     return out
 
 
-def phase_ranks(dev, dry, *, lm: dict, recsys: dict, gnn: dict, placed: dict,
+def phase_ranks(dev, dry, *, lm: dict, recsys: dict, gnn: dict, placed: dict, decode: dict,
                 measured: dict) -> dict:
     """Phase 10: training over ranks and the launch layer (10a the LM's
     data-parallel step, 10b the recsys exchanges under autograd and the
     elastic restore, 10c the edge-sharded DimeNet, 10d the dry run against
-    the card, 10e the LM family placed over fsdp, tp and ep).  No kernel
-    of the port runs here; the launch counts are read to show it."""
+    the card, 10e the LM family placed over fsdp, tp and ep, 10f decode
+    under the mesh).  Only 10f runs a kernel of the port: its one-rank
+    halves here (counted below) and its ranks (counted on each rank)."""
     from repro_torch import kernels
 
     t0 = time.perf_counter()
@@ -5238,16 +5759,22 @@ def phase_ranks(dev, dry, *, lm: dict, recsys: dict, gnn: dict, placed: dict,
                                                         layers=placed["moe_layers"],
                                                         batch=placed["moe_batch"],
                                                         dtype=lm.get("dtype"))
+        free_device(dev)
+        t1 = time.perf_counter()
+        decode_prep, decode_job = prepare_decode(dev, decode)
+        free_device(dev)  # the ranks share the card: the parent holds nothing there
+        log(f"[ranks] 10f one-rank halves in {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         work, ranks = spawn_ranks("four", 4, {
             "kind": "four", "device": dev.type, "recsys": recsys_job,
-            "placed": {"lm": placed_lm_job, "moe": placed_moe_job}}, 900)
+            "placed": {"lm": placed_lm_job, "moe": placed_moe_job}, "decode": decode_job}, 900)
         ranks_s = time.perf_counter() - t1
-        log(f"[ranks] 10b + 10e: 4 gloo ranks in {ranks_s:.1f} s")
+        log(f"[ranks] 10b + 10e + 10f: 4 gloo ranks in {ranks_s:.1f} s")
         out["dp_recsys"] = finish_dp_recsys(dev, recsys_prep, work,
                                             [r["recsys"] for r in ranks], ranks_s)
         out["placed"] = finish_placed(dev, {"lm": placed_lm, "moe": placed_moe},
                                       [r["placed"] for r in ranks])
+        out["decode"] = finish_decode(dev, decode_prep, [r["decode"] for r in ranks])
         free_device(dev)
         measured = dict(measured, **{"10a": max(out["dp_lm"]["peak_gb"], key=lambda x: x or 0)})
         lm_out = dict(lm, seq=out["dp_lm"]["seq"])
@@ -5301,6 +5828,80 @@ def time_attention(dev, label, q, k, v, kv_len) -> dict:
     return row
 
 
+def combine_blocks(outs, lses):
+    """One row's attention from its sequence blocks' ``(out, lse)``: the
+    single-process form of ``layers.combine_softmax_shards``, in f32."""
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.amax(dim=0))[..., None]
+    return (w * torch.stack(outs)).sum(dim=0) / w.sum(dim=0)
+
+
+def time_attention_lse(dev, label, q, k, v, kv_len) -> dict:
+    """Row 10c: ``decode_attention(..., return_lse=True)`` at a shape,
+    row 0 given ``kv_len = 0``.  Gates: ``(out, lse)`` within
+    ``ATT_TOL[f32]`` of the twin's, on the whole cache and on each of 2
+    and 4 sequence blocks (some past a row's ``kv_len``); the f32 output
+    rounded == the default path's output, bit for bit; each split's blocks
+    combined on the card within ``ATT_TOL`` of the dtype of the one call.
+    Times: the kernel with and without the lse, the twin, SDPA (the
+    output alone) and the bound (out and lse written in f32)."""
+    from repro_torch.kernels.decode_attention import _decode_body, decode_attention
+
+    kv_len = kv_len.clone()
+    kv_len[0] = 0
+    f32 = ATT_TOL[torch.float32]
+    got, lse = decode_attention(q, k, v, kv_len, return_lse=True)
+    want, want_lse = _decode_body(q, k, v, kv_len, return_lse=True)
+    err = max(max_err(got, want, *f32, f"{label} out (lse path)"),
+              max_err(lse, want_lse, *f32, f"{label} lse"))
+    one = decode_attention(q, k, v, kv_len)
+    if not torch.equal(got.to(q.dtype), one):
+        fail(f"{label}: the lse path's output rounded != the default path's output")
+    del want, want_lse
+    combine_err = {}
+    b, s, hkv, d = k.shape
+    for n in (2, 4):
+        s_loc, outs, lses, past = s // n, [], [], 0
+        for i in range(n):
+            blk = slice(i * s_loc, (i + 1) * s_loc)
+            kb, vb = k[:, blk].contiguous(), v[:, blk].contiguous()
+            nb = torch.clamp(kv_len - i * s_loc, 0, s_loc).to(torch.int32)
+            past += int((nb == 0).sum())
+            o, l_ = decode_attention(q, kb, vb, nb, return_lse=True)
+            wo, wl = _decode_body(q, kb, vb, nb, return_lse=True)
+            err = max(err, max_err(o, wo, *f32, f"{label} block {i} of {n} out"),
+                      max_err(l_, wl, *f32, f"{label} block {i} of {n} lse"))
+            outs.append(o)
+            lses.append(l_)
+            del kb, vb, wo, wl
+        if past == 0:
+            fail(f"{label}: no block of the {n}-way split lies past a row's kv_len")
+        combined = combine_blocks(outs, lses).to(q.dtype)
+        combine_err[n] = max_err(combined, one, *ATT_TOL[q.dtype], f"{label} {n} blocks combined")
+        del outs, lses, combined
+    n_valid = int(torch.clamp(kv_len.long(), 0, s).sum())
+    n_bytes = (q.numel() * q.element_size() + q.numel() * 4 + lse.numel() * 4
+               + 2 * n_valid * hkv * d * k.element_size())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(s, device=dev)[None, :] < kv_len.long()[:, None])[:, None, None, :]
+    row = {"case": label, "shape": list(k.shape), "heads": q.shape[1], "dtype": str(q.dtype),
+           "max_abs_err": err, "combine_max_abs_err": combine_err,
+           "ms": device_ms(lambda: decode_attention(q, k, v, kv_len, return_lse=True), dev),
+           "no_lse_ms": device_ms(lambda: decode_attention(q, k, v, kv_len), dev),
+           "plain_ms": device_ms(lambda: _decode_body(q, k, v, kv_len, return_lse=True), dev,
+                                 reps=5, warmup=1),
+           "library_ms": device_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+                                   dev, reps=5, warmup=1)}
+    row.update(float_bound(n_bytes, 4 * n_valid * q.shape[1] * d))
+    log(f"[times] decode_attention return_lse {label}: kernel {row['ms']} ms with the lse, "
+        f"{row['no_lse_ms']} ms without, twin {row['plain_ms']} ms, sdpa (output alone) "
+        f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); (out, lse) "
+        f"== twin max |err| {err:.3g} (whole, 2 and 4 blocks); blocks combined == one call, max "
+        f"|err| {combine_err}")
+    return row
+
+
 def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
     """Phase 8: kernel times at the serving shapes, and the embedding bag's
     path (``ops.embedding_bag``), counted."""
@@ -5315,6 +5916,9 @@ def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
                            device=dev, dtype=torch.int32)
     att_rows.append(time_attention(dev, f"decode_32k B{b} {hq}/{hkv}x{d} S{s} bf16, kv_len U[1,S]",
                                    q, k, v, kv_len))
+    att_rows.append(time_attention_lse(
+        dev, f"decode_32k B{b} {hq}/{hkv}x{d} S{s} bf16, kv_len U[1,S] (row 0: 0), return_lse",
+        q, k, v, kv_len))
     del q, k, v
     from repro_torch.kernels import cuda_lib
 
@@ -5399,12 +6003,16 @@ def phase_times(dev, *, att_a, att_b, bag_a, bag_b) -> tuple:
     return att_rows, bag_rows, bag_launches
 
 
-def serve_kernels_line(parity_errs, serve, moe_served, att_rows, bag_rows, bag_launches) -> list:
+def serve_kernels_line(parity_errs, serve, moe_served, mesh_launches, att_rows, bag_rows,
+                       bag_launches) -> list:
     """The kernels-line entries of the two float kernels: the headline case
-    is qwen2's decode_32k cell and the 2 GiB bag; every case is listed."""
+    is qwen2's decode_32k cell and the 2 GiB bag; every case is listed.
+    ``mesh_launches``: phase 10f's decode_attention launches, summed over
+    its ranks."""
     out = []
     att_paths = {"serve": serve["decode_attention_launches"],
-                 "moe_serve": moe_served["decode_attention_launches"]}
+                 "moe_serve": moe_served["decode_attention_launches"],
+                 "decode_mesh": mesh_launches}
     for name, rows, paths, extra_err in (
         ("decode_attention", att_rows, att_paths,
          max(serve["max_abs_err"], moe_served["max_abs_err"])),
@@ -5479,7 +6087,8 @@ def main(argv=None) -> int:
                  "gnn": {"reduced": True, "steps_n": 3}}
         ranks_cfg = {"lm": {"reduced": True, "batch": 8, "steps_n": 6, "dtype": "float32"},
                      "recsys": {"reduced": True}, "gnn": {"reduced": True, "cell": "minibatch_lg"},
-                     "placed": {"reduced": True, "moe_layers": None, "moe_batch": 4}}
+                     "placed": {"reduced": True, "moe_layers": None, "moe_batch": 4},
+                     "decode": decode_job(True, "float32", draw=32, batch=4, moe_seq=64)}
     else:
         info = phase_device()
         dev = torch.device("cuda")
@@ -5494,15 +6103,15 @@ def main(argv=None) -> int:
         # long_prompt: ~716 positions (45 tiles of 16) for the first ticks
         serve = {"reduced": False, "max_seq": 32768, "long_prompt": 700}
         # phase 5g: serve_slo.py's cache A/B traffic at 2^16 queries a batch
-        # (its 1,024 is the CPU smoke shape), 4 batches a phase (8 before
-        # PR 24: cut for the run's time limit); 5h: 8 sequences of decode_32k's
+        # (its 1,024 is the CPU smoke shape), 3 batches a phase (8, then 4,
+        # before: cut for the run's time limit); 5h: 8 sequences of decode_32k's
         # 32,768 positions; 7b: moonshot at its published widths, a 2,048-
         # position cache (6.4 GB beside 57.8 GB of bf16 weights)
-        hotcache = {"batch": 1 << 16, "batches": 4, "n_insert": 1 << 16}
+        hotcache = {"batch": 1 << 16, "batches": 3, "n_insert": 1 << 16}
         pool = {"seqs": 8, "positions": 32768, "page": 16}
         moe_serve = {"reduced": False, "max_seq": 2048}
         # 7c: prefill_32k's 32,768 tokens, 1 sequence (cut from 32, and from
-        # 2 for phase 10's time); 7d: the
+        # 2 for phase 10's time), checked against a 256-step decode chain; 7d: the
         # recsys cells at published widths; 7e: DIN's 10,000,000-item
         # vocabulary as raw 64-bit ids, 2^22 ids a batch
         prefill = {"reduced": False, "batch": 1, "seq": 32768, "check_tokens": 256}
@@ -5529,11 +6138,13 @@ def main(argv=None) -> int:
         # minibatch_lg at published widths over 2 edge ranks; 10d: their dry runs
         # 10e: 10e-i 10a's model and batch placed over (data 2, model 2);
         # 10e-ii moonshot at its widths, its depth cut to 2 of 48 layers (the
-        # whole depth with AdamW is 115 GB), 2 x 4,096 tokens
+        # whole depth with AdamW is 115 GB), 2 x 4,096 tokens; 10f: decode on
+        # the same mesh (decode_job: decode_32k's batch cut from 128 to 32)
         ranks_cfg = {"lm": {"reduced": False, "batch": 8, "steps_n": 6},
                      "recsys": {"reduced": False},
                      "gnn": {"reduced": False, "cell": "minibatch_lg"},
-                     "placed": {"reduced": False, "moe_layers": 2, "moe_batch": 2}}
+                     "placed": {"reduced": False, "moe_layers": 2, "moe_batch": 2},
+                     "decode": decode_job(False, None, draw=1024, batch=32, moe_seq=2048)}
     # f32 matrix products in full f32 (no TF32) in the twins and the reference math
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5622,9 +6233,10 @@ def main(argv=None) -> int:
                     for k in SINGLE})
     for k, n in keyed["launches"].items():  # the learned-keyed embedding (phase 7e)
         by_path[k]["lke"] = n
+    mesh_launches = sum(sum(part["launches"]) for part in ranked_train["decode"].values())
     launches = {**{k: sum(paths.values()) for k, paths in by_path.items()},
                 "decode_attention": (served["decode_attention_launches"]
-                                     + moe_served["decode_attention_launches"]),
+                                     + moe_served["decode_attention_launches"] + mesh_launches),
                 "embedding_bag": bag_launches}
     line = kernels_line(rows + tier_rows, launches, "amzn64")
     for entry in line["kernels"]:
@@ -5635,8 +6247,8 @@ def main(argv=None) -> int:
                 st["max_abs_err"] for r in collective_ranks for name, st in r["stages"].items()
                 if KERNEL_OF[name.split("_", 1)[1]] == entry["name"]] + [
                 r["max_abs_err"] for r in keyed["rows"] if r["kernel"] == entry["name"]])
-    line["kernels"] += serve_kernels_line(parity_errs, served, moe_served, att_rows, bag_rows,
-                                          bag_launches)
+    line["kernels"] += serve_kernels_line(parity_errs, served, moe_served, mesh_launches,
+                                          att_rows, bag_rows, bag_launches)
     corridor = fits["corridor"]
     corridor["launches_by_path"] = {"fits": corridor["launches"],
                                     "tuner": tuner["launches"]["corridor_scan"]}
@@ -5668,6 +6280,8 @@ def main(argv=None) -> int:
             by_path["batched_rmi_search"]["hotcache"] == 0) or any(
             by_path[name]["lke"] == 0 for name in ("rmi_search", "batched_rmi_search")):
         fail(f"a kernel of a path never launched: {json.dumps(by_path)}")
+    if mesh_launches == 0:
+        fail("decode_attention never launched on phase 10f's ranks")
     log(f"[device] nvidia-smi: {info['nvidia_smi']}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

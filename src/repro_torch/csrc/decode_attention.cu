@@ -46,6 +46,17 @@
 //   M = max_s m_s, then resets the counter to 0 for the next launch, so no
 //   memset is needed.  With n_split == 1 the block writes the output
 //   itself.  A row with kv_len = 0 gives 0, as acc / max(l, 1e-30) does.
+// * On request (lse != nullptr) the block that writes a row's output also
+//   writes its log-sum-exp m + log(l) (-1e30 for a row with no valid
+//   position) from the (m, l) it already holds, and the output in f32:
+//   a caller that holds one sequence block of the cache (a rank of a
+//   mesh) combines the blocks' outputs with these weights, rounding once.
+// * K and V may be a slice of a larger cache's KV heads: a position holds
+//   kv_heads >= Hkv heads (positions kv_heads * D elements apart, rows S
+//   positions apart).
+// * Both are a compile-time variant (kExt, a rank's call): the default
+//   call (no lse, contiguous K/V) builds the plain address arithmetic and
+//   stores.
 //
 // Bound on the H100: bytes.  The K and V rows up to kv_len are read once
 // (4 B a value pair per position and dimension in bf16) against 2 * group
@@ -75,12 +86,15 @@ struct Args {
   const void* k;        // (B, S, Hkv, D)
   const void* v;        // (B, S, Hkv, D)
   const int* kv_len;    // (B,)
-  void* out;            // (B, Hq, D)
+  void* out;            // (B, Hq, D): T, or f32 when lse is set
   float* part_acc;      // (B * Hkv, n_split, group, D), n_split > 1 only
   float* part_ml;       // (B * Hkv, n_split, group, 2): m, l
   int* counter;         // (B * Hkv,), 0 between launches
   int S, hkv, D, group, tile, n_split;
   unsigned q_off;       // bytes of shared memory before q_s
+  // a rank's call (kExt) only, after the default call's fields:
+  float* lse;           // (B, Hq) or nullptr
+  int kv_heads;         // KV heads a position of K and V holds (>= hkv)
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -141,13 +155,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Element i of the block's (group, D) output (out = a.out + qo): T, or
+// f32 with the lse.
+template <typename T, bool kExt>
+__device__ __forceinline__ void put(const Args& a, T* out, long long qo, int i, float x) {
+  if (kExt && a.lse != nullptr) {
+    static_cast<float*>(a.out)[qo + i] = x;
+  } else {
+    store(out + i, x);
+  }
+}
+// Head j's log-sum-exp from its (m, l): -1e30 where no position was valid.
+template <bool kExt>
+__device__ __forceinline__ void put_lse(const Args& a, long long qo, int j, float m, float l) {
+  if (kExt && a.lse != nullptr) a.lse[qo / a.D + j] = l > 0.0f ? m + logf(l) : kNegInf;
+}
+
 // The block's (m, l, acc) over its share are in shared memory: m_s, l_s
 // (group each) and acc_s (group, D).  With n_split == 1 the block writes
 // acc / max(l, 1e-30).  Otherwise it writes its share to the scratch and
 // takes a ticket; the block with the last ticket of (b, h) reads every
 // share through L2, writes sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M)
-// l_s, 1e-30) with M = max_s m_s, and resets the counter.
-template <typename T>
+// l_s, 1e-30) with M = max_s m_s, and resets the counter.  The block that
+// writes the output writes the lse too, when asked.
+template <typename T, bool kExt>
 __device__ void finish(const Args& a, float* m_s, float* l_s, const float* acc_s, int bh, int sp,
                        long long qo) {
   __shared__ int s_last;
@@ -155,7 +186,10 @@ __device__ void finish(const Args& a, float* m_s, float* l_s, const float* acc_s
   const int group = a.group, D = a.D;
   T* out = static_cast<T*>(a.out) + qo;
   if (a.n_split == 1) {
-    for (int i = tid; i < group * D; i += nt) store(out + i, acc_s[i] / fmaxf(l_s[i / D], 1e-30f));
+    for (int i = tid; i < group * D; i += nt) {
+      put<T, kExt>(a, out, qo, i, acc_s[i] / fmaxf(l_s[i / D], 1e-30f));
+    }
+    if (tid < group) put_lse<kExt>(a, qo, tid, m_s[tid], l_s[tid]);
     return;
   }
   const long long share = (long long)bh * a.n_split + sp;
@@ -189,6 +223,7 @@ __device__ void finish(const Args& a, float* m_s, float* l_s, const float* acc_s
     }
     m_s[tid] = mx;
     l_s[tid] = l;
+    put_lse<kExt>(a, qo, tid, mx, l);
   }
   __syncthreads();
   for (int i = tid; i < group * D; i += nt) {
@@ -200,7 +235,7 @@ __device__ void finish(const Args& a, float* m_s, float* l_s, const float* acc_s
       const float w = expf(__ldcg(a.part_ml + ((first + s) * group + j) * 2) - mx);
       sum += w * __ldcg(a.part_acc + (first + s) * group * D + i);
     }
-    store(out + i, sum / fmaxf(l_s[j], 1e-30f));
+    put<T, kExt>(a, out, qo, i, sum / fmaxf(l_s[j], 1e-30f));
   }
   if (tid == 0) a.counter[bh] = 0;
 }
@@ -210,7 +245,7 @@ __device__ void finish(const Args& a, float* m_s, float* l_s, const float* acc_s
 // a.q_off q_s (group, D), p_s (tile, gp), m_s, l_s, alpha_s (kMaxGroup each).
 // kG (4, 8 or 16) bounds the group, so phase C's accumulators take 4 * kG
 // registers: groups up to 8 fit three blocks on an SM (85 registers).
-template <typename T, int kG>
+template <typename T, int kG, bool kExt>
 __global__ void __launch_bounds__(kThreads, kG <= 8 ? 3 : 2) decode_attention_kernel(Args a) {
   constexpr int kMaxRun = (kG + 3) / 4;  // phase A heads a thread: kG / (kThreads / kMaxTile)
   extern __shared__ __align__(16) unsigned char smem[];
@@ -228,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, kG <= 8 ? 3 : 2) decode_attention_ke
   const int b = bh / a.hkv, h = bh % a.hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hq = a.hkv * group;
-  const long long row = (long long)a.hkv * D;  // elements between positions
+  const long long row = (long long)(kExt ? a.kv_heads : a.hkv) * D;  // elements between positions
   const T* kb = static_cast<const T*>(a.k) + (long long)b * a.S * row + (long long)h * D;
   const T* vb = static_cast<const T*>(a.v) + (long long)b * a.S * row + (long long)h * D;
   const long long qo = ((long long)b * hq + (long long)h * group) * D;  // q / out offset
@@ -398,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, kG <= 8 ? 3 : 2) decode_attention_ke
     red[i] = sum;  // slot 0's row holds the block's acc
   }
   __syncthreads();
-  finish<T>(a, m_s, l_s, red, bh, sp, qo);
+  finish<T, kExt>(a, m_s, l_s, red, bh, sp, qo);
 }
 
 // ---- bf16 on the tensor cores ----------------------------------------------
@@ -460,7 +495,7 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, unsigned& hi, uns
 
 // Shared memory: each warp's ring (kStages x {K, V} x 16 rows of 2 D + 16
 // bytes); after the loop, the warps' (m, l, acc) and the block's.
-template <int D>
+template <int D, bool kExt>
 __global__ void __launch_bounds__(kMmaWarps * 32) decode_attention_mma_kernel(Args a) {
   constexpr int kSteps = D / 16;       // k-steps of QK
   constexpr int kBlocks = D / 8;       // n-blocks of PV
@@ -477,7 +512,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) decode_attention_mma_kernel(Ar
   const int bh = blockIdx.x, sp = blockIdx.y;
   const int b = bh / a.hkv, h = bh % a.hkv;
   const int hq = a.hkv * group;
-  const long long row = (long long)a.hkv * D;
+  const long long row = (long long)(kExt ? a.kv_heads : a.hkv) * D;
   const __nv_bfloat16* kb =
       static_cast<const __nv_bfloat16*>(a.k) + (long long)b * a.S * row + (long long)h * D;
   const __nv_bfloat16* vb =
@@ -655,7 +690,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) decode_attention_mma_kernel(Ar
     acc_s[i] = sum;
   }
   __syncthreads();
-  finish<__nv_bfloat16>(a, m_s, l_s, acc_s, bh, sp, qo);
+  finish<__nv_bfloat16, kExt>(a, m_s, l_s, acc_s, bh, sp, qo);
 }
 
 // Raises kernel's dynamic shared-memory limit to smem on the current
@@ -674,20 +709,20 @@ int allow_smem(Kernel kernel, size_t smem, size_t* allowed) {
   return 0;
 }
 
-template <int D>
+template <int D, bool kExt>
 int launch_mma(Args a, int B, void* stream) {
   const size_t ring = (size_t)kMmaWarps * kStages * 2 * kMmaTile * (D * 2 + 16);
   const size_t state = sizeof(float) * ((size_t)kMmaWarps * 16 * (D + 2) + 32 + 16 * (size_t)D);
   const size_t smem = ring > state ? ring : state;
   static size_t allowed[kMaxDevices] = {};
-  const int e = allow_smem(decode_attention_mma_kernel<D>, smem, allowed);
+  const int e = allow_smem(decode_attention_mma_kernel<D, kExt>, smem, allowed);
   if (e != 0) return e;
   const dim3 grid((unsigned)(B * a.hkv), (unsigned)a.n_split);
-  decode_attention_mma_kernel<D><<<grid, kMmaWarps * 32, smem, (cudaStream_t)stream>>>(a);
+  decode_attention_mma_kernel<D, kExt><<<grid, kMmaWarps * 32, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kG>
+template <typename T, int kG, bool kExt>
 int launch(Args a, int B, void* stream) {
   const size_t rs_bytes = (size_t)a.D * sizeof(T) + 16;
   const size_t ring = (size_t)kStages * 2 * a.tile * rs_bytes;
@@ -697,43 +732,52 @@ int launch(Args a, int B, void* stream) {
   const size_t smem =
       a.q_off + sizeof(float) * ((size_t)a.group * a.D + (size_t)a.tile * gp + 3 * kMaxGroup);
   static size_t allowed[kMaxDevices] = {};
-  const int e = allow_smem(decode_attention_kernel<T, kG>, smem, allowed);
+  const int e = allow_smem(decode_attention_kernel<T, kG, kExt>, smem, allowed);
   if (e != 0) return e;
   const dim3 grid((unsigned)(B * a.hkv), (unsigned)a.n_split);
-  decode_attention_kernel<T, kG><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  decode_attention_kernel<T, kG, kExt><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool kExt>
+int dispatch(Args a, int B, int dtype, void* stream) {
+  if (dtype == 1 && a.D >= 16 && a.D <= 128) {  // the tensor-core kernel, 16-position tiles
+    if (a.tile != kMmaTile) return (int)cudaErrorInvalidValue;
+    if (a.D == 16) return launch_mma<16, kExt>(a, B, stream);
+    if (a.D == 32) return launch_mma<32, kExt>(a, B, stream);
+    if (a.D == 64) return launch_mma<64, kExt>(a, B, stream);
+    return launch_mma<128, kExt>(a, B, stream);
+  }
+  if (dtype == 1) {
+    if (a.group <= 4) return launch<__nv_bfloat16, 4, kExt>(a, B, stream);
+    if (a.group <= 8) return launch<__nv_bfloat16, 8, kExt>(a, B, stream);
+    return launch<__nv_bfloat16, 16, kExt>(a, B, stream);
+  }
+  if (a.group <= 4) return launch<float, 4, kExt>(a, B, stream);
+  if (a.group <= 8) return launch<float, 8, kExt>(a, B, stream);
+  return launch<float, 16, kExt>(a, B, stream);
 }
 
 }  // namespace
 
 // dtype 0: float, 1: bf16.  The wrapper checks shapes, D (a power of two in
 // [8, 256]), group <= 16, tile (a power of two in [8, 64] with tile * D *
-// itemsize <= 8 KiB), 16-byte alignment, picks n_split (>= 1), and
-// allocates the scratch (part_acc, part_ml: n_split > 1 only) and the
-// zeroed per-(b, h) counter of the stream.
+// itemsize <= 8 KiB), 16-byte alignment, K/V's strides (kv_heads), picks
+// n_split (>= 1), and allocates the output (f32 when lse is not null), the
+// lse, the scratch (part_acc, part_ml: n_split > 1 only) and the zeroed
+// per-(b, h) counter of the stream.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* kv_len, void* out, void* part_acc,
+                                       const void* kv_len, void* out, void* lse, void* part_acc,
                                        void* part_ml, void* counter, int B, int S, int hkv, int D,
-                                       int group, int tile, int n_split, int dtype, void* stream) {
+                                       int kv_heads, int group, int tile, int n_split,
+                                       int dtype, void* stream) {
   Args a{q, k, v, static_cast<const int*>(kv_len), out, static_cast<float*>(part_acc),
          static_cast<float*>(part_ml), static_cast<int*>(counter), S, hkv, D, group, tile,
-         n_split, 0u};
-  if (tile < 8 || tile > kMaxTile || group < 1 || group > kMaxGroup) {
+         n_split, 0u, static_cast<float*>(lse), kv_heads};
+  if (tile < 8 || tile > kMaxTile || group < 1 || group > kMaxGroup ||
+      kv_heads < hkv) {
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1 && D >= 16 && D <= 128) {  // the tensor-core kernel, 16-position tiles
-    if (tile != kMmaTile) return (int)cudaErrorInvalidValue;
-    if (D == 16) return launch_mma<16>(a, B, stream);
-    if (D == 32) return launch_mma<32>(a, B, stream);
-    if (D == 64) return launch_mma<64>(a, B, stream);
-    return launch_mma<128>(a, B, stream);
-  }
-  if (dtype == 1) {
-    if (group <= 4) return launch<__nv_bfloat16, 4>(a, B, stream);
-    if (group <= 8) return launch<__nv_bfloat16, 8>(a, B, stream);
-    return launch<__nv_bfloat16, 16>(a, B, stream);
-  }
-  if (group <= 4) return launch<float, 4>(a, B, stream);
-  if (group <= 8) return launch<float, 8>(a, B, stream);
-  return launch<float, 16>(a, B, stream);
+  if (lse != nullptr || kv_heads != hkv) return dispatch<true>(a, B, dtype, stream);
+  return dispatch<false>(a, B, dtype, stream);
 }

@@ -87,10 +87,10 @@ SIGNATURES = {
         _P, _L, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I,
         _P, _P
     ),
-    # q, k, v, kv_len, out, part_acc, part_ml, counter, B, S, Hkv, D, group,
-    # tile, n_split, dtype (0 f32, 1 bf16), stream
-    "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _P),
+    # q, k, v, kv_len, out, lse, part_acc, part_ml, counter, B, S, Hkv, D,
+    # kv_heads, group, tile, n_split, dtype (0 f32, 1 bf16), stream
+    "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _P),
     # table, V, D, ids, seg, w, n, num_bags, out, stream
     "embedding_bag_launch": (_P, _I, _I, _P, _P, _P, _L, _I, _P, _P),
     # keys, stride, n_tables, length, chunk, mode (0 PGM, 1 RS), eps, count, out, stream

@@ -16,6 +16,14 @@ cores (``mma.m16n8k16``, f32 accumulators, ``p`` split into two bf16
 halves); f32 and the other head dims on the CUDA cores.
 :func:`split_plan` picks the tile and the split.
 
+With ``return_lse=True`` the call also returns each row's log-sum-exp
+``m + log(l)`` (scaled logits; ``NEG_INF`` where no position is valid),
+written by the block that writes the row from the ``(m, l)`` it holds,
+and the output in f32: a rank holding one sequence block of a cache
+combines its block with the others' through these
+(``models.layers.combine_softmax_shards``).  K and V may be a slice of a
+cache's KV heads (a position holds ``kv_heads >= Hkv`` heads).
+
 Bound on the H100: bytes — the K and V rows up to ``kv_len`` are read
 once, with ``2 * group`` multiply-adds a value pair.
 """
@@ -58,12 +66,18 @@ _SM_COUNT = {}
 _COUNTERS = {}
 
 
-def _decode_body(q, k, v, kv_len):
+def _lse(m, l):
+    """``m + log(l)``, ``NEG_INF`` where ``l`` is 0 (no valid position)."""
+    return torch.where(l > 0, m + torch.log(l), torch.full_like(m, NEG_INF))
+
+
+def _decode_body(q, k, v, kv_len, *, return_lse: bool = False):
     """The kernel's arithmetic on tensors, in f32: ``q . k / sqrt(D)``,
     positions ``>= kv_len`` at ``-1e30`` with ``p`` forced to 0, and
     ``acc / max(l, 1e-30)`` (0 for a row with ``kv_len = 0``).  The output
-    has the input's dtype.  One pass over the whole cache stands in for
-    the kernel's tiles: the online softmax gives the same value up to
+    has the input's dtype; with ``return_lse`` it is f32, beside the
+    (B, Hq) log-sum-exp.  One pass over the whole cache stands in for the
+    kernel's tiles: the online softmax gives the same value up to
     rounding."""
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -78,18 +92,21 @@ def _decode_body(q, k, v, kv_len):
     p = torch.where(valid, torch.exp(logits - m), torch.zeros_like(logits))
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)).reshape(b, hq, d)
+    if return_lse:
+        return out, _lse(m, l).reshape(b, hq)
+    return out.to(q.dtype)
 
 
-def _decode_split_body(q, k, v, kv_len, n_split: int, tile: int):
+def _decode_split_body(q, k, v, kv_len, n_split: int, tile: int, *, return_lse: bool = False):
     """The kernel's split-and-combine arithmetic on tensors, in f32: row
     ``b``'s ``ceil(kv_len / tile)`` tiles cut into ``n_split`` runs of
     ``ceil(n_tiles / n_split)`` tiles (empty runs allowed); each run's
     ``(m, l, acc)`` as the one-pass softmax over its positions (``m =
     -1e30``, ``l = 0``, ``acc = 0`` when empty); then ``M = max m``,
     ``out = sum e^(m - M) acc / max(sum e^(m - M) l, 1e-30)``.  The output
-    has the input's dtype."""
+    has the input's dtype; with ``return_lse`` it is f32, beside ``M +
+    log(sum e^(m - M) l)``."""
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -113,8 +130,10 @@ def _decode_split_body(q, k, v, kv_len, n_split: int, tile: int):
     big_m = torch.stack([m for m, _, _ in parts]).amax(dim=0)
     l = sum(torch.exp(m - big_m) * l_ for m, l_, _ in parts)
     acc = sum(torch.exp(m - big_m) * a for m, _, a in parts)
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)).reshape(b, hq, d)
+    if return_lse:
+        return out, _lse(big_m, l).reshape(b, hq)
+    return out.to(q.dtype)
 
 
 def split_plan(b: int, hkv: int, d: int, s: int, itemsize: int, sm_count: int) -> tuple:
@@ -157,6 +176,21 @@ def _counter(dev, pairs: int) -> torch.Tensor:
     return counter
 
 
+def _kv_heads(t) -> int:
+    """The KV heads a position of a K/V operand (B, S, Hkv, D) holds in
+    memory: ``Hkv`` for a contiguous cache, more for a slice of a cache's
+    KV heads (each position's heads contiguous, positions a whole number
+    of heads apart, rows ``S`` positions apart).  Raises otherwise."""
+    b, s, h, d = t.shape
+    st = t.stride()
+    row = st[1] if s > 1 else (st[0] if b > 1 else h * d)
+    if not ((d == 1 or st[3] == 1) and (h == 1 or st[2] == d) and (b == 1 or st[0] == s * row)
+            and row >= h * d and row % d == 0):
+        raise ValueError(f"k and v must hold each position's heads contiguous, positions at one "
+                         f"stride and rows S positions apart; got strides {st}")
+    return row // d
+
+
 def _check(q, k, v, kv_len) -> tuple:
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -166,29 +200,36 @@ def _check(q, k, v, kv_len) -> tuple:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
         if t.dtype != q.dtype or t.device != dev:
             raise ValueError(f"{name} must match q's dtype and device ({q.dtype}, {dev})")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B, Hq, D) and k, v (B, S, Hkv, D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, hq, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2] != 0:
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)} (Hq a multiple of Hkv)")
+    heads = _kv_heads(k)
+    if _kv_heads(v) != heads:
+        raise ValueError(f"k and v must have the same strides, got {k.stride()} and {v.stride()}")
     cuda_lib.require(kv_len, "kv_len", torch.int32, dev, numel=b)
-    return b, hq, d
+    return b, hq, d, heads
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
+                     kv_len: torch.Tensor, *, return_lse: bool = False):
     """One-token GQA attention: ``q`` (B, Hq, D) over ``k``/``v`` (B, S,
     Hkv, D), the first ``kv_len[b]`` positions of row b (int32, (B,)).
-    float32 or bfloat16 in, the same dtype out, f32 inside.  CPU tensors
-    take the plain twin; CUDA tensors launch the kernel, its sequence split
-    into :func:`split_plan`'s shares."""
-    b, hq, d = _check(q, k, v, kv_len)
+    float32 or bfloat16 in, the same dtype out, f32 inside; ``k``/``v``
+    contiguous or a slice of a cache's KV heads.  With ``return_lse``:
+    ``(out, lse)``, the output in f32 and the (B, Hq) f32 log-sum-exp of
+    the scaled logits (``NEG_INF`` for a row with no valid position).  CPU
+    tensors take the plain twin; CUDA tensors launch the kernel (one
+    launch either way), its sequence split into :func:`split_plan`'s
+    shares."""
+    b, hq, d, kv_heads = _check(q, k, v, kv_len)
     dev = q.device
     if dev.type == "cpu":
-        return _decode_body(q, k, v, kv_len)
+        return _decode_body(q, k, v, kv_len, return_lse=return_lse)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {dev}")
     s, hkv = k.shape[1], k.shape[2]
@@ -199,21 +240,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the kernel takes a head dimension that is a power of two in [8, 256], "
                          f"got {d}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on a 16-byte boundary")
-    if b * hkv >= 2**31 or s >= 2**31:
+        raise ValueError("q, k, v and k/v's positions must start on a 16-byte boundary")
+    if b * hkv >= 2**31 or s >= 2**31 or kv_heads * d >= 2**31:
         raise ValueError("decode_attention: shape too large for the kernel's int arguments")
-    out = torch.empty_like(q)
+    if return_lse:
+        out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+        lse = torch.empty((b, hq), dtype=torch.float32, device=dev)
+    else:
+        out, lse = torch.empty_like(q), None
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
     tile, n_split = split_plan(b, hkv, d, s, q.element_size(), _sm_count(dev))
     # the shares' acc (group, D) then their (m, l) (group, 2), in one buffer
     n_acc = b * hkv * n_split * group * d if n_split > 1 else 0
     scratch = torch.empty(n_acc + n_acc // d * 2, dtype=torch.float32, device=dev)
     counter = _counter(dev, b * hkv)
     cuda_lib.launch("decode_attention_launch", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    kv_len.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                    scratch.data_ptr() + 4 * n_acc, counter.data_ptr(), b, s, hkv, d, group, tile,
-                    n_split, _DTYPE_CODES[q.dtype])
+                    kv_len.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                    scratch.data_ptr(), scratch.data_ptr() + 4 * n_acc, counter.data_ptr(), b, s,
+                    hkv, d, kv_heads, group, tile, n_split, _DTYPE_CODES[q.dtype])
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out

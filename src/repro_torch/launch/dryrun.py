@@ -42,9 +42,11 @@ What it sizes is what the port runs: an LM's parameters placed over
 ``fsdp``/``tp``/``ep`` as the reference places them (each rank its
 blocks; ``launch.steps.build_step``), the recsys tables by row, DimeNet's
 edges, the rest replicated.  A cell whose per-card bytes pass the card's
-80 GB says so (``fits``); it does not fail.  An LM ``decode`` cell on a
-mesh of more than one rank is listed as a failure: the port does not
-place the sequence-sharded cache yet.
+80 GB says so (``fits``); it does not fail.  An LM ``decode`` cell is
+sized on the rank's parameter blocks and its cache block
+(``transformer.init_cache(..., ctx=ctx, seq_shard=...)``: batch on
+``dp``, sequence on ``seqm``/``sp`` where the rules name them), as the
+reference sizes it (``dryrun.py:191-197``).
 """
 
 from __future__ import annotations
@@ -193,7 +195,8 @@ def run_cell(spec, cell, mesh_shape=(16, 16), axes=("data", "model"), *, tcfg=No
             args = (params, batch)
             if cell.kind == "decode":
                 cache = transformer.init_cache(bundle.cfg, cell.dims["global_batch"],
-                                               cell.dims["seq_len"], device="cpu")
+                                               cell.dims["seq_len"], device="cpu", ctx=ctx,
+                                               seq_shard=bool(cell.dims.get("seq_shard")))
                 parts["cache"] = cache
                 args = (params, cache, batch, 0)
             call = (torch.no_grad()(bundle.fn), args)

@@ -354,12 +354,16 @@ class StepBundle:
     ``decode`` cell's takes ``(params, cache, batch, pos)``, a ``train``
     or ``graph_train`` cell's ``(state, batch)`` and returns ``(state,
     metrics)``, and its ``init_fn(gen)`` draws the parameters (for
-    ``init_train_state``)."""
+    ``init_train_state``).  A ``decode`` cell's ``cache_placement`` is the
+    cache's placement under the context (``transformer.cache_placement``:
+    None when nothing is split), where the reference's bundle carries
+    ``cache_shardings``."""
 
     fn: object
     cfg: object
     kind: str
     init_fn: object = None
+    cache_placement: object = None
 
 
 def _placed_prefill(params, batch, cfg, ctx, plan):
@@ -400,7 +404,10 @@ def build_step(spec, cell, ctx=None, tcfg: TrainConfig | None = None) -> StepBun
     freed; ``init_fn.whole`` is the whole meta template), the ``train``
     step runs on the blocks and the ``prefill`` step returns the whole
     logits on every rank (:func:`_placed_prefill`).  The ``decode`` cell
-    is not placed yet: it raises under such a context."""
+    runs ``transformer.decode_step`` under ``ctx`` on this rank's
+    parameter and cache blocks (``transformer.init_cache(..., ctx=ctx,
+    seq_shard=...)``), the cache placed as the reference places it:
+    batch on ``dp``, sequence on ``seqm`` (``long_500k``: on ``sp``)."""
     _check_kind(spec, cell)
     cfg = _cfg_for_cell(spec, cell)
     plan = transformer.placement(cfg, ctx) if spec.family == "lm" else None
@@ -448,12 +455,15 @@ def build_step(spec, cell, ctx=None, tcfg: TrainConfig | None = None) -> StepBun
             h = transformer.forward(params, batch["tokens"], cfg)
             return (h[:, -1] @ params["head"].to(h.dtype)).float()
     elif spec.family == "lm" and cell.kind == "decode":
-        if plan is not None:
-            raise NotImplementedError("decode under a placed context (the sequence-sharded "
-                                      "cache) is not ported: ROADMAP queue 1")
+        seq_shard = bool(cell.dims.get("seq_shard"))
+        b, s = cell.dims["global_batch"], cell.dims["seq_len"]
 
         def fn(params, cache, batch, pos):
-            return transformer.decode_step(params, cache, batch["tokens"], pos, cfg)
+            return transformer.decode_step(params, cache, batch["tokens"], pos, cfg, ctx,
+                                           seq_shard=seq_shard, max_seq=s)
+
+        return StepBundle(fn=fn, cfg=cfg, kind=cell.kind, cache_placement=transformer.
+                          cache_placement(cfg, ctx, b, s, seq_shard))
     elif spec.family == "recsys" and cell.kind == "serve":
         def fn(params, batch):
             return recsys.score_fn(params, batch, cfg, ctx)

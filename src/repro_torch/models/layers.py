@@ -71,18 +71,33 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def row_parallel(a, w, axes=(), ctx=None):
+    """``a @ w`` for a ``w`` whose rows are split over the mesh axes
+    ``axes`` of ``ctx`` (``a`` this rank's matching columns): each rank's
+    partial product kept in f32, summed over the group in f32 through
+    ``reduce_from`` (its gradient passed back unchanged) and rounded to
+    ``a``'s dtype once, as the one-card product rounds its f32
+    accumulation once.  Partials rounded to bf16 and summed in bf16 would
+    round every row-parallel output twice: over 24 layers that moves a
+    placed model's residual stream tens of bf16 ulps off the one-card
+    model's, enough to flip an MoE router's pick.  ``a @ w`` itself
+    without axes."""
+    if not axes:
+        return a @ w
+    return collectives.reduce_from(a.float() @ w.float(), axes, ctx).to(a.dtype)
+
+
 def swiglu(x, wg, wu, wd, *, ctx=None, axes=()):
     """x: (..., d) -> (..., d) through the gated FFN (weights in (in, out)).
 
     Tensor-parallel over the mesh axes ``axes`` of ``ctx``: ``wg``/``wu``
     hold this rank's ``d_ff`` columns and ``wd`` the same rows, so the
     input enters through ``copy_to`` and the rank's partial output leaves
-    through ``reduce_from`` (the sum over the group, its gradient passed
-    back unchanged)."""
+    through :func:`row_parallel` (the sum over the group)."""
     x = collectives.copy_to(x, axes, ctx)
     g = x @ wg.to(x.dtype)
     u = x @ wu.to(x.dtype)
-    return collectives.reduce_from((torch.nn.functional.silu(g) * u) @ wd.to(x.dtype), axes, ctx)
+    return row_parallel(torch.nn.functional.silu(g) * u, wd.to(x.dtype), axes, ctx)
 
 
 def causal_attention(q, k, v, *, q_chunk: int = 1024):
@@ -119,11 +134,14 @@ def causal_attention(q, k, v, *, q_chunk: int = 1024):
     return out.reshape(b, s, hq, hd)
 
 
-def decode_attention_plain(q, k_cache, v_cache, kv_len):
+def decode_attention_plain(q, k_cache, v_cache, kv_len, return_lse: bool = False):
     """The reference's one-token attention (``decode_attention_xla``) in
     the working dtype: logits scaled by ``1/sqrt(hd)``, masked with the
     dtype's lowest value, softmax in f32 cast back, then the PV product.
-    q: (B, Hq, hd); caches: (B, Smax, Hkv, hd); kv_len: (B,)."""
+    q: (B, Hq, hd); caches: (B, Smax, Hkv, hd); kv_len: (B,).  With
+    ``return_lse``: the output in f32 and the f32 log-sum-exp of the
+    masked logits (``NEG_INF`` for a row with no valid position), for the
+    combine of a sequence-split cache."""
     b, hq, hd = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
@@ -133,22 +151,49 @@ def decode_attention_plain(q, k_cache, v_cache, kv_len):
     valid = (pos[None, :] < kv_len.to(torch.int64)[:, None])[:, None, None, :]
     logits = torch.where(valid, logits, torch.full_like(logits, torch.finfo(logits.dtype).min))
     w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    return torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(b, hq, hd)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(b, hq, hd)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits.float(), dim=-1).reshape(b, hq)
+    lse = torch.where(kv_len.to(torch.int64)[:, None] > 0, lse,
+                      torch.full_like(lse, _kernel.NEG_INF))
+    return out.float(), lse
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, backend: str = "kernel"):
+def decode_attention(q, k_cache, v_cache, kv_len, backend: str = "kernel", *,
+                     return_lse: bool = False):
     """One-token GQA attention over a cache: q (B, Hq, hd); caches (B,
     Smax, Hkv, hd); ``kv_len`` an int or an int32 (B,) tensor of valid
     lengths.  ``backend="kernel"`` takes the hand-written kernel on CUDA
     tensors (its twin on CPU tensors); ``"ref"`` the reference's plain
-    math (:func:`decode_attention_plain`)."""
+    math (:func:`decode_attention_plain`).  With ``return_lse``: ``(out,
+    lse)``, the output in f32 and each row's (B, Hq) log-sum-exp, which
+    :func:`combine_softmax_shards` takes."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if not torch.is_tensor(kv_len) or kv_len.dim() == 0:
         kv_len = torch.full((q.shape[0],), int(kv_len), dtype=torch.int32, device=q.device)
     if backend == "ref":
-        return decode_attention_plain(q, k_cache, v_cache, kv_len)
-    return _kernel.decode_attention(q, k_cache, v_cache, kv_len.to(torch.int32))
+        extra = (True,) if return_lse else ()
+        return decode_attention_plain(q, k_cache, v_cache, kv_len, *extra)
+    extra = {"return_lse": True} if return_lse else {}
+    return _kernel.decode_attention(q, k_cache, v_cache, kv_len.to(torch.int32), **extra)
+
+
+def combine_softmax_shards(out, lse, axes, ctx, dtype=None):
+    """The attention over a cache split by sequence over the mesh axes
+    ``axes`` of ``ctx``, from each rank's ``(out, lse)`` on its block
+    (:func:`decode_attention` with ``return_lse``): ``M`` the max of the
+    ranks' ``lse``, ``w = exp(lse - M)``, then ``psum(w * out) /
+    psum(w)``, cast to ``dtype`` (the compute dtype) once.  Two
+    all-reduces, of (B, Hq) and of (B, Hq, D + 1) f32.  A block with no
+    valid position (``lse = NEG_INF``) weighs 0; if every block is empty
+    the result is 0, as the kernel gives at ``kv_len = 0``."""
+    m = collectives.max_if_mapped(lse, axes, ctx)
+    w = torch.exp(lse - m)[..., None]
+    num = collectives.psum_if_mapped(torch.cat([w * out, w], dim=-1), axes, ctx)
+    res = num[..., :-1] / num[..., -1:]
+    return res if dtype is None else res.to(dtype)
 
 
 def vocab_parallel_xent(logits_f32, labels, ctx, axes):

@@ -11,8 +11,8 @@ Entry points:
   init(gen, cfg, ctx=None)                        -> params (this rank's blocks under ctx)
   forward(params, tokens, cfg, ctx=None)          -> final hidden states
   loss_fn(params, batch, cfg, ctx=None)           -> scalar next-token loss
-  init_cache(cfg, batch, max_seq)                 -> KV cache dict
-  decode_step(params, cache, tokens, pos, cfg)    -> (logits, cache)
+  init_cache(cfg, batch, max_seq, ctx=None)       -> KV cache dict (a rank's block under ctx)
+  decode_step(params, cache, tokens, pos, cfg, ctx=None) -> (logits, cache)
   params_from_numpy(np_params, cfg)               -> params
   param_logical_axes(cfg) / cache_logical_axes()  -> logical placement trees
 
@@ -32,7 +32,8 @@ all-gathered over its ``fsdp`` dim (so the ranks move bf16; the backward
 reduce-scatters); ``wq``/``wk``/``wv``/``wg``/``wu`` are column-parallel and
 ``wo``/``wd`` row-parallel over ``tp``, between
 :func:`~repro_torch.dist.collectives.copy_to` and
-:func:`~repro_torch.dist.collectives.reduce_from`; a rank attends with its
+:func:`~repro_torch.models.layers.row_parallel` (the partials summed in
+f32 and rounded once, as the one-card product is); a rank attends with its
 own heads (all heads, its slice of the output taken, when ``n_heads``
 does not divide), with K/V gathered whole and each local head's KV head
 picked when ``n_kv_heads`` does not divide (the reference's replicated
@@ -42,10 +43,18 @@ a masked gather of the local rows, a sum over ``tp``) and so is the loss
 columns of ``head``).  A block whose shape is not this rank's (a whole
 replica under a placed context) raises.  Without a context, or on a mesh
 of one rank, they compute exactly what the one-card model computes.
+
+Serving under such a context (or one whose rules split only the cache):
+``decode_step`` runs on each rank's parameter and cache blocks, the cache
+placed as the reference places it (:func:`cache_placement`: batch on
+``dp``, sequence on ``seqm``, or on ``sp`` for ``long_500k``), each
+rank's sequence block attended by the kernel with its log-sum-exp and the
+blocks combined over ranks; one body serves one card and the ranks.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 
 import torch
@@ -360,15 +369,10 @@ def _attention_tp(h, lp, cfg: LMConfig, cos, sin, ctx, plan, att):
     return o
 
 
-def _layer_body(x, lp, cfg: LMConfig, cos, sin, ctx=None, plan=None):
-    """One layer over the whole sequence: x (B, S, d) in the compute dtype;
-    ``lp`` one layer's leaves.  The reference casts the ``w*``/``b*``
-    leaves to the compute dtype up front (its MoE leaves inside
-    ``moe_ffn``).  ``plan``: the layer's :class:`Placed` leaves under a
-    placed ``ctx`` (module docstring)."""
-    b, s, d = x.shape
-    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    dt = x.dtype
+def _layer_weights(lp, dt, ctx, plan):
+    """One layer's leaves with each ``w*``/``b*`` cast to ``dt`` and, under
+    a ``plan``, FSDP-gathered after the cast; and the ``tp`` axes of
+    ``wo``'s and ``wd``'s rows (``()`` without a plan)."""
     lp = {k: (v.to(dt) if k.startswith(("w", "b")) else v) for k, v in lp.items()}
     att = ffn = ()
     if plan is not None:
@@ -378,10 +382,22 @@ def _layer_body(x, lp, cfg: LMConfig, cos, sin, ctx=None, plan=None):
                 lp[k] = collectives.all_gather_dim(lp[k], plan[k].axes(i), ctx, i)
         att = plan["wo"].axes(0)
         ffn = plan["wd"].axes(0) if "wd" in plan else ()
+    return lp, att, ffn
+
+
+def _layer_body(x, lp, cfg: LMConfig, cos, sin, ctx=None, plan=None):
+    """One layer over the whole sequence: x (B, S, d) in the compute dtype;
+    ``lp`` one layer's leaves.  The reference casts the ``w*``/``b*``
+    leaves to the compute dtype up front (its MoE leaves inside
+    ``moe_ffn``).  ``plan``: the layer's :class:`Placed` leaves under a
+    placed ``ctx`` (module docstring)."""
+    b, s, d = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    lp, att, ffn = _layer_weights(lp, x.dtype, ctx, plan)
     h = L.rms_norm(x, lp["ln1"])
     if att:
         o = _attention_tp(h, lp, cfg, cos, sin, ctx, plan, att)
-        x = x + collectives.reduce_from(o @ lp["wo"], att, ctx)
+        x = x + L.row_parallel(o, lp["wo"], att, ctx)
     else:
         q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if cfg.qkv_bias:
@@ -522,18 +538,94 @@ def loss_fn(params, batch, cfg: LMConfig, ctx=None):
     return total / float(b * s)
 
 
-def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None):
+def cache_placement(cfg: LMConfig, ctx, batch: int, max_seq: int, seq_shard: bool = False):
+    """The placement of the KV cache's ``k`` and ``v`` (each ``(n_layers,
+    batch, max_seq, n_kv_heads, head_dim)``) under ``ctx``, a
+    :class:`Placed`, or None when nothing is split (no context, or every
+    axis of one rank): :func:`cache_logical_axes` resolved by ``ctx`` and
+    fitted by ``fit_sharding``, as :func:`placement` fits the parameters.
+    The batch is on ``dp`` and the sequence on ``seqm`` (or, with
+    ``seq_shard``, the sequence on ``sp``); the KV heads stay whole on
+    every rank, as the reference's ``None`` head axis says.  ``seqm`` and
+    ``sp`` split the sequence only where the context's rules name them
+    (a deployment names ``seqm`` the model axis, ``sp`` the whole mesh)."""
+    if ctx is None:
+        return None
+    from repro_torch.dist.sharding import fit_sharding, mesh_shape
+
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    lg = cache_logical_axes(seq_shard)["k"]
+    out = Placed.of(fit_sharding(shape, ctx.sharding(*lg), ctx.mesh), shape, lg,
+                    mesh_shape(ctx.mesh))
+    return out if any(axes for _, axes in out.dims) else None
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None, ctx=None,
+               seq_shard: bool = False):
     """Zeroed K and V caches, (n_layers, batch, max_seq, n_kv_heads,
     head_dim) each, in the compute dtype, on ``device`` (the card when
-    None)."""
+    None); under a ``ctx`` that splits the cache (:func:`cache_placement`)
+    this rank's block of each."""
     dt = L.dtype_of(cfg.dtype)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    plan = cache_placement(cfg, ctx, batch, max_seq, seq_shard)
+    shape = plan.block if plan is not None else (
+        cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
-def decode_step(params, cache, tokens, pos: int, cfg: LMConfig, *, backend: str = "kernel"):
+def shard_cache(cache, cfg: LMConfig, ctx, seq_shard: bool = False, *, device=None):
+    """This rank's block of a whole cache under :func:`cache_placement`
+    (``NamedSharding.local_block`` at the rank's mesh coordinate), a
+    contiguous copy on ``device`` (default: the cache's own); a copy of
+    the whole where nothing is split."""
+    _, batch, max_seq = cache["k"].shape[:3]
+    plan = cache_placement(cfg, ctx, batch, max_seq, seq_shard)
+    coord = None if plan is None else ctx.coordinate()
+    out = {}
+    for name, t in cache.items():
+        block = t if plan is None else plan.sharding.local_block(t, coord)
+        out[name] = block.to(device or t.device, copy=True).contiguous()
+    return out
+
+
+def gather_cache(cache, cfg: LMConfig, ctx, batch: int, max_seq: int, seq_shard: bool = False,
+                 *, device="cpu"):
+    """The whole cache from every rank's block (:func:`shard_cache`'s
+    inverse), on every rank of the mesh together: each split dim
+    all-gathered over the group of its axes, on ``device`` (the host by
+    default; the blocks travel as host tensors over gloo)."""
+    from repro_torch.dist.sharding import _gloo
+
+    plan = cache_placement(cfg, ctx, batch, max_seq, seq_shard)
+    out = {}
+    for name, t in cache.items():
+        if plan is not None and tuple(t.shape) != plan.block:
+            raise ValueError(f"cache {name!r} has shape {tuple(t.shape)}, not this rank's block "
+                             f"{plan.block} of {plan.shape} under {plan.sharding.spec}")
+        x = t.detach()
+        if plan is not None:
+            if any(_gloo(ctx, axes) for _, axes in plan.dims):
+                x = x.cpu()
+            for i, (_, axes) in enumerate(plan.dims):
+                x = collectives.all_gather_dim(x, axes, ctx, i)
+        out[name] = x.to(device)
+    return out
+
+
+def _seq_split(ctx, seq_shard: bool) -> int:
+    """The ranks the context's rules ask to split the cache's sequence
+    over (``seqm``, or ``sp`` with ``seq_shard``), before any fitting."""
+    from repro_torch.dist.sharding import _entry_axes, mesh_shape
+
+    sizes = mesh_shape(ctx.mesh)
+    entry = ctx.spec(*cache_logical_axes(seq_shard)["k"])[2]
+    return math.prod(sizes[a] for a in _entry_axes(entry))
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: LMConfig, ctx=None, *,
+                seq_shard: bool = False, backend: str = "kernel", max_seq: int | None = None):
     """tokens (B, 1) int; ``pos`` the one position every row writes and
     attends up to -> (logits (B, V) f32, cache).
 
@@ -544,41 +636,146 @@ def decode_step(params, cache, tokens, pos: int, cfg: LMConfig, *, backend: str 
     positions ``< pos + 1``.  ``backend`` picks the attention: the
     hand-written kernel (``"kernel"``) or the reference's plain math
     (``"ref"``).  An MoE layer's FFN is :func:`~repro_torch.models.moe.moe_ffn`
-    over the ``B`` rows, plus the shared expert where ``n_shared`` is set."""
+    over the ``B`` rows, plus the shared expert where ``n_shared`` is set.
+
+    Under a ``ctx`` that places the parameters (:func:`placement`) or the
+    cache (:func:`cache_placement`; ``seq_shard`` for ``long_500k``'s
+    layout), ``params`` and ``cache`` are this rank's blocks, every rank
+    passes the same global ``tokens`` and each gets the whole logits: the
+    reference's ``decode_step`` (``transformer.py:283-334``) with its
+    collectives written out as :func:`forward` writes them.  ``max_seq``
+    is the whole cache's length (default: the block's times the split the
+    rules ask for; give it where those axes do not divide the length).
+
+    * Rows: this rank's rows of the batch where the cache's batch dim is
+      split over ``dp`` (all rows otherwise: ``seq_shard``'s replicated
+      tokens, or a batch ``dp`` does not divide).
+    * Each layer's ``w*``/``b*`` blocks cast, then FSDP-gathered;
+      ``wq``/``wk``/``wv`` column-parallel after ``copy_to``, ``wo``
+      row-parallel (``layers.row_parallel``: partials summed in f32) and
+      the FFN through ``layers.swiglu``, as in :func:`forward`; K/V
+      gathered whole over
+      ``tp`` (the cache holds every KV head on every rank).
+    * The new K/V row goes only to the rank whose sequence block holds
+      ``pos`` (clamped), at its local offset.
+    * Attention on a cache whole in sequence: the kernel on this rank's
+      query heads and their KV heads (:func:`_decode_heads`, a slice of
+      the cache's heads).  On a cache split by sequence: q gathered over
+      ``tp``, the kernel with ``return_lse`` on the local block (local
+      length ``clamp(pos + 1 - offset, 0, S_loc)``), the blocks combined
+      over the sequence axes (``layers.combine_softmax_shards``), then
+      this rank's head slice for ``wo``'s row block.
+    * An MoE layer: ``moe_ffn`` with the experts over ``ep``; on this
+      rank's rows in the local view, or on all rows with
+      ``replicated_tokens = B % n(dp) != 0``, as the reference's.
+    * Logits: the head's ``tp`` columns, gathered over ``tp`` and the
+      rows' ``dp`` axes.
+
+    Without a context, or where it splits neither the parameters nor the
+    cache, this is the one-card step."""
     pos = int(pos)
+    b_all = tokens.shape[0]
+    plan = placement(cfg, ctx)
+    cplan = None
+    if ctx is not None:
+        if max_seq is None:
+            max_seq = cache["k"].shape[2] * _seq_split(ctx, seq_shard)
+        cplan = cache_placement(cfg, ctx, b_all, max_seq, seq_shard)
+    if plan is None and cplan is None:
+        ctx, max_seq = None, cache["k"].shape[2]
+    else:
+        if plan is not None:
+            check_blocks(params, plan)
+        want = cplan.block if cplan is not None else (
+            cfg.n_layers, b_all, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        for name in ("k", "v"):
+            if tuple(cache[name].shape) != tuple(want):
+                raise ValueError(f"cache {name!r} has shape {tuple(cache[name].shape)}, not this "
+                                 f"rank's block {tuple(want)}: a placed context runs on each "
+                                 "rank's cache block (transformer.init_cache/shard_cache with ctx)")
     dt = L.dtype_of(cfg.dtype)
-    lay = params["layers"]
-    b = tokens.shape[0]
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     dev = params["embed"].device
-    x = params["embed"][tokens[:, 0].long()].to(dt)  # (B, d)
+    rows = cplan.axes(1) if cplan is not None else ()
+    seq = cplan.axes(2) if cplan is not None else ()
+    if rows:
+        group, i = ctx.axes_group(rows)
+        b_loc = b_all // collectives.group_size(group)
+        tokens = tokens[i * b_loc:(i + 1) * b_loc]
+    view = ctx.local_view() if rows else ctx
+    rep = ctx is not None and not rows and b_all % ctx.n("dp") != 0
+    b = tokens.shape[0]
+    s_loc = cache["k"].shape[2]
+    offset = ctx.axes_group(seq)[1] * s_loc if seq else 0
+    at = min(max(pos, 0), max_seq - 1) - offset
+    n_valid = min(max(pos + 1 - offset, 0), s_loc) if seq else pos + 1
+    kv_len = torch.full((b,), n_valid, dtype=torch.int32, device=dev)
+    x = _embed(params, tokens[:, 0], cfg, ctx, plan)  # (b, d)
     cos, sin = L.rope_tables(1, hd, cfg.rope_theta, offset=pos, device=dev)
-    smax = cache["k"].shape[2]
-    at = min(max(pos, 0), smax - 1)
-    kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
-    for i in range(cfg.n_layers):
-        h = L.rms_norm(x, lay["ln1"][i])
-        q = (h @ lay["wq"][i].to(dt)).reshape(b, hq, hd)
-        k = (h @ lay["wk"][i].to(dt)).reshape(b, hkv, hd)
-        v = (h @ lay["wv"][i].to(dt)).reshape(b, hkv, hd)
+    lplan = None if plan is None else _layer_plan(plan)
+    for li in range(cfg.n_layers):
+        lp = {k: ({e: w[li] for e, w in v.items()} if k == "moe" else v[li])
+              for k, v in params["layers"].items()}
+        lp, att, ffn = _layer_weights(lp, dt, ctx, lplan)
+        n, r = 1, 0
+        if att:
+            group, r = ctx.axes_group(att)
+            n = collectives.group_size(group)
+        own = bool(att) and hq % n == 0 and not seq  # the kernel on this rank's own heads
+        h = collectives.copy_to(L.rms_norm(x, lp["ln1"]), att, ctx)
+        q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if cfg.qkv_bias:
-            q = q + lay["bq"][i].to(dt).reshape(hq, hd)
-            k = k + lay["bk"][i].to(dt).reshape(hkv, hd)
-            v = v + lay["bv"][i].to(dt).reshape(hkv, hd)
-        q = L.apply_rope(q[:, None], cos, sin)[:, 0]
-        k = L.apply_rope(k[:, None], cos, sin)[:, 0]
-        cache["k"][i, :, at] = k
-        cache["v"][i, :, at] = v
-        o = L.decode_attention(q, cache["k"][i], cache["v"][i], kv_len, backend=backend)
-        x = x + o.reshape(b, hq * hd) @ lay["wo"][i].to(dt)
-        h2 = L.rms_norm(x, lay["ln2"][i])
-        if cfg.moe:
-            y = moe_ffn(h2, {k: w[i] for k, w in lay["moe"].items()}, cfg)
-            if cfg.n_shared:
-                y = y + L.swiglu(h2, lay["wg"][i], lay["wu"][i], lay["wd"][i])
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        if att and not own:
+            q = collectives.all_gather_dim(q, att, ctx, 1)
+        if lplan is not None:  # every KV head: the cache holds them all on every rank
+            kv_axes = lplan["wk"].axes(1)
+            k = collectives.all_gather_dim(k, kv_axes, ctx, 1)
+            v = collectives.all_gather_dim(v, kv_axes, ctx, 1)
+        q = L.apply_rope(q.reshape(b, -1, hd)[:, None], cos, sin)[:, 0]
+        k = L.apply_rope(k.reshape(b, hkv, hd)[:, None], cos, sin)[:, 0]
+        kc, vc = cache["k"][li], cache["v"][li]
+        if 0 <= at < s_loc:
+            kc[:, at] = k
+            vc[:, at] = v.reshape(b, hkv, hd)
+        if seq:
+            o, lse = L.decode_attention(q, kc, vc, kv_len, backend=backend, return_lse=True)
+            o = L.combine_softmax_shards(o, lse, seq, ctx, dt)
+        elif own:
+            h0, nk = _decode_heads(cfg, n, r)
+            o = L.decode_attention(q, kc[:, :, h0:h0 + nk], vc[:, :, h0:h0 + nk], kv_len,
+                                   backend=backend)
         else:
-            y = L.swiglu(h2, lay["wg"][i], lay["wu"][i], lay["wd"][i])
+            o = L.decode_attention(q, kc, vc, kv_len, backend=backend)
+        o = o.reshape(b, -1)
+        if att and not own:  # this rank's rows of wo
+            cols = hq * hd // n
+            o = o[:, r * cols:(r + 1) * cols]
+        x = x + L.row_parallel(o, lp["wo"], att, ctx)
+        h2 = L.rms_norm(x, lp["ln2"])
+        if cfg.moe:
+            y = moe_ffn(h2, lp["moe"], cfg, view, replicated_tokens=rep)
+            if cfg.n_shared:
+                y = y + L.swiglu(h2, lp["wg"], lp["wu"], lp["wd"], ctx=ctx, axes=ffn)
+        else:
+            y = L.swiglu(h2, lp["wg"], lp["wu"], lp["wd"], ctx=ctx, axes=ffn)
         x = x + y
     x = L.rms_norm(x, params["ln_f"])
-    logits = (x @ params["head"].to(dt)).float()
-    return logits, cache
+    head, tp = head_block(params, cfg, ctx, plan, dt)
+    logits = collectives.all_gather_dim((x @ head).float(), tp, ctx, 1)
+    return collectives.all_gather_dim(logits, rows, ctx, 0), cache
+
+
+def _decode_heads(cfg: LMConfig, n: int, r: int) -> tuple:
+    """``(h0, count)``: the KV heads that rank ``r`` of ``n`` query-head
+    ranks reads (its query heads ``[r * hq / n, (r + 1) * hq / n)``), as
+    ``_attention_tp`` picks them: its own KV heads, or the one KV head its
+    query heads share."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    hq_loc, per = hq // n, hq // hkv
+    if hq_loc % per == 0:
+        return r * hq_loc // per, hq_loc // per
+    if per % hq_loc:
+        raise NotImplementedError(f"{hq} query heads over {n} ranks and {hkv} KV heads: a "
+                                  "rank's query heads would read several KV heads unevenly")
+    return r * hq_loc // per, 1

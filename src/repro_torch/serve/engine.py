@@ -13,7 +13,12 @@ every slot's K/V row at the prompt positions; and a tick runs every slot
 at one position, the largest of the slots' positions.
 
 The compute copy of the weights (the reference's per-step ``astype``) is
-made once, here.  One card, no sharding context.
+made once, here.  Under a placed ``ctx`` (the reference's ``(params, cfg,
+ctx)``) every rank runs the same loop on the same requests: ``params``
+are the rank's blocks (``transformer.init(gen, cfg, ctx)``), the cache is
+its block (batch on ``dp``, sequence on ``seqm``:
+``transformer.init_cache(..., ctx=ctx)``), and each tick goes through the
+placed ``decode_step``, which gives every rank the whole logits.
 
 Built with a ``tier`` (a :class:`~repro_torch.tune.TunedTier`, or a
 :class:`~repro_torch.serve.hotcache.HotKeyCache` in front of one),
@@ -54,17 +59,20 @@ class Request:
 class DecodeEngine:
     """Serve ``cfg`` with ``params`` on their device (the card for
     :func:`~repro_torch.models.transformer.init` with a CUDA generator),
-    attention on the hand-written kernel; ``tier`` is an optional
+    attention on the hand-written kernel; ``ctx`` an optional sharding
+    context (``params`` then this rank's blocks); ``tier`` an optional
     self-re-tuning index tier whose policy the ticks drive."""
 
-    def __init__(self, params, cfg, *, batch_slots: int = 8, max_seq: int = 512,
+    def __init__(self, params, cfg, *, ctx=None, batch_slots: int = 8, max_seq: int = 512,
                  tier=None):
         self.cfg = cfg
+        self.ctx = ctx
         self.device = params["embed"].device
         self.params = transformer.cast_params(params, L.dtype_of(cfg.dtype))
         self.b = batch_slots
         self.max_seq = max_seq
-        self.cache = transformer.init_cache(cfg, batch_slots, max_seq, device=self.device)
+        self.cache = transformer.init_cache(cfg, batch_slots, max_seq, device=self.device,
+                                            ctx=ctx)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_pos = np.zeros(batch_slots, dtype=np.int32)
         self.queue: List[Request] = []
@@ -116,10 +124,12 @@ class DecodeEngine:
     def _decode(self, params, cache, tokens, pos_per_slot):
         """One token for every slot, all at the largest slot position."""
         pos = int(np.max(pos_per_slot))
-        return transformer.decode_step(params, cache, tokens, pos, self.cfg)
+        return transformer.decode_step(params, cache, tokens, pos, self.cfg, self.ctx,
+                                       max_seq=self.max_seq)
 
     def _prefill_tok(self, params, cache, tokens, pos):
-        return transformer.decode_step(params, cache, tokens, pos, self.cfg)
+        return transformer.decode_step(params, cache, tokens, pos, self.cfg, self.ctx,
+                                       max_seq=self.max_seq)
 
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(toks).to(self.device)

@@ -510,6 +510,100 @@ def test_decode_attention_split_edges_on_card(cuda, monkeypatch, hq, hkv, d, dty
         np.testing.assert_allclose(got.float().cpu().numpy(), split, rtol=rtol, atol=atol)
 
 
+def combine_blocks(outs, lses):
+    """One row's attention from its sequence blocks' ``(out, lse)`` (the
+    single-process form of ``layers.combine_softmax_shards``): weights
+    ``exp(lse - max lse)``, the weighted mean of the outputs, in f32."""
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.amax(dim=0))[..., None]
+    return (w * torch.stack(outs)).sum(dim=0) / w.sum(dim=0)
+
+
+def blocks_of(k, v, kv_len, n: int):
+    """``k``/``v`` cut into ``n`` contiguous sequence blocks, each with its
+    local lengths ``clamp(kv_len - offset, 0, S / n)``."""
+    s_loc = k.shape[1] // n
+    cut = [slice(i * s_loc, (i + 1) * s_loc) for i in range(n)]
+    return [(k[:, c].contiguous(), v[:, c].contiguous(),
+             torch.clamp(kv_len - c.start, 0, s_loc).to(torch.int32)) for c in cut]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", (None, 1, 3))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("hq,hkv,d", ((14, 2, 64), (32, 8, 128), (16, 1, 64), (4, 4, 256),
+                                      (8, 8, 8)))
+def test_decode_attention_lse_matches_twin_on_card(cuda, monkeypatch, hq, hkv, d, dtype, n_split):
+    """``return_lse=True``: one launch, the output in f32 and the (B, Hq)
+    log-sum-exp within ``ATT_TOL[f32]`` of the twin's, at the tensor-core
+    head dims (bf16 at 64 and 128) and the CUDA cores' (f32; bf16 at 8 and
+    256), through the one-share path and the combining block (a given
+    n_split replaces the plan's); ``NEG_INF`` and 0 at ``kv_len = 0``.
+    With it off, the output is the lse path's rounded to the input dtype,
+    bit for bit (the default path's arithmetic is the same)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(49)
+    s = 700
+    tile, _ = split_plan(9, hkv, d, s, torch.tensor([], dtype=dtype).element_size(), 132)
+    if n_split is not None:
+        plan = att.split_plan
+        monkeypatch.setattr(att, "split_plan", lambda *a: (plan(*a)[0], n_split))
+    q, k, v = _attention_inputs(rng, 9, hq, hkv, d, s, dtype, cuda)
+    kv_len = torch.tensor([0, 1, tile - 1, tile, tile + 1, s, s + 5, 3 * tile - 1, 2],
+                          dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    got, lse = decode_attention(q, k, v, kv_len, return_lse=True)
+    torch.cuda.synchronize()
+    assert kernels.launches()["decode_attention"] == 1
+    assert got.dtype == lse.dtype == torch.float32 and lse.shape == (9, hq)
+    want, want_lse = _decode_body(q, k, v, kv_len, return_lse=True)
+    atol, rtol = ATT_TOL[torch.float32]
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), rtol=rtol, atol=atol)
+    assert (got[0] == 0).all() and (lse[0] == att.NEG_INF).all()
+    assert torch.equal(decode_attention(q, k, v, kv_len), got.to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", (2, 4))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("hq,hkv,d", ((14, 2, 64), (16, 16, 128), (8, 8, 8)))
+def test_decode_attention_blocks_combine_to_one_call_on_card(cuda, hq, hkv, d, dtype, n_blocks):
+    """The kernel with ``return_lse`` on each of 2 or 4 sequence blocks,
+    combined on the card, == the one call on the whole cache within
+    ``ATT_TOL`` of the dtype: rows that end in the first block (the
+    others empty), on a block edge, inside the last block, and at 0."""
+    rng = np.random.default_rng(50)
+    s = 1024
+    q, k, v = _attention_inputs(rng, 6, hq, hkv, d, s, dtype, cuda)
+    kv_len = torch.tensor([0, 1, s // 4, s // 2 + 1, s - 3, s], dtype=torch.int32, device=cuda)
+    parts = [decode_attention(q, kb, vb, n, return_lse=True) for kb, vb, n in
+             blocks_of(k, v, kv_len, n_blocks)]
+    got = combine_blocks(*zip(*parts)).to(dtype)
+    want = decode_attention(q, k, v, kv_len)
+    atol, rtol = ATT_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_decode_attention_on_a_slice_of_kv_heads_on_card(cuda, dtype):
+    """K/V given as a slice of a cache's KV heads (positions ``Hkv * D``
+    apart, not contiguous) == the kernel on a contiguous copy of it."""
+    rng = np.random.default_rng(51)
+    q, k, v = _attention_inputs(rng, 4, 16, 16, 128, 600, dtype, cuda)
+    kv_len = torch.tensor([600, 1, 333, 17], dtype=torch.int32, device=cuda)
+    ks, vs = k[:, :, 4:12], v[:, :, 4:12]
+    assert not ks.is_contiguous()
+    qs = q[:, 4:12].contiguous()
+    got = decode_attention(qs, ks, vs, kv_len)
+    assert torch.equal(got, decode_attention(qs, ks.contiguous(), vs.contiguous(), kv_len))
+    with pytest.raises(ValueError, match="contiguous"):  # rows not S positions apart
+        decode_attention(qs[::2].contiguous(), ks[::2], vs[::2], kv_len[::2].contiguous())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
 def test_decode_attention_two_streams_on_card(cuda, dtype):
@@ -1252,6 +1346,58 @@ def placed_rank_cases(rank: int, world: int, work_dir: str, device: str) -> None
             out[case["name"]] = {"same": same}
         dist.barrier()
     torch.save(out, work / f"placed_out{rank}.pt")
+
+
+def decode_rank_cases(rank: int, world: int, work_dir: str, device: str) -> None:
+    """One rank of the placed-decode cases (``work_dir/decode_cases.json``),
+    each on a (2, 2) ``tp_fsdp`` mesh with the case's rules (``seqm`` or
+    ``sp`` named for the sequence-split layouts):
+
+    * ``steps``: the saved whole parameters and cache placed
+      (``shard_state``, ``transformer.shard_cache``), then ``steps``
+      placed ``decode_step`` calls on the saved global tokens at ``pos0``,
+      ``pos0 + 1``, ...: each step's logits, the cache block after them,
+      its shape, and the whole cache gathered back
+      (``transformer.gather_cache``);
+    * ``engine``: ``DecodeEngine(ctx=...)`` on the placed parameters,
+      serving the saved requests: their tokens, and the engine's counters.
+
+    Writes ``decode_out{rank}.pt``."""
+    from repro_torch.dist.sharding import _rules_for, shard_state
+    from repro_torch.models import transformer
+
+    work, dev = Path(work_dir), torch.device(device)
+    torch.set_num_threads(1)
+    out = {}
+    for case in json.loads((work / "decode_cases.json").read_text()):
+        rules = dict(_rules_for("tp_fsdp", ("data", "model")), **case["rules"])
+        ctx = _rank_ctx({"mesh": case["mesh"], "rules": rules}, world, dev)
+        data = torch.load(work / f"{case['name']}.pt", map_location=dev, weights_only=True)
+        cfg = _case_spec(case).config
+        params = shard_state(data["params"], ctx, "lm")
+        if case["kind"] == "steps":
+            cache = transformer.shard_cache(data["cache"], cfg, ctx, case["seq_shard"])
+            logits = []
+            for i, toks in enumerate(data["tokens"]):
+                lg, cache = transformer.decode_step(params, cache, toks, case["pos0"] + i, cfg,
+                                                    ctx, seq_shard=case["seq_shard"])
+                logits.append(lg)
+            b, s = data["cache"]["k"].shape[1:3]
+            out[case["name"]] = {"logits": torch.stack(logits), "cache": cache,
+                                 "shape": list(cache["k"].shape), "coord": list(ctx.coordinate()),
+                                 "whole": transformer.gather_cache(cache, cfg, ctx, b, s,
+                                                                   case["seq_shard"])}
+        else:
+            eng = DecodeEngine(params, cfg, ctx=ctx, batch_slots=case["slots"],
+                               max_seq=case["max_seq"])
+            reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new_tokens=case["max_new"])
+                    for i, p in enumerate(case["prompts"])]
+            for r in reqs:
+                eng.submit(r)
+            ticks = eng.run_until_drained()
+            out[case["name"]] = {"tokens": [r.out_tokens for r in reqs], "ticks": ticks,
+                                 "shape": list(eng.cache["k"].shape)}
+    torch.save(out, work / f"decode_out{rank}.pt")
 
 
 @pytest.mark.gpu

@@ -25,6 +25,7 @@ on the prefill cell, whose elementwise share is larger).
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -388,6 +389,31 @@ def test_dryrun_placed_state_bytes_equal_reference_on_2x2(ref):
     c = e["collectives"]
     assert c["n_all-gather"] > 0 and c["n_reduce-scatter"] > 0 and c["n_all-reduce"] > 0
     assert c["all-gather"] > c["reduce-scatter"] > 0  # remat gathers each layer twice
+
+
+def test_dryrun_sizes_a_decode_cell_on_a_mesh():
+    """An LM ``decode`` cell is sized on a 4-rank abstract mesh (no longer
+    a failure): the cache bytes are the rank's block's (batch over
+    ``dp``, sequence over ``seqm`` -> ``model``; ``long_500k``'s over
+    ``sp`` -> the whole mesh), the parameters the rank's blocks, and the
+    ledger holds the split softmax's all-reduces."""
+    spec = tconfigs.get("qwen2-0.5b", reduced=True)
+    cfg = spec.config
+    rules = {"dp": ("data",), "fsdp": ("data",), "tp": ("model",), "ep": ("model",),
+             "edge": ("data", "model"), "row": ("data", "model"), "seqm": ("model",),
+             "sp": ("data", "model")}
+    for cell in (c for c in spec.shapes if c.kind == "decode"):
+        e = dryrun.run_cell(spec, cell, (2, 2), verbose=False, rules=rules)
+        b, s = cell.dims["global_batch"], cell.dims["seq_len"]
+        ctx = ShardingCtx(mesh=AbstractMesh((2, 2), ("data", "model")), rules=rules)
+        block = tt.cache_placement(cfg, ctx, b, s, bool(cell.dims.get("seq_shard"))).block
+        assert block[1:3] == ((1, s // 4) if cell.dims.get("seq_shard") else (b // 2, s // 2))
+        assert e["memory"]["cache_bytes"] == 2 * math.prod(block) * 2  # k and v, bf16
+        whole = sum(t.numel() * t.element_size() for t in tree.leaves(
+            tt.init(torch.Generator(), cfg)))
+        assert e["memory"]["params_bytes"] < whole / 2
+        assert e["collectives"]["n_all-reduce"] >= 2 * cfg.n_layers
+        assert e["flops"] > 0
 
 
 def test_dryrun_cli_and_report(tmp_path, monkeypatch, capsys):

@@ -151,6 +151,80 @@ def test_decode_split_body_matches_pallas_and_one_pass(hq, hkv, d):
         assert (got[0] == 0).all()
 
 
+def _direct_lse(q, k, v, kvl):
+    """Each row's log-sum-exp of its scaled logits over its first
+    ``kv_len`` positions, in f64 (``-1e30`` for an empty row)."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    q4 = q.astype(np.float64).reshape(b, hkv, hq // hkv, d)
+    logits = np.einsum("bkgd,bskd->bkgs", q4, k.astype(np.float64)) / np.sqrt(d)
+    out = np.full((b, hq), -1e30)
+    for i, n in enumerate(kvl):
+        n = min(int(n), k.shape[1])
+        if n:
+            lg = logits[i, :, :, :n]
+            m = lg.max(axis=-1, keepdims=True)
+            out[i] = (m[..., 0] + np.log(np.exp(lg - m).sum(axis=-1))).reshape(hq)
+    return out
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(14, 2, 64), (16, 1, 64), (4, 4, 128)])
+def test_twins_return_the_log_sum_exp(hq, hkv, d):
+    """``return_lse``: ``_decode_body`` and ``_decode_split_body`` give the
+    output in f32 (the default path's before its cast) and each row's
+    log-sum-exp, within 2e-5 of a direct f64 one; ``-1e30`` and 0 for a
+    row with ``kv_len = 0``; the wrapper on CPU tensors returns the pair."""
+    tile, s = 16, 160
+    q, k, v, _ = _attention_inputs(17, 6, hq, hkv, d, s)
+    kvl = np.asarray([0, 1, tile + 1, s, s + 9, 3 * tile - 2], np.int32)
+    t = [torch.from_numpy(x) for x in (q, k, v, kvl)]
+    want = _direct_lse(q, k, v, kvl)
+    out, lse = _decode_body(*t, return_lse=True)
+    assert out.dtype == lse.dtype == torch.float32 and lse.shape == (6, hq)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=SPLIT_TOL, atol=SPLIT_TOL)
+    assert torch.equal(out, _decode_body(*t))
+    assert (out[0] == 0).all() and (lse[0] == -1e30).all()
+    for n_split in (1, 3, 12):
+        o, l_ = _decode_split_body(*t, n_split, tile, return_lse=True)
+        np.testing.assert_allclose(l_.numpy(), want, rtol=SPLIT_TOL, atol=SPLIT_TOL)
+        np.testing.assert_allclose(o.numpy(), out.numpy(), rtol=SPLIT_TOL, atol=SPLIT_TOL)
+    bf = [x.to(torch.bfloat16) for x in t[:3]]
+    o, l_ = decode_attention(*bf, t[3], return_lse=True)
+    assert o.dtype == torch.float32 and torch.equal(o.to(torch.bfloat16), decode_attention(*bf, t[3]))
+
+
+@pytest.mark.parametrize("n_blocks", [2, 4])
+def test_twin_blocks_combine_to_the_whole_call(n_blocks):
+    """The twin with ``return_lse`` on each of ``n_blocks`` sequence
+    blocks (local lengths ``clamp(kv_len - offset, 0, S / n)``), combined
+    with weights ``exp(lse - max lse)``, == the one call on the whole
+    cache within 2e-5: rows ending in the first block (the later blocks
+    empty), on a block edge, in the last, at 0 (every block empty: 0)."""
+    from repro_torch.models.layers import combine_softmax_shards
+
+    s = 128
+    q, k, v, _ = _attention_inputs(18, 6, 14, 2, 64, s)
+    kvl = np.asarray([0, 1, s // 4, s // 2 + 1, s - 3, s], np.int32)
+    t = [torch.from_numpy(x) for x in (q, k, v, kvl)]
+    s_loc = s // n_blocks
+    outs, lses = [], []
+    for i in range(n_blocks):
+        blk = slice(i * s_loc, (i + 1) * s_loc)
+        o, l_ = _decode_body(t[0], t[1][:, blk], t[2][:, blk],
+                             torch.clamp(t[3] - i * s_loc, 0, s_loc), return_lse=True)
+        outs.append(o)
+        lses.append(l_)
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.amax(dim=0))[..., None]
+    got = (w * torch.stack(outs)).sum(dim=0) / w.sum(dim=0)
+    np.testing.assert_allclose(got.numpy(), _decode_body(*t).numpy(), rtol=SPLIT_TOL,
+                               atol=SPLIT_TOL)
+    assert (got[0] == 0).all()
+    # one rank alone (no mesh axes): the helper returns its own block's output
+    same = combine_softmax_shards(outs[0], lses[0], (), None, torch.float32)
+    np.testing.assert_allclose(same.numpy(), outs[0].numpy(), rtol=1e-6, atol=1e-6)
+
+
 def test_split_plan_fills_the_card_and_bounds_the_stage():
     """bf16 at head dims 16-128 takes the tensor-core kernel's 16-position
     tiles; otherwise a tile holds 8 KiB of K a stage (at most 64
