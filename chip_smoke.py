@@ -17,7 +17,7 @@ tolerance is zero).  It drives the updatable GAPPED kind's write path
 (``Index.insert_batch``/``compact``, ``insert_into_shard``/``compact_shard``)
 on the same tables, tensor ops with no kernel, and the device fits
 (``build_many(fit="vmap"/"fast"/"auto")``, ``build_grid``,
-``tune.device_refresh``) on the hand-written ``corridor_scan`` kernel, the
+``tune.device_refresh``) on the hand-written ``corridor_scan`` kernels, the
 tuner, and the serving layer's hot-key cache (in front of an SY-RMI tier
 on the batched kernel) and paged KV pool.  Then it serves qwen2-0.5b and
 the MoE moonshot-v1-16b-a3b at full width through ``DecodeEngine`` (the
@@ -151,9 +151,11 @@ Phases (any failure ends the run with a non-zero exit):
                for bit, ``sharded_lookup(backend="kernel")`` == numpy, and a
                row crossing the next fence refused with the tier
                bit-identical; build seconds by fit (host: phase 5's),
-               refresh ms, and the corridor kernel's ms of each form (CUDA
-               events) against its twin (the blocked form at the fast fit's
-               shape, the exact form on each row's first 8,192 keys);
+               refresh ms, and the corridor kernels' ms (CUDA events) against
+               their twins at eps 64: the blocked form at the fast fit's
+               shape, the exact form (chunks of ``EXACT_CHUNK``) over the
+               whole rows, also == the one-thread oracle (``corridor_scan``
+               with ``chunk = length``, timed once);
 5f. tuner    — the paper's tuning procedure on the search kernels (the
                reference's ``tune.pareto``, ``tune.mining``, ``tune.rebuild``):
                ``tune.sweep`` of ``candidate_grid`` on every other key of
@@ -361,7 +363,9 @@ Phases (any failure ends the run with a non-zero exit):
                block beside the one-card call on the whole cache.
 
 The ``corridor_scan`` entry of the kernels line times the fast fit's
-blocked launch; its f64 bound takes the H100's 34 TFLOP/s f64 rate.
+blocked launch (its launches count both forms), ``corridor_scan_exact``
+the exact form's; their f64 bound takes the H100's 34 TFLOP/s f64 rate,
+beside the latency of one chunk's walk.
 The last two stdout lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.  Run with no arguments on a machine
 with one CUDA card.  ``--cpu-rehearsal`` runs phases 3 to 10 on the CPU
@@ -1830,6 +1834,12 @@ CORRIDOR_KERNEL = {
     "replaces": "src/repro/core/cdf.py:121",
     "also_replaces": "src/repro/core/cdf.py:170 (lax.scan of the corridor step; no Pallas kernel)",
 }
+#: the exact form's kernel (corridor_exact_kernel, one cooperative launch)
+CORRIDOR_EXACT_KERNEL = {
+    "name": "corridor_scan_exact", "route": "cuda",
+    "source": "src/repro_torch/csrc/corridor_scan.cu",
+    "replaces": "src/repro/core/cdf.py:170 (lax.scan of the corridor step; no Pallas kernel)",
+}
 FIT_KINDS = ("RMI", "SY-RMI", "PGM", "PGM_M", "RS")
 #: fit="fast" on the lead tier (osm's repeat is cut): PGM_M's fast
 #: bisection runs nowhere else on the card (the sweep's fit="auto" takes
@@ -1926,14 +1936,15 @@ def same_model(kind: str, a: dict, b: dict, row: int) -> bool:
                                 torch.cat([b[k][:row], b[k][row + 1:]])) for k in others))
 
 
-def events_around(dev, fn):
-    """``fn()`` under ``no_host_sync``, and its device ms between two CUDA
-    events recorded around it (None off the card)."""
+def events_around(dev, fn, syncless: bool = True):
+    """``fn()`` (under ``no_host_sync`` unless ``syncless`` is False), and
+    its device ms between two CUDA events recorded around it (None off the
+    card)."""
     if dev.type != "cuda":
         return fn(), None
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    with no_host_sync(dev):
+    with no_host_sync(dev) if syncless else contextlib.nullcontext():
         start.record()
         out = fn()
         end.record()
@@ -1983,11 +1994,13 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
     from repro_torch import kernels
     from repro_torch import tune
     from repro_torch.core import keys
-    from repro_torch.core.pgm import pgm_fit_fast
+    from repro_torch.core.pgm import FAST_CHUNK, pgm_fit_fast
     from repro_torch.core.radix_spline import rs_knots_fast
     from repro_torch.data import make_queries
     from repro_torch.dist import sharded_index as tsi
-    from repro_torch.kernels.corridor_scan import corridor_scan, corridor_scan_twin
+    from repro_torch.kernels.corridor_scan import (
+        EXACT_CHUNK, corridor_scan, corridor_scan_exact, corridor_scan_exact_twin,
+        corridor_scan_twin)
 
     rows, builds, refresh_rows, grid_rows = [], {}, [], []
     host_info = {k: v[3] for k, v in host.items()}
@@ -2164,58 +2177,77 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
     launches = kernels.launches()
     log(f"[fits] device-fit path launches: {json.dumps(launches)}")
 
-    # -- the corridor kernel: forms, times, twin checks (not counted) --
+    # -- the corridor kernels: forms, times, twin and oracle checks (not counted) --
     shards = tiers[lead][0]
     keys_f = keys.to_f64(keys.encode(np.stack(shards), dev))
     n = keys_f.shape[1]
     eps = torch.full((4,), 64.0, dtype=torch.float64, device=dev)
     cases = []
-    for rec, length, form, chunk in (("pgm", n, "blocked", 256), ("rs", n - 1, "blocked", 256),
-                                     ("pgm", n, "exact", n), ("rs", n - 2, "exact", n - 2)):
-        got = corridor_scan(keys_f, eps, recurrence=rec, length=length, chunk=chunk)
-        ms = device_ms(lambda: corridor_scan(keys_f, eps, recurrence=rec, length=length,
-                                             chunk=chunk), dev,
-                       reps=20 if form == "blocked" else 1, warmup=1 if form == "blocked" else 0)
+    for rec, length, form in (("pgm", n, "blocked"), ("rs", n - 1, "blocked"),
+                              ("pgm", n, "exact"), ("rs", n - 2, "exact")):
         if form == "blocked":
-            want = corridor_scan_twin(keys_f, eps, recurrence=rec, length=length, chunk=chunk)
-            plain_ms = device_ms(lambda: corridor_scan_twin(keys_f, eps, recurrence=rec,
-                                                            length=length, chunk=chunk), dev,
-                                 reps=2, warmup=0)
-            checked = "the twin at the fast fit's shape"
-        else:  # the twin would take 2^22 dependent steps of eager ops: held on a prefix
-            pre = min(1 << 11, n - 2)
-            got = corridor_scan(keys_f[:, :pre + 2].contiguous(), eps, recurrence=rec,
-                                length=pre, chunk=pre)
-            want = corridor_scan_twin(keys_f[:, :pre + 2].contiguous(), eps, recurrence=rec,
-                                      length=pre, chunk=pre)
-            plain_ms = None
-            checked = f"the twin on each row's first {pre} keys"
+            chunk = FAST_CHUNK
+
+            def call(rec=rec, length=length):
+                return corridor_scan(keys_f, eps, recurrence=rec, length=length, chunk=FAST_CHUNK)
+
+            def plain(rec=rec, length=length):
+                return corridor_scan_twin(keys_f, eps, recurrence=rec, length=length,
+                                          chunk=FAST_CHUNK)
+        else:
+            chunk = min(EXACT_CHUNK, length)
+
+            def call(rec=rec, length=length):
+                return corridor_scan_exact(keys_f, eps, recurrence=rec, length=length)
+
+            def plain(rec=rec, length=length):
+                return corridor_scan_exact_twin(keys_f, eps, recurrence=rec, length=length)
+        got, _ = events_around(dev, call)  # no host sync
+        ms = device_ms(call, dev, reps=20 if form == "blocked" else 5, warmup=1)
+        want, plain_ms = events_around(dev, plain, syncless=False)
+        checked = "the twin"
         err = int((got != want).sum())
+        oracle_ms = None
+        if form == "exact":  # the one-thread walk of each whole row, timed once
+            oracle, oracle_ms = events_around(dev, lambda rec=rec, length=length: corridor_scan(
+                keys_f, eps, recurrence=rec, length=length, chunk=length))
+            err += int((got != oracle).sum())
+            checked = "the twin and the one-thread oracle over the whole rows"
         if err:
             fail(f"fits: corridor_scan {rec}/{form} differs from {checked} at {err} flags")
         rows_n = 4 * -(-length // chunk)
-        case = {"case": f"{rec}-{form}", "rows": rows_n, "length": length, "ms": ms,
-                "plain_ms": plain_ms, "max_abs_err": err, "checked": checked,
-                "ns_per_step": None if ms is None else ms * 1e6 / min(length, chunk),
+        case = {"case": f"{rec}-{form}", "rows": rows_n, "length": length, "chunk": chunk,
+                "ms": ms, "plain_ms": plain_ms, "oracle_ms": oracle_ms, "max_abs_err": err,
+                "checked": checked, "flags": int(got.sum()),
                 **corridor_bound(rec, 4, length, min(length, chunk))}
         cases.append(case)
-        log(f"[fits] corridor_scan {rec} {form} over 4 x {length} ({rows_n} rows): {ms} ms, twin "
-            f"{plain_ms} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}), latency "
-            f"bound {case['latency_bound_ms']:.4f} ms, {case['ns_per_step']} ns a step; "
-            f"== {checked}")
-    head = cases[0]
+        log(f"[fits] corridor_scan {rec} {form} over 4 x {length} ({rows_n} chunks of {chunk}): "
+            f"{ms} ms, twin {plain_ms} ms"
+            f"{f', one-thread oracle {oracle_ms} ms' if form == 'exact' else ''}, bound "
+            f"{case['bound_ms']:.4f} ms ({case['bound_by']}), one chunk's latency bound "
+            f"{case['latency_bound_ms']:.4f} ms, {case['flags']} flags; == {checked}")
+    head, exact = cases[0], cases[2]
     entry = {**CORRIDOR_KERNEL, "launches": launches["corridor_scan"],
              "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": head["ms"],
              "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
              "bound_by": head["bound_by"], "library_ms": None,
              "path": "build_many(fit=vmap/fast/auto), build_grid, device_refresh (phase 5e)",
-             "headline_case": f"{lead} tier, {head['case']} (the fast fit's launch)",
+             "headline_case": f"{lead} tier, {head['case']} (the fast fit's launch); the "
+                              "launches count both forms",
              "cases": cases}
+    exact_entry = {**CORRIDOR_EXACT_KERNEL, "launches": launches["corridor_scan_exact"],
+                   "max_abs_err": max(c["max_abs_err"] for c in cases[2:]), "ms": exact["ms"],
+                   "plain_ms": exact["plain_ms"], "bound_ms": exact["bound_ms"],
+                   "bound_by": exact["bound_by"], "library_ms": None,
+                   "path": "build_many(fit=vmap/auto), build_grid, device_refresh(fit=scan) "
+                           "(phase 5e)",
+                   "headline_case": f"{lead} tier, {exact['case']} (eps 64)",
+                   "cases": cases[2:]}
     summary = {f"{ds}/{kind}": {fit: builds.get((ds, kind, fit)) for fit in FITS_ORDER}
                for ds in tiers for kind in KINDS if (ds, kind, "host") in builds}
     log(f"[fits] build seconds by fit: {json.dumps(summary)}")
     return {"rows": rows, "grid": grid_rows, "refresh": refresh_rows, "launches": launches,
-            "corridor": entry}
+            "corridor": entry, "corridor_exact": exact_entry}
 
 
 # -- phase 5f: the tuner ---------------------------------------------------------------------
@@ -2223,7 +2255,7 @@ def phase_device_fits(dev, tables: dict, host: dict, nq_shard: int, lead: str) -
 #: the kernels phase 5f's main path must launch (sweep, mining, the tiers'
 #: lookups, build_grid's and device_refresh's corridor scans)
 TUNER_KERNELS = ("rmi_search", "pgm_search", "rs_search", "kary_search", "batched_rmi_search",
-                 "batched_pgm_search", "corridor_scan")
+                 "batched_pgm_search", "corridor_scan", "corridor_scan_exact")
 #: the space budgets (% of the table) of the frontier's picks
 BUDGET_PCTS = (0.05, 0.7, 2.0, 10.0)
 #: the kinds of the retune's grid (PGM_M's bisection is swept in 5f-a
@@ -2313,6 +2345,8 @@ def restore_launches(saved: dict) -> None:
         mod.LAUNCHES = saved[name]
         if hasattr(mod, "BATCHED_LAUNCHES"):
             mod.BATCHED_LAUNCHES = saved[f"batched_{name}"]
+        if hasattr(mod, "EXACT_LAUNCHES"):
+            mod.EXACT_LAUNCHES = saved[f"{name}_exact"]
 
 
 def telemetry_cost(dev, tier, model, qs: np.ndarray, reps: int = 20) -> dict:
@@ -6249,13 +6283,15 @@ def main(argv=None) -> int:
                 r["max_abs_err"] for r in keyed["rows"] if r["kernel"] == entry["name"]])
     line["kernels"] += serve_kernels_line(parity_errs, served, moe_served, mesh_launches,
                                           att_rows, bag_rows, bag_launches)
-    corridor = fits["corridor"]
-    corridor["launches_by_path"] = {"fits": corridor["launches"],
-                                    "tuner": tuner["launches"]["corridor_scan"]}
-    corridor["launches"] = sum(corridor["launches_by_path"].values())
-    corridor["path"] += "; build_grid(fit=auto) in tune.sweep, TunedTier device refresh (phase 5f)"
-    line["kernels"].append(corridor)
-    launches["corridor_scan"] = corridor["launches"]
+    for name, key in (("corridor_scan", "corridor"), ("corridor_scan_exact", "corridor_exact")):
+        corridor = fits[key]
+        corridor["launches_by_path"] = {"fits": corridor["launches"],
+                                        "tuner": tuner["launches"][name]}
+        corridor["launches"] = sum(corridor["launches_by_path"].values())
+        corridor["path"] += ("; build_grid(fit=auto) in tune.sweep, TunedTier device refresh "
+                             "(phase 5f)")
+        line["kernels"].append(corridor)
+        launches[name] = corridor["launches"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -6275,7 +6311,8 @@ def main(argv=None) -> int:
     if dev.type != "cuda":
         log("[rehearsal] CPU rehearsal passed; no device result")
         return 0
-    if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS, "corridor_scan")) or any(
+    if any(launches[name] == 0 for name in (*KERNELS, *SERVE_KERNELS, "corridor_scan",
+                                            "corridor_scan_exact")) or any(
             by_path[name][path] == 0 for name in SINGLE for path in ("a2a", "allgather")) or (
             by_path["batched_rmi_search"]["hotcache"] == 0) or any(
             by_path[name]["lke"] == 0 for name in ("rmi_search", "batched_rmi_search")):

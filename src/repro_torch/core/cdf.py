@@ -227,13 +227,14 @@ def chunked_corridor_scan(recurrence: str, keys, eps, length: int, count=None):
     """The exact greedy corridor fit: each row of ``keys`` walked through
     ``recurrence`` (``"pgm"`` or ``"rs"``, see
     :func:`repro_torch.kernels.corridor_scan.corridor_scan`) in one carry,
-    one row a table and one kernel launch for the stack.  The reference's
-    takes the step function and streams the table through a ``lax.scan``
-    in chunks, which changes no flag; a kernel walks the row instead."""
-    from repro_torch.kernels.corridor_scan import corridor_scan
+    one kernel launch for the stack.  The reference's takes the step
+    function and streams the table through a ``lax.scan`` in chunks, which
+    changes no flag; the kernel walks chunks in parallel and corrects them
+    (:func:`repro_torch.kernels.corridor_scan.corridor_scan_exact`), which
+    changes none either."""
+    from repro_torch.kernels.corridor_scan import corridor_scan_exact
 
-    return corridor_scan(keys, eps, recurrence=recurrence, length=length,
-                         chunk=max(length, 1), count=count)
+    return corridor_scan_exact(keys, eps, recurrence=recurrence, length=length, count=count)
 
 
 def blocked_corridor_scan(recurrence: str, keys, eps, length: int, chunk: int, count=None):

@@ -11,7 +11,10 @@ in the module's ``LAUNCHES`` and ``BATCHED_LAUNCHES``) and run the twin
 serving path's attention, twin ``_decode_body``) and ``embedding_bag``
 (twin ``_bag_body``) have no batched variant and count ``LAUNCHES`` only,
 as does ``corridor_scan`` (the device fits' sequential corridor
-recurrence, twin ``corridor_scan_twin``), which takes a stack of rows.
+recurrence, which takes a stack of rows: ``corridor_scan``, twin
+``corridor_scan_twin``, and the exact form ``corridor_scan_exact``, twin
+``corridor_scan_exact_twin``, counted in ``LAUNCHES`` and on its own in
+``EXACT_LAUNCHES``, reported as ``corridor_scan_exact``).
 The library is built from ``csrc/`` at first use
 (:mod:`repro_torch.kernels.cuda_lib`); nothing builds at import.
 """
@@ -29,19 +32,24 @@ KERNEL_MODULES = (kary_search, rmi_search, pgm_search, rs_search, decode_attenti
 def reset_launches() -> None:
     for mod in KERNEL_MODULES:
         mod.LAUNCHES = 0
-        if hasattr(mod, "BATCHED_LAUNCHES"):
-            mod.BATCHED_LAUNCHES = 0
+        for extra in ("BATCHED_LAUNCHES", "EXACT_LAUNCHES"):
+            if hasattr(mod, extra):
+                setattr(mod, extra, 0)
 
 
 def launches() -> dict:
     """Kernel name -> launches since the last reset: ``<module>`` counts
-    the single-table kernel, ``batched_<module>`` the batched one."""
+    the single-table kernel, ``batched_<module>`` the batched one;
+    ``corridor_scan`` counts both forms and ``corridor_scan_exact`` the
+    exact form alone."""
     out = {}
     for mod in KERNEL_MODULES:
         name = mod.__name__.rsplit(".", 1)[-1]
         out[name] = mod.LAUNCHES
         if hasattr(mod, "BATCHED_LAUNCHES"):
             out[f"batched_{name}"] = mod.BATCHED_LAUNCHES
+        if hasattr(mod, "EXACT_LAUNCHES"):
+            out[f"{name}_exact"] = mod.EXACT_LAUNCHES
     return out
 
 

@@ -95,6 +95,8 @@ SIGNATURES = {
     "embedding_bag_launch": (_P, _I, _I, _P, _P, _P, _L, _I, _P, _P),
     # keys, stride, n_tables, length, chunk, mode (0 PGM, 1 RS), eps, count, out, stream
     "corridor_scan_launch": (_P, _L, _I, _L, _L, _I, _P, _P, _P, _P),
+    # keys, stride, n_tables, length, chunk, mode, eps, count, scratch, out, stream
+    "corridor_exact_launch": (_P, _L, _I, _L, _L, _I, _P, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -9,8 +9,9 @@ The same seeded numpy inputs go through both packages: the five table
 shapes of ``conftest.make_table`` (resampled to one length, so a jitted
 reference compiles once), the pinned clustered table, tables of 1-3 keys
 and ``_COLLIDING`` (adjacent keys at 2^60, which collide in f64: the fast
-fits must refuse them).  On the CPU the kernel wrappers run their twin
-(:func:`repro_torch.kernels.corridor_scan.corridor_scan_twin`).  Masks,
+fits must refuse them).  On the CPU the kernel wrappers run their twins
+(:func:`repro_torch.kernels.corridor_scan.corridor_scan_twin`, and
+``corridor_scan_exact_twin`` for the exact scans).  Masks,
 ranks, keys and counts are integers or bools: equal, no tolerance.  The
 RMI leaf floats are held to rtol 1e-12 (sums in another order could move
 them by a few ulp; on the CPU they come out equal), ε to ±1.

@@ -1631,6 +1631,74 @@ def test_corridor_scan_past_65535_rows_on_card(cuda, recurrence):
     assert torch.equal(got, want)
 
 
+def _exact_on_card(stack, eps, recurrence, length, count, chunk):
+    """One ``corridor_scan_exact`` call under ``set_sync_debug_mode("error")``
+    (a host sync raises), held to one launch."""
+    from repro_torch.kernels.corridor_scan import corridor_scan_exact
+
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = corridor_scan_exact(stack, eps, recurrence=recurrence, length=length, count=count,
+                                  chunk=chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    assert launches["corridor_scan"] == launches["corridor_scan_exact"] == 1
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recurrence", ("pgm", "rs"))
+def test_corridor_scan_exact_matches_the_oracle_on_card(cuda, recurrence):
+    """The exact form (speculate, correct, resolve in one launch, no host
+    sync) against the one-thread oracle (``corridor_scan`` with ``chunk =
+    length``) and its twin, on rows of which every third collides in f64
+    (a NaN cone from its first keys), with and without a live count, at
+    chunks of 1, 7, the default and one past the row."""
+    from repro_torch.kernels.corridor_scan import (
+        EXACT_CHUNK, corridor_scan, corridor_scan_exact_twin)
+
+    stack, eps, count = _corridor_rows(np.random.default_rng(84), 6, 4096, cuda)
+    length = 4096 if recurrence == "pgm" else 4095
+    for cnt in (None, count):
+        oracle = corridor_scan(stack, eps, recurrence=recurrence, length=length, chunk=length,
+                               count=cnt)
+        for chunk in (1, 7, EXACT_CHUNK, length + 1):
+            got = _exact_on_card(stack, eps, recurrence, length, cnt, chunk)
+            assert torch.equal(got, oracle), (cnt is not None, chunk)
+        twin = corridor_scan_exact_twin(stack, eps, recurrence=recurrence, length=length,
+                                        count=cnt)
+        assert torch.equal(twin, oracle)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recurrence", ("pgm", "rs"))
+def test_corridor_scan_exact_on_rows_of_2_to_the_22_on_card(cuda, recurrence):
+    """Three rows of 2^22 keys: amzn64 (segments of thousands of keys at
+    ε 64), osm at ε 16 (hundreds), and amzn64 whose second half collides
+    in f64 (a NaN cone from 2^21 on), whole and with live counts of 2^20 + 5
+    and 2^21 + 3: the exact form == the oracle == the twin."""
+    from repro_torch.core import keys
+    from repro_torch.kernels.corridor_scan import corridor_scan, corridor_scan_exact_twin
+
+    n = 1 << 22
+    rows = np.stack([generate("amzn64", n), generate("osm", n), generate("amzn64", n)])
+    rows[2, n // 2:] = (np.uint64(1) << np.uint64(60)) + np.arange(n // 2, dtype=np.uint64)
+    stack = keys.to_f64(keys.encode(rows, cuda))
+    eps = torch.tensor([64.0, 16.0, 64.0], dtype=torch.float64, device=cuda)
+    length = n if recurrence == "pgm" else n - 1
+    for cnt in (None, torch.tensor([n, (1 << 20) + 5, (1 << 21) + 3], device=cuda)):
+        got = _exact_on_card(stack, eps, recurrence, length, cnt, 256)
+        oracle = corridor_scan(stack, eps, recurrence=recurrence, length=length, chunk=length,
+                               count=cnt)
+        assert torch.equal(got, oracle), cnt is not None
+        twin = corridor_scan_exact_twin(stack, eps, recurrence=recurrence, length=length,
+                                        count=cnt)
+        assert torch.equal(twin, oracle), cnt is not None
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind,fit", [(k, "vmap") for k in ("RMI", "SY-RMI", "PGM", "PGM_M", "RS")]
                          + [(k, "fast") for k in ("PGM", "PGM_M", "RS")])
